@@ -8,7 +8,8 @@ top-down eigenvector sweep, with the TPU's Pallas kernels replaced by
 hand-written CUDA kernels for Hopper (``csrc/``, built by ``nvcc`` at first
 use).  This package imports torch, numpy and the standard library only.
 
-Covered so far: all eigenvalues, and eigenvectors in pure f64
+Covered so far: all eigenvalues, and eigenvectors through the default
+mixed-precision path (f32 downsweep + f64 refinement) or in pure f64
 (``SolverConfig(mixed_precision_vectors=False)``).  Entry points run on the
 device ``"cuda"`` unless the caller passes ``device="cpu"``.
 """

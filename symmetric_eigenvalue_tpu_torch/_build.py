@@ -21,7 +21,8 @@ from typing import Dict, Iterable, List, Sequence
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "torch_kernels"
-KERNELS = ("secular_sums", "cauchy_rowsum", "dword_matmul")
+KERNELS = ("secular_sums", "cauchy_rowsum", "dword_matmul", "cauchy_matmul",
+           "spike_solve")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -43,13 +43,18 @@ def usable_device_bytes(device) -> float:
 class SolverConfig:
     """Static configuration for the Cuppen divide-and-conquer solver.
 
-    Field meanings are those of the JAX package's ``SolverConfig``.  The
-    refinement fields (``refine_*``, ``use_pallas_refine*``,
-    ``*_gap_factor``) belong to the mixed-precision path, which this package
-    does not implement yet: ``mixed_precision_vectors=True`` with
-    eigenvectors raises in ``solve_tridiagonal_staged``.
-    ``single_jit_max_n`` has no effect: there is no whole-solve compile, so
-    no size limit routes between paths.
+    Field meanings are those of the JAX package's ``SolverConfig``.
+    ``mixed_precision_vectors=True`` (the default) makes
+    ``solve_tridiagonal_staged`` sweep the eigenvectors down in f32 (the
+    ``cauchy_matmul`` / ``cauchy_materialize`` kernels) and restore f64
+    accuracy with the refinement epilogue: Spike inverse-iteration passes
+    (``use_pallas_refine``: the Spike kernels for n >= 512, else the plain
+    PyTorch solver; ``use_pallas_refine_extra``: the same for the risky
+    columns' extra pass), residual triage and cluster CholeskyQR, steered by
+    the ``refine_*`` and ``*_gap_factor`` fields.  ``solve_tridiagonal``
+    always returns f64-path eigenvectors.  ``single_jit_max_n`` has no
+    effect: there is no whole-solve compile, so no size limit routes
+    between paths.
 
     ``device``: where the entry points run when the caller passes no
     ``device`` ("cuda" or "cpu").
@@ -80,10 +85,11 @@ class SolverConfig:
     single_jit_max_n: Optional[int] = None
     device: str = "cuda"
 
-    def resolved_refine_chunk(self, n: int) -> int:
+    def resolved_refine_chunk(self, n: int, device) -> int:
         """Byte-budgeted refinement column chunk (peak ~12 n^2 + 200 n chunk
-        bytes), floored at 256 and capped at ``refine_chunk``."""
-        budget = usable_device_bytes(self.device) - 12.0 * float(n) * float(n)
+        bytes), floored at 256 and capped at ``refine_chunk``.  ``device``:
+        where the run's tensors are (its memory is the budget)."""
+        budget = usable_device_bytes(device) - 12.0 * float(n) * float(n)
         cols = int(budget / (200.0 * max(n, 1)))
         chunk = 256
         while chunk * 2 <= cols and chunk * 2 <= self.refine_chunk:

@@ -1,19 +1,28 @@
-"""Solver driver: divide -> batched leaf solve -> batched conquer -> downsweep.
+"""Solver driver: divide -> batched leaf solve -> batched conquer -> downsweep
+-> (mixed precision) refinement.
 
-Port of ``symmetric_eigenvalue_tpu/driver.py`` for full eigenpairs in pure
-f64.  Each tree level's merges run together as one k-batched merge; the
-eigenvectors come from a top-down sweep
+Port of ``symmetric_eigenvalue_tpu/driver.py``.  Each tree level's merges
+run together as one k-batched merge; the eigenvectors come from a top-down
+sweep
 
     W[:, sel] = BD(Q_leaf) BD(U_{L-1}) ... U_root[:, sel]
 
 with each level's U rematerialized from its compact MergeRep, in column
-chunks of ``config.vec_chunk`` so only a chunk's buffers are live.
-Everything runs on the device the caller names; a CUDA run goes through the
-hand-written kernels and never through their plain versions.
+chunks of ``config.vec_chunk`` so only a chunk's buffers are live.  In the
+default mixed-precision config the sweep runs in f32 and an f64 epilogue
+(inverse iteration through the Spike kernels, residual triage with extra
+and rescue passes, cluster CholeskyQR) restores working-precision
+eigenpairs.  Everything runs on the device the caller names; a CUDA run goes
+through the hand-written kernels and never through their plain versions.
+
+Not ported yet: the fused small-n backtransform, the grouped downsweep +
+refine route for 12*n*C bytes above device memory, and the streamed route;
+the plain staged path runs at every size.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -23,15 +32,15 @@ from .config import DEFAULT_CONFIG, SolverConfig, resolve_device
 from .core.tearing import tear
 from .core.tree import TreePlan, build_plan
 from .core.tridiag import residual_norms
+from .kernels import spike_solve
 from .kernels.assemble import (apply_u_level, assemble_u, rotation_waves,
                                rows_through_merge)
 from .kernels.leaf import leaf_blocks, leaf_eigh_fn, solve_leaves
+from .kernels.refine import inverse_iteration, orthonormalize_clusters
 from .kernels.secular import merge_decompose
 from .utils.timing import PhaseTimer, sync
 
-_NEXT_SLICE = ("mixed_precision_vectors=True (f32 downsweep + f64 refinement) "
-               "is the next slice of the PyTorch port; pass "
-               "SolverConfig(mixed_precision_vectors=False)")
+_SENTINEL_MIN = 1e29    # Spike estimates above it mark a clipped solve (1e30)
 
 
 class EighTridiagonalResult(NamedTuple):
@@ -103,32 +112,233 @@ def _upsweep_leaf_only(d, e, plan: TreePlan):
     return lam.reshape(-1), Q
 
 
+@contextlib.contextmanager
+def full_f32_matmul():
+    """Pin f32 matrix products to full f32 (TF32 off) and restore the
+    caller's setting after: the counterpart of the JAX package's
+    ``Precision.HIGHEST``.  TF32 keeps ~1e-3, which would swamp the
+    refinement's f32-grade contamination model."""
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+
+
 def downsweep_stepped(reps, Q_leaf, plan: TreePlan, config: SolverConfig,
-                      sel):
-    """W[:, sel] = BD(Q_leaf) BD(U_{L-1}) ... U_root[:, sel], one level at a
-    time and in column chunks of ``config.vec_chunk`` (columns are
-    independent end to end).  Each step drops its input before the next, so
-    a chunk keeps only X_in, X_out and one GEMM block live."""
+                      sel, dtype: torch.dtype = torch.float64):
+    """W[:, sel] = BD(Q_leaf) BD(U_{L-1}) ... U_root[:, sel] in ``dtype``,
+    one level at a time and in column chunks of ``config.vec_chunk``
+    (columns are independent end to end).  Each step drops its input before
+    the next, so a chunk keeps only X_in, X_out and one block live.
+
+    dtype float32 (the mixed path): the root U through
+    ``cauchy_materialize``, every other level through ``cauchy_matmul``,
+    the leaf product in full f32."""
     n, C = plan.n, int(sel.shape[0])
     dev = Q_leaf.device
     block = config.block_size
     waves = [rotation_waves(rep) for rep in reps]
     row_map = torch.as_tensor(plan.row_map(), device=dev)
-    V = torch.empty((n, C), dtype=Q_leaf.dtype, device=dev)
+    V = torch.empty((n, C), dtype=dtype, device=dev)
+    Q = Q_leaf.to(dtype)
     chunk = max(1, config.vec_chunk)
     for o in range(0, C, chunk):
         cols = sel[o:o + chunk]
         w = int(cols.shape[0])
-        X = assemble_u(reps[-1], cols=cols, block=block, waves=waves[-1])
+        X = assemble_u(reps[-1], cols=cols, block=block, waves=waves[-1],
+                       dtype=dtype)
         for li in range(plan.num_levels - 2, -1, -1):
             lv = plan.levels[li]
             X = apply_u_level(reps[li], X.reshape(lv.num_merges,
                                                   lv.merge_size, w),
                               block=block, waves=waves[li])
-        X = torch.bmm(Q_leaf, X.reshape(plan.num_leaves, plan.leaf_pad, w))
+        with full_f32_matmul():
+            X = torch.bmm(Q, X.reshape(plan.num_leaves, plan.leaf_pad, w))
         V[:, o:o + w] = X.reshape(plan.padded_n, w).index_select(0, row_map)
         del X
     return V
+
+
+def _residual_norms_chunked(d, e, lam, V, chunk: int):
+    """||T v_i - lam_i v_i|| for every column of V, in column chunks (a
+    full-width pass would allocate several (n, C) temporaries)."""
+    out = torch.empty(V.shape[1], dtype=d.dtype, device=V.device)
+    for o in range(0, V.shape[1], chunk):
+        out[o:o + chunk] = residual_norms(d, e, lam[o:o + chunk],
+                                          V[:, o:o + chunk])
+    return out
+
+
+def _refine_ops(d, e, n: int, config: SolverConfig):
+    """The epilogue's two building blocks.
+
+    one_pass(lam_c, V_c, nb, allow_spike=True): one inverse-iteration pass,
+    returning (V, res_estimate or None): ``spike_solve.spike_refine`` (the
+    Spike kernels on CUDA, their plain versions on the CPU) when
+    ``config.use_pallas_refine`` and n >= 512, else the PyTorch solver in
+    column chunks.  residuals_chunked(lam_c, V_c): MEASURED residual norms
+    as a host array (one fetch)."""
+    chunk = max(1, min(config.vec_chunk,
+                       config.resolved_refine_chunk(n, d.device)))
+    use_spike = config.use_pallas_refine and n >= 512
+
+    def one_pass(lam_c, V_c, nb, allow_spike=True):
+        if use_spike and allow_spike:
+            return spike_solve.spike_refine(d, e, lam_c, V_c, nb=nb,
+                                            chunk=chunk)
+        nc = int(lam_c.shape[0])
+        X = torch.empty((n, nc), dtype=d.dtype, device=d.device)
+        for o in range(0, nc, chunk):
+            X[:, o:o + chunk] = inverse_iteration(
+                d, e, lam_c[o:o + chunk], V_c[:, o:o + chunk], steps=1,
+                block=nb)
+        return X, None
+
+    def residuals_chunked(lam_c, V_c):
+        return _residual_norms_chunked(d, e, lam_c, V_c, chunk).cpu().numpy()
+
+    return one_pass, residuals_chunked
+
+
+def _refine_vectors(d, e, lam, sel, V, config: SolverConfig,
+                    subtimer: Optional[PhaseTimer] = None):
+    """Mixed-precision epilogue on the prescaled system (d, e, lam all
+    divided by the same norm): one f64 inverse-iteration pass restores
+    working-precision residuals from the f32 downsweep; segments of close
+    eigenvalues are re-orthonormalized (dstein-style) before residual
+    triage and once more at the end.
+
+    ``subtimer`` records the step walls ("refine_pass1", "ortho_mid",
+    "residuals1", "refine_extra", "refine_rescue", "ortho_final") and the
+    triage's column counts; with a device it syncs after each step."""
+    subtimer = subtimer if subtimer is not None else PhaseTimer()
+    lam_sel = lam[sel]
+    C = int(sel.shape[0])
+    n = int(d.shape[0])
+    one_pass, residuals_chunked = _refine_ops(d, e, n, config)
+
+    with subtimer.phase("refine_pass1"):
+        V, res1_dev = one_pass(lam_sel, V, config.refine_block)
+
+    lam_host = lam.cpu().numpy()
+    norm_t = float(np.max(np.abs(lam_host))) if lam_host.size else 0.0
+    lam_np = lam_host[sel.cpu().numpy()]
+
+    did_triage = config.refine_steps > 1 and C > 1
+    touched = np.zeros(C, dtype=bool)
+    if did_triage:
+        # explicitly orthonormalize every near-degenerate segment the f32
+        # downsweep could not resolve (gaps below ~refine_risky_gap_factor *
+        # u_f32 * ||T||) BEFORE residual triage
+        u_f32 = float(torch.finfo(torch.float32).eps) / 2.0
+        gap_mid = max(config.ortho_gap_factor,
+                      config.refine_risky_gap_factor * u_f32)
+        with subtimer.phase("ortho_mid"):
+            V = orthonormalize_clusters(
+                lam_np, V, norm_t, gap_factor=gap_mid,
+                min_gap_factor=config.cluster_gap_factor)
+        with subtimer.phase("residuals1"):
+            # MEASURED residuals: the Spike estimate undershoots on
+            # block-resonant columns, so triage never trusts it; its clip
+            # sentinel still forces a column into the extra pass
+            res1 = residuals_chunked(lam_sel, V)
+            sentinel = (res1_dev.cpu().numpy() > _SENTINEL_MIN
+                        if res1_dev is not None else np.zeros(C, bool))
+        with torch.profiler.record_function("refine.triage"):
+            V, touched = _triage_passes(d, e, lam_sel, V, res1, sentinel,
+                                        norm_t, config, one_pass,
+                                        residuals_chunked, subtimer)
+    # final cleanup: genuinely degenerate segments (skipped by the mid pass)
+    # and segments holding a column the extra/rescue passes replaced
+    with subtimer.phase("ortho_final"):
+        if did_triage:
+            V = orthonormalize_clusters(
+                lam_np, V, norm_t, gap_factor=gap_mid, touched=touched,
+                degenerate_below=config.cluster_gap_factor)
+        else:
+            V = orthonormalize_clusters(lam_np, V, norm_t,
+                                        gap_factor=config.ortho_gap_factor)
+    return V
+
+
+def _fused_extra(lam_r, V, idx, res1_idx, config: SolverConfig, one_pass,
+                 residuals_chunked):
+    """The extra-pass triage step: gather the risky columns ``idx`` (host
+    int array), give them ``refine_steps - 1`` passes at the alternate
+    block size, measure their residuals, and write back only the columns
+    whose measured residual beats ``res1_idx``.  Returns (res_b, improved)
+    as host arrays.
+
+    The JAX package has two variants of this step, one jit for narrow
+    buckets and an unfused one for wide or Spike buckets; they compute the
+    same columns, so one function serves both here."""
+    idx_t = torch.as_tensor(idx, device=V.device)
+    Vr = V[:, idx_t]
+    for _ in range(config.refine_steps - 1):
+        Vr, _unused = one_pass(lam_r, Vr, config.refine_block_alt,
+                               allow_spike=config.use_pallas_refine_extra)
+    res_b = residuals_chunked(lam_r, Vr)
+    improved = res_b < res1_idx
+    if improved.any():
+        keep = torch.as_tensor(np.flatnonzero(improved), device=V.device)
+        V[:, idx_t[keep]] = Vr[:, keep]
+    return res_b, improved
+
+
+def _triage_passes(d, e, lam_sel, V, res1, sentinel, norm_t,
+                   config: SolverConfig, one_pass, residuals_chunked,
+                   subtimer: PhaseTimer):
+    """Residual triage + extra/rescue refinement passes.
+
+    Flags columns whose MEASURED residual exceeds refine_residual_factor *
+    eps * ||T|| (or whose Spike estimate hit the 1e30 clip sentinel), gives
+    them extra passes at ``refine_block_alt`` and accepts a re-solve only
+    when the measured residual improves; columns still above the threshold
+    get two PyTorch-solver passes at ``refine_block_rescue``, accepted the
+    same way.  No column ends worse than its best attempt.  Returns (V,
+    touched), touched marking the replaced columns; the column counts go to
+    ``subtimer.counts``."""
+    C = int(lam_sel.shape[0])
+    touched = np.zeros(C, dtype=bool)
+    thr_res = config.refine_residual_factor * config.eps() * \
+        max(norm_t, 1e-30)
+    risky = (res1 > thr_res) | sentinel
+    idx = np.nonzero(risky)[0]
+    counts = subtimer.counts
+    counts["risky"] = int(idx.size)
+    counts["risky_sentinel"] = int(sentinel.sum())
+    counts["extra_improved"] = 0
+    counts["rescue"] = 0
+    counts["rescue_improved"] = 0
+    if not idx.size:
+        return V, touched
+    with subtimer.phase("refine_extra"):
+        res_b, improved = _fused_extra(lam_sel[torch.as_tensor(
+            idx, device=V.device)], V, idx, res1[idx], config, one_pass,
+            residuals_chunked)
+    touched[idx[improved]] = True
+    counts["extra_improved"] = int(improved.sum())
+    res_after = res1.copy()
+    res_after[idx] = np.where(improved, res_b, res1[idx])
+    still = np.nonzero(risky & (res_after > thr_res))[0]
+    counts["rescue"] = int(still.size)
+    if still.size:
+        with subtimer.phase("refine_rescue"):
+            st = torch.as_tensor(still, device=V.device)
+            lam_r2 = lam_sel[st]
+            Vr2 = inverse_iteration(d, e, lam_r2, V[:, st], steps=2,
+                                    block=config.refine_block_rescue)
+            res2 = residuals_chunked(lam_r2, Vr2)
+            improved2 = res2 < res_after[still]
+            if improved2.any():
+                keep = torch.as_tensor(np.flatnonzero(improved2),
+                                       device=V.device)
+                V[:, st[keep]] = Vr2[:, keep]
+            touched[still[improved2]] = True
+            counts["rescue_improved"] = int(improved2.sum())
+    return V, touched
 
 
 def _prescale(d, e):
@@ -139,7 +349,7 @@ def _prescale(d, e):
 
 
 def _solve_scaled(d, e, sel, plan: TreePlan, config: SolverConfig,
-                  want_vectors: bool, timer: PhaseTimer):
+                  want_vectors: bool, timer: PhaseTimer, mixed: bool):
     n = plan.n
     with timer.phase("eigenvalues"):
         if plan.num_levels == 0:
@@ -154,15 +364,24 @@ def _solve_scaled(d, e, sel, plan: TreePlan, config: SolverConfig,
     with timer.phase("backtransformation"):
         if reps is None:
             V = Q[0][:n, :n][:, cols]
-        else:
+        elif not mixed:
             V = downsweep_stepped(reps, Q, plan, config, cols)
+        else:
+            sub = PhaseTimer(d.device)
+            with sub.phase("downsweep"):
+                V = downsweep_stepped(reps, Q, plan, config, cols,
+                                      dtype=torch.float32)
+            V = _refine_vectors(d, e, lam, cols, V, config, subtimer=sub)
+            timer.times.update({f"bt.{k}": v for k, v in sub.times.items()})
+            timer.counts.update(sub.counts)
     return lam, V
 
 
 def _solve(d, e, sel, plan: TreePlan, config: SolverConfig,
-           want_vectors: bool, timer: PhaseTimer):
+           want_vectors: bool, timer: PhaseTimer, mixed: bool = False):
     d, e, snorm = _prescale(d, e)
-    lam, V = _solve_scaled(d, e, sel, plan, config, want_vectors, timer)
+    lam, V = _solve_scaled(d, e, sel, plan, config, want_vectors, timer,
+                           mixed)
     return lam * snorm, V
 
 
@@ -201,20 +420,21 @@ def solve_tridiagonal_staged(d, e, *, config: SolverConfig = DEFAULT_CONFIG,
       device: "cuda" or "cpu" (default: ``config.device``).  CUDA without a
         card raises; nothing falls back to the CPU.
 
-    Returns ``(EighTridiagonalResult, timer)``.  Eigenvectors come from the
-    pure-f64 path: ``config.mixed_precision_vectors`` must be False when
-    eigenvectors are requested (the mixed path is not ported yet).
+    Returns ``(EighTridiagonalResult, timer)``.  Eigenvectors are f64.  With
+    ``config.mixed_precision_vectors`` (the default) they are swept down in
+    f32 and refined in f64 (the timer then also holds the backtransform's
+    steps as "bt.<step>" and the triage's column counts in ``counts``);
+    otherwise the sweep runs in f64.
     """
     want_vectors = compute_vectors or (select is not None)
-    if want_vectors and config.mixed_precision_vectors:
-        raise NotImplementedError(_NEXT_SLICE)
     d, e, sel = _inputs(d, e, config, device, select)
     n = int(d.shape[0])
     plan = build_plan(n, config.resolved_leaf_size(n), config.max_leaves)
     if timer is None:
         timer = PhaseTimer(d.device)
     timer.device = d.device
-    lam, V = _solve(d, e, sel, plan, config, want_vectors, timer)
+    lam, V = _solve(d, e, sel, plan, config, want_vectors, timer,
+                    mixed=config.mixed_precision_vectors)
     return EighTridiagonalResult(eigenvalues=lam, eigenvectors=V), timer
 
 
@@ -256,8 +476,4 @@ def residuals(d, e, result: EighTridiagonalResult, select=None,
     if select is not None:
         lam = lam[torch.as_tensor(np.asarray(select, dtype=np.int64),
                                   device=dev)]
-    out = torch.empty(V.shape[1], dtype=dt, device=dev)
-    for o in range(0, V.shape[1], chunk):
-        out[o:o + chunk] = residual_norms(d, e, lam[o:o + chunk],
-                                          V[:, o:o + chunk])
-    return sync(out)
+    return sync(_residual_norms_chunked(d, e, lam, V, chunk))

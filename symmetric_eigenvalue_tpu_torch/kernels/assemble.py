@@ -1,9 +1,11 @@
 """Eigenvector assembly from a MergeRep: U application and row propagation.
 
-Port of ``symmetric_eigenvalue_tpu/kernels/assemble.py`` (its f64 path).  U is
-never stored: row blocks of it are rematerialized from the compact MergeRep
-and consumed at once by the ``dword_matmul`` GEMM.  Every function takes a
-level's k-batched MergeRep.
+Port of ``symmetric_eigenvalue_tpu/kernels/assemble.py``.  U is never
+stored: it is rematerialized from the compact MergeRep and consumed at once.
+f64 vectors go through row blocks generated in PyTorch and the
+``dword_matmul`` GEMM; f32 vectors (the mixed-precision downsweep) go
+through the fused ``cauchy_matmul`` kernel, and the f32 root U through
+``cauchy_materialize``.  Every function takes a level's k-batched MergeRep.
 
 Coordinate convention: ``U[j, i]`` with rows j = pole coordinates (original
 concat-of-children order after ``p12`` inversion) and columns i = eigenvalues
@@ -23,6 +25,7 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
+from .cauchy_matmul import cauchy_materialize, cauchy_matmul
 from .cauchy_rowsum import cauchy_rowsum
 from .dword_matmul import dword_matmul
 from .secular import MergeRep, inverse_permutation, map_slot_blocks
@@ -55,12 +58,13 @@ def rotation_waves(rep: MergeRep) -> List[Wave]:
 
 def _replay_rotations_level(waves: List[Wave], y):
     """Inverse Givens chain on the rows of y (k*m, C), in place: waves in
-    descending order, u_a <- c u_a + s u_b, u_b <- -s u_a + c u_b."""
+    descending order, u_a <- c u_a + s u_b, u_b <- -s u_a + c u_b, in y's
+    dtype."""
     for a, b, c, s in reversed(waves):
         ua = y[a]
         ub = y[b]
-        c = c[:, None]
-        s = s[:, None]
+        c = c.to(y.dtype)[:, None]
+        s = s.to(y.dtype)[:, None]
         y[a] = c * ua + s * ub
         y[b] = -s * ua + c * ub
     return y
@@ -68,12 +72,13 @@ def _replay_rotations_level(waves: List[Wave], y):
 
 def _replay_rotations_cols_t(waves: List[Wave], wt):
     """Transposed chain on wt (k*m, r), the columns of w stored as rows, in
-    place: waves ascending, w_a <- c w_a - s w_b, w_b <- s w_a + c w_b."""
+    place: waves ascending, w_a <- c w_a - s w_b, w_b <- s w_a + c w_b, in
+    wt's dtype."""
     for a, b, c, s in waves:
         wa = wt[a]
         wb = wt[b]
-        c = c[:, None]
-        s = s[:, None]
+        c = c.to(wt.dtype)[:, None]
+        s = s.to(wt.dtype)[:, None]
         wt[a] = c * wa - s * wb
         wt[b] = s * wa + c * wb
     return wt
@@ -106,15 +111,28 @@ def _apply_u_finish(rep: MergeRep, y, waves):
 
 
 def assemble_u(rep: MergeRep, cols: Optional[torch.Tensor] = None,
-               block: int = 2048, waves: Optional[List[Wave]] = None):
+               block: int = 2048, waves: Optional[List[Wave]] = None,
+               dtype: Optional[torch.dtype] = None):
     """Materialize U columns for every merge: (k, m, C) with rows in original
     order.  ``cols``: indices into the ascending eigenvalue order (None = all
-    m).  Rows are produced in blocks of ``block`` to bound live memory."""
+    m).  ``dtype``: None (f64: rows produced in blocks of ``block``) or
+    torch.float32 (the ``cauchy_materialize`` kernel: entries computed in
+    f64, rounded once)."""
     k, m = rep.poles.shape
     dev = rep.poles.device
     slots = rep.colperm if cols is None else rep.colperm[:, cols]
     act = slots < rep.K[:, None]
     ncol = rep.colnorm.gather(1, slots)
+    if dtype == torch.float32:
+        shift_sel = rep.poles_sec.gather(1, rep.shift_idx.gather(1, slots))
+        ninv_sel = torch.where(act, 1.0 / ncol, torch.zeros_like(ncol))
+        u = cauchy_materialize(rep.poles_sec, rep.zhat, shift_sel,
+                               rep.tau.gather(1, slots), ninv_sel,
+                               slots.contiguous(), rep.K)
+        return _apply_u_finish(rep, u, waves)
+    if dtype not in (None, torch.float64):
+        raise ValueError(f"assemble_u: dtype must be float32 or float64, "
+                         f"got {dtype}")
 
     def row_block(rows):
         denom = _denom_block(rep, rows, slots)
@@ -128,8 +146,10 @@ def assemble_u(rep: MergeRep, cols: Optional[torch.Tensor] = None,
 
 def _apply_u_matmul(rep: MergeRep, X, block: int):
     """Phase A of apply_u: Y0 = [[Ua, 0],[0, I]] P_col X (partitioned rows),
-    X (k, m, C).  Row blocks of the Cauchy factor are generated in f64 and
-    multiplied by the ``dword_matmul`` GEMM."""
+    X (k, m, C).  f64 X: row blocks of the Cauchy factor generated in f64
+    and multiplied by the ``dword_matmul`` GEMM.  f32 X: the fused
+    ``cauchy_matmul`` kernel, contracting only each merge's own K active
+    slots."""
     k, m = rep.poles.shape
     dev = rep.poles.device
     Xs = _gather_rows(X, inverse_permutation(rep.colperm))
@@ -137,6 +157,16 @@ def _apply_u_matmul(rep: MergeRep, X, block: int):
     act = slots < rep.K[:, None]
     ncol_inv = torch.where(act, 1.0 / rep.colnorm,
                            torch.zeros_like(rep.colnorm))
+    if X.dtype == torch.float32:
+        shift_val = rep.poles_sec.gather(1, rep.shift_idx)
+        y = cauchy_matmul(rep.poles_sec, shift_val, rep.tau, rep.zhat,
+                          ncol_inv, Xs, rep.K)
+        # inactive columns are e_slot: identity passthrough on inactive rows
+        return y.add_(torch.where((~act)[:, :, None], Xs,
+                                  torch.zeros((), dtype=y.dtype, device=dev)))
+    if X.dtype != torch.float64:
+        raise TypeError(f"apply_u: X must be float32 or float64, got "
+                        f"{X.dtype}")
 
     def row_block(rows):
         denom = _denom_block(rep, rows, slots)

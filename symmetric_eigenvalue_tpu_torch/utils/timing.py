@@ -24,9 +24,13 @@ def sync(x=None, device=None):
 
 
 class PhaseTimer:
+    """Wall time per named phase (``times``), and event counts a run
+    records beside them (``counts``)."""
+
     def __init__(self, device=None):
         self.device = device
         self.times: Dict[str, float] = {}
+        self.counts: Dict[str, int] = {}
 
     @contextlib.contextmanager
     def phase(self, name: str):

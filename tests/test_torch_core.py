@@ -101,4 +101,4 @@ def test_config_matches_jax_defaults():
         se.SolverConfig().resolved_leaf_size(16384)
     assert st.SolverConfig(unit_roundoff=1e-10).eps() == 1e-10
     cpu = st.SolverConfig(device="cpu")
-    assert 256 <= cpu.resolved_refine_chunk(1024) <= cpu.refine_chunk
+    assert 256 <= cpu.resolved_refine_chunk(1024, "cpu") <= cpu.refine_chunk

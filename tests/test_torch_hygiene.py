@@ -13,9 +13,11 @@ import pytest
 import torch
 
 import symmetric_eigenvalue_tpu_torch as st
+from symmetric_eigenvalue_tpu_torch.kernels import cauchy_matmul as cm
 from symmetric_eigenvalue_tpu_torch.kernels import cauchy_rowsum as cr
 from symmetric_eigenvalue_tpu_torch.kernels import dword_matmul as dm
 from symmetric_eigenvalue_tpu_torch.kernels import secular_sums as ss
+from symmetric_eigenvalue_tpu_torch.kernels import spike_solve as sp
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PKG = ROOT / "symmetric_eigenvalue_tpu_torch"
@@ -63,17 +65,93 @@ def test_cuda_request_without_cuda_raises(monkeypatch):
         st.solve_tridiagonal_staged(d, e, config=cfg, compute_vectors=True)
     with pytest.raises(RuntimeError):
         st.solve_tridiagonal(d, e, config=cfg, device="cuda")
+    # the default (mixed-precision) config as well
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        st.solve_tridiagonal_staged(d, e, compute_vectors=True)
+
+
+def _counts():
+    return (ss.launches, cr.launches, dm.launches, cm.matmul_launches,
+            cm.materialize_launches, sp.pass_a_launches, sp.pass_b_launches)
 
 
 def test_cpu_tensors_count_no_launches(rng):
-    before = (ss.launches, cr.launches, dm.launches)
+    """CPU runs take the plain versions and count nothing: the f64 path,
+    and the default mixed path at n >= 512 (Cauchy kernels, Spike passes,
+    cluster Grams)."""
+    before = _counts()
     n = 96
     cfg = st.SolverConfig(leaf_size=8, mixed_precision_vectors=False)
     res = st.solve_tridiagonal(rng.standard_normal(n),
                                rng.standard_normal(n - 1), config=cfg,
                                compute_vectors=True, device="cpu")
     assert res.eigenvectors.device.type == "cpu"
-    assert (ss.launches, cr.launches, dm.launches) == before == (0, 0, 0)
+    n = 520
+    res, timer = st.solve_tridiagonal_staged(
+        rng.standard_normal(n), rng.standard_normal(n - 1),
+        compute_vectors=True, device="cpu")
+    assert res.eigenvectors.device.type == "cpu"
+    assert "bt.refine_pass1" in timer.times
+    assert _counts() == before == (0,) * 7
+
+
+def test_non_cpu_tensors_never_take_the_plain_version():
+    """Only a CPU tensor runs a plain version: any other device goes to the
+    kernel launch, which takes CUDA alone and raises for the rest (here the
+    'meta' device), so no computation silently falls back."""
+    f64 = dict(dtype=torch.float64, device="meta")
+    i64 = dict(dtype=torch.int64, device="meta")
+    k, m, C, n, nb = 2, 8, 4, 16, 8
+    v = [torch.empty((k, m), **f64) for _ in range(5)]
+    calls = {
+        "secular_sums": lambda: ss.secular_sums(*v[:4], torch.empty((k, m),
+                                                                    **i64)),
+        "cauchy_rowsum": lambda: cr.cauchy_rowsum(
+            *v[:3], torch.empty((k, 2, m), **f64)),
+        "dword_matmul": lambda: dm.dword_matmul(v[0], v[1].T),
+        "cauchy_matmul": lambda: cm.cauchy_matmul(
+            *v, torch.empty((k, m, C), dtype=torch.float32, device="meta"),
+            torch.empty(k, **i64)),
+        "cauchy_materialize": lambda: cm.cauchy_materialize(
+            *v[:2], *(torch.empty((k, C), **f64) for _ in range(3)),
+            torch.empty((k, C), **i64), torch.empty(k, **i64)),
+        "spike_pass_a": lambda: sp.spike_pass_a(
+            torch.empty(n, **f64), torch.empty(n, **f64),
+            torch.empty((), **f64), torch.empty(C, **f64),
+            torch.empty((n, C), **f64), nb),
+        "spike_pass_b": lambda: sp.spike_pass_b(
+            torch.empty(n, **f64), torch.empty(n, **f64),
+            torch.empty((), **f64), torch.empty(C, **f64),
+            torch.empty((n, C), **f64), nb, torch.empty((2, C), **f64),
+            torch.empty((2, C), **f64), torch.empty(2, **f64),
+            torch.empty(2, **f64)),
+    }
+    before = _counts()
+    for name, call in calls.items():
+        with pytest.raises(ValueError, match="unsupported device"):
+            call()
+    assert _counts() == before
+
+
+def test_refine_chunk_follows_the_run_device(monkeypatch, rng):
+    """The refinement chunk is budgeted on the device the run's tensors are
+    on, not on config.device: a CPU run with the default config
+    (device="cuda") never asks CUDA for its memory."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+    def no_cuda(*a, **k):
+        raise AssertionError("torch.cuda.mem_get_info called on a CPU run")
+
+    monkeypatch.setattr(torch.cuda, "mem_get_info", no_cuda)
+    cfg = st.SolverConfig()
+    assert cfg.device == "cuda"
+    assert cfg.resolved_refine_chunk(16384, torch.device("cpu")) == 2048
+    assert cfg.resolved_refine_chunk(4096, "cpu") == cfg.refine_chunk
+    n = 520
+    res, _ = st.solve_tridiagonal_staged(
+        rng.standard_normal(n), rng.standard_normal(n - 1), config=cfg,
+        compute_vectors=True, device="cpu")
+    assert res.eigenvectors.shape == (n, n)
 
 
 def test_chip_smoke_alone_fails(tmp_path):
