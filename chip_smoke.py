@@ -10,24 +10,33 @@ exits non-zero:
   2. build     every CUDA kernel of the port, built from csrc/ by nvcc (one
                process per source, all at once)
   3. kernels   each kernel against its plain PyTorch version on the card at
-               the main path's shapes: time, plain time, library time,
+               the shapes its path gives it: time, plain time, library time,
                bound, error and tolerance
   4. solve     the main path: solve_tridiagonal_staged with the default
                (mixed-precision) SolverConfig, n=16384 random (bench.py's
                input, seed 0), all eigenpairs, cold then three times
                warm; residual, orthogonality and eigenvalues against
                scipy; the triage's column counts; launch counts of all
-               seven kernels
+               eight kernels
   5. solve_f64 the same input through the pure-f64 path
                (mixed_precision_vectors=False), cold then three times warm
   6. poisson   eigh_tridiagonal(eigvals_only=True) and the mixed path's full
                eigenpairs on the n=16384 Poisson matrix against its analytic
                spectrum (heavy deflation, wide cluster segments)
-  7. profile   one more warm main-path solve under torch.profiler: device
+  7. dense     the dense front end at full width: eigh of a random symmetric
+               n=16384 matrix (seed 0) with the default config, all
+               eigenpairs, cold with every check (residual, orthogonality,
+               eigenvalues against torch.linalg.eigvalsh on the card), once
+               warm, and once with the pure-f64 config (same checks);
+               phases, peak memory, launches of all eight kernels;
+               torch.linalg.eigh's time on the same matrix
+  8. dense_two_stage  eigh(band=128) and eigh_banded (u=16) at n=4096, the
+               same three limits; eigvals_only through both front ends
+  9. profile   one more warm solve under torch.profiler, for the tridiagonal
+               main path (n=16384) and for the dense path (n=4096): device
                time by kernel, the device's idle share, and the host time,
-               device span and launches of the interface solve and the
-               residual triage
-  8. the per-kernel summary line, then the nvidia-smi line, then the final
+               device span and launches of the named ranges
+ 10. the per-kernel summary line, then the nvidia-smi line, then the final
      {"ok": true, ...} line
 
 Needs one CUDA card; exits 1 without printing a result when
@@ -54,12 +63,16 @@ from symmetric_eigenvalue_tpu_torch.driver import _prescale
 from symmetric_eigenvalue_tpu_torch.kernels import cauchy_matmul as cm
 from symmetric_eigenvalue_tpu_torch.kernels import cauchy_rowsum as cr
 from symmetric_eigenvalue_tpu_torch.kernels import dword_matmul as dm
+from symmetric_eigenvalue_tpu_torch.kernels import dword_matvec as dv
 from symmetric_eigenvalue_tpu_torch.kernels import secular_sums as ss
 from symmetric_eigenvalue_tpu_torch.kernels import spike_solve as sp
 from symmetric_eigenvalue_tpu_torch.kernels.refine import band_prep
+from symmetric_eigenvalue_tpu_torch.kernels.tridiagonalize import _bucket_cuts
 from symmetric_eigenvalue_tpu_torch.utils.checks import max_ortho_error
+from symmetric_eigenvalue_tpu_torch.utils.timing import PhaseTimer
 
 N = 16384
+N_TWO_STAGE = 4096
 SEED = 0
 # NVIDIA H100 SXM data sheet (dense, at the 700 W limit): FP64 on the tensor
 # cores (DMMA) and on the CUDA cores, FP32 on the CUDA cores, the HBM3 rate
@@ -83,9 +96,12 @@ REPLACES = {
         "symmetric_eigenvalue_tpu/kernels/pallas/spike_solve.py:270",
     "spike_pass_b":
         "symmetric_eigenvalue_tpu/kernels/pallas/spike_solve.py:296",
+    "dword_vecmat":
+        "symmetric_eigenvalue_tpu/kernels/pallas/dword_matvec.py:127",
 }
 SOURCES = {"spike_pass_a": "spike_solve", "spike_pass_b": "spike_solve",
-           "cauchy_materialize": "cauchy_matmul"}
+           "cauchy_materialize": "cauchy_matmul",
+           "dword_vecmat": "dword_matvec"}
 
 
 def emit(obj) -> None:
@@ -125,11 +141,12 @@ def launch_counts():
             "cauchy_matmul": cm.matmul_launches,
             "cauchy_materialize": cm.materialize_launches,
             "spike_pass_a": sp.pass_a_launches,
-            "spike_pass_b": sp.pass_b_launches}
+            "spike_pass_b": sp.pass_b_launches,
+            "dword_vecmat": dv.launches}
 
 
 def reset_counts() -> None:
-    ss.launches = cr.launches = dm.launches = 0
+    ss.launches = cr.launches = dm.launches = dv.launches = 0
     cm.matmul_launches = cm.materialize_launches = 0
     sp.pass_a_launches = sp.pass_b_launches = 0
 
@@ -228,6 +245,49 @@ def check_dword_matmul(k, M, K, N, reps):
                 max_abs_err=abs_err, ms=ms,
                 plain_ms=plain, library_ms=library, bound_ms=b_ms,
                 bound_by=b_by)
+
+
+def check_dword_vecmat(m, zeros, sliced, reps):
+    """The Householder matvec of the dense reduction at a bucket's width m:
+    a symmetric A and a v whose first ``zeros`` entries are zero, as a
+    reflector has them.  ``sliced``: pass only the rows below the zeros (a
+    view with a row offset), the call the reduction makes."""
+    g = torch.Generator(device="cuda").manual_seed(10)
+    A = torch.randn((m, m), dtype=torch.float64, device="cuda", generator=g)
+    A = (A + A.T).div_(2.0 * m ** 0.5)
+    v = torch.randn(m, dtype=torch.float64, device="cuda", generator=g)
+    v[:zeros] = 0.0
+    v[zeros] = 1.0
+    args = (v[zeros:], A[zeros:]) if sliced else (v, A)
+    rows = args[1].shape[0]
+    got = dv.dword_vecmat(*args)
+    ref = dv.dword_vecmat_plain(*args)
+    scale = torch.matmul(v.abs(), A.abs())
+    abs_err = float((got - ref).abs().max())
+    err = float(((got - ref).abs() / scale).max())
+    again = dv.dword_vecmat(*args)
+    # both against an extended-precision product on the host (256 columns)
+    cols = slice(0, 256)
+    exact = args[0].cpu().numpy().astype(np.longdouble) \
+        @ args[1][:, cols].cpu().numpy().astype(np.longdouble)
+    sc = scale[cols].cpu().numpy()
+    exact_err = [float(np.abs(y[cols].cpu().numpy() - exact).max() / sc.max())
+                 for y in (got, ref)]
+    ms = time_ms(lambda: dv.dword_vecmat(*args), reps)
+    plain = time_ms(lambda: dv.dword_vecmat_plain(*args), reps)
+    # cuBLAS dgemv in both orientations (A is symmetric: the same function)
+    lib_vm = time_ms(lambda: torch.matmul(*args), reps)
+    lib_mv = time_ms(lambda: torch.mv(args[1].T, args[0]), reps)
+    b_ms, b_by = bound(2.0 * rows * m, PEAK_FP64, 8.0 * (rows * m + rows + m))
+    return dict(m=m, rows=rows, leading_zeros=zeros, sliced=sliced,
+                max_rel_err=err, tol=1e-13, tol_of="(|v| @ |A|) per entry",
+                max_abs_err=abs_err, kernel_vs_longdouble=exact_err[0],
+                plain_vs_longdouble=exact_err[1],
+                run_to_run_identical=bool(torch.equal(got, again)),
+                ms=ms, plain_ms=plain, library_ms=min(lib_vm, lib_mv),
+                library_vecmat_ms=lib_vm, library_mv_ms=lib_mv,
+                library_is="torch.matmul(v, A) / torch.mv(A.T, v), cuBLAS "
+                "dgemv", bound_ms=b_ms, bound_by=b_by)
 
 
 # --------------------------------------------------------------------------
@@ -461,8 +521,8 @@ def _launches_under(ev) -> int:
     return len(ev.kernels) + sum(_launches_under(c) for c in ev.cpu_children)
 
 
-def profile_main_path(d, e, cfg, top: int = 16):
-    """Device time by kernel over one main-path solve (torch.profiler), the
+def profile_solve(run, top: int = 16):
+    """Device time by kernel over one call of ``run`` (torch.profiler), the
     device's busy time and idle share of the wall, and for the interface
     solve's and the triage's ranges their host wall, device span and kernel
     launches."""
@@ -470,7 +530,7 @@ def profile_main_path(d, e, cfg, top: int = 16):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        st.solve_tridiagonal_staged(d, e, config=cfg, compute_vectors=True)
+        run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     ranges = {name: {"calls": 0, "launches": 0} for name in RANGES}
@@ -505,6 +565,78 @@ def profile_main_path(d, e, cfg, top: int = 16):
             "device_events": launches, "ranges": ranges,
             "top": [{"name": k[:90], "device_s": us * 1e-6, "calls": c}
                     for us, c, k in rows[:top]]}
+
+
+# --------------------------------------------------------------------------
+# the dense and banded front ends
+
+def dense_matrix(n: int, seed: int):
+    """tools/run_dense_eigh.py's input, made on the card: A = (G + G^T) /
+    (2 sqrt(n)), G standard normal."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    G = torch.randn((n, n), dtype=torch.float64, device="cuda", generator=g)
+    return (G + G.T).div_(2.0 * n ** 0.5)
+
+
+def dense_checks(A, lam, V, ref, chunk: int = 2048):
+    """max|AV - V lam| / ||A||, max|V^T V - I| and max|lam - ref| / ||A||
+    (||A|| = max|ref|), each held to its limit."""
+    n = A.shape[0]
+    norm = float(ref.abs().max())
+    require(V.shape == (n, n) and V.dtype == torch.float64
+            and bool(torch.isfinite(V).all())
+            and bool(torch.isfinite(lam).all()),
+            "non-finite or misshapen result")
+    worst = 0.0
+    for o in range(0, n, chunk):
+        R = torch.matmul(A, V[:, o:o + chunk]) \
+            - V[:, o:o + chunk] * lam[o:o + chunk]
+        worst = max(worst, float(R.abs().max()))
+        del R
+    resid = worst / norm
+    ortho = max_ortho_error(V)
+    lam_err = float((lam - ref).abs().max()) / norm
+    require(resid <= 1e-12, f"residual {resid} > 1e-12 ||A||")
+    require(ortho <= 1e-10, f"orthogonality {ortho} > 1e-10")
+    require(lam_err <= 1e-12, f"eigenvalues off torch.linalg.eigvalsh by "
+            f"{lam_err} ||A||")
+    return {"residual_over_normA": resid, "ortho": ortho,
+            "eig_err_vs_eigvalsh_over_normA": lam_err}
+
+
+def vecmat_stream_bytes(n: int, panel: int, buckets: int) -> float:
+    """Bytes of A the n-2 Householder matvecs of ``tridiagonalize`` read:
+    per column the rows below the pivot, over the bucket's width."""
+    cuts = _bucket_cuts(n, panel, buckets)
+    total = 0.0
+    for c0, c1 in zip(cuts[:-1], cuts[1:]):
+        m = n - c0
+        total += sum(8.0 * (m - j - 1) * m for j in range(c1 - c0)
+                     if j != m - 2)
+    return total
+
+
+def timed_dense(run):
+    """One call of ``run(timer)`` -> (lam, V): wall, phases, peak memory."""
+    timer = PhaseTimer()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    lam, V = run(timer)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return lam, V, {"wall_s": wall, "phases_s": timer.times,
+                    "counts": timer.counts,
+                    "peak_mem_bytes": torch.cuda.max_memory_allocated()}
+
+
+def upper_band_storage(A, u: int):
+    """scipy's upper band storage (u+1, n) of the band of A, on the host."""
+    n = A.shape[0]
+    ab = np.zeros((u + 1, n))
+    for k in range(u + 1):
+        ab[u - k, k:] = torch.diagonal(A, offset=k).cpu().numpy()
+    return ab
 
 
 def main() -> int:
@@ -554,7 +686,12 @@ def main() -> int:
         "secular_sums": [check_secular_sums(1, N, 10),
                          check_secular_sums(256, 64, 50)],
         "cauchy_rowsum": [check_cauchy_rowsum(2, 8192, 20)],
-        "dword_matmul": [check_dword_matmul(2, 2048, 8192, 8192, 5)],
+        # after the f64 downsweep's GEMM, the dense front end's skinny
+        # shapes: a 32-row panel's Gram over K=16384, and the rank-2k
+        # trailing update of the first bucket
+        "dword_matmul": [check_dword_matmul(2, 2048, 8192, 8192, 5),
+                         check_dword_matmul(1, 32, 16384, 32, 20),
+                         check_dword_matmul(1, 16384, 64, 16384, 3)],
         "cauchy_matmul": [check_cauchy_matmul(2, 8192, 8192, 8192, 3),
                           check_cauchy_matmul(2, 8192, 8192, 1024, 5),
                           check_cauchy_matmul(256, 64, 8192, 64, 10)],
@@ -564,6 +701,15 @@ def main() -> int:
     spike_eig = check_spike(ds, es, lam_scaled, 128, 2048, "eigenvalues", 5)
     checks["spike_pass_a"] = [spike_rand[0], spike_eig[0]]
     checks["spike_pass_b"] = [spike_rand[1], spike_eig[1]]
+    # dword_vecmat at the first and the last bucket's width of the n=16384
+    # reduction, full height and as the reduction calls it (rows below the
+    # reflector's zeros only), and at an odd width
+    checks["dword_vecmat"] = [check_dword_vecmat(N, N // 8, False, 20),
+                              check_dword_vecmat(4096, 512, False, 50),
+                              check_dword_vecmat(N, N // 8, True, 20),
+                              check_dword_vecmat(4096, 512, True, 50),
+                              # ragged against every tile size, odd stride
+                              check_dword_vecmat(4001, 333, True, 50)]
     for name, rows in checks.items():
         for row in rows:
             emit({"phase": "kernel_check", "kernel": name, **row})
@@ -573,6 +719,8 @@ def main() -> int:
                     f"{name}: the deflation skip changed the result: {row}")
             require(row.get("identity_exact", True),
                     f"{name}: identity columns not exact: {row}")
+            require(row.get("run_to_run_identical", True),
+                    f"{name}: two runs on the same input differ: {row}")
             if "refine_rel_err" in row:
                 require(row["refine_rel_err"] <= row["tol"],
                         f"{name}: spike_refine disagrees: {row}")
@@ -619,18 +767,104 @@ def main() -> int:
           "eigvals_only_err_vs_analytic_over_normT": p_err,
           "full_mixed": pfull})
 
-    # 7. where the main path's device time goes (one more run, profiled)
-    emit({"phase": "profile", **profile_main_path(d, e, cfg)})
+    # 7. the dense front end at full width: cold with every check, then warm
+    A = dense_matrix(N, SEED)
+    t0 = time.perf_counter()
+    ref_a = torch.linalg.eigvalsh(A)
+    torch.cuda.synchronize()
+    eigvalsh_s = time.perf_counter() - t0
+    reset_counts()
+    lam_a, V_a, cold = timed_dense(lambda tm: st.eigh(A, timer=tm))
+    dense_launches = launch_counts()
+    dense = {**cold, **dense_checks(A, lam_a, V_a, ref_a),
+             "launches": dense_launches}
+    del lam_a, V_a
+    torch.cuda.empty_cache()
+    _, _, warm = timed_dense(lambda tm: st.eigh(A, timer=tm))
+    torch.cuda.empty_cache()
+    # the same matrix with pure-f64 tridiagonal eigenvectors: what the
+    # front end alone costs in orthogonality
+    lam_a, V_a, run64 = timed_dense(
+        lambda tm: st.eigh(A, config=cfg64, timer=tm))
+    dense64 = {**run64, **dense_checks(A, lam_a, V_a, ref_a)}
+    del lam_a, V_a
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    torch.linalg.eigh(A)
+    torch.cuda.synchronize()
+    library_s = time.perf_counter() - t0
+    emit({"phase": "dense", "n": N, "matrix": "(G+G^T)/(2 sqrt n)",
+          "seed": SEED, "config": "SolverConfig(), panel=32, buckets=4",
+          "min_gap_over_normA": float((ref_a[1:] - ref_a[:-1]).min()
+                                      / ref_a.abs().max()),
+          "vecmat_stream_bytes": vecmat_stream_bytes(N, 32, 4),
+          **dense, "warm": warm, "f64_config": dense64,
+          "library_eigvalsh_s": eigvalsh_s,
+          "library_eigh_s": library_s,
+          "library_is": "torch.linalg.eigh(A) on the card, the whole path"})
+    require(dense_launches["dword_vecmat"] == N - 2,
+            f"dword_vecmat launched {dense_launches['dword_vecmat']} times "
+            f"on the dense path, not n-2 = {N - 2}")
+    require(dense_launches["dword_matmul"] > 0,
+            "dword_matmul was not launched on the dense path")
+    del A, ref_a
+    torch.cuda.empty_cache()
 
-    # 8. summary; launches from the main path's run, except dword_matmul,
-    # whose path is the pure-f64 one (on the mixed path it serves only the
-    # wide cluster-orth Grams)
+    # 8. the two-stage and the banded front ends (no new kernel on them)
+    A2 = dense_matrix(N_TWO_STAGE, SEED + 1)
+    ref2 = torch.linalg.eigvalsh(A2)
+    reset_counts()
+    lam2, V2, run2 = timed_dense(lambda tm: st.eigh(A2, band=128, timer=tm))
+    two = {**run2, **dense_checks(A2, lam2, V2, ref2),
+           "launches": launch_counts()}
+    del lam2, V2
+    # eigenvalues only, both front ends (no reflector store, no wave log)
+    norm2 = float(ref2.abs().max())
+    vals = {}
+    for name, band in (("one_stage", 0), ("two_stage", 128)):
+        t0 = time.perf_counter()
+        lam_only = st.eigh(A2, band=band, eigvals_only=True)
+        torch.cuda.synchronize()
+        err = float((lam_only - ref2).abs().max()) / norm2
+        vals[name] = {"wall_s": time.perf_counter() - t0,
+                      "eig_err_vs_eigvalsh_over_normA": err}
+        require(err <= 1e-12, f"eigvals_only ({name}) off by {err} ||A||")
+    u = 16
+    idx = torch.arange(N_TWO_STAGE, device="cuda")
+    Ab = torch.where((idx[:, None] - idx[None, :]).abs() <= u, A2, 0.0)
+    refb = torch.linalg.eigvalsh(Ab)
+    ab = upper_band_storage(Ab, u)
+    reset_counts()
+    lamb, Vb, runb = timed_dense(lambda tm: st.eigh_banded(ab, timer=tm))
+    banded = {**runb, **dense_checks(Ab, lamb, Vb, refb),
+              "launches": launch_counts()}
+    del lamb, Vb, Ab
+    emit({"phase": "dense_two_stage", "n": N_TWO_STAGE,
+          "eigh_band_128": two, "eigvals_only": vals,
+          "eigh_banded_u_16": banded})
+    require(two["launches"]["dword_matmul"] > 0
+            and banded["launches"]["dword_matmul"] > 0,
+            "dword_matmul was not launched on the two-stage paths")
+
+    # 9. where the device time goes (one more warm run of each, profiled)
+    emit({"phase": "profile", "path": "solve_tridiagonal_staged, n=16384",
+          **profile_solve(lambda: st.solve_tridiagonal_staged(
+              d, e, config=cfg, compute_vectors=True))})
+    _, _, warm2 = timed_dense(lambda tm: st.eigh(A2, timer=tm))
+    emit({"phase": "profile", "path": f"eigh, n={N_TWO_STAGE}",
+          "unprofiled_warm": warm2, **profile_solve(lambda: st.eigh(A2))})
+    del A2
+
+    # 10. summary; launches from each kernel's own path: the main path's
+    # run, the pure-f64 one for dword_matmul (on the mixed path it serves
+    # only the wide cluster-orth Grams), the dense one for dword_vecmat
+    paths = {"dword_matmul": ("solve_f64", s64["launches"]),
+             "dword_vecmat": ("dense", dense_launches)}
     kernels = []
     for name, rows in checks.items():
         row = rows[0]
-        path = "solve_f64" if name == "dword_matmul" else "solve"
-        count = s64["launches"][name] if path == "solve_f64" \
-            else launches[name]
+        path, counted = paths.get(name, ("solve", launches))
+        count = counted[name]
         kernels.append({
             "name": name, "route": "cuda",
             "source": "symmetric_eigenvalue_tpu_torch/csrc/"

@@ -8,10 +8,16 @@ top-down eigenvector sweep, with the TPU's Pallas kernels replaced by
 hand-written CUDA kernels for Hopper (``csrc/``, built by ``nvcc`` at first
 use).  This package imports torch, numpy and the standard library only.
 
-Covered so far: all eigenvalues, and eigenvectors through the default
-mixed-precision path (f32 downsweep + f64 refinement) or in pure f64
-(``SolverConfig(mixed_precision_vectors=False)``).  Entry points run on the
-device ``"cuda"`` unless the caller passes ``device="cpu"``.
+Covered so far: all eigenvalues of a tridiagonal matrix, and eigenvectors
+through the default mixed-precision path (f32 downsweep + f64 refinement)
+or in pure f64 (``SolverConfig(mixed_precision_vectors=False)``); dense
+symmetric input (``eigh``: one-stage Householder tridiagonalization, or the
+two-stage band reduction with ``band > 0``) and banded input in LAPACK band
+storage (``eigh_banded``), with eigenvectors transformed back through the
+reflectors; the batched Jacobi leaf solver (``kernels.jacobi.jacobi_eigh``,
+selectable in ``leaf.solve_leaves``).  Every Pallas kernel of the JAX
+package has its CUDA counterpart (six sources, eight kernels).  Entry points
+run on the device ``"cuda"`` unless the caller passes ``device="cpu"``.
 """
 
 from .config import DEFAULT_CONFIG, SolverConfig
@@ -24,6 +30,8 @@ from .core.tridiag import (
 )
 from .driver import (
     EighTridiagonalResult,
+    eigh,
+    eigh_banded,
     eigh_tridiagonal,
     residuals,
     solve_tridiagonal,
@@ -37,6 +45,8 @@ __all__ = [
     "create_matrix_scheme1",
     "create_matrix_scheme2",
     "eigenvalues_of_scheme2",
+    "eigh",
+    "eigh_banded",
     "eigh_tridiagonal",
     "residual_norms",
     "residuals",

@@ -52,9 +52,12 @@ class SolverConfig:
     PyTorch solver; ``use_pallas_refine_extra``: the same for the risky
     columns' extra pass), residual triage and cluster CholeskyQR, steered by
     the ``refine_*`` and ``*_gap_factor`` fields.  ``solve_tridiagonal``
-    always returns f64-path eigenvectors.  ``single_jit_max_n`` has no
-    effect: there is no whole-solve compile, so no size limit routes
-    between paths.
+    always returns f64-path eigenvectors.  The dense and banded entry points
+    (``eigh``, ``eigh_banded``) reduce to tridiagonal form and then call
+    ``solve_tridiagonal_staged``, so ``mixed_precision_vectors`` decides
+    for them too; the reflector backtransform is always f64.
+    ``single_jit_max_n`` has no effect: there is no whole-solve compile, so
+    no size limit routes between paths.
 
     ``device``: where the entry points run when the caller passes no
     ``device`` ("cuda" or "cpu").

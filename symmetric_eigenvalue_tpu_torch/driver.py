@@ -15,6 +15,11 @@ and rescue passes, cluster CholeskyQR) restores working-precision
 eigenpairs.  Everything runs on the device the caller names; a CUDA run goes
 through the hand-written kernels and never through their plain versions.
 
+Dense and banded inputs (:func:`eigh`, :func:`eigh_banded`) are reduced to
+tridiagonal form by ``kernels/tridiagonalize.py`` or
+``kernels/band_reduce.py``, solved by :func:`solve_tridiagonal_staged`, and
+their eigenvectors transformed back through the reflectors.
+
 Not ported yet: the fused small-n backtransform, the grouped downsweep +
 refine route for 12*n*C bytes above device memory, and the streamed route;
 the plain staged path runs at every size.
@@ -35,9 +40,12 @@ from .core.tridiag import residual_norms
 from .kernels import spike_solve
 from .kernels.assemble import (apply_u_level, assemble_u, rotation_waves,
                                rows_through_merge)
+from .kernels.band_reduce import (apply_q2_wave_blocked, band_to_tridiag_wave,
+                                  reduce_to_band)
 from .kernels.leaf import leaf_blocks, leaf_eigh_fn, solve_leaves
 from .kernels.refine import inverse_iteration, orthonormalize_clusters
 from .kernels.secular import merge_decompose
+from .kernels.tridiagonalize import apply_q, tridiagonalize
 from .utils.timing import PhaseTimer, sync
 
 _SENTINEL_MIN = 1e29    # Spike estimates above it mark a clipped solve (1e30)
@@ -404,6 +412,13 @@ def _inputs(d, e, config: SolverConfig, device, select):
     return d, e, sel
 
 
+def _run_timer(timer: Optional[PhaseTimer], dev) -> PhaseTimer:
+    if timer is None:
+        timer = PhaseTimer(dev)
+    timer.device = dev
+    return timer
+
+
 def solve_tridiagonal_staged(d, e, *, config: SolverConfig = DEFAULT_CONFIG,
                              compute_vectors: bool = False, select=None,
                              timer: Optional[PhaseTimer] = None,
@@ -430,9 +445,7 @@ def solve_tridiagonal_staged(d, e, *, config: SolverConfig = DEFAULT_CONFIG,
     d, e, sel = _inputs(d, e, config, device, select)
     n = int(d.shape[0])
     plan = build_plan(n, config.resolved_leaf_size(n), config.max_leaves)
-    if timer is None:
-        timer = PhaseTimer(d.device)
-    timer.device = d.device
+    timer = _run_timer(timer, d.device)
     lam, V = _solve(d, e, sel, plan, config, want_vectors, timer,
                     mixed=config.mixed_precision_vectors)
     return EighTridiagonalResult(eigenvalues=lam, eigenvectors=V), timer
@@ -462,6 +475,150 @@ def eigh_tridiagonal(d, e, *, config: SolverConfig = DEFAULT_CONFIG,
     if eigvals_only:
         return res.eigenvalues
     return res.eigenvalues, res.eigenvectors
+
+
+def _bucket_count(n: int) -> int:
+    """Trailing-submatrix buckets of the dense reductions."""
+    return 4 if n >= 8192 else 1
+
+
+def eigh(A, *, config: SolverConfig = DEFAULT_CONFIG,
+         eigvals_only: bool = False, panel: int = 32, band: int = 0,
+         device=None, timer: Optional[PhaseTimer] = None):
+    """Dense symmetric eigensolver: Householder tridiagonalization front end
+    (kernels/tridiagonalize.py) + :func:`solve_tridiagonal_staged` (so
+    ``config.mixed_precision_vectors`` decides how the tridiagonal
+    eigenvectors are computed) + compact-WY backtransformation.  Returns lam
+    or (lam, V) like ``torch.linalg.eigh``.
+
+    ``band`` > 0 selects the two-stage front end instead (dense -> band by
+    GEMM panels -> tridiagonal by wavefront bulge chasing,
+    kernels/band_reduce.py), with eigenvectors back through Q1 Q2.
+
+    A: (n, n) numpy array or tensor, symmetric (not checked); it is not
+    modified.  ``device``: "cuda" or "cpu" (default ``config.device``); CUDA
+    without a card raises.  ``timer`` records "dense.tridiagonalize" (or
+    "dense.reduce_to_band" and "dense.band_to_tridiag"), the tridiagonal
+    solve's "eigenvalues" and "backtransformation", and "dense.apply_q"
+    (after "dense.apply_q2" on the two-stage path).
+    """
+    dev = resolve_device(device if device is not None else config.device)
+    A = torch.as_tensor(A, dtype=config.dtype).to(dev)
+    if A.ndim != 2 or A.shape[0] != A.shape[1] or A.shape[0] < 1:
+        raise ValueError(f"A must be square and non-empty, got "
+                         f"{tuple(A.shape)}")
+    n = int(A.shape[0])
+    band = int(band)
+    timer = _run_timer(timer, dev)
+    want_vectors = not eigvals_only
+    vlog = None
+    if band > 0:
+        with timer.phase("dense.reduce_to_band"):
+            B, Yt, taus = reduce_to_band(A, band, buckets=_bucket_count(n),
+                                         want_reflectors=want_vectors)
+        with timer.phase("dense.band_to_tridiag"):
+            d, e, vlog = band_to_tridiag_wave(B, band, want_log=want_vectors)
+            del B
+    else:
+        with timer.phase("dense.tridiagonalize"):
+            d, e, Yt, taus = tridiagonalize(A, panel=panel,
+                                            buckets=_bucket_count(n))
+    del A       # a device copy of a host input is dead from here on
+    res, _ = solve_tridiagonal_staged(d, e, config=config,
+                                      compute_vectors=want_vectors,
+                                      timer=timer, device=dev)
+    if eigvals_only:
+        return res.eigenvalues
+    W = res.eigenvectors
+    if band > 0:
+        with timer.phase("dense.apply_q2"):
+            W = apply_q2_wave_blocked(n, band, vlog, W)
+        panel = band
+    with timer.phase("dense.apply_q"):
+        X = apply_q(Yt, taus, W, panel=panel)
+    return res.eigenvalues, X
+
+
+def eigh_banded(a_band, *, lower: bool = False,
+                config: SolverConfig = DEFAULT_CONFIG,
+                eigvals_only: bool = False, device=None,
+                timer: Optional[PhaseTimer] = None):
+    """All eigenpairs of a real symmetric BANDED matrix, from LAPACK-style
+    band storage (``scipy.linalg.eig_banded`` conventions).
+
+    Args:
+      a_band: (u+1, n) band storage of the symmetric matrix A with u
+        off-diagonals.  Upper form (default): ``a_band[u + i - j, j] = A[i, j]``
+        for ``max(0, j-u) <= i <= j``; lower form (``lower=True``):
+        ``a_band[i - j, j] = A[i, j]`` for ``j <= i <= min(n-1, j+u)``.
+        Entries outside the valid range are ignored.
+      lower: which form ``a_band`` uses.
+      eigvals_only: skip eigenvectors.
+      device, timer: as :func:`eigh` (the chase is "dense.band_to_tridiag",
+        the backtransform "dense.apply_q2").
+
+    Returns ``lam`` or ``(lam, V)`` with eigenvalues ascending.
+
+    u <= 1 routes straight to the tridiagonal solver.  u >= 2 runs the
+    band -> tridiagonal WAVEFRONT bulge chase (kernels/band_reduce.py) on the
+    matrix prescaled to max|A| = 1 and transforms eigenvectors back through
+    the reflector log.
+    """
+    dev = resolve_device(device if device is not None else config.device)
+    if isinstance(a_band, torch.Tensor):
+        a_band = a_band.detach().cpu().numpy()
+    a_band = np.asarray(a_band)
+    if a_band.ndim != 2 or a_band.shape[0] < 1:
+        raise ValueError("a_band must be a (u+1, n) band-storage array")
+    u = int(a_band.shape[0]) - 1
+    n = int(a_band.shape[1])
+    if n == 0:
+        raise ValueError("empty matrix")
+    timer = _run_timer(timer, dev)
+    want_vectors = not eigvals_only
+
+    def diag_k(k):
+        """Diagonal k >= 0: diag_k[j] = A[j, j+k] for j in [0, n-k)."""
+        if lower:
+            return a_band[k, : n - k]       # A[j+k, j]
+        return a_band[u - k, k:]            # A[j, j+k] stored at col j+k
+
+    if u == 0 or n == 1:
+        diag = torch.as_tensor(np.array(diag_k(0)), dtype=config.dtype).to(dev)
+        lam, order = torch.sort(diag)
+        if eigvals_only:
+            return lam
+        return lam, torch.eye(n, dtype=config.dtype, device=dev)[:, order]
+
+    if u == 1:
+        res, _ = solve_tridiagonal_staged(
+            np.array(diag_k(0)), np.array(diag_k(1)), config=config,
+            compute_vectors=want_vectors, timer=timer, device=dev)
+        if eigvals_only:
+            return res.eigenvalues
+        return res.eigenvalues, res.eigenvectors
+
+    # densify (host-side, cheap relative to the chase) for the general case
+    A = np.zeros((n, n), dtype=a_band.dtype)
+    np.fill_diagonal(A, diag_k(0))
+    for k in range(1, min(u, n - 1) + 1):
+        idx = np.arange(n - k)
+        A[idx, idx + k] = diag_k(k)
+        A[idx + k, idx] = diag_k(k)
+    B = torch.as_tensor(A, dtype=config.dtype).to(dev)
+    # prescale to O(1): reflectors are scale-invariant
+    s = torch.clamp(B.abs().max(), min=1e-30)
+    with timer.phase("dense.band_to_tridiag"):
+        d, e, vlog = band_to_tridiag_wave(B / s, u, want_log=want_vectors)
+        del B
+    res, _ = solve_tridiagonal_staged(d, e, config=config,
+                                      compute_vectors=want_vectors,
+                                      timer=timer, device=dev)
+    if eigvals_only:
+        return res.eigenvalues * s
+    with timer.phase("dense.apply_q2"):
+        V = apply_q2_wave_blocked(n, u, vlog, res.eigenvectors)
+    return res.eigenvalues * s, V
 
 
 def residuals(d, e, result: EighTridiagonalResult, select=None,

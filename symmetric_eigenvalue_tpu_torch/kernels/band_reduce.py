@@ -1,0 +1,408 @@
+"""Two-stage SBR: dense symmetric -> banded -> tridiagonal, and back.
+
+Port of ``symmetric_eigenvalue_tpu/kernels/band_reduce.py``.
+
+  stage 1 (:func:`reduce_to_band`):  A -> B banded with bandwidth b, via QR
+      panels: for each block column k (offset o = k*b) a Householder QR of
+      the panel A[o+b:, o:o+b] (the only column-sequential part; each step
+      touches a b x m strip), then the two-sided block update
+      A <- H^T A H, H = I - Y T Y^T, as three GEMMs (A@Y, small Gram, fused
+      symmetric rank-2b update) through :func:`dword_matmul`.
+  stage 2 (:func:`band_to_tridiag_wave`): B -> tridiagonal by wavefront bulge
+      chasing: O(n^2 b) work on small windows, Theta(n) batched steps.
+
+Reflectors of stage 1 are ROWS of Yt (row c = reflector annihilating column c
+below the band; unit at c+b) with scalar taus, the convention of
+``tridiagonalize.Vt`` shifted by b, so ``tridiagonalize.apply_q`` applies Q1
+to eigenvector blocks unchanged (panel=b).
+
+The wave schedules depend only on (n, b).  PyTorch runs eagerly, so each
+wave works on exactly its live slots (taken from the schedule on the host):
+there is no parking window, one indexed write per wave, and no environment
+variable selects a variant.  No step reads a value back to the host.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .dword_matmul import dword_matmul
+from .tridiagonalize import _householder, _larft
+
+
+def _reduce_block(As, ncols: int, b: int, want_reflectors: bool = True):
+    """Blocked band reduction of the FIRST ``ncols`` columns (whole panels of
+    ``b``) of the trailing symmetric submatrix ``As`` (m, m), local coords,
+    updating ``As`` in place.
+
+    Returns (Ytb (ncols, m), taus (ncols,)); reflector for local column c has
+    zeros at entries < c + b and unit at c + b.
+    """
+    m = As.shape[0]
+    Ytb = As.new_zeros((ncols if want_reflectors else 0, m))
+    taus = As.new_zeros((ncols,))
+    for o in range(0, ncols, b):
+        # --- panel QR: Householder columns of As[o+b:, o:o+b] -----------
+        # Pt[j] = (current) column o+j of As, reflectors applied immediately
+        # to the remaining panel columns (one-sided)
+        Pt = As[:, o:o + b].T.contiguous()        # rows: panel columns
+        Yp = Ytb[o:o + b] if want_reflectors else As.new_zeros((b, m))
+        tp = taus[o:o + b]
+        for j in range(b):
+            u = o + b + j                          # unit position
+            if u >= m:
+                break                              # identity reflectors
+            v, tau, _ = _householder(Pt[j], u - 1, out=Yp[j])
+            # apply (I - tau v v^T) to the remaining panel columns
+            w = Pt @ v                             # (b,)
+            Pt.addr_(w.mul_(tau), v, alpha=-1.0)
+            tp[j] = tau
+
+        # --- two-sided block update  As <- (I - Y T Y^T)^T As (I - Y T Y^T)
+        T = _larft(Yp, tp)                         # (b, b) upper
+        YpT = Yp.T.contiguous()
+        P_ = dword_matmul(As, YpT)                 # (m, b) = As Y
+        S = dword_matmul(Yp, P_)                   # (b, b) = Y^T As Y
+        W = P_ @ T - 0.5 * (YpT @ (T.T @ S @ T))   # (m, b)
+        # As -= Y W^T + W Y^T  as one fused (m, 2b) x (2b, m) GEMM
+        As.sub_(dword_matmul(torch.cat([YpT, W], dim=1),
+                             torch.cat([W.T, Yp], dim=0)))
+    return Ytb, taus
+
+
+def reduce_to_band(A, band: int = 128, buckets: int = 1,
+                   want_reflectors: bool = True):
+    """A (n, n) symmetric -> (B (n, n) banded, Yt (n, n), taus (n,)).
+
+    B = Q1^T A Q1 with bandwidth ``band`` (entries |i-j| > band are ~0);
+    Q1 = H_0 H_1 ... where H_c = I - tau_c y_c y_c^T, y_c = Yt[c, :]
+    (zero at entries < c + band, unit at c + band).  A is not modified.
+
+    ``buckets``: split the panel range into chunks, each processed on the
+    shrunk trailing submatrix (one contiguous copy per bucket, as
+    ``tridiagonalize(buckets=)``): reflector support lives entirely in the
+    trailing block, so rows above it are exactly frozen, and the per-panel
+    GEMMs touch only the trailing block.  ``want_reflectors=False`` skips
+    the n^2 reflector store for eigenvalues-only callers (Yt is then a
+    (1, 1) placeholder).
+    """
+    n = A.shape[0]
+    if A.ndim != 2 or A.shape[1] != n:
+        raise ValueError(f"A must be square, got {tuple(A.shape)}")
+    b = int(band)
+    yt_shape = (n, n) if want_reflectors else (1, 1)
+    if n <= b + 1:
+        # already "banded"; no reflectors needed
+        return A.clone(), A.new_zeros(yt_shape), A.new_zeros((n,))
+
+    num_panels = max((n - 2) // b, 0)   # last <=b+1 columns are inside band
+    buckets = max(1, min(int(buckets), num_panels))
+    per = -(-num_panels // buckets)     # ceil: panels per bucket
+    cuts = [0]
+    while cuts[-1] + per * b < num_panels * b:
+        cuts.append(cuts[-1] + per * b)
+    cuts.append(num_panels * b)
+
+    B = A.new_zeros((n, n))
+    Yt = A.new_zeros(yt_shape)
+    taus = A.new_zeros((n,))
+
+    As = A.clone()
+    for c0, c1 in zip(cuts[:-1], cuts[1:]):
+        ncols = c1 - c0
+        Ytb, tb = _reduce_block(As, ncols, b, want_reflectors)
+        B[c0:c1, c0:] = As[:ncols, :]
+        if want_reflectors:
+            Yt[c0:c1, c0:] = Ytb
+        taus[c0:c1] = tb
+        As = As[ncols:, ncols:].contiguous()   # shrink to the next bucket
+
+    B[cuts[-1]:, cuts[-1]:] = As
+    # strips write rows [c0, c1) x cols [c0, n): upper-complete, but lower
+    # band entries whose column lies in an EARLIER bucket are only present
+    # as their upper mirrors; rebuild the lower triangle from the upper
+    B = torch.triu(B) + torch.triu(B, 1).T
+    return B, Yt, taus
+
+
+def _chase_schedule(n: int, b: int) -> np.ndarray:
+    """Static Givens schedule for band(b) -> tridiagonal (Schwarz chasing).
+
+    Element (i, j) of column j (eliminated bottom-up) is zeroed by a rotation
+    of rows (i-1, i); the two-sided application pushes a single bulge to
+    (i + b, i - 1), giving the data-independent chase recurrence
+    (pi, pj) -> (pi + b, pi - 1) until the band edge.  The schedule depends
+    only on (n, b).
+    """
+    sched = []
+    for j in range(n - 2):
+        for i in range(min(j + b, n - 1), j + 1, -1):
+            pi, pj = i, j
+            while pi < n:
+                sched.append((pi, pj))
+                pj = pi - 1
+                pi = pi + b
+    if not sched:
+        sched = [(1, 0)]          # degenerate; one plain 2x2 rotation
+    return np.asarray(sched, np.int64)
+
+
+def band_to_tridiag(B, band: int):
+    """Banded symmetric B (n, n) -> (d, e, rot (S, 2) c/s log).
+
+    Stage 2 by sequential Givens rotations:  T = Q2^T B Q2 with
+    Q2^T = G_S ... G_1 (G_t a rotation of rows (pi_t - 1, pi_t)).
+    CORRECTNESS TIER: one rotation per step, a few small launches each; the
+    wavefront chase (:func:`band_to_tridiag_wave`) is the working path and
+    this one its independent check at small n.
+    """
+    n = B.shape[0]
+    if n < 2:
+        return B.diagonal().clone(), B.new_zeros((0,)), B.new_zeros((1, 2))
+    sched = _chase_schedule(n, int(band))
+    A = B.clone()
+    cs = B.new_zeros((sched.shape[0], 2))
+    for t, (pi, pj) in enumerate(sched.tolist()):
+        x = A[pi - 1, pj]
+        y = A[pi, pj]
+        r = torch.hypot(x, y)
+        zero = r == 0
+        safe = torch.where(zero, 1.0, r)
+        c = torch.where(zero, 1.0, x / safe)
+        s = torch.where(zero, 0.0, -y / safe)
+        G = torch.stack([torch.stack([c, -s]), torch.stack([s, c])])
+        A[pi - 1:pi + 1, :] = G @ A[pi - 1:pi + 1, :]
+        A[:, pi - 1:pi + 1] = A[:, pi - 1:pi + 1] @ G.T
+        torch.stack((c, s), out=cs[t])
+    return A.diagonal().clone(), A.diagonal(offset=1).clone(), cs
+
+
+def apply_q2(n: int, band: int, cs, X):
+    """X <- Q2 @ X (eigenvector backtransform through the stage-2 rotations
+    of :func:`band_to_tridiag`).
+
+    Q2 = G_1^T ... G_S^T, so apply G_t^T for t = S..1 to rows
+    (pi_t - 1, pi_t) of X.  Sequential replay (correctness tier).
+    """
+    if n < 2:
+        return X
+    sched = _chase_schedule(n, int(band)).tolist()
+    X = X.clone()
+    for t in range(len(sched) - 1, -1, -1):
+        pi = sched[t][0]
+        c, s = cs[t, 0], cs[t, 1]
+        Gt = torch.stack([torch.stack([c, s]), torch.stack([-s, c])])
+        X[pi - 1:pi + 1, :] = Gt @ X[pi - 1:pi + 1, :]
+    return X
+
+
+def _wave_geometry(n: int, b: int):
+    """Static geometry shared by the wavefront chase and its backtransform."""
+    kmax_global = max((n - 3) // b, 0)
+    Kmax = kmax_global + 1            # hops per sweep, padded
+    Wmax = kmax_global // 3 + 1       # concurrent tasks per wave
+    Twaves = 3 * max(n - 3, 0) + 1
+    return Kmax, Wmax, Twaves
+
+
+def band_to_tridiag_wave(B, band: int, want_log: bool = True):
+    """Banded symmetric B (n, n) -> (d, e, (Vw, tw)) by WAVEFRONT bulge
+    chasing.
+
+    Decomposition: task (j, k) applies ONE Householder reflector on rows
+    [j+kb+1, j+(k+1)b], zeroing column (j for k=0, else j+(k-1)b+1) below the
+    band edge; each task's triangular bulge is consumed column-by-column by
+    the SUCCEEDING sweeps' same-hop tasks, so no task needs a triangular QR.
+    Wave schedule t = 3j + k: concurrent tasks sit 3b-1 apart on the
+    diagonal, with two-sided footprints (window cols [r-2b+1, r+3b-2])
+    exactly disjoint, so each wave is one batched gather / batched reflector
+    / one indexed write of the windows and their mirrors.  The live slots of
+    wave t are s = 0..W_t-1 (jj = t//3 - s, kk = t%3 + 3s; the first slot
+    that leaves the matrix ends the wave), known on the host.
+
+    Returns ``d (n,)``, ``e (n-1,)`` and the reflector log
+    ``Vw (n-1, Kmax, b)`` / ``tw (n-1, Kmax)`` (row n-2 stays zero: the
+    blocked backtransform reads it for sweeps past the last) consumed by
+    :func:`apply_q2_wave`.  ``want_log=False`` skips the ~n^2 reflector
+    store for eigenvalues-only callers (returns 1-row placeholders).
+    """
+    n = B.shape[0]
+    b = int(band)
+    dev = B.device
+    Kmax, Wmax, Twaves = _wave_geometry(n, b)
+    if n < 3 or b < 2:
+        Vw = B.new_zeros((max(n - 1, 1), Kmax, max(b, 1)))
+        tw = B.new_zeros((max(n - 1, 1), Kmax))
+        return B.diagonal().clone(), B.diagonal(offset=1).clone(), (Vw, tw)
+
+    OFF = 2 * b                       # live region offset in the padded array
+    NP = n + 5 * b                    # every window stays inside
+    W5 = 5 * b - 2
+    P = B.new_zeros((NP, NP))
+    P[OFF:OFF + n, OFF:OFF + n] = B
+    nlog = n - 1 if want_log else 1
+    Vw = B.new_zeros((nlog, Kmax, b))
+    tw = B.new_zeros((nlog, Kmax))
+
+    # the whole schedule, once, on the host: (Twaves, Wmax) task indices
+    t_ar = np.arange(Twaves)[:, None]
+    s_ar = np.arange(Wmax)[None, :]
+    jj_np = t_ar // 3 - s_ar
+    kk_np = (t_ar % 3) + 3 * s_ar
+    valid = (jj_np >= 0) & (jj_np + kk_np * b + 2 <= n - 1)
+    live = valid.sum(axis=1)          # valid slots form a prefix of each wave
+    jj_all = torch.as_tensor(jj_np, device=dev)
+    kk_all = torch.as_tensor(kk_np, device=dev)
+    rp_all = jj_all + kk_all * b + (1 + OFF)
+    off_all = torch.where(kk_all == 0, 2 * b - 2, b - 1)
+    rowr = torch.arange(b, device=dev)
+    colr = torch.arange(W5, device=dev) - (2 * b - 1)
+
+    for t in range(Twaves):
+        W = int(live[t])
+        if W == 0:
+            continue
+        rp = rp_all[t, :W]
+        off = off_all[t, :W, None, None].expand(W, b, 1)
+        rows_idx = rp[:, None] + rowr                     # (W, b)
+        cols_idx = rp[:, None] + colr                     # (W, W5)
+        S = P[rows_idx[:, :, None], cols_idx[:, None, :]]  # (W, b, W5)
+
+        x = torch.gather(S, 2, off)[..., 0]               # (W, b)
+        x0 = x[:, 0]
+        sigma2 = (x[:, 1:] * x[:, 1:]).sum(dim=1)
+        nrm = torch.sqrt(x0 * x0 + sigma2)
+        beta = torch.where(x0 >= 0, -nrm, nrm)        # sign avoids cancellation
+        no_op = sigma2 == 0.0
+        denom = torch.where(no_op, 1.0, x0 - beta)
+        v = x / denom[:, None]
+        v[:, 0] = ~no_op
+        tau = torch.where(no_op, 0.0,
+                          (beta - x0) / torch.where(no_op, 1.0, beta))
+        beta_out = torch.where(no_op, x0, beta)
+
+        # two-sided update of the strip:  S <- H S, then the (R, R) diagonal
+        # block (local cols [2b-1, 3b-1)) gets the right application too
+        w1 = tau[:, None] * torch.bmm(v[:, None, :], S)[:, 0]       # (W, W5)
+        S.baddbmm_(v[:, :, None], w1[:, None, :], alpha=-1.0)
+        D = S[:, :, 2 * b - 1: 3 * b - 1]
+        w2 = tau[:, None] * torch.bmm(D, v[:, :, None])[..., 0]     # (W, b)
+        D.baddbmm_(w2[:, :, None], v[:, None, :], alpha=-1.0)
+        # exact-zero bookkeeping (the disjointness proof is structural)
+        newcol = torch.zeros_like(x)
+        newcol[:, 0] = beta_out
+        S.scatter_(2, off, newcol[:, :, None])
+
+        # in-wave windows are exactly disjoint; the mirror goes second, so
+        # the (R, R) block ends as its transpose, as in the JAX package
+        P[rows_idx[:, :, None], cols_idx[:, None, :]] = S
+        P[cols_idx[:, :, None], rows_idx[:, None, :]] = S.transpose(1, 2)
+
+        if want_log:
+            Vw[jj_all[t, :W], kk_all[t, :W]] = v
+            tw[jj_all[t, :W], kk_all[t, :W]] = tau
+    d = P.diagonal()[OFF:OFF + n].clone()
+    e = P.diagonal(offset=1)[OFF:OFF + n - 1].clone()
+    return d, e, (Vw, tw)
+
+
+def apply_q2_wave(n: int, band: int, vlog, X):
+    """X <- Q2 @ X through the wavefront reflector log of
+    :func:`band_to_tridiag_wave`, one sweep per step.
+
+    Within a sweep the hops' row ranges [j+kb+1, j+(k+1)b] are disjoint, so a
+    whole sweep applies as ONE batched rank-1 block update; sweeps apply in
+    descending j (sweep-major order is a valid linearization of the task
+    dependence order, hence yields the same Q2 product as wave order).
+    Bandwidth-bound reference for :func:`apply_q2_wave_blocked`.
+    """
+    b = int(band)
+    Vw, tw = vlog
+    if n < 3 or b < 2:
+        return X
+    dev = X.device
+    Xp = X.new_zeros((n + b, X.shape[1]))
+    Xp[:n] = X
+    rows0 = (torch.arange(_wave_geometry(n, b)[0], device=dev) * b + 1)[
+        :, None] + torch.arange(b, device=dev)            # (Kmax, b), j = 0
+    for j in range(n - 3, -1, -1):
+        hops = (n - 3 - j) // b + 1                       # valid k: a prefix
+        rows_idx = rows0[:hops] + j
+        v = Vw[j, :hops]                                  # (hops, b)
+        G = Xp[rows_idx]                                  # (hops, b, C)
+        w = tw[j, :hops, None] * torch.bmm(v[:, None, :], G)[:, 0]
+        Xp[rows_idx] = G.baddbmm_(v[:, :, None], w[:, None, :], alpha=-1.0)
+    return Xp[:n].clone()
+
+
+def apply_q2_wave_blocked(n: int, band: int, vlog, X):
+    """X <- Q2 @ X at GEMM rate: compact-WY blocks over the wavefront log.
+
+    g = b consecutive sweeps' SAME-HOP reflectors, which live in a
+    (2b-1)-row window shifted one row per sweep, form one compact-WY block
+    B(J, k) = I - Y T Y^T (Y: (2b-1, b), T upper triangular via the LAPACK
+    identity T^{-1} = diag(1/tau) + striu(Y^T Y)).
+
+    Valid reordering: blocks commute unless |window offset| < 2b-1; ordering
+    Q2 = prod_{J asc} prod_{k desc} B(J, k) only swaps disjoint-window
+    factors of the sweep-major product.  Application is the reverse (J desc,
+    k asc) scheduled as a wavefront wave(J, k) = k + 2*(nJ-1-J): concurrent
+    blocks sit exactly 3b rows apart (disjoint), and every conflicting pair
+    lands on earlier waves.  Theta(n/b) steps; each wave's three products
+    are batched :func:`dword_matmul` launches over its blocks.  Blocks whose
+    first reflector already lies outside the matrix are identities and are
+    left out on the host.
+    """
+    b = int(band)
+    Vw, tw = vlog
+    if n < 3 or b < 2:
+        return X
+    dev = X.device
+    Kmax, _, _ = _wave_geometry(n, b)
+    g = b
+    h = b + g - 1
+    nJ = -(-(n - 2) // g)                 # ceil: sweeps 0..n-3 in chunks of g
+    Twaves = Kmax + 2 * nJ - 2
+
+    Xp = X.new_zeros((n + 2 * h, X.shape[1]))
+    Xp[:n] = X
+    gr = torch.arange(g, device=dev)
+    hr = torch.arange(h, device=dev)
+    place_cols = gr[:, None] + torch.arange(b, device=dev)[None, :]  # (g, b)
+    eye_g = torch.eye(g, dtype=X.dtype, device=dev)
+    striu_mask = (gr[:, None] < gr[None, :]).to(X.dtype)
+
+    for w in range(Twaves):
+        # blocks of this wave: k = w - 2s, J = nJ-1-s, inside the log and
+        # with at least their first reflector inside the matrix
+        s_np = np.arange(max(0, (w - Kmax + 2) // 2), w // 2 + 1)
+        J_np = nJ - 1 - s_np
+        k_np = w - 2 * s_np
+        keep = ((J_np >= 0) & (k_np >= 0) & (k_np <= Kmax - 1)
+                & (J_np * g + k_np * b + 2 <= n - 1))
+        if not keep.any():
+            continue
+        J = torch.as_tensor(J_np[keep], device=dev)
+        k = torch.as_tensor(k_np[keep], device=dev)
+        S = int(J.shape[0])
+        base = J * g + k * b + 1
+        jrows = torch.clamp(J[:, None] * g + gr[None, :], 0, n - 2)   # (S, g)
+        Vblk = Vw[jrows, k[:, None]]                       # (S, g, b)
+        tblk = tw[jrows, k[:, None]]                       # (S, g)
+
+        Z = X.new_zeros((S, g, h))
+        Z[:, gr[:, None], place_cols] = Vblk
+        Y = Z.transpose(1, 2).contiguous()                 # (S, h, g)
+        Sg = torch.bmm(Z, Y)
+        nz = tblk != 0
+        inv_tau = torch.where(nz, 1.0 / torch.where(nz, tblk, 1.0), 1.0)
+        Tinv = Sg * striu_mask + eye_g * inv_tau[:, :, None]
+        Tm = torch.linalg.solve_triangular(
+            Tinv, eye_g.expand(S, g, g), upper=True)
+
+        rows_idx = base[:, None] + hr[None, :]             # (S, h)
+        G = Xp[rows_idx]                                   # (S, h, C)
+        W2 = dword_matmul(Tm, dword_matmul(Z, G))          # (S, g, C)
+        Xp[rows_idx] = G.sub_(dword_matmul(Y, W2))
+    return Xp[:n].clone()

@@ -16,6 +16,7 @@ import symmetric_eigenvalue_tpu_torch as st
 from symmetric_eigenvalue_tpu_torch.kernels import cauchy_matmul as cm
 from symmetric_eigenvalue_tpu_torch.kernels import cauchy_rowsum as cr
 from symmetric_eigenvalue_tpu_torch.kernels import dword_matmul as dm
+from symmetric_eigenvalue_tpu_torch.kernels import dword_matvec as dv
 from symmetric_eigenvalue_tpu_torch.kernels import secular_sums as ss
 from symmetric_eigenvalue_tpu_torch.kernels import spike_solve as sp
 
@@ -68,11 +69,22 @@ def test_cuda_request_without_cuda_raises(monkeypatch):
     # the default (mixed-precision) config as well
     with pytest.raises(RuntimeError, match="device='cpu'"):
         st.solve_tridiagonal_staged(d, e, compute_vectors=True)
+    # the dense and banded entry points
+    A = np.eye(8) + np.diag(e, 1) + np.diag(e, -1)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        st.eigh(A)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        st.eigh(A, band=2, eigvals_only=True)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        st.eigh_banded(np.ones((3, 8)))
+    with pytest.raises(RuntimeError):
+        st.eigh_banded(np.ones((1, 8)), device="cuda")
 
 
 def _counts():
     return (ss.launches, cr.launches, dm.launches, cm.matmul_launches,
-            cm.materialize_launches, sp.pass_a_launches, sp.pass_b_launches)
+            cm.materialize_launches, sp.pass_a_launches, sp.pass_b_launches,
+            dv.launches)
 
 
 def test_cpu_tensors_count_no_launches(rng):
@@ -92,7 +104,13 @@ def test_cpu_tensors_count_no_launches(rng):
         compute_vectors=True, device="cpu")
     assert res.eigenvectors.device.type == "cpu"
     assert "bt.refine_pass1" in timer.times
-    assert _counts() == before == (0,) * 7
+    # the dense front ends: one-stage, two-stage and banded
+    A = rng.standard_normal((40, 40))
+    lam, V = st.eigh(A + A.T, device="cpu")
+    assert V.device.type == "cpu"
+    st.eigh(A + A.T, band=4, device="cpu")
+    st.eigh_banded(np.ones((4, 40)), device="cpu")
+    assert _counts() == before == (0,) * 8
 
 
 def test_non_cpu_tensors_never_take_the_plain_version():
@@ -109,6 +127,7 @@ def test_non_cpu_tensors_never_take_the_plain_version():
         "cauchy_rowsum": lambda: cr.cauchy_rowsum(
             *v[:3], torch.empty((k, 2, m), **f64)),
         "dword_matmul": lambda: dm.dword_matmul(v[0], v[1].T),
+        "dword_vecmat": lambda: dv.dword_vecmat(v[0][0], v[1].T),
         "cauchy_matmul": lambda: cm.cauchy_matmul(
             *v, torch.empty((k, m, C), dtype=torch.float32, device="meta"),
             torch.empty(k, **i64)),
