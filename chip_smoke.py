@@ -2,6 +2,9 @@
 """Drive the PyTorch/CUDA port once on one GPU and check it.
 
 Run from the repository root:  python3 chip_smoke.py
+With ``--only dword_matmul,cauchy_matmul`` (any of the eight kernels' names)
+it builds those kernels' sources, runs phase 3 for them alone, held to the
+same limits, and stops: half a minute for work on one kernel.
 
 Phases, each printing one JSON line; any failure raises and the script
 exits non-zero:
@@ -11,7 +14,11 @@ exits non-zero:
                process per source, all at once)
   3. kernels   each kernel against its plain PyTorch version on the card at
                the shapes its path gives it: time, plain time, library time,
-               bound, error and tolerance
+               bound, error and tolerance; dword_matmul also at a ragged
+               shape, batched, and in its fused form C -= A @ B on a strided
+               view, with its split-K plan; cauchy_matmul also against the
+               plain emulation of its TF32 split, against an f64 product,
+               and at denominators outside the normal range
   4. solve     the main path: solve_tridiagonal_staged with the default
                (mixed-precision) SolverConfig, n=16384 random (bench.py's
                input, seed 0), all eigenpairs, cold then three times
@@ -45,6 +52,7 @@ torch.cuda.is_available() is False.  Imports nothing of JAX.
 
 from __future__ import annotations
 
+import argparse
 import contextlib
 import json
 import subprocess
@@ -75,10 +83,12 @@ N = 16384
 N_TWO_STAGE = 4096
 SEED = 0
 # NVIDIA H100 SXM data sheet (dense, at the 700 W limit): FP64 on the tensor
-# cores (DMMA) and on the CUDA cores, FP32 on the CUDA cores, the HBM3 rate
+# cores (DMMA) and on the CUDA cores, FP32 on the CUDA cores, TF32 on the
+# tensor cores, the HBM3 rate
 PEAK_FP64_TENSOR = 67e12
 PEAK_FP64 = 34e12
 PEAK_FP32 = 67e12
+PEAK_TF32_TENSOR = 495e12
 PEAK_BYTES = 3.35e12
 
 REPLACES = {
@@ -102,6 +112,7 @@ REPLACES = {
 SOURCES = {"spike_pass_a": "spike_solve", "spike_pass_b": "spike_solve",
            "cauchy_materialize": "cauchy_matmul",
            "dword_vecmat": "dword_matvec"}
+KERNEL_NAMES = tuple(REPLACES)
 
 
 def emit(obj) -> None:
@@ -235,16 +246,63 @@ def check_dword_matmul(k, M, K, N, reps):
     scale = torch.matmul(A.abs(), B.abs())
     err = float(((got - ref).abs() / scale).max())
     abs_err = float((got - ref).abs().max())
-    del scale
+    same = bool(torch.equal(got, dm.dword_matmul(A, B)))
+    del scale, got, ref
     ms = time_ms(lambda: dm.dword_matmul(A, B), reps)
     plain = time_ms(lambda: dm.dword_matmul_plain(A, B), reps)
     library = time_ms(lambda: torch.matmul(A, B), reps)
     b_ms, b_by = bound(2.0 * k * M * N * K, PEAK_FP64_TENSOR,
                        8.0 * k * (M * K + K * N + M * N))
+    plan = dm.split_plan(k, M, N, K)
     return dict(k=k, M=M, K=K, N=N, max_rel_err=err, tol=1e-12,
-                max_abs_err=abs_err, ms=ms,
+                tol_of="(|A| @ |B|) per entry", max_abs_err=abs_err,
+                run_to_run_identical=same, tile_rows=plan.tile_rows,
+                splits=plan.splits, blocks=plan.blocks, ms=ms,
                 plain_ms=plain, library_ms=library, bound_ms=b_ms,
                 bound_by=b_by)
+
+
+def check_dword_matmul_sub(M, K, N, offset, reps):
+    """The fused trailing update C -= A @ B with C a view of a larger
+    matrix (``offset`` rows and columns in: a bucket of the dense
+    reduction), against C.sub_(A @ B)."""
+    g = torch.Generator(device="cuda").manual_seed(11)
+    A = torch.randn((M, K), dtype=torch.float64, device="cuda", generator=g)
+    B = torch.randn((K, N), dtype=torch.float64, device="cuda", generator=g)
+    base = torch.randn((M + offset, N + offset), dtype=torch.float64,
+                       device="cuda", generator=g)
+    C = base[offset:, offset:]
+    want = dm.dword_matmul_sub_plain_(C.clone(), A, B)
+    before = base.clone()
+    require(dm.dword_matmul_sub_(C, A, B).data_ptr() == C.data_ptr(),
+            "dword_matmul_sub_ is not in place")
+    first = C.clone()
+    scale = torch.matmul(A.abs(), B.abs()).add_(before[offset:, offset:].abs())
+    diff = (first - want).abs()
+    err = float((diff / scale).max())
+    abs_err = float(diff.max())
+    # nothing outside the view was touched
+    outside = bool(torch.equal(base[:offset], before[:offset])
+                   and torch.equal(base[:, :offset], before[:, :offset]))
+    del scale, diff, want
+    base.copy_(before)
+    same = bool(torch.equal(dm.dword_matmul_sub_(C, A, B), first))
+    del before, first
+    ms = time_ms(lambda: dm.dword_matmul_sub_(C, A, B), reps)
+    plain = time_ms(lambda: dm.dword_matmul_sub_plain_(C, A, B), reps)
+    product = time_ms(lambda: torch.matmul(A, B), reps)
+    b_ms, b_by = bound(2.0 * M * N * K, PEAK_FP64_TENSOR,
+                       8.0 * (M * K + K * N + 2 * M * N))
+    plan = dm.split_plan(1, M, N, K)
+    return dict(form="C -= A @ B", M=M, K=K, N=N, view_offset=offset,
+                row_stride=C.stride(0), max_rel_err=err, tol=1e-12,
+                tol_of="(|C| + |A| @ |B|) per entry", max_abs_err=abs_err,
+                outside_view_untouched=outside, run_to_run_identical=same,
+                tile_rows=plan.tile_rows, splits=plan.splits, ms=ms,
+                plain_ms=plain, library_ms=plain,
+                library_is="C.sub_(torch.matmul(A, B)): the product "
+                "written out, then subtracted", library_product_ms=product,
+                bound_ms=b_ms, bound_by=b_by)
 
 
 def check_dword_vecmat(m, zeros, sliced, reps):
@@ -319,16 +377,26 @@ def check_cauchy_matmul(k, m, C, kact, reps):
     args = (poles, shift, tau, zhat, ninv, X, K)
     got = cm.cauchy_matmul(*args)
     ref = cm.cauchy_matmul_plain(*args)
+    emu = cm.cauchy_matmul_split_plain(*args)
     # per entry, the scale of an f32 sum in another order: |M| @ |X|
     Mf = torch.where(torch.arange(m, device="cuda")[None, None, :]
                      < K[:, None, None],
                      cm._cauchy_block(poles, shift, tau, zhat, ninv),
                      torch.zeros((), device="cuda"))
-    scale = torch.bmm(Mf.abs(), X.abs())
+    scale = torch.clamp(torch.bmm(Mf.abs(), X.abs()), min=1e-30)
     diff = (got - ref).abs()
-    err = float((diff / torch.clamp(scale, min=1e-30)).max())
+    err = float((diff / scale).max())
     abs_err = float(diff.max())
-    del scale, diff
+    err_emu = float(((got - emu).abs() / scale).max())
+    # all three against the f64 product of the same f32 entries (the first
+    # merge, a few hundred columns): the kernel's grade between the full-f32
+    # product and the emulated split
+    cols = slice(0, min(C, 512))
+    exact = torch.matmul(Mf[0].double(), X[0, :, cols].double())
+    vs_f64 = [float(((y[0, :, cols].double() - exact).abs()
+                     / scale[0, :, cols]).max()) for y in (got, ref, emu)]
+    same = bool(torch.equal(got, cm.cauchy_matmul(*args)))
+    del scale, diff, exact, emu
     # the deflation skip is exact: the same call over all m slots agrees
     full = cm.cauchy_matmul(poles, shift, tau, zhat, ninv, X,
                             torch.full_like(K, m))
@@ -338,15 +406,60 @@ def check_cauchy_matmul(k, m, C, kact, reps):
     ms = time_ms(lambda: cm.cauchy_matmul(*args), reps)
     plain = time_ms(lambda: cm.cauchy_matmul_plain(*args), max(1, reps // 2))
     library = time_ms(lambda: torch.bmm(Mf, X), reps)
+    # three TF32 passes on the tensor cores; the earlier design's bound was
+    # one pass of FP32 on the CUDA cores
     ops = 2.0 * k * kact * m * C
     nbytes = 8.0 * 5 * k * m + 4.0 * k * kact * C + 4.0 * k * m * C
-    b_ms, b_by = bound(ops, PEAK_FP32, nbytes)
+    b_ms, b_by = bound(3.0 * ops, PEAK_TF32_TENSOR, nbytes)
+    simt_ms, _ = bound(ops, PEAK_FP32, nbytes)
     return dict(k=k, m=m, C=C, K=kact, max_rel_err=err, tol=1e-5,
                 tol_of="|M|@|X| per entry", skip_bit_exact=skip_exact,
+                run_to_run_identical=same,
+                kernel_vs_split_emulation=err_emu, tol_vs_emulation=6e-6,
+                tol_vs_emulation_why="the same split words and the same "
+                "three products: only the order and the rounding of the f32 "
+                "sums differ",
+                kernel_vs_f64=vs_f64[0], plain_vs_f64=vs_f64[1],
+                split_emulation_vs_f64=vs_f64[2],
                 max_abs_err=abs_err, ms=ms, plain_ms=plain,
                 library_ms=library, library_is="torch.bmm of the pre-built "
-                "f32 M with X (the product alone)",
-                bound_ms=b_ms, bound_by=b_by)
+                "f32 M with X (full f32, the product alone)",
+                bound_ms=b_ms, bound_by=b_by,
+                bound_is="3 TF32 passes on the tensor cores",
+                fp32_simt_bound_ms=simt_ms)
+
+
+def check_cauchy_matmul_edges(m, C):
+    """Denominators that no merge gives: zero, subnormal, subnormal under a
+    zero numerator, infinite.  The kernel's quotient is a reciprocal
+    approximation with a Newton step, which would make NaN of all four; it
+    must take the division there, as the plain version does: Y is finite
+    exactly where the plain version's is, and agrees with it there."""
+    g = np.random.default_rng(12)
+    poles, shift, tau, zhat, ninv = _merge_data(g, 1, m)
+    # shift_i = pole_i, so entry (i, i) has the denominator -tau_i
+    tau[0, 3] = 0.0                      # z / 0: row 3 is not finite
+    tau[0, 10] = 5e-324                  # the quotient overflows: nor row 10
+    tau[0, 20], zhat[0, 20] = 1e-310, 0.0   # 0 / subnormal = 0: finite
+    tau[0, 30] = float("inf")            # z / inf = 0 down slot 30: finite
+    K = torch.full((1,), m, dtype=torch.int64, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    X = torch.randn((1, m, C), dtype=torch.float32, device="cuda",
+                    generator=gen)
+    args = (poles, shift, tau, zhat, ninv, X, K)
+    got = cm.cauchy_matmul(*args)
+    ref = cm.cauchy_matmul_plain(*args)
+    fin = torch.isfinite(ref)
+    Mf = cm._cauchy_block(poles, shift, tau, zhat, ninv)
+    Mf = torch.where(torch.isfinite(Mf), Mf, torch.zeros((), device="cuda"))
+    scale = torch.clamp(torch.bmm(Mf.abs(), X.abs()), min=1e-30)
+    diff = torch.where(fin, got - ref, torch.zeros((), device="cuda")).abs()
+    return dict(k=1, m=m, C=C, K=m, edge_denominators=True,
+                max_rel_err=float((diff / scale).max()), tol=1e-5,
+                tol_of="|M|@|X| per entry, where the plain version is finite",
+                max_abs_err=float(diff.max()),
+                nonfinite_as_plain=bool(torch.equal(torch.isfinite(got), fin)),
+                nonfinite_rows=int((~fin).any(dim=2).sum()))
 
 
 def check_cauchy_materialize(m, C, kact, reps):
@@ -639,7 +752,114 @@ def upper_band_storage(A, u: int):
     return ab
 
 
-def main() -> int:
+def kernel_table(d, e, ref):
+    """For every kernel, a function that runs its checks and returns their
+    rows, each kernel against its plain version at the shapes its path
+    gives it: secular_sums at the root level (k=1, all m roots) and the
+    bottom level (k=256 merges of m=64); cauchy_rowsum at the widest
+    non-root level; dword_matmul at the m=8192 level's f64 GEMM;
+    cauchy_matmul at the m=8192 level (all slots active, and 1/8 of them:
+    the deflation skip) and the bottom level (k=256, m=64) with a full
+    vec_chunk of 8192 columns; cauchy_materialize at the root (m=16384,
+    8192 columns); the Spike passes at one refinement chunk (n=16384,
+    nb=128, K=2048) of the prescaled system of (d, e), whose spectrum is
+    ``ref``."""
+    spike = []
+
+    def spike_rows(which):
+        if not spike:
+            ds, es, snorm = _prescale(*(torch.as_tensor(a, device="cuda")
+                                        for a in (d, e)))
+            lam = ref / float(snorm)
+            spike.extend(check_spike(ds, es, lam, 128, 2048, s, 5)
+                         for s in ("random", "eigenvalues"))
+        return [pair[which] for pair in spike]
+
+    return {
+        "secular_sums": lambda: [check_secular_sums(1, N, 10),
+                                 check_secular_sums(256, 64, 50)],
+        "cauchy_rowsum": lambda: [check_cauchy_rowsum(2, 8192, 20)],
+        # after the f64 downsweep's GEMM, the dense front end's skinny
+        # shapes: a 32-row panel's Gram over K=16384, and the rank-2k
+        # trailing update of the first bucket;
+        # then a ragged shape (odd everywhere, split-K), a wave of
+        # apply_q2_wave_blocked's batched reflector blocks (n=4096, band
+        # 128), and the fused trailing update on a strided bucket view
+        "dword_matmul": lambda: [
+            check_dword_matmul(2, 2048, 8192, 8192, 5),
+            check_dword_matmul(1, 32, 16384, 32, 50),
+            check_dword_matmul(1, 16384, 64, 16384, 3),
+            check_dword_matmul(1, 1000, 4001, 777, 20),
+            check_dword_matmul(16, 128, 255, 4096, 20),
+            check_dword_matmul_sub(16384, 64, 16384, 64, 3),
+            check_dword_matmul_sub(1000, 4001, 777, 3, 20)],
+        # after the level shapes, denominators outside the normal range in
+        # both tile shapes
+        "cauchy_matmul": lambda: [
+            check_cauchy_matmul(2, 8192, 8192, 8192, 3),
+            check_cauchy_matmul(2, 8192, 8192, 1024, 5),
+            check_cauchy_matmul(256, 64, 8192, 64, 10),
+            check_cauchy_matmul_edges(256, 200),
+            check_cauchy_matmul_edges(64, 200)],
+        "cauchy_materialize": lambda: [
+            check_cauchy_materialize(N, 8192, 12000, 10)],
+        "spike_pass_a": lambda: spike_rows(0),
+        "spike_pass_b": lambda: spike_rows(1),
+        # dword_vecmat at the first and the last bucket's width of the
+        # n=16384 reduction, full height and as the reduction calls it
+        # (rows below the reflector's zeros only), and at an odd width
+        # (ragged against every tile size, odd stride)
+        "dword_vecmat": lambda: [
+            check_dword_vecmat(N, N // 8, False, 20),
+            check_dword_vecmat(4096, 512, False, 50),
+            check_dword_vecmat(N, N // 8, True, 20),
+            check_dword_vecmat(4096, 512, True, 50),
+            check_dword_vecmat(4001, 333, True, 50)],
+    }
+
+
+def run_kernel_checks(table, names):
+    """Run the checks of the kernels in ``names``, print one line per row
+    and hold every row to its limits; returns {kernel: rows}."""
+    checks = {}
+    for name in KERNEL_NAMES:
+        if name not in names:
+            continue
+        checks[name] = table[name]()
+        for row in checks[name]:
+            emit({"phase": "kernel_check", "kernel": name, **row})
+            require(row["max_rel_err"] <= row["tol"],
+                    f"{name} disagrees with its plain version: {row}")
+            require(row.get("skip_bit_exact", True),
+                    f"{name}: the deflation skip changed the result: {row}")
+            require(row.get("identity_exact", True),
+                    f"{name}: identity columns not exact: {row}")
+            require(row.get("run_to_run_identical", True),
+                    f"{name}: two runs on the same input differ: {row}")
+            require(row.get("outside_view_untouched", True),
+                    f"{name}: wrote outside the view it was given: {row}")
+            require(row.get("kernel_vs_split_emulation", 0.0)
+                    <= row.get("tol_vs_emulation", 0.0),
+                    f"{name} disagrees with the split emulation: {row}")
+            require(row.get("nonfinite_as_plain", True)
+                    and row.get("nonfinite_rows", 2) == 2,
+                    f"{name}: not finite where its plain version is, or "
+                    f"the reverse: {row}")
+            if "refine_rel_err" in row:
+                require(row["refine_rel_err"] <= row["tol"],
+                        f"{name}: spike_refine disagrees: {row}")
+    return checks
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--only", metavar="KERNEL[,KERNEL...]", default="",
+                    help="build and check only these kernels "
+                    f"({', '.join(KERNEL_NAMES)}), then stop: no solve, and "
+                    "not the final line of a whole run")
+    only = [k for k in ap.parse_args(argv).only.split(",") if k]
+    if set(only) - set(KERNEL_NAMES):
+        ap.error(f"--only takes names from {', '.join(KERNEL_NAMES)}")
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
               "needs a CUDA card", file=sys.stderr)
@@ -659,72 +879,25 @@ def main() -> int:
 
     # 2. build (one nvcc per source, all at once)
     t0 = time.perf_counter()
-    reports = _build.build_all()
+    reports = _build.build_all(sorted({SOURCES.get(k, k) for k in only})
+                               or _build.KERNELS)
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "built": sorted(reports), "ptxas": {
               name: [ln.strip() for ln in rep.splitlines()
                      if "Used" in ln or "spill" in ln]
               for name, rep in reports.items()}})
 
-    # the main path's input, its prescaled system and a reference spectrum
+    # the main path's input and a reference spectrum
     d, e = random_matrix(N, SEED)
     ref = scipy.linalg.eigvalsh_tridiagonal(d, e)
     norm_ref = float(np.abs(ref).max())
-    dt, et = (torch.as_tensor(a, device="cuda") for a in (d, e))
-    ds, es, snorm = _prescale(dt, et)
-    lam_scaled = ref / float(snorm)
 
-    # 3. each kernel against its plain version at the main path's shapes:
-    # secular_sums at the root level (k=1, all m roots) and the bottom level
-    # (k=256 merges of m=64); cauchy_rowsum at the widest non-root level;
-    # dword_matmul at the m=8192 level's f64 GEMM; cauchy_matmul at the
-    # m=8192 level (all slots active, and 1/8 of them: the deflation skip)
-    # and the bottom level (k=256, m=64) with a full vec_chunk of 8192
-    # columns; cauchy_materialize at the root (m=16384, 8192 columns); the
-    # Spike passes at one refinement chunk (n=16384, nb=128, K=2048)
-    checks = {
-        "secular_sums": [check_secular_sums(1, N, 10),
-                         check_secular_sums(256, 64, 50)],
-        "cauchy_rowsum": [check_cauchy_rowsum(2, 8192, 20)],
-        # after the f64 downsweep's GEMM, the dense front end's skinny
-        # shapes: a 32-row panel's Gram over K=16384, and the rank-2k
-        # trailing update of the first bucket
-        "dword_matmul": [check_dword_matmul(2, 2048, 8192, 8192, 5),
-                         check_dword_matmul(1, 32, 16384, 32, 20),
-                         check_dword_matmul(1, 16384, 64, 16384, 3)],
-        "cauchy_matmul": [check_cauchy_matmul(2, 8192, 8192, 8192, 3),
-                          check_cauchy_matmul(2, 8192, 8192, 1024, 5),
-                          check_cauchy_matmul(256, 64, 8192, 64, 10)],
-        "cauchy_materialize": [check_cauchy_materialize(N, 8192, 12000, 10)],
-    }
-    spike_rand = check_spike(ds, es, lam_scaled, 128, 2048, "random", 5)
-    spike_eig = check_spike(ds, es, lam_scaled, 128, 2048, "eigenvalues", 5)
-    checks["spike_pass_a"] = [spike_rand[0], spike_eig[0]]
-    checks["spike_pass_b"] = [spike_rand[1], spike_eig[1]]
-    # dword_vecmat at the first and the last bucket's width of the n=16384
-    # reduction, full height and as the reduction calls it (rows below the
-    # reflector's zeros only), and at an odd width
-    checks["dword_vecmat"] = [check_dword_vecmat(N, N // 8, False, 20),
-                              check_dword_vecmat(4096, 512, False, 50),
-                              check_dword_vecmat(N, N // 8, True, 20),
-                              check_dword_vecmat(4096, 512, True, 50),
-                              # ragged against every tile size, odd stride
-                              check_dword_vecmat(4001, 333, True, 50)]
-    for name, rows in checks.items():
-        for row in rows:
-            emit({"phase": "kernel_check", "kernel": name, **row})
-            require(row["max_rel_err"] <= row["tol"],
-                    f"{name} disagrees with its plain version: {row}")
-            require(row.get("skip_bit_exact", True),
-                    f"{name}: the deflation skip changed the result: {row}")
-            require(row.get("identity_exact", True),
-                    f"{name}: identity columns not exact: {row}")
-            require(row.get("run_to_run_identical", True),
-                    f"{name}: two runs on the same input differ: {row}")
-            if "refine_rel_err" in row:
-                require(row["refine_rel_err"] <= row["tol"],
-                        f"{name}: spike_refine disagrees: {row}")
-    del ds, es
+    # 3. each kernel against its plain version at its path's shapes
+    checks = run_kernel_checks(kernel_table(d, e, ref), only or KERNEL_NAMES)
+    if only:
+        print(smi_line, flush=True)
+        emit({"ok": True, "only": only})
+        return 0
 
     # 4. the main path: default (mixed) config, all eigenpairs, cold
     cfg = st.SolverConfig()

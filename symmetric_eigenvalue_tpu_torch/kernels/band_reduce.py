@@ -27,7 +27,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .dword_matmul import dword_matmul
+from .dword_matmul import dword_matmul, dword_matmul_sub_
 from .tridiagonalize import _householder, _larft
 
 
@@ -66,8 +66,8 @@ def _reduce_block(As, ncols: int, b: int, want_reflectors: bool = True):
         S = dword_matmul(Yp, P_)                   # (b, b) = Y^T As Y
         W = P_ @ T - 0.5 * (YpT @ (T.T @ S @ T))   # (m, b)
         # As -= Y W^T + W Y^T  as one fused (m, 2b) x (2b, m) GEMM
-        As.sub_(dword_matmul(torch.cat([YpT, W], dim=1),
-                             torch.cat([W.T, Yp], dim=0)))
+        dword_matmul_sub_(As, torch.cat([YpT, W], dim=1),
+                          torch.cat([W.T, Yp], dim=0))
     return Ytb, taus
 
 
@@ -404,5 +404,5 @@ def apply_q2_wave_blocked(n: int, band: int, vlog, X):
         rows_idx = base[:, None] + hr[None, :]             # (S, h)
         G = Xp[rows_idx]                                   # (S, h, C)
         W2 = dword_matmul(Tm, dword_matmul(Z, G))          # (S, g, C)
-        Xp[rows_idx] = G.sub_(dword_matmul(Y, W2))
+        Xp[rows_idx] = dword_matmul_sub_(G, Y, W2)
     return Xp[:n].clone()

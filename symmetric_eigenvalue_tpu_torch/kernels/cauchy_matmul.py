@@ -5,10 +5,18 @@ CUDA kernels + plain versions.
 
 Port of ``symmetric_eigenvalue_tpu/kernels/pallas/cauchy_matmul.py``
 (``cauchy_matmul`` and ``cauchy_materialize``), batched over the k merges of
-a tree level.  Entries are computed in f64 and rounded to f32 once; the
-product is full f32 (the TPU's "highest" tier; its bf16_3x tier and the
-``SE_DOWNSWEEP_PRECISION`` switch are not carried over).  Contraction slots
-at or past a merge's active count K_b contribute exactly nothing (the
+a tree level.  Entries are computed in f64 and rounded to f32 once (in the
+product's kernel the quotient is a reciprocal approximation with one Newton
+step, within 2^-46 of the division before that rounding; an entry that comes
+out not finite is made again by the division, so a zero, subnormal or
+infinite denominator gives what the plain version gives).  On the
+card the product runs on the tensor cores as a three-pass split, the design
+of the TPU kernel's default tier (bf16_3x) with TF32 words in place of bf16
+words: x = hi + lo, and hi*hi + lo*hi + hi*lo summed in f32 (about 21 of 24
+mantissa bits); the ``SE_DOWNSWEEP_PRECISION`` switch is not carried over.
+The plain version is a full-f32 product; :func:`cauchy_matmul_split_plain`
+emulates the split in plain PyTorch, for tests and checks only.  Contraction
+slots at or past a merge's active count K_b contribute exactly nothing (the
 deflation skip).  Ragged shapes are masked inside the kernels, so every
 shape is taken.  CUDA tensors launch ``csrc/cauchy_matmul.cu``; CPU tensors
 run the plain versions.
@@ -39,11 +47,10 @@ def _cauchy_block(poles, shift, tau, zhat, ncolinv):
     return ((zhat[:, :, None] / den) * ncolinv[:, None, :]).to(torch.float32)
 
 
-def cauchy_matmul_plain(poles, shift, tau, zhat, ncolinv, X, K):
-    """Plain PyTorch version: slot blocks of M generated in f64, rounded to
-    f32 and multiplied by f32 ``torch.bmm``, blocks past every merge's K
-    skipped and slots past a merge's own K zeroed.  Works on any device
-    (the CUDA caller must keep TF32 off)."""
+def _sum_over_slot_blocks(poles, shift, tau, zhat, ncolinv, X, K, product):
+    """Y = sum over blocks of contraction slots of product(M block, slots):
+    M generated in f64 and rounded to f32 block by block, blocks past every
+    merge's K skipped and slots past a merge's own K zeroed."""
     k, m = poles.shape
     Y = torch.zeros(X.shape, dtype=torch.float32, device=X.device)
     kmax = int(K.max()) if k else 0
@@ -54,8 +61,47 @@ def cauchy_matmul_plain(poles, shift, tau, zhat, ncolinv, X, K):
         live = torch.arange(i0, i1, device=X.device)[None, :] < K[:, None]
         Mb = torch.where(live[:, None, :], Mb,
                          torch.zeros((), device=X.device))
-        Y += torch.bmm(Mb, X[:, i0:i1])
+        Y += product(Mb, slice(i0, i1))
     return Y
+
+
+def cauchy_matmul_plain(poles, shift, tau, zhat, ncolinv, X, K):
+    """Plain PyTorch version: slot blocks of M multiplied by f32
+    ``torch.bmm``.  Works on any device (the CUDA caller must keep TF32
+    off)."""
+    return _sum_over_slot_blocks(poles, shift, tau, zhat, ncolinv, X, K,
+                                 lambda Mb, sl: torch.bmm(Mb, X[:, sl]))
+
+
+def tf32_split(x):
+    """x (f32) -> (hi, lo), both f32 tensors holding TF32 values (10 stored
+    mantissa bits, the low 13 bits zero): hi is x rounded to nearest, ties
+    away from zero, as the card's ``cvt.rna.tf32.f32`` rounds; lo is the
+    exact remainder x - hi rounded the same way.  hi + lo reproduces x to
+    2^-22 relative."""
+    def rna(v):
+        bits = v.contiguous().view(torch.int32)
+        return ((bits + 0x1000) & -0x2000).view(torch.float32)
+    hi = rna(x)
+    return hi, rna(x - hi)
+
+
+def cauchy_matmul_split_plain(poles, shift, tau, zhat, ncolinv, X, K):
+    """Plain emulation of the kernel's arithmetic: the entries of
+    :func:`cauchy_matmul_plain`, both operands cut by :func:`tf32_split`,
+    and the three products lo*hi + hi*lo + hi*hi summed in f32.  The sums
+    inside each product run in PyTorch's order, not the tensor cores'.  Not
+    used by the solver.  Works on any device (the CUDA caller must keep TF32
+    off)."""
+    xh, xl = tf32_split(X)
+
+    def three_passes(Mb, sl):
+        mh, ml = tf32_split(Mb)
+        return (torch.bmm(ml, xh[:, sl]) + torch.bmm(mh, xl[:, sl])
+                + torch.bmm(mh, xh[:, sl]))
+
+    return _sum_over_slot_blocks(poles, shift, tau, zhat, ncolinv, X, K,
+                                 three_passes)
 
 
 def cauchy_materialize_plain(poles, zhat, shift, tau, ncolinv, slots, K):
@@ -139,7 +185,7 @@ def _launch_matmul(poles, shift, tau, zhat, ncolinv, X, K):
     if poles.device.type != "cuda":
         raise ValueError(f"cauchy_matmul: unsupported device {poles.device}")
     k, m, C = X.shape
-    if k > _GRID_MAX or (m + 127) // 128 > _GRID_MAX or C >= 2 ** 31:
+    if k > _GRID_MAX or (m + 63) // 64 > _GRID_MAX or C > _GRID_MAX * 128:
         raise ValueError(f"cauchy_matmul: shape {(k, m, C)} exceeds the "
                          "kernel's grid limits")
     Y = torch.empty((k, m, C), dtype=torch.float32, device=X.device)

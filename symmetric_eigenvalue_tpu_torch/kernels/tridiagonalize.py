@@ -5,8 +5,9 @@ route): a LAPACK ``sytrd``/``latrd``-style panel algorithm.  The inner panel
 loop does one full matvec ``v @ As`` per Householder column
 (:func:`dword_vecmat`, the hand-written kernel on CUDA) and small matvecs
 against the panel's delayed-update accumulators Vp/Wp; each panel ends with
-one symmetric rank-2k trailing update (:func:`dword_matmul`).  Eigenvectors
-are transformed back in compact-WY form (``larft``/``larfb`` equivalents).
+one symmetric rank-2k trailing update (:func:`dword_matmul_sub_`).
+Eigenvectors are transformed back in compact-WY form (``larft``/``larfb``
+equivalents).
 
 Layout, as in the JAX package: reflector k is ROW k of ``Vt``, full width,
 zero at entries <= k and one at entry k+1, so ``Vt`` and ``taus`` compare
@@ -23,7 +24,7 @@ from __future__ import annotations
 
 import torch
 
-from .dword_matmul import dword_matmul
+from .dword_matmul import dword_matmul, dword_matmul_sub_
 from .dword_matvec import dword_vecmat
 
 
@@ -92,9 +93,11 @@ def _tridiagonalize_block(As, ncols: int, nb: int):
             half = torch.dot(w, v).mul_(tau).mul_(0.5)
             torch.addcmul(w, half, v, value=-1.0, out=Wp[jj])
             torch.stack((tau, alpha), out=te[j])
-        # trailing symmetric rank-2k update, fused: As -= [V;W]^T [W;V]
-        As.sub_(dword_matmul(torch.cat([Vp, Wp]).T.contiguous(),
-                             torch.cat([Wp, Vp])))
+        # trailing symmetric rank-2k update, fused: As -= [V;W]^T [W;V],
+        # subtracted inside the kernel (As is a strided view after the
+        # first bucket)
+        dword_matmul_sub_(As, torch.cat([Vp, Wp]).T.contiguous(),
+                          torch.cat([Wp, Vp]))
     return Vtb, te[:, 0], te[:, 1]
 
 
@@ -190,6 +193,5 @@ def apply_q(Vt, taus, X, panel: int = 32, transpose: bool = False):
         M = T.T if transpose else T
         Xs = X[o + 1:]
         # X <- (I - V M V^T) X; the outer products carry the O(n^2 nb) work
-        Xs.sub_(dword_matmul(Vp.T.contiguous(),
-                             M @ dword_matmul(Vp, Xs)))
+        dword_matmul_sub_(Xs, Vp.T.contiguous(), M @ dword_matmul(Vp, Xs))
     return X

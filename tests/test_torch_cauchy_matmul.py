@@ -3,6 +3,9 @@ the JAX package: cauchy_matmul and cauchy_materialize against the Pallas
 kernels in interpret mode (full-f32 "highest" tier), the deflation skip,
 and the f32 assemble_u / apply_u_level on JAX-produced merge
 representations (carried across by interop) against the JAX f32 XLA path.
+The CUDA kernel multiplies with a three-pass TF32 split; its plain
+emulation (tf32_split, cauchy_matmul_split_plain) is held against the
+Pallas kernel in both of its tiers, and a whole mixed solve is run with it.
 
 Tolerances: f32 products summed in another order, 2e-5 of max|Y| against
 the Pallas kernel (whose entries also carry f32-pair rounding) and 1e-5 of
@@ -138,6 +141,150 @@ def test_cauchy_materialize_matches_pallas(interpreted, rng):
     assert np.abs(U - ref).max() <= 2.0 ** -22 * np.abs(ref).max()
     assert np.array_equal(U[:, ~act],
                           (np.arange(m)[:, None] == slots[None, ~act]))
+
+
+# ---------------------------------------------------------------------------
+# the three-pass TF32 split of the CUDA kernel, emulated in plain PyTorch
+
+def _split_inputs(kind):
+    g = np.random.default_rng(77)
+    x = g.standard_normal(4096).astype(np.float32)
+    if kind == "normal":
+        return x
+    if kind == "wide_range":
+        return (x * np.exp2(g.integers(-60, 60, x.size))).astype(np.float32)
+    if kind == "tf32_exact":         # 11 significant bits: hi = x, lo = 0
+        return (np.round(x * 512) / 512).astype(np.float32)[np.abs(x) < 2]
+    if kind == "ties":               # exactly half a TF32 ulp above a word
+        hi = np.float32(1.0) + np.arange(64, dtype=np.float32) * 2.0 ** -10
+        return np.concatenate([hi + np.float32(2.0 ** -11),
+                               -(hi + np.float32(2.0 ** -11))])
+    return np.zeros(8, dtype=np.float32) * np.array([1, -1] * 4,
+                                                    dtype=np.float32)
+
+
+@pytest.mark.parametrize("kind", ["normal", "wide_range", "tf32_exact",
+                                  "ties", "zeros"])
+def test_tf32_split(kind):
+    """hi has at most 11 significant bits (the low 13 mantissa bits are
+    zero), so has lo; hi is within half a TF32 ulp of x; hi + lo gives x
+    back to 2^-21 relative; exact for TF32 values and zeros."""
+    x = _split_inputs(kind)
+    hi, lo = (t.numpy() for t in tcm.tf32_split(torch.as_tensor(x)))
+    assert hi.dtype == lo.dtype == np.float32
+    assert not (hi.view(np.int32) & 0x1FFF).any()
+    assert not (lo.view(np.int32) & 0x1FFF).any()
+    x64, back = x.astype(np.float64), hi.astype(np.float64) + lo
+    assert np.all(np.abs(x64 - hi) <= 2.0 ** -11 * np.abs(x64))
+    assert np.all(np.abs(x64 - back) <= 2.0 ** -21 * np.abs(x64))
+    if kind in ("tf32_exact", "zeros"):
+        assert np.array_equal(hi, x) and not lo.any()
+    if kind == "ties":               # ties round away from zero
+        assert np.all(np.abs(hi) > np.abs(x))
+
+
+@pytest.fixture
+def interpreted_default_tier(monkeypatch):
+    orig = pl.pallas_call
+
+    def patched(*a, **k):
+        k["interpret"] = True
+        return orig(*a, **k)
+
+    monkeypatch.setattr(jcm.pl, "pallas_call", patched)
+    monkeypatch.delenv("SE_DOWNSWEEP_PRECISION", raising=False)
+
+
+def _split_product_errors(rng, m, C, K):
+    """Inputs, the emulated split product, the full-f32 plain product, and
+    the per-entry scale |M| @ |X| with the f64 product of the f32 entries."""
+    poles, shift, tau, zhat, ninv, X = _cauchy_inputs(rng, m, C)
+    ninv[K:] = 0.0
+    targs = (_t(poles), _t(shift), _t(tau), _t(zhat), _t(ninv),
+             _t(X, torch.float32), torch.tensor([K]))
+    Mf = tcm._cauchy_block(*targs[:5])[0].numpy().astype(np.float64)
+    Mf[:, K:] = 0.0
+    exact = Mf @ X.astype(np.float64)
+    scale = np.abs(Mf) @ np.abs(X).astype(np.float64)
+    emu = tcm.cauchy_matmul_split_plain(*targs)[0].numpy()
+    plain = tcm.cauchy_matmul_plain(*targs)[0].numpy()
+    return (poles, shift, tau, zhat, ninv, X), emu, plain, exact, scale
+
+
+@pytest.mark.parametrize("m,C,K,tiles", [
+    (256, 256, 256, dict(tj=128, ti=128, tc=128)), (1024, 512, 300, {})])
+def test_split_emulation_between_the_pallas_tiers(interpreted_default_tier,
+                                                  monkeypatch, rng, m, C, K,
+                                                  tiles):
+    """The three-pass TF32 split against the JAX kernel in its default tier
+    (bf16_3x, the same split with bf16 words) and in "highest": closer to
+    the f64 product than the former, and per entry within 2^-18 of
+    |M| @ |X| of the latter and of the port's own full-f32 product (f32
+    sums of hundreds of terms in three different orders: measured 1.9e-6
+    to 2.2e-6, half of 2^-18)."""
+    args, emu, plain, exact, scale = _split_product_errors(rng, m, C, K)
+    jargs = [jnp.asarray(a) for a in args]
+    Y3 = np.asarray(jcm.cauchy_matmul(*jargs, kact=K, **tiles))
+    monkeypatch.setenv("SE_DOWNSWEEP_PRECISION", "highest")
+    Yh = np.asarray(jcm.cauchy_matmul(*jargs, kact=K, **tiles))
+    err = lambda y: (np.abs(y - exact) / scale).max()
+    assert err(Y3) > 4 * err(Yh)          # the two tiers did differ
+    assert err(emu) < err(Y3)
+    assert (np.abs(emu - Yh) / scale).max() <= 2.0 ** -18
+    assert (np.abs(plain - Yh) / scale).max() <= 2.0 ** -18
+    # and of the same grade as the full-f32 plain version
+    assert (np.abs(emu - plain) / scale).max() <= 2.0 ** -18
+    assert emu.dtype == np.float32 and emu.shape == (m, C)
+
+
+def test_split_emulation_deflation_skip(rng):
+    """Slots past K contribute exactly nothing to the emulation either."""
+    m, C, K = 640, 64, 200
+    args, emu, _, _, _ = _split_product_errors(rng, m, C, K)
+    targs = [_t(a) for a in args[:5]] + [_t(args[5], torch.float32)]
+    full = tcm.cauchy_matmul_split_plain(*targs, torch.tensor([m]))[0].numpy()
+    assert np.isfinite(full).all() and np.array_equal(emu, full)
+
+
+@pytest.mark.parametrize("matrix", ["random", "poisson"])
+def test_mixed_solve_with_the_split_product(monkeypatch, matrix):
+    """One mixed-precision solve (n=512: the Spike route) whose downsweep
+    multiplies with the emulated split instead of the full-f32 product:
+    residual <= 1e-12 ||T||, orthogonality <= 1e-10, and the eigenvalues of
+    the unpatched run, bit for bit."""
+    import symmetric_eigenvalue_tpu_torch as st
+    n = 512
+    if matrix == "random":
+        g = np.random.default_rng(5)
+        d, e = g.standard_normal(n) * 5.0, g.standard_normal(n - 1) * 2.0
+    else:
+        d, e = 2.0 * np.ones(n), -np.ones(n - 1)
+    cfg = st.SolverConfig(leaf_size=32)
+    base, _ = st.solve_tridiagonal_staged(d, e, config=cfg,
+                                          compute_vectors=True, device="cpu")
+    calls = []
+
+    def split_product(*args):
+        calls.append(args[5].shape)
+        return tcm.cauchy_matmul_split_plain(*args)
+
+    monkeypatch.setattr(tas, "cauchy_matmul", split_product)
+    res, _ = st.solve_tridiagonal_staged(d, e, config=cfg,
+                                         compute_vectors=True, device="cpu")
+    assert len(calls) >= 3               # every non-root level of the sweep
+    assert torch.equal(res.eigenvalues, base.eigenvalues)
+    lam, V = res.eigenvalues.numpy(), res.eigenvectors.numpy()
+    norm_t = np.abs(lam).max()
+    T = np.diag(d) + np.diag(e, 1) + np.diag(e, -1)
+    assert np.abs(T @ V - V * lam[None, :]).max() <= 1e-12 * norm_t
+    assert np.abs(V.T @ V - np.eye(n)).max() <= 1e-10
+    # the two products differ in the last bits of f32, the vectors agree
+    Vb = base.eigenvectors.numpy()
+    gaps = np.diff(lam)
+    sep = np.minimum(np.append(gaps, np.inf), np.insert(gaps, 0, np.inf))
+    well = sep > 1e-4 * norm_t
+    assert well.sum() > n // 2
+    assert np.all(np.abs(np.sum(V * Vb, axis=0))[well] >= 1 - 1e-10)
 
 
 _J_MERGE = jax.jit(functools.partial(merge_decompose, **KW))

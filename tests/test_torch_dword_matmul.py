@@ -1,6 +1,9 @@
-"""PyTorch port, dword_matmul: the plain version (what CPU tensors run)
+"""PyTorch port, dword_matmul: the plain versions (what CPU tensors run)
 against the JAX Pallas kernel run in interpret mode, to 1e-12 of |A||B|
-elementwise (the JAX kernel is ~2^-47-grade, the port native f64)."""
+elementwise (the JAX kernel is ~2^-47-grade, the port native f64); the
+fused form C -= A @ B, on strided views too, to 1e-12 of |C| + |A||B|; and
+the CUDA kernel's launch plan (tile and split-K count), a pure function of
+the shape."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -48,6 +51,85 @@ def test_batched_matches_interpreted_jax(interpreted, rng):
         ref = np.asarray(jdm.dword_matmul(jnp.asarray(A[b]),
                                           jnp.asarray(B[b])))
         assert _rel(Y[b], ref, A[b], B[b]) <= 1e-12
+
+
+@pytest.mark.parametrize("view", ["contiguous", "trailing_block",
+                                  "batched", "batched_strided"])
+def test_fused_subtract_matches_interpreted_jax(interpreted, rng, view):
+    """dword_matmul_sub_(C, A, B) is C - A @ B with the JAX kernel's product,
+    in place, whatever the row stride of C; nothing outside C changes."""
+    k, M, K, N = (3 if view.startswith("batched") else 1), 70, 130, 90
+    A = rng.standard_normal((k, M, K))
+    B = rng.standard_normal((k, K, N))
+    pad = 0 if view in ("contiguous", "batched") else 7
+    base = rng.standard_normal((k, M + pad, N + pad))
+    before = base.copy()
+    tb = torch.as_tensor(base)
+    C = tb[:, pad:, pad:]
+    assert C.is_contiguous() == (pad == 0)
+    if k == 1:
+        out = tdm.dword_matmul_sub_(C[0], torch.as_tensor(A[0]),
+                                    torch.as_tensor(B[0]))
+        assert out.data_ptr() == C[0].data_ptr()
+    else:
+        out = tdm.dword_matmul_sub_(C, torch.as_tensor(A), torch.as_tensor(B))
+        assert out.data_ptr() == C.data_ptr()
+    for b in range(k):
+        prod = np.asarray(jdm.dword_matmul(jnp.asarray(A[b]),
+                                           jnp.asarray(B[b])))
+        want = before[b, pad:, pad:] - prod
+        scale = np.abs(before[b, pad:, pad:]) + np.abs(A[b]) @ np.abs(B[b])
+        assert (np.abs(base[b, pad:, pad:] - want) / scale).max() <= 1e-12
+    assert np.array_equal(base[:, :pad], before[:, :pad])
+    assert np.array_equal(base[:, :, :pad], before[:, :, :pad])
+
+
+def test_fused_subtract_rejects_bad_inputs():
+    a = torch.zeros((4, 3), dtype=torch.float64)
+    with pytest.raises(ValueError):
+        tdm.dword_matmul_sub_(torch.zeros((4, 5), dtype=torch.float64), a, a.T)
+    with pytest.raises(TypeError):
+        tdm.dword_matmul_sub_(torch.zeros((4, 4)), a, a.T)
+
+
+# (batch, M, N, K) -> tile rows, whether K is split.  The first three are
+# the shapes the chip check times: the f64 downsweep's level product, a
+# panel's Gram, the rank-2k trailing update.
+_PLAN_CASES = {
+    "downsweep_level": ((2, 2048, 8192, 8192), 128, False),
+    "panel_gram": ((1, 32, 32, 16384), 32, True),
+    "rank2k_update": ((1, 16384, 16384, 64), 128, False),
+    "apply_q_panel": ((1, 32, 16384, 16384), 32, True),
+    "band_as_times_y": ((1, 16384, 128, 16384), 128, True),
+    "cluster_gram": ((4, 40, 40, 16384), 32, True),
+    "ortho_check_rows": ((1, 2048, 16384, 16384), 128, False),
+    "wave_blocks": ((16, 128, 4096, 255), 128, False),
+    "ragged": ((1, 1000, 777, 4001), 128, True),
+    "short_k_skinny": ((1, 32, 32, 100), 32, False),
+    "tiny": ((1, 3, 5, 7), 32, False),
+}
+
+
+@pytest.mark.parametrize("name", sorted(_PLAN_CASES))
+def test_split_plan(name):
+    """Skinny outputs over a long K are cut into enough slices to fill the
+    card (at least one block per SM, at most ~two), each slice a multiple of
+    the kernel's 16-deep stage and at least 64 deep, no slice empty;
+    outputs that fill the card on their own are not split."""
+    (batch, M, N, K), tile_rows, split = _PLAN_CASES[name]
+    plan = tdm.split_plan(batch, M, N, K)
+    bm, bn = {32: (32, 64), 128: (128, 128)}[plan.tile_rows]
+    tiles = batch * -(-M // bm) * -(-N // bn)
+    assert plan.tile_rows == tile_rows
+    assert plan.blocks == tiles * plan.splits
+    assert (plan.splits > 1) == split
+    if split:
+        assert plan.kchunk % 16 == 0 and plan.kchunk >= 64
+        assert (plan.splits - 1) * plan.kchunk < K <= plan.splits * plan.kchunk
+        assert 132 <= plan.blocks <= 2 * 132 + tiles
+    else:
+        assert plan.kchunk >= K
+    assert tdm.split_plan(batch, M, N, K) == plan       # a pure function
 
 
 def test_rejects_bad_inputs():
