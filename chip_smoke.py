@@ -2,7 +2,7 @@
 """Drive the PyTorch/CUDA port once on one GPU and check it.
 
 Run from the repository root:  python3 chip_smoke.py
-With ``--only dword_matmul,cauchy_matmul`` (any of the eight kernels' names)
+With ``--only dword_matmul,cauchy_matmul`` (any of the nine kernels' names)
 it builds those kernels' sources, runs phase 3 for them alone, held to the
 same limits, and stops: half a minute for work on one kernel.
 
@@ -13,8 +13,13 @@ exits non-zero:
   2. build     every CUDA kernel of the port, built from csrc/ by nvcc (one
                process per source, all at once)
   3. kernels   each kernel against its plain PyTorch version on the card at
-               the shapes its path gives it: time, plain time, library time,
-               bound, error and tolerance; dword_matmul also at a ragged
+               the shapes its path gives it: time (CUDA events over
+               back-to-back calls, and the profiler's device time per call),
+               plain time, library time, bound, error and tolerance;
+               secular_solve (the root finder's whole iteration) on the
+               level data of a tear of the main path's matrix, against the
+               plain loop with the sums kernel (the path it replaces) and
+               with the plain sums; dword_matmul also at a ragged
                shape, batched, and in its fused form C -= A @ B on a strided
                view, with its split-K plan; cauchy_matmul also against the
                plain emulation of its TF32 split, against an f64 product,
@@ -24,7 +29,7 @@ exits non-zero:
                input, seed 0), all eigenpairs, cold then three times
                warm; residual, orthogonality and eigenvalues against
                scipy; the triage's column counts; launch counts of all
-               eight kernels
+               nine kernels, and each merge level's (k, m, K) and launches
   5. solve_f64 the same input through the pure-f64 path
                (mixed_precision_vectors=False), cold then three times warm
   6. poisson   eigh_tridiagonal(eigvals_only=True) and the mixed path's full
@@ -35,7 +40,7 @@ exits non-zero:
                eigenpairs, cold with every check (residual, orthogonality,
                eigenvalues against torch.linalg.eigvalsh on the card), once
                warm, and once with the pure-f64 config (same checks);
-               phases, peak memory, launches of all eight kernels;
+               phases, peak memory, launches of all nine kernels;
                torch.linalg.eigh's time on the same matrix
   8. dense_two_stage  eigh(band=128) and eigh_banded (u=16) at n=4096, the
                same three limits; eigvals_only through both front ends
@@ -72,6 +77,7 @@ from symmetric_eigenvalue_tpu_torch.kernels import cauchy_matmul as cm
 from symmetric_eigenvalue_tpu_torch.kernels import cauchy_rowsum as cr
 from symmetric_eigenvalue_tpu_torch.kernels import dword_matmul as dm
 from symmetric_eigenvalue_tpu_torch.kernels import dword_matvec as dv
+from symmetric_eigenvalue_tpu_torch.kernels import secular as sec
 from symmetric_eigenvalue_tpu_torch.kernels import secular_sums as ss
 from symmetric_eigenvalue_tpu_torch.kernels import spike_solve as sp
 from symmetric_eigenvalue_tpu_torch.kernels.refine import band_prep
@@ -108,10 +114,16 @@ REPLACES = {
         "symmetric_eigenvalue_tpu/kernels/pallas/spike_solve.py:296",
     "dword_vecmat":
         "symmetric_eigenvalue_tpu/kernels/pallas/dword_matvec.py:127",
+    # the Pallas kernel and the lax.while_loop around it
+    # (symmetric_eigenvalue_tpu/kernels/secular.py:299-361)
+    "secular_solve":
+        "symmetric_eigenvalue_tpu/kernels/pallas/secular_sums.py:169",
 }
+REPLACES_LOOP = {"secular_solve":
+                 "symmetric_eigenvalue_tpu/kernels/secular.py:299-361"}
 SOURCES = {"spike_pass_a": "spike_solve", "spike_pass_b": "spike_solve",
            "cauchy_materialize": "cauchy_matmul",
-           "dword_vecmat": "dword_matvec"}
+           "dword_vecmat": "dword_matvec", "secular_solve": "secular_sums"}
 KERNEL_NAMES = tuple(REPLACES)
 
 
@@ -139,6 +151,28 @@ def time_ms(fn, reps: int) -> float:
     return t0.elapsed_time(t1) / reps
 
 
+def device_ms(fn, reps: int) -> float:
+    """Device time per call of ``fn`` (torch.profiler: every kernel, copy
+    and fill it launched), over ``reps`` calls after one warm-up.  Beside
+    ``time_ms`` it shows a call whose time is its host's, not its
+    kernels'.  A window that recorded no device event at all (the profiler
+    drops one now and then) is profiled again, up to three times."""
+    fn()
+    torch.cuda.synchronize()
+    us = 0.0
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(ev.self_device_time_total for ev in prof.key_averages()
+                 if ev.device_type == DeviceType.CUDA)
+        if us > 0:
+            break
+    return us * 1e-3 / reps
+
+
 def bound(ops: float, peak: float, nbytes: float):
     t_ops, t_bytes = ops / peak, nbytes / PEAK_BYTES
     if t_ops >= t_bytes:
@@ -147,7 +181,9 @@ def bound(ops: float, peak: float, nbytes: float):
 
 
 def launch_counts():
-    return {"secular_sums": ss.launches, "cauchy_rowsum": cr.launches,
+    return {"secular_sums": ss.launches,
+            "secular_solve": ss.solve_launches,
+            "cauchy_rowsum": cr.launches,
             "dword_matmul": dm.launches,
             "cauchy_matmul": cm.matmul_launches,
             "cauchy_materialize": cm.materialize_launches,
@@ -157,7 +193,8 @@ def launch_counts():
 
 
 def reset_counts() -> None:
-    ss.launches = cr.launches = dm.launches = dv.launches = 0
+    ss.launches = ss.solve_launches = 0
+    cr.launches = dm.launches = dv.launches = 0
     cm.matmul_launches = cm.materialize_launches = 0
     sp.pass_a_launches = sp.pass_b_launches = 0
 
@@ -171,22 +208,31 @@ def random_matrix(n: int, seed: int):
 # --------------------------------------------------------------------------
 # kernels of the eigenvalue phase and the f64 downsweep
 
-def check_secular_sums(k, m, reps):
+def check_secular_sums(k, m, reps, kact=None):
     """Roots at every slot (shift = own pole, sl = slot), tau inside the
     gap, a few roots 1e-13 from their pole: as the top / bottom merge
-    levels give them."""
+    levels give them.  ``kact``: the active count K of every merge (z2 zero
+    and sentinel poles past it, as merge_partition leaves them; the sweeps
+    stop at K), also held against the same call over all m poles."""
     g = np.random.default_rng(1)
     dev = "cuda"
+    kact = m if kact is None else kact
     poles = np.sort(g.standard_normal((k, m)), axis=1)
+    top = np.abs(poles).max() * 4.0 + 4.0
+    poles[:, kact:] = top + 1e-3 * np.arange(kact, m)
     gaps = np.diff(poles, axis=1, append=poles[:, -1:] + 1.0)
     tau = 0.45 * gaps * g.random((k, m)) + 1e-15
     tau[:, ::997] = 1e-13
     z2 = (0.1 * g.standard_normal((k, m))) ** 2
+    z2[:, kact:] = 0.0
     sl = np.tile(np.arange(m), (k, 1))
     t = lambda a, dt=torch.float64: torch.as_tensor(a, dtype=dt, device=dev)
-    args = (t(poles), t(z2), t(poles), t(tau), t(sl, torch.int64))
+    K = torch.full((k,), kact, dtype=torch.int64, device=dev)
+    args = (t(poles), t(z2), t(poles), t(tau), t(sl, torch.int64), K)
     got = ss.secular_sums(*args)
     ref = ss.secular_sums_plain(*args)
+    full = ss.secular_sums(*args[:5], torch.full_like(K, m))
+    skip_exact = all(bool(torch.equal(x, y)) for x, y in zip(got, full))
     # scale per root: max(|sum|, max_j |term|) (the S2 terms are positive)
     P, Z, S, T = args[:4]
     tmax = torch.empty((k, m), dtype=torch.float64, device=dev)
@@ -202,15 +248,19 @@ def check_secular_sums(k, m, reps):
               float(((got[1] - ref[1]).abs() / sc2).max()),
               float(((got[3] - ref[3]).abs() / sc2).max()))
     abs_err = max(float((x - y).abs().max()) for x, y in zip(got, ref))
+    same = all(bool(torch.equal(x, y))
+               for x, y in zip(got, ss.secular_sums(*args)))
     ms = time_ms(lambda: ss.secular_sums(*args), reps)
+    dms = device_ms(lambda: ss.secular_sums(*args), reps)
     plain = time_ms(lambda: ss.secular_sums_plain(*args), max(1, reps // 4))
-    pairs = float(k) * m * m
-    left = float(k) * m * (m + 1) / 2
-    ops = 7.0 * pairs + 2.0 * left   # 2 sub, div, 2 mul, 2 add; +2 if j<=sl
-    nbytes = 8.0 * (2 * k * m + 3 * k * m + 4 * k * m)
+    # every (root, pole) pair swept: 2 sub, div, 2 mul, the add of S1L or
+    # S1R and of S2L or S2R
+    ops = 7.0 * k * m * kact
+    nbytes = 8.0 * (2 * k * kact + 3 * k * m + 4 * k * m) + 8.0 * k
     b_ms, b_by = bound(ops, PEAK_FP64, nbytes)
-    return dict(k=k, m=m, B=m, max_rel_err=err, tol=1e-12,
-                max_abs_err=abs_err, ms=ms,
+    return dict(k=k, m=m, B=m, K=kact, max_rel_err=err, tol=1e-12,
+                max_abs_err=abs_err, skip_bit_exact=skip_exact,
+                run_to_run_identical=same, ms=ms, device_ms=dms,
                 plain_ms=plain, bound_ms=b_ms, bound_by=b_by)
 
 
@@ -229,11 +279,12 @@ def check_cauchy_rowsum(k, m, reps):
     abs_err = float((got - ref).abs().max())
     err = abs_err / float(ref.abs().max())
     ms = time_ms(lambda: cr.cauchy_rowsum(*args), reps)
+    dms = device_ms(lambda: cr.cauchy_rowsum(*args), reps)
     plain = time_ms(lambda: cr.cauchy_rowsum_plain(*args), reps)
     pairs = float(k) * m * m
     b_ms, b_by = bound(7.0 * pairs, PEAK_FP64, 8.0 * (3 * k * m + 4 * k * m))
     return dict(k=k, m=m, rows=2, max_rel_err=err, tol=1e-12,
-                max_abs_err=abs_err, ms=ms,
+                max_abs_err=abs_err, ms=ms, device_ms=dms,
                 plain_ms=plain, bound_ms=b_ms, bound_by=b_by)
 
 
@@ -249,17 +300,19 @@ def check_dword_matmul(k, M, K, N, reps):
     same = bool(torch.equal(got, dm.dword_matmul(A, B)))
     del scale, got, ref
     ms = time_ms(lambda: dm.dword_matmul(A, B), reps)
+    dms = device_ms(lambda: dm.dword_matmul(A, B), reps)
     plain = time_ms(lambda: dm.dword_matmul_plain(A, B), reps)
     library = time_ms(lambda: torch.matmul(A, B), reps)
+    lib_dms = device_ms(lambda: torch.matmul(A, B), reps)
     b_ms, b_by = bound(2.0 * k * M * N * K, PEAK_FP64_TENSOR,
                        8.0 * k * (M * K + K * N + M * N))
     plan = dm.split_plan(k, M, N, K)
     return dict(k=k, M=M, K=K, N=N, max_rel_err=err, tol=1e-12,
                 tol_of="(|A| @ |B|) per entry", max_abs_err=abs_err,
                 run_to_run_identical=same, tile_rows=plan.tile_rows,
-                splits=plan.splits, blocks=plan.blocks, ms=ms,
-                plain_ms=plain, library_ms=library, bound_ms=b_ms,
-                bound_by=b_by)
+                splits=plan.splits, blocks=plan.blocks, ms=ms, device_ms=dms,
+                plain_ms=plain, library_ms=library,
+                library_device_ms=lib_dms, bound_ms=b_ms, bound_by=b_by)
 
 
 def check_dword_matmul_sub(M, K, N, offset, reps):
@@ -289,7 +342,9 @@ def check_dword_matmul_sub(M, K, N, offset, reps):
     same = bool(torch.equal(dm.dword_matmul_sub_(C, A, B), first))
     del before, first
     ms = time_ms(lambda: dm.dword_matmul_sub_(C, A, B), reps)
+    dms = device_ms(lambda: dm.dword_matmul_sub_(C, A, B), reps)
     plain = time_ms(lambda: dm.dword_matmul_sub_plain_(C, A, B), reps)
+    lib_dms = device_ms(lambda: dm.dword_matmul_sub_plain_(C, A, B), reps)
     product = time_ms(lambda: torch.matmul(A, B), reps)
     b_ms, b_by = bound(2.0 * M * N * K, PEAK_FP64_TENSOR,
                        8.0 * (M * K + K * N + 2 * M * N))
@@ -299,7 +354,8 @@ def check_dword_matmul_sub(M, K, N, offset, reps):
                 tol_of="(|C| + |A| @ |B|) per entry", max_abs_err=abs_err,
                 outside_view_untouched=outside, run_to_run_identical=same,
                 tile_rows=plan.tile_rows, splits=plan.splits, ms=ms,
-                plain_ms=plain, library_ms=plain,
+                device_ms=dms, plain_ms=plain, library_ms=plain,
+                library_device_ms=lib_dms,
                 library_is="C.sub_(torch.matmul(A, B)): the product "
                 "written out, then subtracted", library_product_ms=product,
                 bound_ms=b_ms, bound_by=b_by)
@@ -331,21 +387,153 @@ def check_dword_vecmat(m, zeros, sliced, reps):
     sc = scale[cols].cpu().numpy()
     exact_err = [float(np.abs(y[cols].cpu().numpy() - exact).max() / sc.max())
                  for y in (got, ref)]
+    before = dv.launches
+    dv.dword_vecmat(*args)
+    one_launch = dv.launches - before == 1
     ms = time_ms(lambda: dv.dword_vecmat(*args), reps)
+    dms = device_ms(lambda: dv.dword_vecmat(*args), reps)
     plain = time_ms(lambda: dv.dword_vecmat_plain(*args), reps)
     # cuBLAS dgemv in both orientations (A is symmetric: the same function)
     lib_vm = time_ms(lambda: torch.matmul(*args), reps)
     lib_mv = time_ms(lambda: torch.mv(args[1].T, args[0]), reps)
+    # a profile that caught no device event (seen once) is not a time
+    lib_dms = min((t for t in (
+        device_ms(lambda: torch.matmul(*args), reps),
+        device_ms(lambda: torch.mv(args[1].T, args[0]), reps)) if t > 0),
+        default=None)
+    plan = dv._plan(rows, m, *dv._capacity(0))
     b_ms, b_by = bound(2.0 * rows * m, PEAK_FP64, 8.0 * (rows * m + rows + m))
     return dict(m=m, rows=rows, leading_zeros=zeros, sliced=sliced,
                 max_rel_err=err, tol=1e-13, tol_of="(|v| @ |A|) per entry",
                 max_abs_err=abs_err, kernel_vs_longdouble=exact_err[0],
                 plain_vs_longdouble=exact_err[1],
                 run_to_run_identical=bool(torch.equal(got, again)),
-                ms=ms, plain_ms=plain, library_ms=min(lib_vm, lib_mv),
+                one_launch=one_launch, row_stride=args[1].stride(0),
+                rows_per_chunk=plan.rows_per_chunk, chunks=plan.chunks,
+                col_tiles=plan.col_tiles,
+                ms=ms, device_ms=dms, plain_ms=plain,
+                library_ms=min(lib_vm, lib_mv), library_device_ms=lib_dms,
                 library_vecmat_ms=lib_vm, library_mv_ms=lib_mv,
                 library_is="torch.matmul(v, A) / torch.mv(A.T, v), cuBLAS "
                 "dgemv", bound_ms=b_ms, bound_by=b_by)
+
+
+def split_level(d, e, k: int, m: int):
+    """The inputs of one merge level of a tear of T = (d, e): T's first k*m
+    rows cut into 2k blocks of m/2, the boundary inside each merge torn as
+    core/tearing.py tears it (theta = sign(beta); d[r] -= theta beta,
+    d[r+1] -= beta / theta), each block's eigenpairs by LAPACK on the host,
+    z = [last row of the left block's eigenvectors, first row of the right
+    block's / theta], rho = |beta|: what the driver hands merge_decompose at
+    that level."""
+    h = m // 2
+    d = np.array(d[:k * m], dtype=np.float64)
+    e = np.asarray(e[:k * m - 1], dtype=np.float64)
+    rows = np.arange(k) * m + h - 1
+    beta = e[rows]
+    theta = np.where(beta < 0, -1.0, 1.0)
+    d[rows] -= theta * beta
+    d[rows + 1] -= beta / theta
+    lam = np.empty((k, m))
+    z = np.empty((k, m))
+    for b in range(2 * k):
+        r0 = b * h
+        w, Q = scipy.linalg.eigh_tridiagonal(d[r0:r0 + h], e[r0:r0 + h - 1])
+        lam[b // 2, (b % 2) * h:(b % 2 + 1) * h] = w
+        if b % 2 == 0:
+            z[b // 2, :h] = Q[-1]
+        else:
+            z[b // 2, h:] = Q[0] / theta[b // 2]
+    return lam, z, np.abs(beta)
+
+
+def spread_level(k: int, m: int, seed: int):
+    """The inputs of a merge level that deflates little (as a spectrum with
+    spread-out eigenvectors gives it, such as the dense path's): each half's
+    eigenvalues standard normal, z the halves' unit boundary rows (random
+    directions), rho = |beta| ~ 1.  Nearly every slot stays active, so the
+    sweeps run over K_b ~ m poles."""
+    g = np.random.default_rng(seed)
+    h = m // 2
+    lam = np.concatenate([np.sort(g.standard_normal((k, h)), axis=1),
+                          np.sort(g.standard_normal((k, m - h)), axis=1)],
+                         axis=1)
+    z = g.standard_normal((k, m))
+    z[:, :h] /= np.linalg.norm(z[:, :h], axis=1, keepdims=True)
+    z[:, h:] /= np.linalg.norm(z[:, h:], axis=1, keepdims=True)
+    return lam, z, np.abs(g.standard_normal(k)) + 0.5
+
+
+def check_secular_solve(level, reps):
+    """The root finder's whole iteration (one secular_solve launch) on a
+    merge level: against the loop it replaces (secular_solve_plain with the
+    sums kernel, run on the card) and against the all-plain loop (the setup
+    built from CPU copies, so its midpoint sweep is the plain one; the loop
+    on the card with the plain sums): tau within 1e-11 |tau|, the same shift
+    choices; each root's sweeps, and a bound by operations from them."""
+    lam, z, rho = level
+    cfg = st.SolverConfig()
+    eps, max_iters = cfg.eps(), cfg.max_secular_iters
+    tolf = cfg.secular_tol_factor * eps
+    t = lambda a: torch.as_tensor(a, dtype=torch.float64, device="cuda")
+    part = sec.merge_partition(t(lam), t(z), t(rho), eps=eps,
+                               deflation_factor=cfg.deflation_factor)
+    k, m = part.poles_sec.shape
+    act = torch.arange(m, device="cuda")[None, :] < part.K[:, None]
+    level_in = (part.poles_sec, part.zu, part.rho_e, part.K, act)
+    setup, sidx = sec._root_setup(*level_in)
+    setup_c, sidx_p = sec._root_setup(*(x.cpu() for x in level_in))
+    setup_p = ss.RootSetup(*(x.cuda() for x in setup_c))
+    sidx_p = sidx_p.cuda()
+    tau, iters = ss.secular_solve(setup, tolf, max_iters)
+    again, _ = ss.secular_solve(setup, tolf, max_iters)
+    tau_y, iters_y = ss.secular_solve_plain(setup, tolf, max_iters,
+                                            sums=ss.secular_sums)
+    tau_p, iters_p = ss.secular_solve_plain(setup_p, tolf, max_iters)
+    scale = tau_p.abs().clamp(min=1e-300)
+    rel_y = float(((tau - tau_y).abs() / scale)[act].max())
+    rel_p = float(((tau - tau_p).abs() / scale)[act].max())
+    abs_err = float((tau - tau_p).abs()[act].max())
+    ms = time_ms(lambda: ss.secular_solve(setup, tolf, max_iters), reps)
+    dms = device_ms(lambda: ss.secular_solve(setup, tolf, max_iters), reps)
+    loop = lambda: ss.secular_solve_plain(setup, tolf, max_iters,
+                                          sums=ss.secular_sums)
+    replaced = time_ms(loop, max(1, reps // 2))
+    replaced_dms = device_ms(loop, max(1, reps // 2))
+    plain = time_ms(lambda: ss.secular_solve_plain(setup_p, tolf, max_iters),
+                    1)
+    # 7 FP64 operations per (root, pole) pair swept, every sweep of every
+    # root counted; the bytes: the level's inputs read once (seven (k, m)
+    # f64 fields, the poles and z2 up to K_b, rho_e and K, done0), tau and
+    # the iteration counts written
+    Kb = part.K.clamp(max=m)
+    swept = float((iters.to(torch.float64) * Kb[:, None]).sum())
+    b_ms, b_by = bound(7.0 * swept, PEAK_FP64,
+                       8.0 * (7 * k * m + 2 * int(Kb.sum()) + 2 * k)
+                       + 1.0 * k * m + 12.0 * k * m)
+    Ks = part.K.tolist()
+    it_k = iters[act].to(torch.float64)
+    return dict(k=k, m=m, K_sum=int(sum(Ks)), K_min=min(Ks), K_max=max(Ks),
+                active_roots=int(act.sum()), max_rel_err=max(rel_y, rel_p),
+                tol=1e-11, tol_of="|tau| per active root",
+                vs_replaced_loop=rel_y, vs_plain_loop=rel_p,
+                max_abs_err=abs_err,
+                shift_choices_identical=bool(torch.equal(sidx, sidx_p)),
+                shift_choices_differing=int((sidx != sidx_p)[act].sum()),
+                run_to_run_identical=bool(torch.equal(tau, again)),
+                iters_sum=int(iters.sum()), iters_max=int(iters.max()),
+                iters_mean_active=float(it_k.mean()),
+                replaced_loop_iters_sum=int(iters_y.sum()),
+                replaced_loop_passes=int(iters_y.max()),
+                plain_loop_iters_sum=int(iters_p.sum()),
+                roots_iters_differ=int((iters != iters_y)[act].sum()),
+                pairs_swept=swept, ms=ms, device_ms=dms,
+                replaced_loop_ms=replaced,
+                replaced_loop_device_ms=replaced_dms,
+                replaced_loop_is="secular_solve_plain with the secular_sums "
+                "kernel on the card: the path before this kernel",
+                plain_ms=plain, library_ms=None, bound_ms=b_ms,
+                bound_by=b_by)
 
 
 # --------------------------------------------------------------------------
@@ -404,8 +592,10 @@ def check_cauchy_matmul(k, m, C, kact, reps):
     skip_exact = bool(torch.equal(got[fin], full[fin]))
     del full, fin
     ms = time_ms(lambda: cm.cauchy_matmul(*args), reps)
+    dms = device_ms(lambda: cm.cauchy_matmul(*args), reps)
     plain = time_ms(lambda: cm.cauchy_matmul_plain(*args), max(1, reps // 2))
     library = time_ms(lambda: torch.bmm(Mf, X), reps)
+    lib_dms = device_ms(lambda: torch.bmm(Mf, X), reps)
     # three TF32 passes on the tensor cores; the earlier design's bound was
     # one pass of FP32 on the CUDA cores
     ops = 2.0 * k * kact * m * C
@@ -421,8 +611,9 @@ def check_cauchy_matmul(k, m, C, kact, reps):
                 "sums differ",
                 kernel_vs_f64=vs_f64[0], plain_vs_f64=vs_f64[1],
                 split_emulation_vs_f64=vs_f64[2],
-                max_abs_err=abs_err, ms=ms, plain_ms=plain,
-                library_ms=library, library_is="torch.bmm of the pre-built "
+                max_abs_err=abs_err, ms=ms, device_ms=dms, plain_ms=plain,
+                library_ms=library, library_device_ms=lib_dms,
+                library_is="torch.bmm of the pre-built "
                 "f32 M with X (full f32, the product alone)",
                 bound_ms=b_ms, bound_by=b_by,
                 bound_is="3 TF32 passes on the tensor cores",
@@ -483,13 +674,14 @@ def check_cauchy_materialize(m, C, kact, reps):
     abs_err = float(diff.max())
     del diff, a
     ms = time_ms(lambda: cm.cauchy_materialize(*args), reps)
+    dms = device_ms(lambda: cm.cauchy_materialize(*args), reps)
     plain = time_ms(lambda: cm.cauchy_materialize_plain(*args), reps)
     nact = int(act.sum())
     nbytes = 4.0 * m * C + 8.0 * (2 * m + 4 * C)
     b_ms, b_by = bound(1.0 * m * nact, PEAK_FP64, nbytes)
     return dict(m=m, C=C, K=kact, max_rel_err=err, tol=2.0 ** -22,
                 tol_of="|entry|, active entries", identity_exact=eye_exact,
-                max_abs_err=abs_err, ms=ms, plain_ms=plain,
+                max_abs_err=abs_err, ms=ms, device_ms=dms, plain_ms=plain,
                 library_ms=None, bound_ms=b_ms, bound_by=b_by)
 
 
@@ -545,9 +737,12 @@ def check_spike(d, e, lam_all, nb, K, shifts, reps):
     err_r, abs_r = _col_rel(Xr, Xr_p)
     err_res = float(((res - res_p).abs() / res_p.abs()).max())
     ms_a = time_ms(lambda: sp.spike_pass_a(db, e_all, tiny, lam, V, nb), reps)
+    dms_a = device_ms(lambda: sp.spike_pass_a(db, e_all, tiny, lam, V, nb),
+                      reps)
     plain_a = time_ms(lambda: sp.spike_pass_a_plain(db, e_all, tiny, lam, V,
                                                     nb), 2)
     ms_b = time_ms(lambda: sp.spike_pass_b(*bargs), reps)
+    dms_b = device_ms(lambda: sp.spike_pass_b(*bargs), reps)
     plain_b = time_ms(lambda: sp.spike_pass_b_plain(*bargs), 2)
     npad = db.shape[0]
     # FP64 operations per (row, column): forward 4 + 2 per rhs, back 5 per
@@ -565,10 +760,10 @@ def check_spike(d, e, lam_all, nb, K, shifts, reps):
     require(err_res <= 1e-10, f"spike_refine estimates disagree ({shifts}): "
             f"{err_res}")
     return (dict(common, pass_="A", max_rel_err=err_a, max_abs_err=abs_a,
-                 ms=ms_a, plain_ms=plain_a, library_ms=None,
+                 ms=ms_a, device_ms=dms_a, plain_ms=plain_a, library_ms=None,
                  bound_ms=ba[0], bound_by=ba[1]),
             dict(common, pass_="B", max_rel_err=max(err_b, err_mx, err_r),
-                 max_abs_err=abs_b, ms=ms_b, plain_ms=plain_b,
+                 max_abs_err=abs_b, ms=ms_b, device_ms=dms_b, plain_ms=plain_b,
                  library_ms=None, bound_ms=bb[0], bound_by=bb[1]))
 
 
@@ -626,7 +821,37 @@ def warm_walls(d, e, cfg, reps: int = 3):
     return walls, sorted(runs, key=lambda r: r[0])[reps // 2][1]
 
 
-RANGES = ("spike.interface_solve", "refine.triage")
+RANGES = ("spike.interface_solve", "refine.triage", "secular.solve_roots")
+
+
+@contextlib.contextmanager
+def record_levels():
+    """Each merge level's (k, m), its merges' active counts K and the root
+    finder's launches at that level, recorded around
+    secular._solve_roots (K is read back to the host: one sync a level,
+    in the run recorded only), with the midpoint sweep's bound."""
+    levels = []
+    inner = sec._solve_roots
+
+    def recorded(poles_sec, zu, rho_e, K, *args):
+        before = (ss.launches, ss.solve_launches)
+        out = inner(poles_sec, zu, rho_e, K, *args)
+        k, m = poles_sec.shape
+        Ks = K.tolist()
+        levels.append({
+            "k": k, "m": m, "K_sum": sum(Ks), "K_min": min(Ks),
+            "K_max": max(Ks), **({"K": Ks} if k <= 4 else {}),
+            "secular_sums_launches": ss.launches - before[0],
+            "secular_solve_launches": ss.solve_launches - before[1],
+            "secular_sums_bound_ms": bound(7.0 * m * sum(Ks), PEAK_FP64,
+                                           8.0 * 9 * k * m)[0]})
+        return out
+
+    sec._solve_roots = recorded
+    try:
+        yield levels
+    finally:
+        sec._solve_roots = inner
 
 
 def _launches_under(ev) -> int:
@@ -763,7 +988,10 @@ def kernel_table(d, e, ref):
     vec_chunk of 8192 columns; cauchy_materialize at the root (m=16384,
     8192 columns); the Spike passes at one refinement chunk (n=16384,
     nb=128, K=2048) of the prescaled system of (d, e), whose spectrum is
-    ``ref``."""
+    ``ref``; secular_solve on the root and the bottom level of a tear of
+    (d, e), and on two levels that deflate little: K_b above the 3072 poles
+    a block holds (the streamed sweeps) and between 256 and 3072 (resident
+    sweeps over more than 64 poles)."""
     spike = []
 
     def spike_rows(which):
@@ -776,8 +1004,20 @@ def kernel_table(d, e, ref):
         return [pair[which] for pair in spike]
 
     return {
+        # secular_sums at the root and the bottom level, and at the root
+        # with a quarter of the slots active (the sweeps stop at K)
         "secular_sums": lambda: [check_secular_sums(1, N, 10),
-                                 check_secular_sums(256, 64, 50)],
+                                 check_secular_sums(256, 64, 50),
+                                 check_secular_sums(1, N, 10, kact=N // 4)],
+        # secular_solve on the root level (k=1, m=16384) and the bottom
+        # level (k=256, m=64) of a tear of the main path's matrix, then on
+        # levels that deflate little: k=1, m=16384 (streamed) and k=4,
+        # m=2048 (resident)
+        "secular_solve": lambda: [
+            check_secular_solve(split_level(d, e, 1, N), 10),
+            check_secular_solve(split_level(d, e, 256, 64), 20),
+            check_secular_solve(spread_level(1, N, 5), 5),
+            check_secular_solve(spread_level(4, 2048, 6), 10)],
         "cauchy_rowsum": lambda: [check_cauchy_rowsum(2, 8192, 20)],
         # after the f64 downsweep's GEMM, the dense front end's skinny
         # shapes: a 32-row panel's Gram over K=16384, and the rank-2k
@@ -838,6 +1078,11 @@ def run_kernel_checks(table, names):
                     f"{name}: two runs on the same input differ: {row}")
             require(row.get("outside_view_untouched", True),
                     f"{name}: wrote outside the view it was given: {row}")
+            require(row.get("one_launch", True),
+                    f"{name}: more than one launch a call: {row}")
+            require(row.get("shift_choices_identical", True),
+                    f"{name}: shift choices differ from the plain ones: "
+                    f"{row}")
             require(row.get("kernel_vs_split_emulation", 0.0)
                     <= row.get("tol_vs_emulation", 0.0),
                     f"{name} disagrees with the split emulation: {row}")
@@ -902,14 +1147,17 @@ def main(argv=None) -> int:
     # 4. the main path: default (mixed) config, all eigenpairs, cold
     cfg = st.SolverConfig()
     reset_counts()
-    solve = solve_and_check(d, e, cfg, ref, norm_ref)
+    with record_levels() as levels:
+        solve = solve_and_check(d, e, cfg, ref, norm_ref)
+    solve["levels"] = levels
     launches = solve["launches"]
     walls, phases = warm_walls(d, e, cfg)
     emit({"phase": "solve", "n": N, "matrix": "random", "seed": SEED,
           "config": "SolverConfig() (mixed_precision_vectors=True)",
           **solve, "warm_walls_s": walls, "warm_median_phases_s": phases})
     for name in ("cauchy_matmul", "cauchy_materialize", "spike_pass_a",
-                 "spike_pass_b", "secular_sums", "cauchy_rowsum"):
+                 "spike_pass_b", "secular_sums", "secular_solve",
+                 "cauchy_rowsum"):
         require(launches[name] > 0,
                 f"kernel {name} was not launched on the main path")
 
@@ -921,8 +1169,9 @@ def main(argv=None) -> int:
     emit({"phase": "solve_f64", "n": N, "matrix": "random", "seed": SEED,
           "config": "mixed_precision_vectors=False", **s64,
           "warm_walls_s": walls64, "warm_median_phases_s": phases64})
-    require(s64["launches"]["dword_matmul"] > 0,
-            "dword_matmul was not launched on the f64 path")
+    for name in ("dword_matmul", "secular_sums", "secular_solve"):
+        require(s64["launches"][name] > 0,
+                f"{name} was not launched on the f64 path")
 
     # 6. deflation-heavy: Poisson against its analytic spectrum
     dp, ep = st.create_matrix_scheme2(N)
@@ -1042,11 +1291,15 @@ def main(argv=None) -> int:
             "name": name, "route": "cuda",
             "source": "symmetric_eigenvalue_tpu_torch/csrc/"
                       f"{SOURCES.get(name, name)}.cu",
-            "replaces": REPLACES[name], "launches": count,
+            "replaces": REPLACES[name],
+            **({"replaces_loop": REPLACES_LOOP[name]}
+               if name in REPLACES_LOOP else {}),
+            "launches": count,
             "launches_on": path,
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             "max_rel_err": max(r["max_rel_err"] for r in rows),
-            "ms": row["ms"], "plain_ms": row["plain_ms"],
+            "ms": row["ms"], "device_ms": row.get("device_ms"),
+            "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": row.get("library_ms")})
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})

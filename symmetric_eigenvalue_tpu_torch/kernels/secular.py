@@ -3,14 +3,14 @@
 Port of ``symmetric_eigenvalue_tpu/kernels/secular.py``.  Every function
 works on a whole tree level at once: where the JAX package vmaps one merge
 over the level, here every tensor carries an explicit leading batch
-dimension k (the level's merges), and ``lax.while_loop`` becomes a Python
-loop with one host sync per iteration for all merges together.
+dimension k (the level's merges), and the root finder's ``lax.while_loop``
+becomes one ``secular_solve`` launch per level on the card.
 
 Per merge: sort the poles, deflate negligible z entries and close poles
 (Givens rotations on a static binary wave tree), stably partition the
 active slots first, solve every root by a safeguarded Newton / dlaed4
 "middle way" iteration in shifted coordinates tau = lambda - d_shift (the
-per-iteration sums go through the ``secular_sums`` kernel), recompute z by
+``secular_sums`` and ``secular_solve`` kernels), recompute z by
 the Gu-Eisenstat (Lowner) formula and take the eigenvector column norms.
 The tearing always gives rho >= 0, so only that interlacing branch exists.
 """
@@ -21,7 +21,7 @@ from typing import Callable, NamedTuple
 
 import torch
 
-from .secular_sums import secular_sums
+from .secular_sums import RootSetup, secular_solve, secular_sums
 
 
 class MergeRep(NamedTuple):
@@ -233,20 +233,18 @@ def merge_partition(d, z, rho, *, eps: float,
                           rot_s=rs, rot_wave=rw, nrot=nrot, nwave=nwave)
 
 
-def _solve_roots(poles_sec, zu, rho_e, K, active, eps, max_iters, tol_factor):
-    """Safeguarded Newton / middle-way iteration on the shifted secular
-    equation, for every root of every merge of the level at once.
+def _root_setup(poles_sec, zu, rho_e, K, active):
+    """The root finder's state before its iteration, for every root of every
+    merge of the level: one midpoint sweep (``secular_sums``) picks each
+    root's nearest pole as its shift, and the bracket of tau = lambda -
+    d_shift, the starting tau and the middle-way model's bracket poles
+    follow.
 
     For active slot i (rho_e > 0) the root lies in (d_i, d_{i+1}), or in
-    (d_{K-1}, d_{K-1} + rho_e] for the exterior root.  One midpoint
-    evaluation picks the nearest pole and the iteration solves for
-    tau = lambda - d_shift on h(tau) = tau D(tau) - rho_e z_s^2, which keeps
-    full relative accuracy for roots arbitrarily close to their pole.  A
-    converged root is frozen; the loop stops when all are (one host sync per
-    iteration) or after ``max_iters``.  Returns (tau, shift_idx, shift_val).
-    """
+    (d_{K-1}, d_{K-1} + rho_e] for the exterior root.  Returns (RootSetup,
+    shift_idx)."""
     k, m = poles_sec.shape
-    dev, dt = poles_sec.device, poles_sec.dtype
+    dev = poles_sec.device
     idx = torch.arange(m, device=dev)
     sl = idx.expand(k, m).contiguous()
     last = (K - 1).clamp(min=0)
@@ -259,10 +257,9 @@ def _solve_roots(poles_sec, zu, rho_e, K, active, eps, max_iters, tol_factor):
     gap = right - poles_sec
     gap = torch.where(gap > 0, gap, torch.ones_like(gap))
     zu2 = zu * zu
-    tolf = tol_factor * eps
 
     mid = poles_sec + 0.5 * gap
-    S1mid = secular_sums(poles_sec, zu2, mid, torch.zeros_like(mid), sl)[0]
+    S1mid = secular_sums(poles_sec, zu2, mid, torch.zeros_like(mid), sl, K)[0]
     fmid = 1.0 + rho * S1mid
     is_exterior = idx[None, :] == (K - 1)[:, None]
     shift_left = (fmid > 0) | is_exterior
@@ -272,72 +269,36 @@ def _solve_roots(poles_sec, zu, rho_e, K, active, eps, max_iters, tol_factor):
     lo = torch.where(shift_left, torch.where(fmid > 0, zero, 0.5 * gap),
                      -0.5 * gap)
     hi = torch.where(shift_left, torch.where(fmid > 0, 0.5 * gap, gap), zero)
-    tau = 0.5 * (lo + hi)
+    tau0 = 0.5 * (lo + hi)
     zs2 = zu2.gather(1, shift_idx)
     # bracket poles for the middle-way model: delta_lo at slot sl, delta_hi
     # at sl+1 (or a far fake pole for the exterior root)
     delta_lo = poles_sec - shift_val
     delta_hi = torch.where(interior, poles_sec.gather(1, nxt) - shift_val,
                            4.0 * (torch.abs(gap) + 1.0))
-    big = torch.tensor(1e30, dtype=dt, device=dev)
-    one = torch.ones_like(gap)
+    setup = RootSetup(poles_sec=poles_sec, zu2=zu2, rho_e=rho_e, K=K,
+                      shift_val=shift_val, zs2=zs2, lo=lo, hi=hi, tau0=tau0,
+                      delta_lo=delta_lo, delta_hi=delta_hi, done0=~active)
+    return setup, shift_idx
 
-    done = ~active
-    it = 0
-    while it < max_iters and not bool(done.all()):
-        S1, S2, S1L, S2L = secular_sums(poles_sec, zu2, shift_val, tau, sl)
-        # the shift slot's dif is -tau exactly (shift_val is the pole)
-        inv_s = 1.0 / -tau
-        t1s = zs2 * inv_s
-        t2s = t1s * inv_s
-        psi = rho * S1L
-        psi1 = rho * S2L
-        phi = rho * S1 - psi
-        phi1 = rho * S2 - psi1
-        f = 1.0 + psi + phi
-        # convergence test on h = tau*D - rho*z_s^2 (singular term isolated)
-        Ds = 1.0 + rho * (S1 - t1s)
-        h = tau * Ds - rho * zs2
-        scale_h = torch.abs(tau) * (1.0 + torch.abs(rho)
-                                    * torch.abs(S1 - t1s)) + rho * zs2
-        done_now = torch.abs(h) <= tolf * scale_h
-        # sign(f) = sign(h) * sign(tau); f > 0 => root below tau
-        f_pos = (h > 0) ^ (tau < 0)
-        hi = torch.where(f_pos, torch.minimum(hi, tau), hi)
-        lo = torch.where(f_pos, lo, torch.maximum(lo, tau))
-        # middle-way model: c3 + c1/(Dlo - eta) + c2/(Dhi - eta) fitted to
-        # f and f'  ->  a eta^2 - b eta + c = 0
-        Dlo = delta_lo - tau
-        Dhi = delta_hi - tau
-        c1 = psi1 * Dlo * Dlo
-        c2 = phi1 * Dhi * Dhi
-        c3 = f - Dlo * psi1 - Dhi * phi1
-        a = c3
-        b = c3 * (Dlo + Dhi) + c1 + c2
-        c = f * Dlo * Dhi
-        disc = torch.clamp(b * b - 4.0 * a * c, min=0.0)
-        sq = torch.sqrt(disc)
-        q = 0.5 * (b + torch.where(b >= 0, sq, -sq))
-        e1 = torch.where(a != 0, q / torch.where(a != 0, a, one), big)
-        e2 = torch.where(q != 0, c / torch.where(q != 0, q, one), big)
-        cand1 = tau + e1
-        cand2 = tau + e2
-        in1 = (cand1 > lo) & (cand1 < hi)
-        in2 = (cand2 > lo) & (cand2 < hi)
-        # prefer the smaller step (tangent root) among in-bracket options
-        pick1 = in1 & (~in2 | (torch.abs(e1) <= torch.abs(e2)))
-        t_quad = torch.where(pick1, cand1, cand2)
-        ok_quad = (in1 | in2) & torch.isfinite(t_quad)
-        # fallbacks: safeguarded Newton on h, then bisection
-        hp = Ds + tau * rho * (S2 - t2s)
-        t_newton = tau - h / torch.where(hp != 0, hp, one)
-        in_n = (t_newton > lo) & (t_newton < hi)
-        t_next = torch.where(ok_quad, t_quad,
-                             torch.where(in_n, t_newton, 0.5 * (lo + hi)))
-        done = done | done_now
-        tau = torch.where(done, tau, t_next)
-        it += 1
-    return tau, shift_idx, shift_val
+
+def _solve_roots(poles_sec, zu, rho_e, K, active, eps, max_iters, tol_factor):
+    """Safeguarded Newton / middle-way iteration on the shifted secular
+    equation, for every root of every merge of the level at once.
+
+    After the setup (:func:`_root_setup`), the iteration solves for
+    tau = lambda - d_shift on h(tau) = tau D(tau) - rho_e z_s^2, which keeps
+    full relative accuracy for roots arbitrarily close to their pole; a
+    converged root is frozen.  On the card the whole iteration is one
+    ``secular_solve`` launch (each block of roots iterates until its own
+    roots converge, as the JAX package's per-slot-block while_loop does; no
+    host sync); CPU tensors run its plain version.  Returns (tau, shift_idx,
+    shift_val).
+    """
+    with torch.profiler.record_function("secular.solve_roots"):
+        setup, shift_idx = _root_setup(poles_sec, zu, rho_e, K, active)
+        tau, _ = secular_solve(setup, tol_factor * eps, max_iters)
+    return tau, shift_idx, setup.shift_val
 
 
 def _gu_eisenstat_z(poles_sec, zu, tau, shift_val, active, block):

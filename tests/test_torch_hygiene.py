@@ -82,9 +82,9 @@ def test_cuda_request_without_cuda_raises(monkeypatch):
 
 
 def _counts():
-    return (ss.launches, cr.launches, dm.launches, cm.matmul_launches,
-            cm.materialize_launches, sp.pass_a_launches, sp.pass_b_launches,
-            dv.launches)
+    return (ss.launches, ss.solve_launches, cr.launches, dm.launches,
+            cm.matmul_launches, cm.materialize_launches, sp.pass_a_launches,
+            sp.pass_b_launches, dv.launches)
 
 
 def test_cpu_tensors_count_no_launches(rng):
@@ -110,7 +110,7 @@ def test_cpu_tensors_count_no_launches(rng):
     assert V.device.type == "cpu"
     st.eigh(A + A.T, band=4, device="cpu")
     st.eigh_banded(np.ones((4, 40)), device="cpu")
-    assert _counts() == before == (0,) * 8
+    assert _counts() == before == (0,) * 9
 
 
 def test_non_cpu_tensors_never_take_the_plain_version():
@@ -122,8 +122,12 @@ def test_non_cpu_tensors_never_take_the_plain_version():
     k, m, C, n, nb = 2, 8, 4, 16, 8
     v = [torch.empty((k, m), **f64) for _ in range(5)]
     calls = {
-        "secular_sums": lambda: ss.secular_sums(*v[:4], torch.empty((k, m),
-                                                                    **i64)),
+        "secular_sums": lambda: ss.secular_sums(
+            *v[:4], torch.empty((k, m), **i64), torch.empty(k, **i64)),
+        "secular_solve": lambda: ss.secular_solve(ss.RootSetup(
+            *v[:2], torch.empty(k, **f64), torch.empty(k, **i64),
+            *(torch.empty((k, m), **f64) for _ in range(7)),
+            torch.empty((k, m), dtype=torch.bool, device="meta")), 1e-15, 60),
         "cauchy_rowsum": lambda: cr.cauchy_rowsum(
             *v[:3], torch.empty((k, 2, m), **f64)),
         "dword_matmul": lambda: dm.dword_matmul(v[0], v[1].T),

@@ -1,0 +1,125 @@
+#!/usr/bin/env python3
+"""Time and profile the PyTorch port's tridiagonal solves on one GPU.
+
+For the default (mixed-precision) and the pure-f64 config, on bench.py's
+random input (n=16384, seed 0): one cold solve, three warm walls with their
+phases, the host syncs of one warm solve (torch.cuda's sync debug mode
+counts them), and one warm solve under torch.profiler: device events, busy
+time and idle share, and the host time of the named ranges.  Prints one JSON
+line per config.
+
+It imports the package from the tree it sits in, so a copy placed in
+another checkout's ``tools/`` (an older commit unpacked by ``git archive``)
+measures that checkout:
+
+    python3 tools/torch_solve_profile.py --tag change
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+import time
+import warnings
+from pathlib import Path
+
+import numpy as np
+import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+
+sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+import symmetric_eigenvalue_tpu_torch as st  # noqa: E402
+
+RANGES = ("secular.solve_roots", "spike.interface_solve", "refine.triage")
+
+
+def solve(d, e, cfg):
+    return st.solve_tridiagonal_staged(d, e, config=cfg, compute_vectors=True)
+
+
+def host_syncs(d, e, cfg) -> int:
+    """Synchronizing CUDA calls of one solve (each one warns in sync debug
+    mode)."""
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            solve(d, e, cfg)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    return sum("synchroniz" in str(w.message) for w in caught)
+
+
+def profiled(d, e, cfg):
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        _, timer = solve(d, e, cfg)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy, events, ranges = 0.0, 0, {}
+    for ev in prof.key_averages():
+        if ev.key in RANGES:
+            if ev.device_type != DeviceType.CUDA:
+                ranges[ev.key] = {"host_s": ev.cpu_time_total * 1e-6,
+                                  "calls": ev.count}
+            continue
+        if ev.device_type == DeviceType.CUDA and ev.self_device_time_total:
+            busy += ev.self_device_time_total * 1e-6
+            events += ev.count
+    return {"wall_s": wall, "phases_s": timer.times, "device_busy_s": busy,
+            "idle_share": max(0.0, 1.0 - busy / wall),
+            "device_events": events, "ranges": ranges}
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--tag", default="", help="a label for the output lines")
+    ap.add_argument("--n", type=int, default=16384)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("torch_solve_profile: needs a CUDA card", file=sys.stderr)
+        return 1
+    torch.backends.cuda.matmul.allow_tf32 = False
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60).stdout.strip().splitlines()
+    rng = np.random.default_rng(0)          # bench.py's random input
+    d = rng.standard_normal(args.n) * 5.0
+    e = rng.standard_normal(args.n - 1) * 2.0
+    for name, cfg in (("mixed", st.SolverConfig()),
+                      ("f64", st.SolverConfig(
+                          mixed_precision_vectors=False))):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res, _ = solve(d, e, cfg)
+        torch.cuda.synchronize()
+        cold = time.perf_counter() - t0
+        resid = float(st.residuals(d, e, res).max())
+        del res
+        warm = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, timer = solve(d, e, cfg)
+            torch.cuda.synchronize()
+            warm.append((time.perf_counter() - t0, timer.times))
+        torch.cuda.empty_cache()
+        print(json.dumps({
+            "tag": args.tag, "config": name, "n": args.n,
+            "card": smi[0] if smi else None, "cold_wall_s": cold,
+            "residual_max": resid, "warm_walls_s": [w for w, _ in warm],
+            "warm_phases_s": [p for _, p in warm],
+            "host_syncs": host_syncs(d, e, cfg),
+            "profile": profiled(d, e, cfg)}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
