@@ -19,7 +19,14 @@ exits non-zero:
                secular_solve (the root finder's whole iteration) on the
                level data of a tear of the main path's matrix, against the
                plain loop with the sums kernel (the path it replaces) and
-               with the plain sums; dword_matmul also at a ragged
+               with the plain sums, and (secular_stall) on the bottom level
+               and on a level that deflates little against the plain loop
+               run on the CPU: no root stalls at max_secular_iters where
+               that loop converges; the Spike passes bit for bit their
+               plain versions (also on each chunk of a mixed solve's own
+               downsweep output), with their launch plan, registers, scratch
+               bytes and a bound from the FP64 instructions of one row of
+               the plain LU (cuobjdump's SASS); dword_matmul also at a ragged
                shape, batched, and in its fused form C -= A @ B on a strided
                view, with its split-K plan; cauchy_matmul also against the
                plain emulation of its TF32 split, against an f64 product,
@@ -60,9 +67,11 @@ from __future__ import annotations
 import argparse
 import contextlib
 import json
+import re
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import scipy.linalg
@@ -464,13 +473,18 @@ def spread_level(k: int, m: int, seed: int):
     return lam, z, np.abs(g.standard_normal(k)) + 0.5
 
 
-def check_secular_solve(level, reps):
+def check_secular_solve(level, reps, stall=False):
     """The root finder's whole iteration (one secular_solve launch) on a
     merge level: against the loop it replaces (secular_solve_plain with the
     sums kernel, run on the card) and against the all-plain loop (the setup
     built from CPU copies, so its midpoint sweep is the plain one; the loop
     on the card with the plain sums): tau within 1e-11 |tau|, the same shift
-    choices; each root's sweeps, and a bound by operations from them."""
+    choices; each root's sweeps, and a bound by operations from them.
+
+    ``stall``: also the secular_stall check against the plain loop run on
+    the CPU: no root ends at max_secular_iters where that loop converges,
+    the summed sweeps within 1% of its, tau within 1e-11 |tau| of the
+    all-plain loop."""
     lam, z, rho = level
     cfg = st.SolverConfig()
     eps, max_iters = cfg.eps(), cfg.max_secular_iters
@@ -513,6 +527,23 @@ def check_secular_solve(level, reps):
                        + 1.0 * k * m + 12.0 * k * m)
     Ks = part.K.tolist()
     it_k = iters[act].to(torch.float64)
+    extra = {}
+    if stall:
+        tau_c, iters_c = ss.secular_solve_plain(setup_c, tolf, max_iters)
+        iters_c = iters_c.cuda()
+        at_max = (iters == max_iters) & act
+        where_cpu = at_max & (iters_c < max_iters)
+        ratio = int(iters.sum()) / max(1, int(iters_c.sum()))
+        rel_c = float(((tau - tau_c.cuda()).abs() / scale)[act].max())
+        extra["secular_stall"] = dict(
+            roots_at_max_iters=int(at_max.sum()),
+            roots_at_max_where_cpu_plain_converges=int(where_cpu.sum()),
+            iters_sum=int(iters.sum()), cpu_plain_iters_sum=int(iters_c.sum()),
+            cpu_plain_iters_max=int(iters_c.max()), sweeps_ratio=ratio,
+            vs_plain_loop=rel_p, vs_cpu_plain_loop=rel_c,
+            max_secular_iters=max_iters, tolf=tolf,
+            ok=bool(int(where_cpu.sum()) == 0 and abs(ratio - 1.0) <= 0.01
+                    and rel_p <= 1e-11))
     return dict(k=k, m=m, K_sum=int(sum(Ks)), K_min=min(Ks), K_max=max(Ks),
                 active_roots=int(act.sum()), max_rel_err=max(rel_y, rel_p),
                 tol=1e-11, tol_of="|tau| per active root",
@@ -533,7 +564,7 @@ def check_secular_solve(level, reps):
                 replaced_loop_is="secular_solve_plain with the secular_sums "
                 "kernel on the card: the path before this kernel",
                 plain_ms=plain, library_ms=None, bound_ms=b_ms,
-                bound_by=b_by)
+                bound_by=b_by, **extra)
 
 
 # --------------------------------------------------------------------------
@@ -704,12 +735,12 @@ def _col_rel(got, ref):
     return float((d / scale).max()), float(d.max())
 
 
-def check_spike(d, e, lam_all, nb, K, shifts, reps):
-    """Pass A and pass B against their plain versions at the main path's
-    refinement shape (the prescaled system, one chunk of K columns of f32
-    right-hand sides), and the normalized spike_refine result."""
+def spike_inputs(n, lam_all, K, shifts, sliced=False):
+    """K shifts (random in the spectrum's range, or K of its eigenvalues)
+    and unit f32 right-hand sides V (n, K).  ``sliced``: V is the first K
+    columns of an n x n matrix (row stride n), the layout in which the
+    solve hands each chunk of its downsweep's output to the passes."""
     g = np.random.default_rng(7 if shifts == "random" else 8)
-    n = d.shape[0]
     if shifts == "random":
         lo, hi = float(lam_all.min()), float(lam_all.max())
         lam = torch.as_tensor(np.sort(g.uniform(lo, hi, K)), device="cuda")
@@ -717,8 +748,38 @@ def check_spike(d, e, lam_all, nb, K, shifts, reps):
         pick = np.sort(g.choice(n, K, replace=False))
         lam = torch.as_tensor(lam_all[pick], device="cuda")
     gen = torch.Generator(device="cuda").manual_seed(9)
-    V = torch.randn((n, K), dtype=torch.float32, device="cuda", generator=gen)
+    V = torch.randn((n, n if sliced else K), dtype=torch.float32,
+                    device="cuda", generator=gen)[:, :K]
     V /= torch.linalg.vector_norm(V, dim=0, keepdim=True)
+    return lam, V
+
+
+@contextlib.contextmanager
+def first_spike_refine():
+    """Records the arguments (d, e, lam, V) of the first spike_refine call
+    made inside the block: in a mixed solve, its refinement of the f32
+    downsweep's output."""
+    seen = []
+    refine = sp.spike_refine
+
+    def recorded(d, e, lam, V, *args, **kwargs):
+        if not seen:
+            seen.append((d, e, lam, V))
+        return refine(d, e, lam, V, *args, **kwargs)
+
+    sp.spike_refine = recorded
+    try:
+        yield seen
+    finally:
+        sp.spike_refine = refine
+
+
+def check_spike(d, e, lam, V, nb, shifts, reps):
+    """Pass A and pass B against their plain versions at the main path's
+    refinement shape (the prescaled system (d, e), one chunk of K columns
+    of right-hand sides V with shifts lam), and the normalized spike_refine
+    result."""
+    n, K = V.shape
     db, e_all, e_cross, ec_above, tiny = band_prep(d, e, nb)
     P = db.shape[0] // nb
     bnd = sp.spike_pass_a(db, e_all, tiny, lam, V, nb)
@@ -736,6 +797,8 @@ def check_spike(d, e, lam_all, nb, K, shifts, reps):
         Xr_p, res_p = sp.spike_refine(d, e, lam, V, nb=nb, chunk=K)
     err_r, abs_r = _col_rel(Xr, Xr_p)
     err_res = float(((res - res_p).abs() / res_p.abs()).max())
+    exact_a = bool(torch.equal(bnd, bnd_p))
+    exact_b = bool(torch.equal(X, X_p) and torch.equal(mx, mx_p))
     ms_a = time_ms(lambda: sp.spike_pass_a(db, e_all, tiny, lam, V, nb), reps)
     dms_a = device_ms(lambda: sp.spike_pass_a(db, e_all, tiny, lam, V, nb),
                       reps)
@@ -745,26 +808,102 @@ def check_spike(d, e, lam_all, nb, K, shifts, reps):
     dms_b = device_ms(lambda: sp.spike_pass_b(*bargs), reps)
     plain_b = time_ms(lambda: sp.spike_pass_b_plain(*bargs), 2)
     npad = db.shape[0]
-    # FP64 operations per (row, column): forward 4 + 2 per rhs, back 5 per
-    # rhs (a division counts one); the fold adds 2 per boundary row in B
-    ops_a = float(npad) * K * (4 + 2 * 3 + 5 * 3)
-    ops_b = float(npad) * K * (4 + 2 + 5) + 4.0 * P * K
-    in_bytes = 4.0 * n * K + 8.0 * (2 * npad + K + 1)
-    ba = bound(ops_a, PEAK_FP64, in_bytes + 8.0 * 6 * P * K)
-    bb = bound(ops_b, PEAK_FP64, in_bytes + 8.0 * (4 * P + 2 * P * K)
-               + 8.0 * (npad * K + P * K))
-    common = dict(n=n, nb=nb, K=K, shifts=shifts, tol=1e-12,
+    # the plain block LU's work, whatever the kernel re-eliminates: every
+    # (row, column) pair issues one row's FP64 instructions, counted in the
+    # SASS of the row yardsticks, at the FP64 instruction rate
+    rate, per_row = fp64_rate(), spike_fp64_per_row()
+    in_bytes = V.element_size() * float(n) * K + 8.0 * (2 * npad + K + 1)
+    ba = bound(float(npad) * K * per_row["A"], rate,
+               in_bytes + 8.0 * 6 * P * K)
+    bb = bound(float(npad) * K * per_row["B"], rate,
+               in_bytes + 8.0 * (4 * P + 2 * P * K) + 8.0 * (npad * K + P * K))
+    common = dict(n=n, nb=nb, K=K, shifts=shifts, v_row_stride=V.stride(0),
+                  tol=1e-12,
                   tol_of="column max |x|", refine_rel_err=err_r,
                   refine_abs_err=abs_r, res_est_rel_err=err_res,
-                  clipped_columns=int((res >= 1e29).sum()))
+                  clipped_columns=int((res >= 1e29).sum()),
+                  fp64_instr_per_s=rate,
+                  bound_is="the plain LU's FP64 instructions (SASS of the "
+                  "row yardstick) at 64 a clock an SM, or its bytes")
     require(err_res <= 1e-10, f"spike_refine estimates disagree ({shifts}): "
             f"{err_res}")
-    return (dict(common, pass_="A", max_rel_err=err_a, max_abs_err=abs_a,
-                 ms=ms_a, device_ms=dms_a, plain_ms=plain_a, library_ms=None,
-                 bound_ms=ba[0], bound_by=ba[1]),
-            dict(common, pass_="B", max_rel_err=max(err_b, err_mx, err_r),
-                 max_abs_err=abs_b, ms=ms_b, device_ms=dms_b, plain_ms=plain_b,
-                 library_ms=None, bound_ms=bb[0], bound_by=bb[1]))
+    scr_a = scratch_bytes(lambda: sp.spike_pass_a(db, e_all, tiny, lam, V,
+                                                  nb))
+    scr_b = scratch_bytes(lambda: sp.spike_pass_b(*bargs))
+    return (dict(common, pass_="A", bit_exact=exact_a, max_rel_err=err_a,
+                 max_abs_err=abs_a, scratch_bytes=scr_a,
+                 **spike_plan_fields("A", nb, V),
+                 fp64_instr_per_row=per_row["A"], ms=ms_a, device_ms=dms_a,
+                 plain_ms=plain_a, library_ms=None, bound_ms=ba[0],
+                 bound_by=ba[1]),
+            dict(common, pass_="B", bit_exact=exact_b,
+                 max_rel_err=max(err_b, err_mx, err_r), max_abs_err=abs_b,
+                 scratch_bytes=scr_b,
+                 **spike_plan_fields("B", nb, V),
+                 fp64_instr_per_row=per_row["B"], ms=ms_b, device_ms=dms_b,
+                 plain_ms=plain_b, library_ms=None, bound_ms=bb[0],
+                 bound_by=bb[1]))
+
+
+def scratch_bytes(call) -> int:
+    """Device memory one call allocates beyond what it returns: its peak
+    allocation over what was allocated before, less its outputs."""
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = call()
+    torch.cuda.synchronize()
+    outs = out if isinstance(out, tuple) else (out,)
+    kept = sum(t.numel() * t.element_size() for t in outs)
+    return torch.cuda.max_memory_allocated() - before - kept
+
+
+def spike_plan_fields(which, nb, V):
+    """The launch plan of a Spike pass and its kernel's registers, spills
+    and blocks an SM holds (occupancy API)."""
+    plan = sp.plan_for(which, nb, V)
+    regs, spill, blocks = sp.kernel_info(which, V.dtype == torch.float32,
+                                         plan.threads, plan.shared_bytes)
+    return dict(segment_rows=plan.segment, checkpoints=plan.checkpoints,
+                threads=plan.threads, shared_bytes=plan.shared_bytes,
+                registers=regs, spill_bytes=spill, blocks_per_sm=blocks)
+
+
+_FP64_SASS = re.compile(r"\s(DADD|DMUL|DFMA|DSETP|DMNMX|MUFU\.RCP64H)\b")
+
+
+def spike_fp64_per_row():
+    """FP64 instructions one row of the plain block LU issues, per pass:
+    counted in cuobjdump's SASS of spike_row_yardstick<3> (pass A) and <1>
+    (pass B) in the built library, up to the kernel's EXIT (the division's
+    slow path, a subroutine past it, is left out)."""
+    tool = Path(_build.nvcc_path()).parent / "cuobjdump"
+    sass = subprocess.run([str(tool), "-sass",
+                           str(_build.library_path("spike_solve"))],
+                          capture_output=True, text=True, check=True,
+                          timeout=120).stdout
+    counts = {}
+    for part in sass.split("Function : ")[1:]:
+        name = part.split("\n", 1)[0]
+        if "spike_row_yardstick" not in name:
+            continue
+        body = re.split(r"^\s*/\*[0-9a-f]+\*/\s+EXIT\s*;", part,
+                        maxsplit=1, flags=re.M)[0]
+        counts["A" if "ILi3E" in name else "B"] = len(_FP64_SASS.findall(body))
+    require(set(counts) == {"A", "B"} and min(counts.values()) > 0,
+            f"no row yardstick in the SASS of spike_solve: {counts}")
+    return counts
+
+
+def fp64_rate():
+    """FP64 instructions a second: 64 a clock on each SM, at the card's
+    maximum SM clock (nvidia-smi)."""
+    mhz = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, check=True,
+                         timeout=60).stdout.split()[0]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return 64.0 * sms * float(mhz) * 1e6
 
 
 # --------------------------------------------------------------------------
@@ -988,7 +1127,9 @@ def kernel_table(d, e, ref):
     vec_chunk of 8192 columns; cauchy_materialize at the root (m=16384,
     8192 columns); the Spike passes at one refinement chunk (n=16384,
     nb=128, K=2048) of the prescaled system of (d, e), whose spectrum is
-    ``ref``; secular_solve on the root and the bottom level of a tear of
+    ``ref`` (V contiguous, and a column slice of an n x n V as the solve
+    passes it), then at every chunk of what a mixed solve of (d, e) hands
+    its first refinement pass (the f32 downsweep's output); secular_solve on the root and the bottom level of a tear of
     (d, e), and on two levels that deflate little: K_b above the 3072 poles
     a block holds (the streamed sweeps) and between 256 and 3072 (resident
     sweeps over more than 64 poles)."""
@@ -999,8 +1140,20 @@ def kernel_table(d, e, ref):
             ds, es, snorm = _prescale(*(torch.as_tensor(a, device="cuda")
                                         for a in (d, e)))
             lam = ref / float(snorm)
-            spike.extend(check_spike(ds, es, lam, 128, 2048, s, 5)
-                         for s in ("random", "eigenvalues"))
+            for s, sliced in (("random", False), ("eigenvalues", False),
+                              ("eigenvalues", True)):
+                spike.append(check_spike(
+                    ds, es, *spike_inputs(N, lam, 2048, s, sliced), 128, s,
+                    5))
+            with first_spike_refine() as seen:
+                st.solve_tridiagonal_staged(d, e, compute_vectors=True)
+            d_s, e_s, lam_s, V_s = seen[0]
+            for o in range(0, V_s.shape[1], 2048):
+                spike.append(check_spike(
+                    d_s, e_s, lam_s[o:o + 2048], V_s[:, o:o + 2048], 128,
+                    f"solve's downsweep output, columns {o}:{o + 2048}", 5))
+            del seen, d_s, e_s, lam_s, V_s
+            torch.cuda.empty_cache()
         return [pair[which] for pair in spike]
 
     return {
@@ -1015,9 +1168,9 @@ def kernel_table(d, e, ref):
         # m=2048 (resident)
         "secular_solve": lambda: [
             check_secular_solve(split_level(d, e, 1, N), 10),
-            check_secular_solve(split_level(d, e, 256, 64), 20),
+            check_secular_solve(split_level(d, e, 256, 64), 20, stall=True),
             check_secular_solve(spread_level(1, N, 5), 5),
-            check_secular_solve(spread_level(4, 2048, 6), 10)],
+            check_secular_solve(spread_level(4, 2048, 6), 10, stall=True)],
         "cauchy_rowsum": lambda: [check_cauchy_rowsum(2, 8192, 20)],
         # after the f64 downsweep's GEMM, the dense front end's skinny
         # shapes: a 32-row panel's Gram over K=16384, and the rank-2k
@@ -1093,6 +1246,11 @@ def run_kernel_checks(table, names):
             if "refine_rel_err" in row:
                 require(row["refine_rel_err"] <= row["tol"],
                         f"{name}: spike_refine disagrees: {row}")
+            require(row.get("bit_exact", True),
+                    f"{name}: not bit for bit its plain version: {row}")
+            require(row.get("secular_stall", {}).get("ok", True),
+                    f"{name}: roots stall where the CPU plain loop "
+                    f"converges: {row}")
     return checks
 
 

@@ -16,7 +16,7 @@ two-stage band reduction with ``band > 0``) and banded input in LAPACK band
 storage (``eigh_banded``), with eigenvectors transformed back through the
 reflectors; the batched Jacobi leaf solver (``kernels.jacobi.jacobi_eigh``,
 selectable in ``leaf.solve_leaves``).  Every Pallas kernel of the JAX
-package has its CUDA counterpart (six sources, eight kernels).  Entry points
+package has its CUDA counterpart (six sources, nine kernels).  Entry points
 run on the device ``"cuda"`` unless the caller passes ``device="cpu"``.
 """
 

@@ -38,7 +38,10 @@
 // secular_solve runs the whole safeguarded middle-way / Newton / bisection
 // iteration of kernels/secular.py for every root of a level in one launch:
 // each block loops until its own 32 roots have converged (or max_iters), as
-// the JAX package's per-slot-block while_loop does, a warp whose roots have
+// the JAX package's per-slot-block while_loop does (a root whose pass leaves
+// tau and its bracket unchanged is at a fixed point and counts as done: every
+// later pass would repeat it; at some roots no double meets the test, whose
+// scale ignores the rounding of the terms' differences), a warp whose roots have
 // all converged skips the sweep, and the poles and z2 of a merge stay in
 // dynamic shared memory across iterations when they fit (K_b <= the launch's
 // capacity), else they stream through it in tiles from L2.  No host sync.
@@ -230,6 +233,9 @@ __device__ __forceinline__ void step(Root& r, double rho, double tolf, double S1
   const bool f_pos = (h > 0.0) != (tau < 0.0);
   const double hi = f_pos ? nan_min(r.hi, tau) : r.hi;
   const double lo = f_pos ? r.lo : nan_max(r.lo, tau);
+  const bool same_bracket = lo == r.lo && hi == r.hi;
+  r.lo = lo;
+  r.hi = hi;
   const double Dlo = __dsub_rn(r.dlo, tau);
   const double Dhi = __dsub_rn(r.dhi, tau);
   const double c1 = __dmul_rn(__dmul_rn(psi1, Dlo), Dlo);
@@ -257,10 +263,11 @@ __device__ __forceinline__ void step(Root& r, double rho, double tolf, double S1
   const bool in_n = (t_newton > lo) && (t_newton < hi);
   const double t_next =
       ok_quad ? t_quad : (in_n ? t_newton : __dmul_rn(0.5, __dadd_rn(lo, hi)));
-  r.lo = lo;
-  r.hi = hi;
+  // a pass that leaves (tau, lo, hi) unchanged is a fixed point: every later
+  // pass repeats it, so the root already holds the tau of max_iters passes
+  const bool fixed = t_next == tau && same_bracket;
   r.it += 1;
-  if (done_now) {
+  if (done_now || fixed) {
     r.done = true;
   } else {
     r.tau = t_next;

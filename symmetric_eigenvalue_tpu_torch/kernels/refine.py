@@ -183,7 +183,7 @@ def band_prep(d, e, nb: int):
         db = torch.cat([d, (4.0 * scale + 4.0).expand(npad - n)])
     e_all = torch.cat([e, e.new_zeros(npad - e.shape[0])])
     P = npad // nb
-    e_cross = e_all.view(P, nb)[:, nb - 1]
+    e_cross = e_all.view(P, nb)[:, nb - 1].contiguous()
     ec_above = torch.cat([e_cross.new_zeros(1), e_cross[:-1]])
     return db, e_all, e_cross, ec_above, tiny
 

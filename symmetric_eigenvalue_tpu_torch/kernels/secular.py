@@ -289,7 +289,8 @@ def _solve_roots(poles_sec, zu, rho_e, K, active, eps, max_iters, tol_factor):
     After the setup (:func:`_root_setup`), the iteration solves for
     tau = lambda - d_shift on h(tau) = tau D(tau) - rho_e z_s^2, which keeps
     full relative accuracy for roots arbitrarily close to their pole; a
-    converged root is frozen.  On the card the whole iteration is one
+    converged root is frozen, as is one whose pass leaves tau and its
+    bracket unchanged (a fixed point).  On the card the whole iteration is one
     ``secular_solve`` launch (each block of roots iterates until its own
     roots converge, as the JAX package's per-slot-block while_loop does; no
     host sync); CPU tensors run its plain version.  Returns (tau, shift_idx,

@@ -102,8 +102,11 @@ def secular_solve_plain(setup: RootSetup, tolf: float, max_iters: int,
                         sums=secular_sums_plain):
     """The root finder's iteration in PyTorch, every root of the level at
     once: per iteration one call of ``sums`` (S1, S2, S1L, S2L at the
-    current tau), then the update; a converged root is frozen, and the loop
-    stops when all are (one host sync per iteration) or after ``max_iters``.
+    current tau), then the update; a root is frozen once it meets the test
+    or its pass leaves (tau, lo, hi) unchanged (a fixed point of the
+    iteration: its bracket has closed to adjacent doubles while |h| stays
+    above the test), and the loop stops when all are (one host sync per
+    iteration) or after ``max_iters``.
     Returns (tau, iters): tau (k, m) f64 and the sweeps each root took
     (k, m) int32.  Works on any device; ``sums`` may be the kernel."""
     s = setup
@@ -138,6 +141,7 @@ def secular_solve_plain(setup: RootSetup, tolf: float, max_iters: int,
         done_now = torch.abs(h) <= tolf * scale_h
         # sign(f) = sign(h) * sign(tau); f > 0 => root below tau
         f_pos = (h > 0) ^ (tau < 0)
+        lo_in, hi_in = lo, hi
         hi = torch.where(f_pos, torch.minimum(hi, tau), hi)
         lo = torch.where(f_pos, lo, torch.maximum(lo, tau))
         # middle-way model: c3 + c1/(Dlo - eta) + c2/(Dhi - eta) fitted to
@@ -169,7 +173,11 @@ def secular_solve_plain(setup: RootSetup, tolf: float, max_iters: int,
         in_n = (t_newton > lo) & (t_newton < hi)
         t_next = torch.where(ok_quad, t_quad,
                              torch.where(in_n, t_newton, 0.5 * (lo + hi)))
-        done = done | done_now
+        # a pass that leaves (tau, lo, hi) as it found them is a fixed
+        # point: every later pass repeats it, so the root already has the
+        # tau it would have after max_iters
+        fixed = (t_next == tau) & (lo == lo_in) & (hi == hi_in)
+        done = done | done_now | fixed
         tau = torch.where(done, tau, t_next)
         it += 1
     return tau, iters
@@ -178,8 +186,8 @@ def secular_solve_plain(setup: RootSetup, tolf: float, max_iters: int,
 def secular_solve(setup: RootSetup, tolf: float, max_iters: int):
     """(tau, iters) of every root of the level: :func:`secular_solve_plain`
     on CPU tensors; on CUDA tensors one kernel launch, which iterates each
-    block of 32 roots until they have converged (or ``max_iters``), with no
-    host sync; other devices raise."""
+    block of 32 roots until they have converged or reached their fixed
+    point (or ``max_iters``), with no host sync; other devices raise."""
     _check_solve(setup, max_iters)
     if setup.poles_sec.device.type == "cpu":
         return secular_solve_plain(setup, tolf, max_iters)

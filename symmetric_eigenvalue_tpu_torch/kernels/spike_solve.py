@@ -18,7 +18,10 @@ followed by the max-prescaled normalization and the free residual estimate
 substitution hit the +-2^80 clip.  The arithmetic is IEEE f64 throughout
 (the TPU's f32-pair arithmetic is not carried over, nor its 1024-column
 tile, its row padding or the ``scan=True`` chunk loop, which works around
-XLA buffer fragmentation).  CUDA tensors launch ``csrc/spike_solve.cu``;
+XLA buffer fragmentation).  CUDA tensors launch ``csrc/spike_solve.cu``
+(one thread a (block, column); the back substitution re-eliminates each
+S-row segment from a checkpoint in shared memory, so no factor leaves the
+SM and nothing is allocated beyond the outputs; :func:`launch_plan`);
 CPU tensors run :func:`spike_pass_a_plain` / :func:`spike_pass_b_plain`,
 both built on ``refine._block_lu_solve``.
 """
@@ -26,6 +29,7 @@ both built on ``refine._block_lu_solve``.
 from __future__ import annotations
 
 import ctypes
+from typing import Callable, Dict, NamedTuple, Tuple
 
 import torch
 
@@ -37,11 +41,87 @@ pass_a_launches = 0
 pass_b_launches = 0
 """Pass B kernel launches so far."""
 
-_COMMON = ([ctypes.c_void_p] * 5 + [ctypes.c_longlong] + [ctypes.c_int] * 5
-           + [ctypes.c_void_p])
+_COMMON = ([ctypes.c_void_p] * 5 + [ctypes.c_longlong] + [ctypes.c_int] * 7)
 _ARGTYPES_A = _COMMON + [ctypes.c_void_p] * 2
 _ARGTYPES_B = _COMMON + [ctypes.c_void_p] * 7
+_INFO_ARGTYPES = [ctypes.c_int] * 4 + [ctypes.c_void_p]
 _CLIP_FLAG = 1e30
+
+_SEGMENT = 8                 # kSegment of the kernel: rows a checkpoint covers
+_THREADS = (32, 64, 128)     # the block widths the launch plan weighs
+_MAX_SHARED = 232448         # bytes of shared memory a block may use (H100)
+_INFO: Dict[Tuple, Tuple[int, int, int]] = {}
+
+
+class Plan(NamedTuple):
+    """How one pass is launched: S-row segments (one checkpoint each),
+    ``threads`` columns a block, the dynamic shared memory a block holds
+    (the band and the checkpoints), and the blocks an SM holds at once."""
+
+    segment: int
+    threads: int
+    checkpoints: int
+    shared_bytes: int
+    blocks_per_sm: int
+
+
+def shared_bytes(nb: int, which: str, threads: int) -> int:
+    """A block's dynamic shared memory: the band (2 nb doubles) and, per
+    checkpoint, a, c and the right-hand sides it keeps (two in pass A, one
+    in pass B) for every thread."""
+    checkpoints = -(-(nb - 1) // _SEGMENT)
+    fields = 4 if which == "A" else 3
+    return 8 * (2 * nb + checkpoints * fields * threads)
+
+
+def launch_plan(nb: int, which: str,
+                resident: Callable[[int, int], int]) -> Plan:
+    """The launch of pass ``which`` ("A" or "B") at block size nb: the
+    block width, of ``_THREADS``, whose blocks fill an SM with the most
+    threads (``resident(threads, shared_bytes)``: the blocks an SM holds,
+    from the occupancy API on the card); on a tie the wider block.  Raises
+    when no width fits."""
+    best = None
+    for threads in _THREADS:
+        smem = shared_bytes(nb, which, threads)
+        if smem > _MAX_SHARED:
+            continue
+        blocks = resident(threads, smem)
+        if blocks > 0 and (best is None
+                           or blocks * threads >= best[0] * best[1]):
+            best = (blocks, threads, smem)
+    if best is None:
+        raise ValueError(f"spike_solve: nb={nb} needs more shared memory "
+                         f"than a block holds (pass {which})")
+    blocks, threads, smem = best
+    return Plan(_SEGMENT, threads, -(-(nb - 1) // _SEGMENT), smem, blocks)
+
+
+def kernel_info(which: str, v_f32: bool, threads: int, smem: int,
+                index: int = 0) -> Tuple[int, int, int]:
+    """(registers a thread, spill bytes a thread, blocks an SM holds) of the
+    pass's kernel on CUDA device ``index`` (cached)."""
+    key = (index, which, v_f32, threads, smem)
+    info = _INFO.get(key)
+    if info is None:
+        out = (ctypes.c_int * 3)()
+        fn = _build.function("spike_solve", "spike_kernel_info",
+                             _INFO_ARGTYPES)
+        with torch.cuda.device(index):
+            rc = fn(int(which == "A"), int(v_f32), threads, smem,
+                    ctypes.addressof(out))
+        _build.check_launch(rc, "spike_kernel_info")
+        info = _INFO[key] = (out[0], out[1], out[2])
+    return info
+
+
+def plan_for(which: str, nb: int, V) -> Plan:
+    """The launch plan of pass ``which`` for V's device and type."""
+    index = V.device.index if V.device.index is not None \
+        else torch.cuda.current_device()
+    f32 = V.dtype == torch.float32
+    return launch_plan(nb, which, lambda t, smem: kernel_info(
+        which, f32, t, smem, index)[2])
 
 
 def _blocks(V, npad, nb):
@@ -115,9 +195,7 @@ def spike_pass_a(db, e_all, tiny, lam, V, nb: int):
     bnd = torch.empty((6, P, K), dtype=torch.float64, device=V.device)
     if K == 0:
         return bnd
-    scr = torch.empty(P * nb * 6 * K, dtype=torch.float64, device=V.device)
-    _run("spike_pass_a_launch", _ARGTYPES_A, db, e_all, tiny, lam, V, nb, K,
-         [scr, bnd])
+    _run("A", db, e_all, tiny, lam, V, nb, K, [bnd])
     pass_a_launches += 1
     return bnd
 
@@ -140,15 +218,14 @@ def spike_pass_b(db, e_all, tiny, lam, V, nb: int, L_above, F_below,
     mx = torch.empty((P, K), dtype=torch.float64, device=V.device)
     if K == 0:
         return X, mx
-    scr = torch.empty(P * nb * 4 * K, dtype=torch.float64, device=V.device)
-    _run("spike_pass_b_launch", _ARGTYPES_B, db, e_all, tiny, lam, V, nb, K,
-         [scr, L_above.contiguous(), F_below.contiguous(),
-          ec_above.contiguous(), e_cross.contiguous(), X, mx])
+    _run("B", db, e_all, tiny, lam, V, nb, K,
+         [L_above.contiguous(), F_below.contiguous(), ec_above.contiguous(),
+          e_cross.contiguous(), X, mx])
     pass_b_launches += 1
     return X, mx
 
 
-def _run(symbol, argtypes, db, e_all, tiny, lam, V, nb, K, tail):
+def _run(which, db, e_all, tiny, lam, V, nb, K, tail):
     if V.device.type != "cuda":
         raise ValueError(f"spike_solve: unsupported device {V.device}")
     n = V.shape[0]
@@ -162,11 +239,15 @@ def _run(symbol, argtypes, db, e_all, tiny, lam, V, nb, K, tail):
             raise ValueError("spike_solve: every operand must be f64 on V's "
                              "device")
     ins = [t.contiguous() for t in (db, e_all, tiny.reshape(1), lam)]
-    fn = _build.function("spike_solve", symbol, argtypes)
+    plan = plan_for(which, nb, V)
+    symbol = f"spike_pass_{which.lower()}_launch"
+    fn = _build.function("spike_solve", symbol,
+                         _ARGTYPES_A if which == "A" else _ARGTYPES_B)
     with torch.cuda.device(V.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = fn(*(t.data_ptr() for t in ins), V.data_ptr(), V.stride(0),
-                int(V.dtype == torch.float32), n, nb, P, K,
+                int(V.dtype == torch.float32), n, nb, P, K, plan.threads,
+                plan.shared_bytes,
                 *(t.data_ptr() for t in tail), stream)
     _build.check_launch(rc, symbol)
 

@@ -181,3 +181,137 @@ def test_secular_solve_rejects_bad_arguments():
     tau, iters = tss.secular_solve(_setup(), 1e-15, 10)   # all done: no sweep
     assert iters.dtype == torch.int32 and int(iters.sum()) == 0
     assert tss.launches == tss.solve_launches == 0
+
+
+# --------------------------------------------------------------------------
+# A root whose bracket freezes: the kernel's sums (compensated, in its lane
+# order) are closer to the exact sum of the rounded terms than torch.sum,
+# and at some roots no double meets the test |h| <= tolf * scale_h (the
+# rounding of the terms (p_j - shift) - tau puts a step larger than the test
+# into h).  Such a root's bracket closes to adjacent doubles; its pass then
+# leaves (tau, lo, hi) unchanged, a fixed point that secular_solve ends
+# instead of repeating it up to max_iters.
+
+_LANES = 8
+
+
+def _two_sum(s, c, x):
+    t = s + x
+    bp = t - s
+    return t, c + ((s - (t - bp)) + (x - bp))
+
+
+def _add_pair(s, c, so, co):
+    t = s + so
+    bp = t - s
+    return t, (c + co) + ((s - (t - bp)) + (so - bp))
+
+
+def _kernel_order_sums(poles, z2, shift, tau, sl, K):
+    """csrc/secular_sums.cu's sums in its order: 8 lanes a root, lane l
+    sweeping poles l, l+8, ... into compensated (TwoSum) left/right S1 and
+    plain S2 sums, the lanes combined by the xor butterfly, then S1 =
+    (S1L + S1R) compensated."""
+    k, m = poles.shape
+    B = shift.shape[1]
+    acc = [torch.zeros((k, B, _LANES), dtype=torch.float64) for _ in range(6)]
+    s1l, c1l, s1r, c1r, s2l, s2r = acc
+    lanes = torch.arange(_LANES)
+    for q in range(-(-int(K.max()) // _LANES)):
+        j = q * _LANES + lanes
+        valid = (j[None, :] < K[:, None])[:, None, :]
+        jc = j.clamp(max=m - 1)
+        dif = (poles[:, jc][:, None, :] - shift[:, :, None]) - tau[:, :, None]
+        inv = 1.0 / dif
+        t1 = z2[:, jc][:, None, :] * inv
+        t2 = t1 * inv
+        is_left = j[None, None, :] <= sl[:, :, None]
+        left, right = is_left & valid, ~is_left & valid
+        ns, nc = _two_sum(s1l, c1l, t1)
+        s1l, c1l = torch.where(left, ns, s1l), torch.where(left, nc, c1l)
+        s2l = torch.where(left, s2l + t2, s2l)
+        ns, nc = _two_sum(s1r, c1r, t1)
+        s1r, c1r = torch.where(right, ns, s1r), torch.where(right, nc, c1r)
+        s2r = torch.where(right, s2r + t2, s2r)
+    for o in (4, 2, 1):
+        x = [a[..., lanes ^ o] for a in (s1l, c1l, s1r, c1r, s2l, s2r)]
+        s1l, c1l = _add_pair(s1l, c1l, x[0], x[1])
+        s1r, c1r = _add_pair(s1r, c1r, x[2], x[3])
+        s2l, s2r = s2l + x[4], s2r + x[5]
+    s, c = _add_pair(s1l[..., 0], c1l[..., 0], s1r[..., 0], c1r[..., 0])
+    return (s + c, s2l[..., 0] + s2r[..., 0], s1l[..., 0] + c1l[..., 0],
+            s2l[..., 0])
+
+
+def _torn_merge():
+    """One merge of the bottom level of a tear of bench.py's random input
+    (n=16384, seed 0): rows 11392..11455 torn in two halves of 32 (theta =
+    sign(beta)), each half's eigenpairs, z the halves' boundary rows."""
+    import scipy.linalg
+    rng = np.random.default_rng(0)
+    d = rng.standard_normal(16384) * 5.0
+    e = rng.standard_normal(16383) * 2.0
+    r0, h = 178 * 64, 32
+    d, e = d[r0:r0 + 2 * h].copy(), e[r0:r0 + 2 * h - 1]
+    beta = e[h - 1]
+    theta = -1.0 if beta < 0 else 1.0
+    d[h - 1] -= theta * beta
+    d[h] -= beta / theta
+    w1, Q1 = scipy.linalg.eigh_tridiagonal(d[:h], e[:h - 1])
+    w2, Q2 = scipy.linalg.eigh_tridiagonal(d[h:], e[h:])
+    return (np.concatenate([w1, w2]), np.concatenate([Q1[-1], Q2[0] / theta]),
+            abs(beta))
+
+
+def _spread_merge():
+    """The first merge of a level that deflates little (m=2048: each half's
+    eigenvalues standard normal, z unit boundary rows, seed 6)."""
+    g = np.random.default_rng(6)
+    k, m, h = 4, 2048, 1024
+    lam = np.concatenate([np.sort(g.standard_normal((k, h)), axis=1),
+                          np.sort(g.standard_normal((k, m - h)), axis=1)],
+                         axis=1)
+    z = g.standard_normal((k, m))
+    z[:, :h] /= np.linalg.norm(z[:, :h], axis=1, keepdims=True)
+    z[:, h:] /= np.linalg.norm(z[:, h:], axis=1, keepdims=True)
+    return lam[0], z[0], abs(g.standard_normal(k))[0] + 0.5
+
+
+@pytest.mark.parametrize("merge", [_torn_merge, _spread_merge])
+def test_frozen_bracket_ends_at_its_fixed_point(merge):
+    """With the kernel's sums, some root ends above the test on a frozen
+    bracket, yet before max_iters; tau stays within 1e-11 |tau| of the
+    plain loop's, and the summed sweeps within 1% of its, or two a root
+    that ended on its fixed point (the pass that closes the bracket and the
+    one that finds it closed) on a merge of a few dozen roots."""
+    from symmetric_eigenvalue_tpu_torch.config import SolverConfig
+    lam, z, rho = merge()
+    cfg = SolverConfig()
+    eps = cfg.eps()
+    tolf = cfg.secular_tol_factor * eps
+    t = lambda a: torch.as_tensor(np.atleast_2d(a), dtype=torch.float64)
+    part = tsec.merge_partition(t(lam), t(z), t(rho).reshape(1), eps=eps,
+                                deflation_factor=cfg.deflation_factor)
+    m = part.poles_sec.shape[1]
+    act = torch.arange(m)[None, :] < part.K[:, None]
+    setup, _ = tsec._root_setup(part.poles_sec, part.zu, part.rho_e, part.K,
+                                act)
+    mi = cfg.max_secular_iters
+    tau_p, it_p = tss.secular_solve_plain(setup, tolf, mi)
+    tau_k, it_k = tss.secular_solve_plain(setup, tolf, mi,
+                                          sums=_kernel_order_sums)
+    assert int(it_k.max()) < mi and int(it_p.max()) < mi
+    rel = ((tau_k - tau_p).abs() / tau_p.abs())[act]
+    assert float(rel.max()) <= 1e-11
+    # h at the kernel-order tau: some root ended without meeting the test
+    sl = torch.arange(m)[None, :]
+    S1 = _kernel_order_sums(setup.poles_sec, setup.zu2, setup.shift_val,
+                            tau_k, sl, setup.K)[0]
+    S1o = S1 - setup.zs2 * (1.0 / -tau_k)
+    rz = setup.rho_e[:, None] * setup.zs2
+    h = tau_k * (1.0 + setup.rho_e[:, None] * S1o) - rz
+    scale_h = tau_k.abs() * (1.0 + setup.rho_e.abs()[:, None] * S1o.abs()) + rz
+    fixed = int(((h.abs() > tolf * scale_h) & act).sum())
+    assert fixed > 0
+    extra = abs(int(it_k.sum()) - int(it_p.sum()))
+    assert extra <= max(0.01 * int(it_p.sum()), 2 * fixed)

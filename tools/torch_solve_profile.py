@@ -5,8 +5,9 @@ For the default (mixed-precision) and the pure-f64 config, on bench.py's
 random input (n=16384, seed 0): one cold solve, three warm walls with their
 phases, the host syncs of one warm solve (torch.cuda's sync debug mode
 counts them), and one warm solve under torch.profiler: device events, busy
-time and idle share, and the host time of the named ranges.  Prints one JSON
-line per config.
+time and idle share, the Spike passes' device time and share of it, and the
+host time of the named ranges; the peak device memory of the warm solves.
+Prints one JSON line per config.
 
 It imports the package from the tree it sits in, so a copy placed in
 another checkout's ``tools/`` (an older commit unpacked by ``git archive``)
@@ -63,7 +64,7 @@ def profiled(d, e, cfg):
         _, timer = solve(d, e, cfg)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    busy, events, ranges = 0.0, 0, {}
+    busy, events, ranges, spike = 0.0, 0, {}, {}
     for ev in prof.key_averages():
         if ev.key in RANGES:
             if ev.device_type != DeviceType.CUDA:
@@ -73,9 +74,18 @@ def profiled(d, e, cfg):
         if ev.device_type == DeviceType.CUDA and ev.self_device_time_total:
             busy += ev.self_device_time_total * 1e-6
             events += ev.count
+            if "spike_kernel<" in ev.key:
+                # spike_kernel<true, ...> is pass A, <false, ...> pass B
+                which = "A" if "spike_kernel<true" in ev.key else "B"
+                row = spike.setdefault(which, {"device_s": 0.0, "calls": 0})
+                row["device_s"] += ev.self_device_time_total * 1e-6
+                row["calls"] += ev.count
+    spike_s = sum(r["device_s"] for r in spike.values())
     return {"wall_s": wall, "phases_s": timer.times, "device_busy_s": busy,
             "idle_share": max(0.0, 1.0 - busy / wall),
-            "device_events": events, "ranges": ranges}
+            "device_events": events, "ranges": ranges,
+            "spike_passes": spike, "spike_device_s": spike_s,
+            "spike_share_of_busy": spike_s / busy if busy else None}
 
 
 def main() -> int:
@@ -104,18 +114,22 @@ def main() -> int:
         resid = float(st.residuals(d, e, res).max())
         del res
         warm = []
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
         for _ in range(3):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             _, timer = solve(d, e, cfg)
             torch.cuda.synchronize()
             warm.append((time.perf_counter() - t0, timer.times))
+        peak = torch.cuda.max_memory_allocated()
         torch.cuda.empty_cache()
         print(json.dumps({
             "tag": args.tag, "config": name, "n": args.n,
             "card": smi[0] if smi else None, "cold_wall_s": cold,
             "residual_max": resid, "warm_walls_s": [w for w, _ in warm],
             "warm_phases_s": [p for _, p in warm],
+            "warm_peak_mem_bytes": peak,
             "host_syncs": host_syncs(d, e, cfg),
             "profile": profiled(d, e, cfg)}), flush=True)
     return 0
