@@ -26,7 +26,12 @@ exits non-zero:
                plain versions (also on each chunk of a mixed solve's own
                downsweep output), with their launch plan, registers, scratch
                bytes and a bound from the FP64 instructions of one row of
-               the plain LU (cuobjdump's SASS); dword_matmul also at a ragged
+               the plain LU (cuobjdump's SASS); cauchy_rowsum also with
+               K = m/8 (the K cut bit for bit the K = m result, 0 past K)
+               and on every non-root level of a mixed solve of the main
+               input and of the Poisson matrix, its bound from the FP64
+               instructions of one term (SASS) over the terms the inputs
+               need; dword_matmul also at a ragged
                shape, batched, and in its fused form C -= A @ B on a strided
                view, with its split-K plan; cauchy_matmul also against the
                plain emulation of its TF32 split, against an f64 product,
@@ -41,7 +46,9 @@ exits non-zero:
                (mixed_precision_vectors=False), cold then three times warm
   6. poisson   eigh_tridiagonal(eigvals_only=True) and the mixed path's full
                eigenpairs on the n=16384 Poisson matrix against its analytic
-               spectrum (heavy deflation, wide cluster segments)
+               spectrum (it deflates slowly: each level's K from m/2 to m,
+               the widest non-root level full; wide cluster segments), with
+               each merge level's (k, m, K)
   7. dense     the dense front end at full width: eigh of a random symmetric
                n=16384 matrix (seed 0) with the default config, all
                eigenpairs, cold with every check (residual, orthogonality,
@@ -66,6 +73,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import functools
 import json
 import re
 import subprocess
@@ -82,6 +90,7 @@ from torch.profiler import ProfilerActivity, profile
 import symmetric_eigenvalue_tpu_torch as st
 from symmetric_eigenvalue_tpu_torch import _build
 from symmetric_eigenvalue_tpu_torch.driver import _prescale
+from symmetric_eigenvalue_tpu_torch.kernels import assemble
 from symmetric_eigenvalue_tpu_torch.kernels import cauchy_matmul as cm
 from symmetric_eigenvalue_tpu_torch.kernels import cauchy_rowsum as cr
 from symmetric_eigenvalue_tpu_torch.kernels import dword_matmul as dm
@@ -262,39 +271,108 @@ def check_secular_sums(k, m, reps, kact=None):
     ms = time_ms(lambda: ss.secular_sums(*args), reps)
     dms = device_ms(lambda: ss.secular_sums(*args), reps)
     plain = time_ms(lambda: ss.secular_sums_plain(*args), max(1, reps // 4))
-    # every (root, pole) pair swept: 2 sub, div, 2 mul, the add of S1L or
-    # S1R and of S2L or S2R
-    ops = 7.0 * k * m * kact
+    # every (root, pole) pair swept issues one term's FP64 instructions
+    # (SASS of the term yardstick) at the FP64 instruction rate
+    per_term = secular_fp64_per_term()
     nbytes = 8.0 * (2 * k * kact + 3 * k * m + 4 * k * m) + 8.0 * k
-    b_ms, b_by = bound(ops, PEAK_FP64, nbytes)
+    b_ms, b_by = bound(per_term * k * m * kact, fp64_rate(), nbytes)
     return dict(k=k, m=m, B=m, K=kact, max_rel_err=err, tol=1e-12,
                 max_abs_err=abs_err, skip_bit_exact=skip_exact,
                 run_to_run_identical=same, ms=ms, device_ms=dms,
-                plain_ms=plain, bound_ms=b_ms, bound_by=b_by)
+                plain_ms=plain, fp64_instr_per_term=per_term,
+                bound_ms=b_ms, bound_by=b_by)
 
 
-def check_cauchy_rowsum(k, m, reps):
-    g = np.random.default_rng(2)
-    dev = "cuda"
+def rowsum_inputs(k, m, kact, seed=2):
+    """Merge-like inputs of cauchy_rowsum: sorted poles, every root's shift
+    its own pole and tau inside the gap (every denominator nonzero), a few
+    roots 1e-13 from their pole, R=2 weight rows, 0 past K = ``kact`` (as
+    the caller's zhat is)."""
+    g = np.random.default_rng(seed)
     poles = np.sort(g.standard_normal((k, m)), axis=1)
     gaps = np.diff(poles, axis=1, append=poles[:, -1:] + 1.0)
     tau = 0.45 * gaps * g.random((k, m)) + 1e-15
     tau[:, ::997] = 1e-13
     wz = 0.2 * g.standard_normal((k, 2, m))
-    t = lambda a: torch.as_tensor(a, dtype=torch.float64, device=dev)
-    args = (t(poles), t(poles), t(tau), t(wz))
+    wz[:, :, kact:] = 0.0
+    t = lambda a: torch.as_tensor(a, dtype=torch.float64, device="cuda")
+    return (t(poles), t(poles), t(tau), t(wz),
+            torch.full((k,), kact, dtype=torch.int64, device="cuda"))
+
+
+def check_cauchy_rowsum(args, reps, what, plain_reps=None):
+    """cauchy_rowsum on (poles, shift, tau, wz, K) against its plain
+    version; the K cut bit for bit the same launch with K = m on the
+    columns below K, and exactly 0 past K; two runs identical; its launch
+    plan; and a bound from the terms these inputs need (sum_b K_b^2, each
+    the FP64 instructions of the SASS term yardstick) or its bytes."""
+    wz, K = args[3:]
+    k, R, m = wz.shape
     got = cr.cauchy_rowsum(*args)
+    again = cr.cauchy_rowsum(*args)
+    full = cr.cauchy_rowsum(*args[:4], torch.full_like(K, m))
     ref = cr.cauchy_rowsum_plain(*args)
+    live = (torch.arange(m, device=K.device)[None, :]
+            < K[:, None])[:, None, :].expand_as(got)
     abs_err = float((got - ref).abs().max())
-    err = abs_err / float(ref.abs().max())
+    err = abs_err / max(float(ref.abs().max()), 1e-300)
     ms = time_ms(lambda: cr.cauchy_rowsum(*args), reps)
     dms = device_ms(lambda: cr.cauchy_rowsum(*args), reps)
-    plain = time_ms(lambda: cr.cauchy_rowsum_plain(*args), reps)
-    pairs = float(k) * m * m
-    b_ms, b_by = bound(7.0 * pairs, PEAK_FP64, 8.0 * (3 * k * m + 4 * k * m))
-    return dict(k=k, m=m, rows=2, max_rel_err=err, tol=1e-12,
-                max_abs_err=abs_err, ms=ms, device_ms=dms,
-                plain_ms=plain, bound_ms=b_ms, bound_by=b_by)
+    plain = time_ms(lambda: cr.cauchy_rowsum_plain(*args),
+                    plain_reps or reps)
+    Ks = K.clamp(0, m).tolist()
+    per_term = rowsum_fp64_per_term(R)
+    terms = float(sum(x * x for x in Ks))
+    b_ms, b_by = bound(terms * per_term, fp64_rate(),
+                       8.0 * (3 + R) * sum(Ks) + 8.0 * k * R * m)
+    plan = cr.launch_plan(k, m, *cr._capacity(0, R))
+    regs, local, per_sm = cr.kernel_info(R)
+    return dict(inputs=what, k=k, m=m, rows=R, K_sum=sum(Ks),
+                K_max=max(Ks), max_rel_err=err, tol=1e-12,
+                tol_of="max |S| of the plain version", max_abs_err=abs_err,
+                skip_bit_exact=bool(torch.equal(got[live], full[live])),
+                zeros_past_K=not bool(got[~live].any()),
+                run_to_run_identical=bool(torch.equal(got, again)),
+                splits=plan.splits, chunk=plan.chunk, registers=regs,
+                local_bytes=local, blocks_per_sm=per_sm,
+                terms=terms, fp64_instr_per_term=per_term, ms=ms,
+                device_ms=dms, plain_ms=plain, library_ms=None,
+                bound_ms=b_ms, bound_by=b_by)
+
+
+@contextlib.contextmanager
+def recorded_rowsums():
+    """Copies of the arguments of every cauchy_rowsum call made inside the
+    block: in a solve, one call a non-root level of its upsweep."""
+    seen = []
+    inner = assemble.cauchy_rowsum
+
+    def recorded(*args):
+        seen.append(tuple(a.clone() for a in args))
+        return inner(*args)
+
+    assemble.cauchy_rowsum = recorded
+    try:
+        yield seen
+    finally:
+        assemble.cauchy_rowsum = inner
+
+
+def rowsum_level_rows(d, e, what):
+    """check_cauchy_rowsum on every non-root level of one mixed solve of
+    (d, e), on that level's own inputs, and one line with their sums."""
+    with recorded_rowsums() as seen:
+        st.solve_tridiagonal_staged(d, e, compute_vectors=True)
+    rows = [check_cauchy_rowsum(args, 20,
+                                f"{what}, level m={args[0].shape[1]}",
+                                plain_reps=3) for args in seen]
+    del seen
+    torch.cuda.empty_cache()
+    emit({"phase": "cauchy_rowsum_levels", "solve": what,
+          "launches": len(rows),
+          **{f"{key}_sum": sum(r[key] for r in rows)
+             for key in ("terms", "ms", "device_ms", "plain_ms", "bound_ms")}})
+    return rows
 
 
 def check_dword_matmul(k, M, K, N, reps):
@@ -516,13 +594,13 @@ def check_secular_solve(level, reps, stall=False):
     replaced_dms = device_ms(loop, max(1, reps // 2))
     plain = time_ms(lambda: ss.secular_solve_plain(setup_p, tolf, max_iters),
                     1)
-    # 7 FP64 operations per (root, pole) pair swept, every sweep of every
-    # root counted; the bytes: the level's inputs read once (seven (k, m)
-    # f64 fields, the poles and z2 up to K_b, rho_e and K, done0), tau and
-    # the iteration counts written
+    # one term's FP64 instructions (SASS of the term yardstick) per (root,
+    # pole) pair swept, every sweep of every root counted; the bytes: the
+    # level's inputs read once (seven (k, m) f64 fields, the poles and z2 up
+    # to K_b, rho_e and K, done0), tau and the iteration counts written
     Kb = part.K.clamp(max=m)
     swept = float((iters.to(torch.float64) * Kb[:, None]).sum())
-    b_ms, b_by = bound(7.0 * swept, PEAK_FP64,
+    b_ms, b_by = bound(secular_fp64_per_term() * swept, fp64_rate(),
                        8.0 * (7 * k * m + 2 * int(Kb.sum()) + 2 * k)
                        + 1.0 * k * m + 12.0 * k * m)
     Ks = part.K.tolist()
@@ -872,29 +950,66 @@ def spike_plan_fields(which, nb, V):
 _FP64_SASS = re.compile(r"\s(DADD|DMUL|DFMA|DSETP|DMNMX|MUFU\.RCP64H)\b")
 
 
+_SASS_COUNTS = {}
+
+
+def sass_fp64_counts(source, marker):
+    """{kernel: FP64 instructions} of every kernel whose mangled name holds
+    ``marker`` in cuobjdump's SASS of the built library ``source``, counted
+    up to the kernel's EXIT (a division's or a reciprocal's slow path, a
+    subroutine past it, is left out).  Read once per (source, marker)."""
+    key = (source, marker)
+    if key not in _SASS_COUNTS:
+        tool = Path(_build.nvcc_path()).parent / "cuobjdump"
+        sass = subprocess.run([str(tool), "-sass",
+                               str(_build.library_path(source))],
+                              capture_output=True, text=True, check=True,
+                              timeout=120).stdout
+        counts = {}
+        for part in sass.split("Function : ")[1:]:
+            name = part.split("\n", 1)[0].strip()
+            if marker not in name:
+                continue
+            body = re.split(r"^\s*/\*[0-9a-f]+\*/\s+EXIT\s*;", part,
+                            maxsplit=1, flags=re.M)[0]
+            counts[name] = len(_FP64_SASS.findall(body))
+        require(bool(counts) and min(counts.values()) > 0,
+                f"no {marker} in the SASS of {source}: {counts}")
+        _SASS_COUNTS[key] = counts
+    return _SASS_COUNTS[key]
+
+
+def _instance(counts, tag):
+    """The count of the one template instance whose name holds ``tag``."""
+    found = [v for name, v in counts.items() if tag in name]
+    require(len(found) == 1, f"no single instance {tag} in {counts}")
+    return found[0]
+
+
 def spike_fp64_per_row():
     """FP64 instructions one row of the plain block LU issues, per pass:
-    counted in cuobjdump's SASS of spike_row_yardstick<3> (pass A) and <1>
-    (pass B) in the built library, up to the kernel's EXIT (the division's
-    slow path, a subroutine past it, is left out)."""
-    tool = Path(_build.nvcc_path()).parent / "cuobjdump"
-    sass = subprocess.run([str(tool), "-sass",
-                           str(_build.library_path("spike_solve"))],
-                          capture_output=True, text=True, check=True,
-                          timeout=120).stdout
-    counts = {}
-    for part in sass.split("Function : ")[1:]:
-        name = part.split("\n", 1)[0]
-        if "spike_row_yardstick" not in name:
-            continue
-        body = re.split(r"^\s*/\*[0-9a-f]+\*/\s+EXIT\s*;", part,
-                        maxsplit=1, flags=re.M)[0]
-        counts["A" if "ILi3E" in name else "B"] = len(_FP64_SASS.findall(body))
-    require(set(counts) == {"A", "B"} and min(counts.values()) > 0,
-            f"no row yardstick in the SASS of spike_solve: {counts}")
-    return counts
+    spike_row_yardstick<3> (pass A) and <1> (pass B)."""
+    counts = sass_fp64_counts("spike_solve", "spike_row_yardstick")
+    return {"A": _instance(counts, "ILi3E"), "B": _instance(counts, "ILi1E")}
 
 
+def rowsum_fp64_per_term(R):
+    """FP64 instructions of one (pole, column) term of cauchy_rowsum with R
+    rows: cauchy_rowsum_term_yardstick<R>."""
+    return _instance(sass_fp64_counts("cauchy_rowsum",
+                                      "cauchy_rowsum_term_yardstick"),
+                     f"ILi{R}E")
+
+
+def secular_fp64_per_term():
+    """FP64 instructions of one (root, pole) term of the secular sweeps:
+    secular_sums_term_yardstick."""
+    counts = sass_fp64_counts("secular_sums", "secular_sums_term_yardstick")
+    require(len(counts) == 1, f"one secular term yardstick: {counts}")
+    return next(iter(counts.values()))
+
+
+@functools.cache
 def fp64_rate():
     """FP64 instructions a second: 64 a clock on each SM, at the card's
     maximum SM clock (nvidia-smi)."""
@@ -971,6 +1086,7 @@ def record_levels():
     in the run recorded only), with the midpoint sweep's bound."""
     levels = []
     inner = sec._solve_roots
+    per_term, rate = secular_fp64_per_term(), fp64_rate()
 
     def recorded(poles_sec, zu, rho_e, K, *args):
         before = (ss.launches, ss.solve_launches)
@@ -982,7 +1098,7 @@ def record_levels():
             "K_max": max(Ks), **({"K": Ks} if k <= 4 else {}),
             "secular_sums_launches": ss.launches - before[0],
             "secular_solve_launches": ss.solve_launches - before[1],
-            "secular_sums_bound_ms": bound(7.0 * m * sum(Ks), PEAK_FP64,
+            "secular_sums_bound_ms": bound(per_term * m * sum(Ks), rate,
                                            8.0 * 9 * k * m)[0]})
         return out
 
@@ -1121,7 +1237,9 @@ def kernel_table(d, e, ref):
     rows, each kernel against its plain version at the shapes its path
     gives it: secular_sums at the root level (k=1, all m roots) and the
     bottom level (k=256 merges of m=64); cauchy_rowsum at the widest
-    non-root level; dword_matmul at the m=8192 level's f64 GEMM;
+    non-root level (every slot active, and 1/8 of them), then on every
+    non-root level of a mixed solve of (d, e) and of the Poisson matrix,
+    on the level's own inputs; dword_matmul at the m=8192 level's f64 GEMM;
     cauchy_matmul at the m=8192 level (all slots active, and 1/8 of them:
     the deflation skip) and the bottom level (k=256, m=64) with a full
     vec_chunk of 8192 columns; cauchy_materialize at the root (m=16384,
@@ -1171,7 +1289,17 @@ def kernel_table(d, e, ref):
             check_secular_solve(split_level(d, e, 256, 64), 20, stall=True),
             check_secular_solve(spread_level(1, N, 5), 5),
             check_secular_solve(spread_level(4, 2048, 6), 10, stall=True)],
-        "cauchy_rowsum": lambda: [check_cauchy_rowsum(2, 8192, 20)],
+        # cauchy_rowsum at the widest non-root level with every slot active
+        # and with 1/8 of them (the K cut), then on every non-root level of
+        # a mixed solve of the main input and of the Poisson matrix
+        "cauchy_rowsum": lambda: [
+            check_cauchy_rowsum(rowsum_inputs(2, 8192, 8192), 20,
+                                "random, K = m"),
+            check_cauchy_rowsum(rowsum_inputs(2, 8192, 1024), 20,
+                                "random, K = m/8, wz 0 past K"),
+            *rowsum_level_rows(d, e, "mixed solve, random n=16384"),
+            *rowsum_level_rows(*st.create_matrix_scheme2(N),
+                               "mixed solve, Poisson n=16384")],
         # after the f64 downsweep's GEMM, the dense front end's skinny
         # shapes: a 32-row panel's Gram over K=16384, and the rank-2k
         # trailing update of the first bucket;
@@ -1225,6 +1353,10 @@ def run_kernel_checks(table, names):
                     f"{name} disagrees with its plain version: {row}")
             require(row.get("skip_bit_exact", True),
                     f"{name}: the deflation skip changed the result: {row}")
+            require(row.get("zeros_past_K", True),
+                    f"{name}: columns past K not 0: {row}")
+            require(row.get("local_bytes", 0) == 0,
+                    f"{name}: stack frame or spills: {row}")
             require(row.get("identity_exact", True),
                     f"{name}: identity columns not exact: {row}")
             require(row.get("run_to_run_identical", True),
@@ -1289,6 +1421,12 @@ def main(argv=None) -> int:
               name: [ln.strip() for ln in rep.splitlines()
                      if "Used" in ln or "spill" in ln]
               for name, rep in reports.items()}})
+    frames = re.findall(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                        r"(\d+) bytes spill loads",
+                        reports.get("cauchy_rowsum", ""))
+    require(("cauchy_rowsum" not in reports or len(frames) >= 4)
+            and all(f == ("0", "0", "0") for f in frames),
+            f"cauchy_rowsum: a stack frame or spills in ptxas: {frames}")
 
     # the main path's input and a reference spectrum
     d, e = random_matrix(N, SEED)
@@ -1318,6 +1456,8 @@ def main(argv=None) -> int:
                  "cauchy_rowsum"):
         require(launches[name] > 0,
                 f"kernel {name} was not launched on the main path")
+    require(launches["cauchy_rowsum"] == len(levels) - 1,
+            "cauchy_rowsum not launched once a non-root level")
 
     # 5. the pure-f64 path on the same input
     cfg64 = st.SolverConfig(mixed_precision_vectors=False)
@@ -1331,7 +1471,8 @@ def main(argv=None) -> int:
         require(s64["launches"][name] > 0,
                 f"{name} was not launched on the f64 path")
 
-    # 6. deflation-heavy: Poisson against its analytic spectrum
+    # 6. Poisson against its analytic spectrum: a spectrum that deflates
+    # slowly (each level's K from m/2 to m, the widest non-root level full)
     dp, ep = st.create_matrix_scheme2(N)
     exact = st.eigenvalues_of_scheme2(N)
     norm_p = float(np.abs(exact).max())
@@ -1342,10 +1483,14 @@ def main(argv=None) -> int:
     p_err = float(np.abs(lam_p.cpu().numpy() - exact).max()) / norm_p
     require(p_err <= 1e-12, f"Poisson eigenvalues off by {p_err} ||T||")
     reset_counts()
-    pfull = solve_and_check(dp, ep, cfg, exact, norm_p)
+    with record_levels() as plevels:
+        pfull = solve_and_check(dp, ep, cfg, exact, norm_p)
+    pfull["levels"] = plevels
     emit({"phase": "poisson", "n": N, "eigvals_only_wall_s": wall_p,
           "eigvals_only_err_vs_analytic_over_normT": p_err,
           "full_mixed": pfull})
+    require(pfull["launches"]["cauchy_rowsum"] == len(plevels) - 1,
+            "cauchy_rowsum not launched once a non-root level (Poisson)")
 
     # 7. the dense front end at full width: cold with every check, then warm
     A = dense_matrix(N, SEED)

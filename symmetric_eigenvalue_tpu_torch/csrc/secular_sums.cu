@@ -351,7 +351,26 @@ secular_solve_kernel(const double* __restrict__ poles, const double* __restrict_
   }
 }
 
+// One (root, pole) term exactly as `sweep` adds it to one side's sums (never
+// launched: the FP64 instructions in its SASS are the yardstick of a term for
+// the sweeps' bound).  Every input is loaded and every sum stored.
+__global__ void secular_sums_term_yardstick(const double* __restrict__ in,
+                                            double* __restrict__ io) {
+  double t1, t2;
+  term(in[0], in[1], in[2], in[3], t1, t2);
+  double s = io[0], c = io[1];
+  two_sum_acc(s, c, t1);
+  io[0] = s;
+  io[1] = c;
+  io[2] = __dadd_rn(io[2], t2);
+}
+
 }  // namespace
+
+// Keeps the yardstick kernel in the library (its SASS is read, never run).
+extern "C" void* secular_sums_term_yardsticks() {
+  return reinterpret_cast<void*>(&secular_sums_term_yardstick);
+}
 
 // poles, z2: (k, m) f64; shift, tau: (k, B) f64; sl: (k, B) int64; K: (k,)
 // int64; out: (4, k, B) f64 = S1, S2, S1L, S2L.  All contiguous on one

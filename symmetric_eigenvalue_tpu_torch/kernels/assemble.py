@@ -205,8 +205,9 @@ def rows_through_merge(rep: MergeRep, w,
 
     ``w``: (k, r, m) rows in original coordinates, r <= 2.  Used on the
     upsweep to push each subtree's first/last boundary rows through its
-    merge at O(r m^2) cost without materializing U; the Cauchy sums go
-    through the ``cauchy_rowsum`` kernel."""
+    merge at O(r K^2) cost without materializing U; the Cauchy sums go
+    through the ``cauchy_rowsum`` kernel, cut at each merge's K (wz is 0
+    past it, and only the columns below it are kept)."""
     k, r, m = w.shape
     if waves is None:
         waves = rotation_waves(rep)
@@ -215,7 +216,7 @@ def rows_through_merge(rep: MergeRep, w,
     wp = _replay_rotations_cols_t(waves, wt).reshape(k, m, r).transpose(1, 2)
     wz = (wp * rep.zhat[:, None, :]).contiguous()
     shift_val = rep.poles_sec.gather(1, rep.shift_idx)
-    S = cauchy_rowsum(rep.poles_sec, shift_val, rep.tau, wz)
+    S = cauchy_rowsum(rep.poles_sec, shift_val, rep.tau, wz, rep.K)
     active = (torch.arange(m, device=w.device)[None, :]
               < rep.K[:, None])[:, None, :]
     y = torch.where(active, S / rep.colnorm[:, None, :], wp)

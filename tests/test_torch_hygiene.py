@@ -129,7 +129,7 @@ def test_non_cpu_tensors_never_take_the_plain_version():
             *(torch.empty((k, m), **f64) for _ in range(7)),
             torch.empty((k, m), dtype=torch.bool, device="meta")), 1e-15, 60),
         "cauchy_rowsum": lambda: cr.cauchy_rowsum(
-            *v[:3], torch.empty((k, 2, m), **f64)),
+            *v[:3], torch.empty((k, 2, m), **f64), torch.empty(k, **i64)),
         "dword_matmul": lambda: dm.dword_matmul(v[0], v[1].T),
         "dword_vecmat": lambda: dv.dword_vecmat(v[0][0], v[1].T),
         "cauchy_matmul": lambda: cm.cauchy_matmul(

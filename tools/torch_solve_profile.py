@@ -1,13 +1,16 @@
 #!/usr/bin/env python3
 """Time and profile the PyTorch port's tridiagonal solves on one GPU.
 
-For the default (mixed-precision) and the pure-f64 config, on bench.py's
-random input (n=16384, seed 0): one cold solve, three warm walls with their
-phases, the host syncs of one warm solve (torch.cuda's sync debug mode
-counts them), and one warm solve under torch.profiler: device events, busy
-time and idle share, the Spike passes' device time and share of it, and the
-host time of the named ranges; the peak device memory of the warm solves.
-Prints one JSON line per config.
+For the default (mixed-precision) and the pure-f64 config on bench.py's
+random input (n=16384, seed 0), and the default config on the Poisson
+matrix (a spectrum that deflates slowly): one cold solve (its residual,
+orthogonality and the triage's column counts), three warm walls
+with their phases, the host syncs of one warm solve (torch.cuda's sync
+debug mode counts them), and one warm solve under torch.profiler: device
+events, busy time and idle share, the Spike passes' device time and share
+of it, cauchy_rowsum's device time, and the host time of the named ranges;
+the peak device memory of the warm solves.  Prints one JSON line per
+solve.
 
 It imports the package from the tree it sits in, so a copy placed in
 another checkout's ``tools/`` (an older commit unpacked by ``git archive``)
@@ -33,6 +36,8 @@ from torch.profiler import ProfilerActivity, profile
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 import symmetric_eigenvalue_tpu_torch as st  # noqa: E402
+from symmetric_eigenvalue_tpu_torch.utils.checks import (  # noqa: E402
+    max_ortho_error)
 
 RANGES = ("secular.solve_roots", "spike.interface_solve", "refine.triage")
 
@@ -65,6 +70,7 @@ def profiled(d, e, cfg):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     busy, events, ranges, spike = 0.0, 0, {}, {}
+    rowsum = {"device_s": 0.0, "calls": 0}
     for ev in prof.key_averages():
         if ev.key in RANGES:
             if ev.device_type != DeviceType.CUDA:
@@ -80,12 +86,16 @@ def profiled(d, e, cfg):
                 row = spike.setdefault(which, {"device_s": 0.0, "calls": 0})
                 row["device_s"] += ev.self_device_time_total * 1e-6
                 row["calls"] += ev.count
+            if "cauchy_rowsum_kernel" in ev.key:
+                rowsum["device_s"] += ev.self_device_time_total * 1e-6
+                rowsum["calls"] += ev.count
     spike_s = sum(r["device_s"] for r in spike.values())
     return {"wall_s": wall, "phases_s": timer.times, "device_busy_s": busy,
             "idle_share": max(0.0, 1.0 - busy / wall),
             "device_events": events, "ranges": ranges,
             "spike_passes": spike, "spike_device_s": spike_s,
-            "spike_share_of_busy": spike_s / busy if busy else None}
+            "spike_share_of_busy": spike_s / busy if busy else None,
+            "cauchy_rowsum": rowsum}
 
 
 def main() -> int:
@@ -101,17 +111,20 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip().splitlines()
     rng = np.random.default_rng(0)          # bench.py's random input
-    d = rng.standard_normal(args.n) * 5.0
-    e = rng.standard_normal(args.n - 1) * 2.0
-    for name, cfg in (("mixed", st.SolverConfig()),
-                      ("f64", st.SolverConfig(
-                          mixed_precision_vectors=False))):
+    random = (rng.standard_normal(args.n) * 5.0,
+              rng.standard_normal(args.n - 1) * 2.0)
+    for name, cfg, (d, e) in (
+            ("mixed", st.SolverConfig(), random),
+            ("f64", st.SolverConfig(mixed_precision_vectors=False), random),
+            ("poisson_mixed", st.SolverConfig(),
+             st.create_matrix_scheme2(args.n))):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        res, _ = solve(d, e, cfg)
+        res, cold_timer = solve(d, e, cfg)
         torch.cuda.synchronize()
         cold = time.perf_counter() - t0
         resid = float(st.residuals(d, e, res).max())
+        ortho = max_ortho_error(res.eigenvectors)
         del res
         warm = []
         torch.cuda.empty_cache()
@@ -127,7 +140,9 @@ def main() -> int:
         print(json.dumps({
             "tag": args.tag, "config": name, "n": args.n,
             "card": smi[0] if smi else None, "cold_wall_s": cold,
-            "residual_max": resid, "warm_walls_s": [w for w, _ in warm],
+            "residual_max": resid, "ortho": ortho,
+            "triage_counts": cold_timer.counts,
+            "warm_walls_s": [w for w, _ in warm],
             "warm_phases_s": [p for _, p in warm],
             "warm_peak_mem_bytes": peak,
             "host_syncs": host_syncs(d, e, cfg),
