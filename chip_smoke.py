@@ -62,7 +62,20 @@ exits non-zero:
                main path (n=16384) and for the dense path (n=4096): device
                time by kernel, the device's idle share, and the host time,
                device span and launches of the named ranges
- 10. the per-kernel summary line, then the nvidia-smi line, then the final
+ 10. staged_32768  the main path at n=32768 (bench.py's recipe, seed 0):
+               the plain staged route (asserted), the same three limits,
+               its peak memory beside 19.2 n^2 (n=16384's peak scaled)
+ 11. grouped   n=65536 full eigenpairs resident: the switch takes the
+               grouped route on its own (asserted); its threshold, group
+               width and groups, the refinement chunks the solve resolved,
+               peak memory beside 8 n^2 + 12 n g (under the card's), the
+               same three limits, launches, each level's K, triage counts
+ 12. streamed  solve_tridiagonal_streamed at n=65536, group=4096, halo=256:
+               eigenvalues bit for bit the grouped phase's; per block the
+               residual of every column, the block's Gram and its
+               cross-Gram with the block before; a seeded sample of 8
+               columns a block, orthogonal across all; peak memory
+ 13. the per-kernel summary line, then the nvidia-smi line, then the final
      {"ok": true, ...} line
 
 Needs one CUDA card; exits 1 without printing a result when
@@ -88,7 +101,7 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 import symmetric_eigenvalue_tpu_torch as st
-from symmetric_eigenvalue_tpu_torch import _build
+from symmetric_eigenvalue_tpu_torch import _build, driver
 from symmetric_eigenvalue_tpu_torch.driver import _prescale
 from symmetric_eigenvalue_tpu_torch.kernels import assemble
 from symmetric_eigenvalue_tpu_torch.kernels import cauchy_matmul as cm
@@ -100,11 +113,15 @@ from symmetric_eigenvalue_tpu_torch.kernels import secular_sums as ss
 from symmetric_eigenvalue_tpu_torch.kernels import spike_solve as sp
 from symmetric_eigenvalue_tpu_torch.kernels.refine import band_prep
 from symmetric_eigenvalue_tpu_torch.kernels.tridiagonalize import _bucket_cuts
-from symmetric_eigenvalue_tpu_torch.utils.checks import max_ortho_error
+from symmetric_eigenvalue_tpu_torch.utils.checks import (
+    max_cross_ortho_error, max_ortho_error)
 from symmetric_eigenvalue_tpu_torch.utils.timing import PhaseTimer
 
 N = 16384
 N_TWO_STAGE = 4096
+N_LARGE = 32768         # the plain staged route, first size above N
+N_HUGE = 65536          # the grouped and streamed routes (N65536_FULL.json)
+STREAM_GROUP, STREAM_HALO = 4096, 256
 SEED = 0
 # NVIDIA H100 SXM data sheet (dense, at the 700 W limit): FP64 on the tensor
 # cores (DMMA) and on the CUDA cores, FP32 on the CUDA cores, TF32 on the
@@ -1024,9 +1041,18 @@ def fp64_rate():
 # --------------------------------------------------------------------------
 # the main path
 
+def all_finite(V, chunk: int = 2048) -> bool:
+    """Every entry of V finite, in column chunks: torch.isfinite of a
+    floating tensor builds |V| and two masks, which for the n=65536 basis
+    is 40 GiB more than the basis itself."""
+    return bool(torch.stack([torch.isfinite(V[:, o:o + chunk]).all()
+                             for o in range(0, V.shape[1], chunk)]).all())
+
+
 def solve_and_check(d, e, cfg, ref, norm_ref):
     """One solve_tridiagonal_staged call with eigenvectors; returns its
-    JSON fields after checking residual, orthogonality and eigenvalues."""
+    JSON fields and the eigenvalues (host) after checking residual,
+    orthogonality and eigenvalues."""
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     res, timer = st.solve_tridiagonal_staged(d, e, config=cfg,
@@ -1039,7 +1065,7 @@ def solve_and_check(d, e, cfg, ref, norm_ref):
     V = res.eigenvectors
     n = lam.shape[0]
     require(V.shape == (n, n) and V.dtype == torch.float64
-            and bool(torch.isfinite(V).all()) and np.isfinite(lam).all(),
+            and all_finite(V) and np.isfinite(lam).all(),
             "non-finite or misshapen result")
     resid = float(st.residuals(d, e, res).max()) / norm_ref
     ortho = max_ortho_error(V)
@@ -1054,7 +1080,7 @@ def solve_and_check(d, e, cfg, ref, norm_ref):
     require(ortho <= 1e-10, f"orthogonality {ortho} > 1e-10")
     require(lam_err <= 1e-12, f"eigenvalues off the reference by {lam_err} "
             "||T||")
-    return out
+    return out, lam
 
 
 def warm_walls(d, e, cfg, reps: int = 3):
@@ -1161,6 +1187,157 @@ def profile_solve(run, top: int = 16):
 
 
 # --------------------------------------------------------------------------
+# the memory routes: staged at n=32768, grouped and streamed at n=65536
+
+GROUPED = "bt.downsweep_refine_grouped"
+
+
+def host_reference(n: int):
+    """The random input at size n and its spectrum from scipy on the host
+    (timed: O(n^2) in LAPACK, once a size)."""
+    d, e = random_matrix(n, SEED)
+    t0 = time.perf_counter()
+    ref = scipy.linalg.eigvalsh_tridiagonal(d, e)
+    return d, e, ref, float(np.abs(ref).max()), time.perf_counter() - t0
+
+
+@contextlib.contextmanager
+def record_route():
+    """The grouped route's threshold and group width, and every refinement
+    chunk, as a solve resolved them on the card (recorded around the
+    driver's own functions)."""
+    got = {"threshold_bytes": [], "group_width": [], "refine_chunk": []}
+    bt_bytes, width = driver._grouped_bt_bytes, driver._group_width
+    chunk = st.SolverConfig.resolved_refine_chunk
+
+    def rec(key, fn):
+        def recorded(*args):
+            got[key].append(fn(*args))
+            return got[key][-1]
+        return recorded
+
+    driver._grouped_bt_bytes = rec("threshold_bytes", bt_bytes)
+    driver._group_width = rec("group_width", width)
+    st.SolverConfig.resolved_refine_chunk = rec("refine_chunk", chunk)
+    try:
+        yield got
+    finally:
+        driver._grouped_bt_bytes, driver._group_width = bt_bytes, width
+        st.SolverConfig.resolved_refine_chunk = chunk
+
+
+MAIN_PATH_KERNELS = ("cauchy_matmul", "cauchy_materialize", "spike_pass_a",
+                     "spike_pass_b", "secular_sums", "secular_solve",
+                     "cauchy_rowsum")
+
+
+def run_staged_large(cfg):
+    """n=32768 through the plain staged route (12 n^2 stays under the
+    grouped threshold): the first peak measured above n=16384, beside the
+    19.2 n^2 bytes that n=16384's 5.16 GB scales to."""
+    n = N_LARGE
+    d, e, ref, norm_ref, ref_s = host_reference(n)
+    torch.cuda.empty_cache()
+    reset_counts()
+    with record_route() as route:
+        out, _ = solve_and_check(d, e, cfg, ref, norm_ref)
+    require(GROUPED not in out["phases_s"], f"n={n} took the grouped route")
+    emit({"phase": "staged_32768", "n": n, "matrix": "random", "seed": SEED,
+          "scipy_reference_s": ref_s, **out,
+          "peak_estimate_bytes": 19.2 * n * n,
+          "peak_over_n2": out["peak_mem_bytes"] / float(n * n),
+          "twelve_n_C_bytes": 12.0 * n * n, "route": route})
+    for name in MAIN_PATH_KERNELS:
+        require(out["launches"][name] > 0, f"{name} not launched at n={n}")
+
+
+def run_grouped(cfg):
+    """n=65536 full eigenpairs resident: the switch takes the grouped route
+    on its own.  Returns the eigenvalues and the reference's pieces."""
+    n = N_HUGE
+    d, e, ref, norm_ref, ref_s = host_reference(n)
+    torch.cuda.empty_cache()
+    reset_counts()
+    with record_levels() as levels, record_route() as route:
+        out, lam = solve_and_check(d, e, cfg, ref, norm_ref)
+    require(GROUPED in out["phases_s"],
+            f"n={n} did not take the grouped route: {out['phases_s']}")
+    g = route["group_width"][0]
+    total = torch.cuda.get_device_properties(0).total_memory
+    estimate = 8.0 * n * n + 12.0 * n * g
+    emit({"phase": "grouped", "n": n, "matrix": "random", "seed": SEED,
+          "config": "SolverConfig()", "scipy_reference_s": ref_s, **out,
+          "levels": levels, "threshold_bytes": route["threshold_bytes"][0],
+          "twelve_n_C_bytes": 12.0 * n * n, "group_width": g,
+          "groups": -(-n // g), "refine_chunks": route["refine_chunk"],
+          "peak_estimate_bytes": estimate, "device_total_bytes": total})
+    require(out["peak_mem_bytes"] < total, "peak over the card's memory")
+    for name in MAIN_PATH_KERNELS:
+        require(out["launches"][name] > 0, f"{name} not launched at n={n}")
+    return d, e, lam, norm_ref
+
+
+def run_streamed(cfg, d, e, lam_grouped, norm_ref):
+    """n=65536 drained in group=4096 / halo=256 blocks (N65536_FULL.json's
+    parameters): each block's residual, Gram and cross-Gram with the one
+    before, and at the end a seeded sample of 8 columns a block."""
+    n = N_HUGE
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    lam, blocks, timer = st.solve_tridiagonal_streamed(
+        d, e, config=cfg, group=STREAM_GROUP, halo=STREAM_HALO)
+    lam = lam.cpu().numpy()
+    require(np.array_equal(lam, lam_grouped),
+            "streamed eigenvalues differ from the grouped solve's")
+    rng = np.random.default_rng(SEED)
+    rows, samples, prev = [], [], None
+    for a, Vo in blocks:
+        w = int(Vo.shape[1])
+        require(Vo.shape == (n, w) and Vo.dtype == torch.float64
+                and all_finite(Vo), f"block {a} misshapen")
+        res = float(st.residuals(d, e, st.EighTridiagonalResult(
+            torch.as_tensor(lam[a:a + w], device="cuda"), Vo)).max())
+        row = {"start": a, "residual_over_normT": res / norm_ref,
+               "ortho": max_ortho_error(Vo),
+               "cross_ortho": (max_cross_ortho_error(prev, Vo)
+                               if prev is not None else None)}
+        rows.append(row)
+        take = np.sort(rng.choice(w, size=min(8, w), replace=False))
+        samples.append(Vo[:, torch.as_tensor(take, device="cuda")])
+        prev = Vo
+        require(row["residual_over_normT"] <= 1e-12,
+                f"block {a}: residual {row['residual_over_normT']} ||T||")
+        require(row["ortho"] <= 1e-10, f"block {a}: Gram {row['ortho']}")
+        require(row["cross_ortho"] is None or row["cross_ortho"] <= 1e-10,
+                f"block {a}: cross-Gram {row['cross_ortho']}")
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    del prev, Vo
+    sample = max_ortho_error(torch.cat(samples, dim=1))
+    require(sample <= 1e-10, f"global sample orthogonality {sample}")
+    require([r["start"] for r in rows] == list(range(0, n, STREAM_GROUP)),
+            "streamed blocks out of order or missing")
+    emit({"phase": "streamed", "n": n, "group": STREAM_GROUP,
+          "halo": STREAM_HALO, "blocks": len(rows), "cut": None,
+          "wall_with_checks_s": wall, "phases_s": timer.times,
+          "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+          "max_residual_over_normT": max(r["residual_over_normT"]
+                                         for r in rows),
+          "max_ortho_within_block": max(r["ortho"] for r in rows),
+          "max_ortho_adjacent_blocks": max(r["cross_ortho"] or 0.0
+                                           for r in rows),
+          "max_ortho_global_sample": sample,
+          "sample_columns": sum(int(v.shape[1]) for v in samples),
+          "launches": counts, "per_block": rows})
+    for name in MAIN_PATH_KERNELS:
+        require(counts[name] > 0, f"{name} not launched on the streamed run")
+    del samples
+    torch.cuda.empty_cache()
+
+
+# --------------------------------------------------------------------------
 # the dense and banded front ends
 
 def dense_matrix(n: int, seed: int):
@@ -1177,8 +1354,7 @@ def dense_checks(A, lam, V, ref, chunk: int = 2048):
     n = A.shape[0]
     norm = float(ref.abs().max())
     require(V.shape == (n, n) and V.dtype == torch.float64
-            and bool(torch.isfinite(V).all())
-            and bool(torch.isfinite(lam).all()),
+            and all_finite(V) and bool(torch.isfinite(lam).all()),
             "non-finite or misshapen result")
     worst = 0.0
     for o in range(0, n, chunk):
@@ -1444,16 +1620,14 @@ def main(argv=None) -> int:
     cfg = st.SolverConfig()
     reset_counts()
     with record_levels() as levels:
-        solve = solve_and_check(d, e, cfg, ref, norm_ref)
+        solve, _ = solve_and_check(d, e, cfg, ref, norm_ref)
     solve["levels"] = levels
     launches = solve["launches"]
     walls, phases = warm_walls(d, e, cfg)
     emit({"phase": "solve", "n": N, "matrix": "random", "seed": SEED,
           "config": "SolverConfig() (mixed_precision_vectors=True)",
           **solve, "warm_walls_s": walls, "warm_median_phases_s": phases})
-    for name in ("cauchy_matmul", "cauchy_materialize", "spike_pass_a",
-                 "spike_pass_b", "secular_sums", "secular_solve",
-                 "cauchy_rowsum"):
+    for name in MAIN_PATH_KERNELS:
         require(launches[name] > 0,
                 f"kernel {name} was not launched on the main path")
     require(launches["cauchy_rowsum"] == len(levels) - 1,
@@ -1462,7 +1636,7 @@ def main(argv=None) -> int:
     # 5. the pure-f64 path on the same input
     cfg64 = st.SolverConfig(mixed_precision_vectors=False)
     reset_counts()
-    s64 = solve_and_check(d, e, cfg64, ref, norm_ref)
+    s64, _ = solve_and_check(d, e, cfg64, ref, norm_ref)
     walls64, phases64 = warm_walls(d, e, cfg64)
     emit({"phase": "solve_f64", "n": N, "matrix": "random", "seed": SEED,
           "config": "mixed_precision_vectors=False", **s64,
@@ -1484,7 +1658,7 @@ def main(argv=None) -> int:
     require(p_err <= 1e-12, f"Poisson eigenvalues off by {p_err} ||T||")
     reset_counts()
     with record_levels() as plevels:
-        pfull = solve_and_check(dp, ep, cfg, exact, norm_p)
+        pfull, _ = solve_and_check(dp, ep, cfg, exact, norm_p)
     pfull["levels"] = plevels
     emit({"phase": "poisson", "n": N, "eigvals_only_wall_s": wall_p,
           "eigvals_only_err_vs_analytic_over_normT": p_err,
@@ -1579,8 +1753,15 @@ def main(argv=None) -> int:
     emit({"phase": "profile", "path": f"eigh, n={N_TWO_STAGE}",
           "unprofiled_warm": warm2, **profile_solve(lambda: st.eigh(A2))})
     del A2
+    torch.cuda.empty_cache()
 
-    # 10. summary; launches from each kernel's own path: the main path's
+    # 10.-12. the memory routes: n=32768 staged, n=65536 grouped (the whole
+    # basis resident) and streamed (halo'd blocks, never the whole basis)
+    run_staged_large(cfg)
+    d65, e65, lam65, norm65 = run_grouped(cfg)
+    run_streamed(cfg, d65, e65, lam65, norm65)
+
+    # 13. summary; launches from each kernel's own path: the main path's
     # run, the pure-f64 one for dword_matmul (on the mixed path it serves
     # only the wide cluster-orth Grams), the dense one for dword_vecmat
     paths = {"dword_matmul": ("solve_f64", s64["launches"]),

@@ -10,7 +10,11 @@ use).  This package imports torch, numpy and the standard library only.
 
 Covered so far: all eigenvalues of a tridiagonal matrix, and eigenvectors
 through the default mixed-precision path (f32 downsweep + f64 refinement)
-or in pure f64 (``SolverConfig(mixed_precision_vectors=False)``); dense
+or in pure f64 (``SolverConfig(mixed_precision_vectors=False)``), at
+sizes whose basis crowds the card through the grouped route (the downsweep
+and the first refinement pass per column group, switched on by the
+solve's own size) or the streamed one (``solve_tridiagonal_streamed``:
+eigenvector columns in halo'd windows, never the whole basis); dense
 symmetric input (``eigh``: one-stage Householder tridiagonalization, or the
 two-stage band reduction with ``band > 0``) and banded input in LAPACK band
 storage (``eigh_banded``), with eigenvectors transformed back through the
@@ -36,6 +40,7 @@ from .driver import (
     residuals,
     solve_tridiagonal,
     solve_tridiagonal_staged,
+    solve_tridiagonal_streamed,
 )
 
 __all__ = [
@@ -52,6 +57,7 @@ __all__ = [
     "residuals",
     "solve_tridiagonal",
     "solve_tridiagonal_staged",
+    "solve_tridiagonal_streamed",
     "tridiag_matvec",
 ]
 

@@ -20,20 +20,26 @@ tridiagonal form by ``kernels/tridiagonalize.py`` or
 ``kernels/band_reduce.py``, solved by :func:`solve_tridiagonal_staged`, and
 their eigenvectors transformed back through the reflectors.
 
-Not ported yet: the fused small-n backtransform, the grouped downsweep +
-refine route for 12*n*C bytes above device memory, and the streamed route;
-the plain staged path runs at every size.
+Two memory routes for solves whose eigenvectors crowd the device: the
+grouped route (the f32 downsweep and the first refinement pass run per
+column group into one preallocated f64 result) when 12*n*C bytes pass
+:func:`_grouped_bt_bytes`, and :func:`solve_tridiagonal_streamed`, which
+never holds the whole basis.  Not ported yet: the fused small-n
+backtransform (the reference takes it on a TPU backend only); small
+solves take the staged route.
 """
 
 from __future__ import annotations
 
 import contextlib
+import time
 from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
-from .config import DEFAULT_CONFIG, SolverConfig, resolve_device
+from .config import (DEFAULT_CONFIG, SolverConfig, resolve_device,
+                     usable_device_bytes)
 from .core.tearing import tear
 from .core.tree import TreePlan, build_plan
 from .core.tridiag import residual_norms
@@ -211,7 +217,8 @@ def _refine_ops(d, e, n: int, config: SolverConfig):
 
 
 def _refine_vectors(d, e, lam, sel, V, config: SolverConfig,
-                    subtimer: Optional[PhaseTimer] = None):
+                    subtimer: Optional[PhaseTimer] = None,
+                    pass1_done: bool = False, res1_dev=None):
     """Mixed-precision epilogue on the prescaled system (d, e, lam all
     divided by the same norm): one f64 inverse-iteration pass restores
     working-precision residuals from the f32 downsweep; segments of close
@@ -220,15 +227,20 @@ def _refine_vectors(d, e, lam, sel, V, config: SolverConfig,
 
     ``subtimer`` records the step walls ("refine_pass1", "ortho_mid",
     "residuals1", "refine_extra", "refine_rescue", "ortho_final") and the
-    triage's column counts; with a device it syncs after each step."""
+    triage's column counts; with a device it syncs after each step.
+
+    ``pass1_done``: the caller already ran the first pass (the grouped
+    route folds it into its downsweep groups); ``res1_dev`` then carries
+    its Spike estimates, or None."""
     subtimer = subtimer if subtimer is not None else PhaseTimer()
     lam_sel = lam[sel]
     C = int(sel.shape[0])
     n = int(d.shape[0])
     one_pass, residuals_chunked = _refine_ops(d, e, n, config)
 
-    with subtimer.phase("refine_pass1"):
-        V, res1_dev = one_pass(lam_sel, V, config.refine_block)
+    if not pass1_done:
+        with subtimer.phase("refine_pass1"):
+            V, res1_dev = one_pass(lam_sel, V, config.refine_block)
 
     lam_host = lam.cpu().numpy()
     norm_t = float(np.max(np.abs(lam_host))) if lam_host.size else 0.0
@@ -349,6 +361,91 @@ def _triage_passes(d, e, lam_sel, V, res1, sentinel, norm_t,
     return V, touched
 
 
+# The JAX package sizes the grouped route for a 16 GB chip with ~14.5e9
+# usable bytes: it switches at 8e9 bytes of 12*n*C and budgets 2e9 bytes
+# for a group.  Here both keep that share of the run device's budget; on
+# the CPU (0.9 * 16e9 usable) the switch lands at 7.94e9, the reference's
+# 8e9 to within 1%.
+_GROUPED_SHARE = 8e9 / 14.5e9
+_GROUP_SHARE = 2e9 / 14.5e9
+
+
+def _grouped_bt_bytes(device) -> float:
+    """Bytes of 12*n*C (the f32 downsweep output and its f64 refined copy,
+    live together on the plain staged route) above which the mixed path
+    takes the grouped route."""
+    return _GROUPED_SHARE * usable_device_bytes(device)
+
+
+def _group_width(n: int, config: SolverConfig, device) -> int:
+    """Columns a group of the grouped route: its f32 downsweep output and
+    f64 refined copy (12*n*g bytes) within the group budget, a multiple of
+    256 (the Spike passes' column tiling), at least 256 and at most
+    ``max(vec_chunk, 256)``."""
+    g = int(_GROUP_SHARE * usable_device_bytes(device) / (12.0 * max(n, 1)))
+    return max(256, min(max(config.vec_chunk, 256), (g // 256) * 256))
+
+
+def _grouped_downsweep_refine(reps, Q, d, e, lam, sel, plan: TreePlan,
+                              config: SolverConfig, subtimer: PhaseTimer):
+    """Column-grouped f32 downsweep + first refinement pass, for solves
+    whose whole f32 downsweep output and f64 refined copy (12*n*C bytes)
+    crowd the device.  Columns are independent through both steps, so each
+    group's f32 output is dropped as soon as its refined columns land in
+    the one preallocated (n, C) f64 result: the peak is 8*n*C + 12*n*g
+    bytes plus a group's working set.
+
+    Returns ``(V, res1_dev)``, res1_dev the groups' Spike estimates
+    concatenated, or None when any group ran the estimate-free solver.
+    The step is timed as "downsweep_refine_grouped" in ``subtimer``.
+
+    PyTorch's caching allocator reuses a freed group's blocks in stream
+    order, so one group's working set is live at a time without the host
+    sync the JAX package needs between groups."""
+    n = plan.n
+    C = int(sel.shape[0])
+    one_pass, _ = _refine_ops(d, e, n, config)
+    g = _group_width(n, config, d.device)
+    lam_sel = lam[sel]
+    X = torch.empty((n, C), dtype=d.dtype, device=d.device)
+    res_parts = []
+    with subtimer.phase("downsweep_refine_grouped"):
+        for o in range(0, C, g):
+            Vg = downsweep_stepped(reps, Q, plan, config, sel[o:o + g],
+                                   dtype=torch.float32)
+            Xg, rg = one_pass(lam_sel[o:o + g], Vg, config.refine_block)
+            del Vg
+            X[:, o:o + g].copy_(Xg)
+            del Xg
+            res_parts.append(rg)
+    if any(r is None for r in res_parts):
+        return X, None
+    return X, torch.cat(res_parts)
+
+
+def _backtransform(reps, Q, d, e, lam, cols, plan: TreePlan,
+                   config: SolverConfig, mixed: bool, sub: PhaseTimer):
+    """Eigenvector columns ``cols`` of the prescaled system: the leaf's own
+    vectors when there is no merge, the f64 downsweep, or (``mixed``) the
+    f32 downsweep and the refinement epilogue, grouped when 12*n*C bytes
+    pass :func:`_grouped_bt_bytes`.  ``sub`` gets the steps' times and the
+    triage's counts."""
+    n = plan.n
+    if reps is None:
+        return Q[0][:n, :n][:, cols]
+    if not mixed:
+        return downsweep_stepped(reps, Q, plan, config, cols)
+    if 12.0 * n * int(cols.shape[0]) > _grouped_bt_bytes(d.device):
+        V, res1_dev = _grouped_downsweep_refine(reps, Q, d, e, lam, cols,
+                                                plan, config, sub)
+        return _refine_vectors(d, e, lam, cols, V, config, subtimer=sub,
+                               pass1_done=True, res1_dev=res1_dev)
+    with sub.phase("downsweep"):
+        V = downsweep_stepped(reps, Q, plan, config, cols,
+                              dtype=torch.float32)
+    return _refine_vectors(d, e, lam, cols, V, config, subtimer=sub)
+
+
 def _prescale(d, e):
     """Global prescale to ||T||-ish ~ 1 (keeps every intermediate O(1))."""
     abs_e_max = torch.abs(e).max() if e.shape[0] > 0 else d.new_zeros(())
@@ -356,32 +453,30 @@ def _prescale(d, e):
     return d / snorm, e / snorm, snorm
 
 
-def _solve_scaled(d, e, sel, plan: TreePlan, config: SolverConfig,
-                  want_vectors: bool, timer: PhaseTimer, mixed: bool):
-    n = plan.n
+def _eigenvalues(d, e, plan: TreePlan, config: SolverConfig,
+                 timer: PhaseTimer):
+    """The timed eigenvalue phase: (reps or None, lam (n,), Q_leaf)."""
     with timer.phase("eigenvalues"):
         if plan.num_levels == 0:
             lam_flat, Q = _upsweep_leaf_only(d, e, plan)
             reps = None
         else:
             reps, lam_flat, Q = _upsweep(d, e, plan, config)
-        lam = lam_flat[:n]
+    return reps, lam_flat[:plan.n], Q
+
+
+def _solve_scaled(d, e, sel, plan: TreePlan, config: SolverConfig,
+                  want_vectors: bool, timer: PhaseTimer, mixed: bool):
+    reps, lam, Q = _eigenvalues(d, e, plan, config, timer)
     if not want_vectors:
         return lam, None
-    cols = sel if sel is not None else torch.arange(n, device=d.device)
+    cols = sel if sel is not None else torch.arange(plan.n, device=d.device)
+    sub = PhaseTimer(d.device)
     with timer.phase("backtransformation"):
-        if reps is None:
-            V = Q[0][:n, :n][:, cols]
-        elif not mixed:
-            V = downsweep_stepped(reps, Q, plan, config, cols)
-        else:
-            sub = PhaseTimer(d.device)
-            with sub.phase("downsweep"):
-                V = downsweep_stepped(reps, Q, plan, config, cols,
-                                      dtype=torch.float32)
-            V = _refine_vectors(d, e, lam, cols, V, config, subtimer=sub)
-            timer.times.update({f"bt.{k}": v for k, v in sub.times.items()})
-            timer.counts.update(sub.counts)
+        V = _backtransform(reps, Q, d, e, lam, cols, plan, config, mixed,
+                           sub)
+    timer.times.update({f"bt.{k}": v for k, v in sub.times.items()})
+    timer.counts.update(sub.counts)
     return lam, V
 
 
@@ -439,7 +534,10 @@ def solve_tridiagonal_staged(d, e, *, config: SolverConfig = DEFAULT_CONFIG,
     ``config.mixed_precision_vectors`` (the default) they are swept down in
     f32 and refined in f64 (the timer then also holds the backtransform's
     steps as "bt.<step>" and the triage's column counts in ``counts``);
-    otherwise the sweep runs in f64.
+    otherwise the sweep runs in f64.  When the mixed path's f32 downsweep
+    output and f64 copy (12*n*C bytes, C the selected columns) would pass
+    :func:`_grouped_bt_bytes`, the downsweep and the first refinement pass
+    run per column group ("bt.downsweep_refine_grouped").
     """
     want_vectors = compute_vectors or (select is not None)
     d, e, sel = _inputs(d, e, config, device, select)
@@ -449,6 +547,65 @@ def solve_tridiagonal_staged(d, e, *, config: SolverConfig = DEFAULT_CONFIG,
     lam, V = _solve(d, e, sel, plan, config, want_vectors, timer,
                     mixed=config.mixed_precision_vectors)
     return EighTridiagonalResult(eigenvalues=lam, eigenvectors=V), timer
+
+
+def solve_tridiagonal_streamed(d, e, *, config: SolverConfig = DEFAULT_CONFIG,
+                               group: int = 4096, halo: int = 256,
+                               timer: Optional[PhaseTimer] = None,
+                               device=None):
+    """All eigenpairs without ever holding the whole eigenvector basis: the
+    eigenvalues once, then the eigenvector columns in halo'd windows, each
+    window swept down, refined, and cut to the ``group`` columns it owns.
+
+    A near-degenerate cluster that straddles an owned boundary lies inside
+    both neighbouring windows (each carries ``halo`` columns a side), which
+    orthonormalize the same columns the same way, so the owned halves stay
+    mutually orthogonal; the tests and ``chip_smoke.py`` measure each
+    block's Gram and its cross-Gram with the previous block.  One device by
+    design.
+
+    Returns ``(lam, blocks, timer)``: ``lam`` the (n,) ascending
+    eigenvalues (as :func:`solve_tridiagonal_staged` returns them),
+    ``blocks`` a generator of ``(col_start, V_owned)`` in order, V_owned an
+    (n, <= group) f64 tensor on the run's device holding eigenvector
+    columns ``col_start : col_start + V_owned.shape[1]``.  ``timer`` gets
+    "eigenvalues" at the call and accumulates "backtransformation_streamed"
+    as the blocks are drained (one device sync a block).  ``device`` as
+    :func:`solve_tridiagonal_staged`."""
+    d, e, _ = _inputs(d, e, config, device, None)
+    n = int(d.shape[0])
+    group = max(1, min(int(group), n))
+    halo = max(0, int(halo))
+    W = min(n, group + 2 * halo)
+    plan = build_plan(n, config.resolved_leaf_size(n), config.max_leaves)
+    timer = _run_timer(timer, d.device)
+    d, e, snorm = _prescale(d, e)
+    reps, lam, Q = _eigenvalues(d, e, plan, config, timer)
+
+    def window(s):
+        cols = torch.arange(s, s + W, device=d.device)
+        return _backtransform(reps, Q, d, e, lam, cols, plan, config,
+                              config.mixed_precision_vectors, PhaseTimer())
+
+    def blocks():
+        V_all = None
+        for a in range(0, n, group):
+            w = min(group, n - a)
+            t0 = time.perf_counter()
+            if W == n:      # one window covers every column: compute it once
+                if V_all is None:
+                    V_all = window(0)
+                Vo = V_all[:, a:a + w].contiguous()
+            else:
+                s = min(max(a - halo, 0), n - W)
+                Vo = window(s)[:, a - s:a - s + w].contiguous()
+            sync(Vo)
+            timer.times["backtransformation_streamed"] = (
+                timer.times.get("backtransformation_streamed", 0.0)
+                + time.perf_counter() - t0)
+            yield a, Vo
+
+    return lam * snorm, blocks(), timer
 
 
 def solve_tridiagonal(d, e, *, config: SolverConfig = DEFAULT_CONFIG,

@@ -442,9 +442,10 @@ def orthonormalize_clusters(lam, V, norm_t, gap_factor: float = 1e-8,
 
     Segments up to 256 columns go through batched CholeskyQRs bucketed by
     power-of-two width (each bucket's gather bounded by
-    ``_BATCH_BUDGET_BYTES``), with one host fetch of every acceptance flag;
-    wider ones take one CholeskyQR each; rejected segments take an explicit
-    QR."""
+    ``_BATCH_BUDGET_BYTES``), each batch written back into V before the
+    next (its rejected segments keep their columns), with one host fetch
+    of every acceptance flag; wider ones take one CholeskyQR each; rejected
+    segments take an explicit QR."""
     lam_np = np.asarray(lam)
     segs = cluster_segments(lam_np, gap_factor * norm_t)
     if (touched is not None or degenerate_below > 0.0) and segs:
@@ -469,14 +470,13 @@ def orthonormalize_clusters(lam, V, norm_t, gap_factor: float = 1e-8,
     large = [(s, t) for (s, t) in segs if t - s > _MAX_BATCH_W]
     dev = V.device
     if small:
-        n, C = V.shape
+        n = V.shape[0]
         buckets = {}
         for (s, t) in small:
             w2 = 1 << (t - s - 1).bit_length() if t - s > 1 else 1
             buckets.setdefault(max(w2, 2), []).append((s, t))
         budget_cols = max(_MIN_BUDGET_COLS, _BATCH_BUDGET_BYTES // (8 * n))
-        Yflats, seg_oks, metas = [], [], []
-        off = 0
+        seg_oks, batches = [], []
         for w2, segs_w in sorted(buckets.items()):
             gcap = max(1, budget_cols // w2)
             for o in range(0, len(segs_w), gcap):
@@ -496,30 +496,27 @@ def orthonormalize_clusters(lam, V, norm_t, gap_factor: float = 1e-8,
                 else:
                     Yf, seg_ok = cluster_orth_body(V, st, wd, nseg=g2,
                                                    wmax=w2)
-                Yflats.append(Yf)
-                seg_oks.append(seg_ok[:nseg])
-                metas.append((batch, off, w2, g2, narrow))
-                off += g2 * w2
-        ok_all = torch.cat(seg_oks).cpu().numpy()      # the one fetch
-        cols, src = [], []
-        k = 0
-        for batch, base, w2, g2, narrow in metas:
-            for i, (s, t) in enumerate(batch):
-                if ok_all[k]:
+                # write the batch back at once, keeping V's columns where
+                # its segment is rejected (chosen on the device, no fetch):
+                # no batch's result outlives it, so the extra memory is one
+                # batch, not every clustered column twice.  Narrow results
+                # are position-major, wide ones segment-major.
+                cols, src, seg = [], [], []
+                for i, (s, t) in enumerate(batch):
                     cols.append(np.arange(s, t))
-                    # narrow buckets are position-major, wide ones
-                    # segment-major
-                    src.append(base + np.arange(t - s) * g2 + i if narrow
-                               else base + i * w2 + np.arange(t - s))
-                else:
-                    large.append((s, t))
-                k += 1
-        if cols:
-            Ycat = torch.cat(Yflats, dim=1) if len(Yflats) > 1 else Yflats[0]
-            src_t = torch.as_tensor(np.concatenate(src), device=dev)
-            V[:, torch.as_tensor(np.concatenate(cols), device=dev)] = \
-                Ycat[:, src_t]
-        del Yflats
+                    src.append(np.arange(t - s) * g2 + i if narrow
+                               else i * w2 + np.arange(t - s))
+                    seg.append(np.full(t - s, i))
+                cols_t, src_t, seg_t = (
+                    torch.as_tensor(np.concatenate(a), device=dev)
+                    for a in (cols, src, seg))
+                V[:, cols_t] = torch.where(seg_ok[seg_t][None, :],
+                                           Yf[:, src_t], V[:, cols_t])
+                del Yf
+                seg_oks.append(seg_ok[:nseg])
+                batches += batch
+        ok_all = torch.cat(seg_oks).cpu().numpy()      # the one fetch
+        large += [b for b, ok in zip(batches, ok_all) if not ok]
 
     for s, t in large:
         ok, Y = _wide_orth(V[:, s:t])

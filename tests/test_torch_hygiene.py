@@ -79,6 +79,25 @@ def test_cuda_request_without_cuda_raises(monkeypatch):
         st.eigh_banded(np.ones((3, 8)))
     with pytest.raises(RuntimeError):
         st.eigh_banded(np.ones((1, 8)), device="cuda")
+    # the streamed route raises at the call, before any block is drained
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        st.solve_tridiagonal_streamed(d, e)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        st.solve_tridiagonal_streamed(d, e, config=cfg, device="cuda")
+
+
+def test_exports_every_name_of_the_jax_package():
+    """The port's __all__ holds every name of the JAX package's __all__
+    (read from its source: no JAX import here)."""
+    tree = ast.parse((ROOT / "symmetric_eigenvalue_tpu" /
+                      "__init__.py").read_text())
+    jax_all = next(ast.literal_eval(node.value) for node in tree.body
+                   if isinstance(node, ast.Assign)
+                   and any(getattr(t, "id", None) == "__all__"
+                           for t in node.targets))
+    assert "solve_tridiagonal_streamed" in jax_all
+    assert sorted(set(jax_all) - set(st.__all__)) == []
+    assert all(hasattr(st, name) for name in st.__all__)
 
 
 def _counts():

@@ -247,19 +247,28 @@ def test_orthonormalize_clusters_buckets(rng, monkeypatch):
 def test_orthonormalize_clusters_rank_deficient(rng):
     """A segment the refinement could not separate (two identical columns):
     CholeskyQR is rejected (cholesky_ex / Gershgorin) and the explicit QR
-    still returns an orthonormal block."""
+    still returns an orthonormal block.  A separable segment of the same
+    width bucket, in the same batch, is accepted and written back beside
+    it, as the JAX package writes it; untouched columns stay bit for bit."""
     n = 64
     lam = np.arange(n, dtype=float)
     lam[20:23] = 20.0
-    V = _orthonormal(rng, n, n)
+    lam[40:43] = 40.0 + 1e-12 * np.arange(3)
+    V = _segments_input(rng, n, [(40, 43)], 1e-7)
     V[:, 21] = V[:, 20]
     out = tref.orthonormalize_clusters(lam, torch.as_tensor(V.copy()),
                                        norm_t=float(n)).numpy()
     assert np.isfinite(out).all()
     _check_orth(out, V, [(20, 23)], None)
+    _check_orth(out, V, [(40, 43)], 1e-6)
+    mask = np.ones(n, dtype=bool)
+    mask[20:23] = mask[40:43] = False
+    assert np.array_equal(out[:, mask], V[:, mask])
     outj = np.asarray(jref.orthonormalize_clusters(lam, jnp.asarray(V),
                                                    norm_t=float(n)))
     _check_orth(outj, V, [(20, 23)], None)
+    np.testing.assert_allclose(out[:, 40:43], outj[:, 40:43], rtol=0,
+                               atol=1e-12)
 
 
 def test_orthonormalize_clusters_filters(rng):
