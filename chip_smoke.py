@@ -75,8 +75,30 @@ exits non-zero:
                residual of every column, the block's Gram and its
                cross-Gram with the block before; a seeded sample of 8
                columns a block, orthogonal across all; peak memory
- 13. the per-kernel summary line, then the nvidia-smi line, then the final
+ 13. cli_mtx   the CLI as a user runs it: phase 4's input written with the
+               port's native MTX writer into build/cli/, read back bit for
+               bit by the native and the Python readers, then
+               ``python -m symmetric_eigenvalue_tpu_torch -i FILE -e OUT
+               --profile-dir DIR`` in a subprocess: every residual and
+               eigenvalue of the output file against phase 4's scipy
+               spectrum (1e-12 ||T||), launches and device time of each
+               kernel from the trace
+ 14. cli_select  -s 2 -n 16384 -eFILE with 2048 index lines (duplicates, 0,
+               n+1, a non-integer): residuals on exactly the valid lines,
+               eigenvalues against the analytic spectrum
+ 15. cli_f32   --f32 -s 1 -n 16384 -e, profiled: the JAX package's float32
+               grades (eigenvalues 1e-4, residuals 1e-3 ||T|| against
+               scipy's f64 spectrum), the merge and refinement kernels
+               launched
+ 16. cli_profile  --profile-dir at n=4096 leaves a trace; a missing and a
+               malformed -i return 1 with "Could not read input file:"
+ 17. cli_streamed  -s 2 -n 98304 -e in this process: the gate takes the
+               streamed branch (the basis alone would be 77.3 GB); every
+               residual and eigenvalue checked; peak, windows, phases
+ 18. the per-kernel summary line, then the nvidia-smi line, then the final
      {"ok": true, ...} line
+
+With ``--cli-only`` it builds every kernel, runs phases 13-17 and stops.
 
 Needs one CUDA card; exits 1 without printing a result when
 torch.cuda.is_available() is False.  Imports nothing of JAX.
@@ -87,8 +109,11 @@ from __future__ import annotations
 import argparse
 import contextlib
 import functools
+import io
 import json
+import os
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -1338,6 +1363,333 @@ def run_streamed(cfg, d, e, lam_grouped, norm_ref):
 
 
 # --------------------------------------------------------------------------
+# the CLI: python -m symmetric_eigenvalue_tpu_torch, as a user runs it
+
+ROOT = Path(__file__).resolve().parent
+CLI_DIR = ROOT / "build" / "cli"
+N_CLI_STREAM = 98304        # the basis alone (8 n^2 = 77.3 GB) passes the card
+N_CLI_PROFILE = 4096
+N_SELECT = 2048             # lines of cli_select's index file
+# kernel names in a profiler trace (demangled) -> the port's kernels; the
+# split-K reduction (SPLITK) counts toward dword_matmul's time, not its
+# launches
+TRACE_KERNELS = {"secular_sums": "secular_sums_kernel",
+                 "secular_solve": "secular_solve_kernel",
+                 "cauchy_rowsum": "cauchy_rowsum_kernel",
+                 "cauchy_matmul": "cauchy_matmul_kernel",
+                 "cauchy_materialize": "cauchy_materialize_kernel",
+                 "spike_pass_a": "spike_kernel<true",
+                 "spike_pass_b": "spike_kernel<false",
+                 "dword_matmul": "dgemm_mma_kernel",
+                 "dword_vecmat": "vecmat_kernel"}
+SPLITK = "splitk_reduce_kernel"
+MERGE_KERNELS = ("secular_sums", "secular_solve", "cauchy_rowsum")
+REFINE_KERNELS = ("cauchy_matmul", "cauchy_materialize", "spike_pass_a",
+                  "spike_pass_b")
+
+
+def trace_kernels(trace_dir: Path):
+    """Launches and device time of each kernel of the port in the one
+    Chrome trace ``--profile-dir`` wrote into ``trace_dir``, with the
+    trace's kernel events and their device time in all."""
+    files = sorted(trace_dir.glob("*.json"))
+    require(len(files) == 1 and files[0].stat().st_size > 0,
+            f"expected one non-empty trace in {trace_dir}, found {files}")
+    rows = {name: {"launches": 0, "device_ms": 0.0} for name in TRACE_KERNELS}
+    events, total_us = 0, 0.0
+    for ev in json.loads(files[0].read_text())["traceEvents"]:
+        if ev.get("cat") != "kernel":
+            continue
+        events += 1
+        total_us += ev.get("dur", 0.0)
+        name = ev.get("name", "")
+        for kernel, key in TRACE_KERNELS.items():
+            if key in name:
+                rows[kernel]["launches"] += 1
+                rows[kernel]["device_ms"] += ev.get("dur", 0.0) * 1e-3
+        if SPLITK in name:
+            rows["dword_matmul"]["device_ms"] += ev.get("dur", 0.0) * 1e-3
+    return {"trace_bytes": files[0].stat().st_size,
+            "kernel_events": events, "kernel_device_s": total_us * 1e-6,
+            "port_kernels": {k: v for k, v in rows.items() if v["launches"]}}
+
+
+@contextlib.contextmanager
+def kernel_events():
+    """Launches (the wrappers' own counts) and device time of every kernel
+    of the port over the block, for runs too long to profile: CUDA events
+    recorded on the stream just before and just after each launch call
+    (the ctypes functions ``_build.function`` hands out, ``<kernel>_launch``;
+    the info queries launch nothing and are not timed)."""
+    reset_counts()
+    spans = {name: [] for name in KERNEL_NAMES}
+    inner = _build.function
+
+    def timed_function(lib, symbol, argtypes):
+        fn = inner(lib, symbol, argtypes)
+        kernel = symbol[:-len("_launch")]
+        if kernel not in spans:
+            return fn
+
+        def launch(*args):
+            t0 = torch.cuda.Event(enable_timing=True)
+            t1 = torch.cuda.Event(enable_timing=True)
+            t0.record()
+            rc = fn(*args)
+            t1.record()
+            spans[kernel].append((t0, t1))
+            return rc
+        return launch
+
+    _build.function = timed_function
+    got = {}
+    try:
+        yield got
+    finally:
+        _build.function = inner
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    got.update({name: {"launches": counts[name], "device_ms": sum(
+        a.elapsed_time(b) for a, b in spans[name])}
+        for name in KERNEL_NAMES if counts[name]})
+
+
+def cli_main(argv):
+    """``cli.main(argv)`` in this process: (rc, stdout, stderr, wall)."""
+    from symmetric_eigenvalue_tpu_torch import cli
+    out, err = io.StringIO(), io.StringIO()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = cli.main(argv)
+    torch.cuda.synchronize()
+    return rc, out.getvalue(), err.getvalue(), time.perf_counter() - t0
+
+
+def cli_subprocess(argv, timeout: int = 600):
+    """``python -m symmetric_eigenvalue_tpu_torch argv`` from the
+    repository root: (rc, stdout, stderr, wall)."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "symmetric_eigenvalue_tpu_torch", *argv],
+        cwd=ROOT, env={**os.environ, "PYTHONPATH": str(ROOT)},
+        capture_output=True, text=True, timeout=timeout)
+    return (proc.returncode, proc.stdout, proc.stderr,
+            time.perf_counter() - t0)
+
+
+def report_lines(stdout: str):
+    return [ln for ln in stdout.splitlines() if ln.startswith("Required")]
+
+
+def check_cli_run(what, rc, stdout, stderr):
+    require(rc == 0, f"{what}: rc {rc}; stderr: {stderr[-2000:]}")
+    require("Program finished successfully!" in stdout,
+            f"{what}: no 'Program finished successfully!'")
+
+
+def results_file(path: Path, n: int):
+    """(eigenvalues, residuals with NaN where none was written)."""
+    from symmetric_eigenvalue_tpu_torch.io.results import read_results
+    lam, res = read_results(path)
+    require(lam.shape == (n,), f"{path.name}: {lam.shape[0]} lines, not {n}")
+    return lam, np.array([np.nan if r is None else r for r in res])
+
+
+def run_cli_mtx(d, e, ref, norm_ref):
+    """The main path's input written with the port's native writer, then
+    the real entry point in a subprocess: -i FILE -e OUT, profiled."""
+    from symmetric_eigenvalue_tpu_torch.io import mtx, native
+    n = d.shape[0]
+    path = CLI_DIR / f"random_{n}.mtx"
+    require(native.get_lib() is not None, "the native MTX parser did not load")
+    require(native.write_symm_tridiag(path, d, e, "bench.py random, seed 0"),
+            "the native writer failed")
+    dn, en = mtx.read_symmetric_tridiagonal(path)
+    dp, ep = mtx.read_symmetric_tridiagonal(path, use_native=False)
+    require(np.array_equal(dn, dp) and np.array_equal(en, ep),
+            "native and Python readers differ")
+    require(np.array_equal(dn, d) and np.array_equal(en, e),
+            "the written matrix does not read back bit for bit")
+    out, trace = CLI_DIR / "mtx_out.txt", CLI_DIR / "trace_mtx"
+    torch.cuda.empty_cache()
+    rc, stdout, stderr, wall = cli_subprocess(
+        ["-i", str(path), "-e", str(out), "--profile-dir", str(trace)])
+    check_cli_run("cli_mtx", rc, stdout, stderr)
+    lam, res = results_file(out, n)
+    resid = float(res.max()) / norm_ref
+    lam_err = float(np.abs(lam - ref).max()) / norm_ref
+    emit({"phase": "cli_mtx", "n": n, "matrix": "random", "seed": SEED,
+          "argv": f"-i {path.relative_to(ROOT)} -e OUT --profile-dir DIR",
+          "mtx_bytes": path.stat().st_size, "native_parser": True,
+          "subprocess_wall_s_profiled": wall, "report": report_lines(stdout),
+          "max_residual_over_normT": resid,
+          "eig_err_vs_scipy_over_normT": lam_err, **trace_kernels(trace)})
+    require(not np.isnan(res).any(), "cli_mtx: a line without a residual")
+    require(resid <= 1e-12, f"cli_mtx: residual {resid} ||T||")
+    require(lam_err <= 1e-12, f"cli_mtx: eigenvalues off scipy by {lam_err}")
+
+
+def run_cli_select():
+    """-s 2 -n 16384 -eFILE: 2048 index lines with duplicates, 0, n+1 and
+    a non-integer line; residuals on exactly the valid lines."""
+    n = N
+    rng = np.random.default_rng(SEED)
+    valid = [int(i) for i in rng.integers(1, n + 1, size=N_SELECT - 4)]
+    lines = valid + [valid[0], 0, n + 1, "7.5x"]
+    rng.shuffle(lines)
+    evfile, out = CLI_DIR / "select.txt", CLI_DIR / "select_out.txt"
+    evfile.write_text("".join(f"{ln}\n" for ln in lines))
+    want = sorted({i - 1 for i in valid})
+    torch.cuda.empty_cache()
+    with kernel_events() as kernels:
+        rc, stdout, stderr, wall = cli_main(
+            ["-s", "2", "-n", str(n), f"-e{evfile}", str(out)])
+    check_cli_run("cli_select", rc, stdout, stderr)
+    exact = st.eigenvalues_of_scheme2(n)
+    norm_t = float(np.abs(exact).max())
+    lam, res = results_file(out, n)
+    have = np.flatnonzero(~np.isnan(res)).tolist()
+    resid = float(np.nanmax(res)) / norm_t
+    lam_err = float(np.abs(lam - exact).max()) / norm_t
+    emit({"phase": "cli_select", "n": n, "matrix": "Poisson",
+          "index_lines": len(lines), "valid_distinct": len(want),
+          "warnings": stdout.count("WARNING: Line"), "wall_s": wall,
+          "report": report_lines(stdout), "max_residual_over_normT": resid,
+          "eig_err_vs_analytic_over_normT": lam_err, "kernels": kernels})
+    require(have == want, "cli_select: residuals not on exactly the valid "
+            f"lines ({len(have)} lines, {len(want)} valid)")
+    require(stdout.count("WARNING: Line") == 3, "cli_select: not 3 warnings")
+    require(resid <= 1e-12, f"cli_select: residual {resid} ||T||")
+    require(lam_err <= 1e-12, f"cli_select: eigenvalues off by {lam_err}")
+
+
+def run_cli_streamed(n: int = N_CLI_STREAM):
+    """-s 2 -n 98304 -e OUT in this process: the gate takes the streamed
+    branch (12 n^2 = 116 GB), every residual and eigenvalue checked, the
+    peak far under the 8 n^2 the basis would need."""
+    from symmetric_eigenvalue_tpu_torch import cli
+    from symmetric_eigenvalue_tpu_torch.config import usable_device_bytes
+    gate, streamed = cli._use_streamed, driver.solve_tridiagonal_streamed
+    said, windows, timers = [], [], []
+
+    def recorded_gate(*args):
+        said.append(gate(*args))
+        return said[-1]
+
+    def counted(*args, **kwargs):
+        lam, blocks, timer = streamed(*args, **kwargs)
+        timers.append(timer)
+        return lam, (windows.append(a) or (a, V) for a, V in blocks), timer
+
+    out = CLI_DIR / "streamed_out.txt"
+    torch.cuda.empty_cache()
+    threshold = cli._STREAM_SHARE * usable_device_bytes("cuda")
+    torch.cuda.reset_peak_memory_stats()
+    cli._use_streamed, driver.solve_tridiagonal_streamed = \
+        recorded_gate, counted
+    try:
+        with kernel_events() as kernels:
+            rc, stdout, stderr, wall = cli_main(
+                ["-s", "2", "-n", str(n), "-e", str(out)])
+    finally:
+        cli._use_streamed, driver.solve_tridiagonal_streamed = gate, streamed
+    peak = torch.cuda.max_memory_allocated()
+    check_cli_run("cli_streamed", rc, stdout, stderr)
+    exact = st.eigenvalues_of_scheme2(n)
+    norm_t = float(np.abs(exact).max())
+    lam, res = results_file(out, n)
+    resid = float(res.max()) / norm_t
+    lam_err = float(np.abs(lam - exact).max()) / norm_t
+    emit({"phase": "cli_streamed", "n": n, "matrix": "Poisson",
+          "cut": None if n == N_CLI_STREAM else f"n={n}, not {N_CLI_STREAM}",
+          "gate": said, "gate_threshold_bytes": threshold,
+          "twelve_n2_bytes": 12.0 * n * n,
+          "twelve_n2_bytes_at_65536": 12.0 * N_HUGE * N_HUGE,
+          "eight_n2_bytes": 8.0 * n * n, "peak_mem_bytes": peak,
+          "windows": len(windows), "wall_s": wall,
+          "phases_s": timers[0].times if timers else None,
+          "report": report_lines(stdout), "max_residual_over_normT": resid,
+          "eig_err_vs_analytic_over_normT": lam_err, "kernels": kernels})
+    require(said == [True], f"cli_streamed: the gate said {said}")
+    require(windows == list(range(0, n, 4096)), "cli_streamed: windows")
+    require(peak < 0.25 * 8.0 * n * n,
+            f"cli_streamed: peak {peak} not well under 8 n^2")
+    require(not np.isnan(res).any(), "cli_streamed: a line without residual")
+    require(resid <= 1e-12, f"cli_streamed: residual {resid} ||T||")
+    require(lam_err <= 1e-12, f"cli_streamed: eigenvalues off by {lam_err}")
+    for name in MERGE_KERNELS + REFINE_KERNELS:
+        require(name in kernels, f"cli_streamed: {name} not launched")
+
+
+def run_cli_f32():
+    """--f32 -s 1 -n 16384 -e, profiled: the JAX package's float32 grades
+    against the f64 spectrum of the same matrix, and the merge and
+    refinement kernels launched (from the trace)."""
+    n = N
+    d64, e64 = st.create_matrix_scheme1(n)
+    ref = scipy.linalg.eigvalsh_tridiagonal(d64.numpy(), e64.numpy())
+    norm_t = float(np.abs(ref).max())
+    out, trace = CLI_DIR / "f32_out.txt", CLI_DIR / "trace_f32"
+    torch.cuda.empty_cache()
+    reset_counts()
+    rc, stdout, stderr, wall = cli_main(
+        ["--f32", "-s", "1", "-n", str(n), "-e", str(out),
+         "--profile-dir", str(trace)])
+    check_cli_run("cli_f32", rc, stdout, stderr)
+    counts = launch_counts()
+    lam, res = results_file(out, n)
+    resid = float(res.max()) / norm_t
+    lam_err = float(np.abs(lam - ref).max()) / norm_t
+    traced = trace_kernels(trace)
+    emit({"phase": "cli_f32", "n": n, "matrix": "scheme 1",
+          "wall_s_profiled": wall, "report": report_lines(stdout),
+          "max_residual_over_normT": resid,
+          "eig_err_vs_f64_scipy_over_normT": lam_err,
+          "wrapper_launches": {k: v for k, v in counts.items() if v},
+          **traced})
+    require(not np.isnan(res).any(), "cli_f32: a line without residual")
+    require(lam_err <= 1e-4, f"cli_f32: eigenvalues off by {lam_err} ||T||")
+    require(resid <= 1e-3, f"cli_f32: residual {resid} ||T||")
+    for name in MERGE_KERNELS + REFINE_KERNELS:
+        require(traced["port_kernels"].get(name, {}).get("launches", 0) > 0
+                and counts[name] > 0, f"cli_f32: {name} not launched")
+
+
+def run_cli_profile_and_errors():
+    """--profile-dir leaves a non-empty trace; a missing and a malformed -i
+    each give rc 1 and 'Could not read input file:' on stderr (two
+    subprocesses at once)."""
+    trace = CLI_DIR / "trace"
+    torch.cuda.empty_cache()
+    rc, stdout, stderr, wall = cli_main(
+        ["--profile-dir", str(trace), "-s", "1", "-n", str(N_CLI_PROFILE),
+         "-e"])
+    check_cli_run("cli_profile", rc, stdout, stderr)
+    traced = trace_kernels(trace)
+    bad = CLI_DIR / "malformed.mtx"
+    bad.write_text("%%MatrixMarket matrix coordinate real general\n"
+                   "3 3 2\n1 1 1.0\n3 1 5.0\n")
+    procs = {what: subprocess.Popen(
+        [sys.executable, "-m", "symmetric_eigenvalue_tpu_torch", "-i",
+         str(path)], cwd=ROOT, env={**os.environ, "PYTHONPATH": str(ROOT)},
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for what, path in (("missing", CLI_DIR / "missing.mtx"),
+                           ("malformed", bad))}
+    errors = {}
+    for what, proc in procs.items():
+        _, err = proc.communicate(timeout=300)
+        errors[what] = {"rc": proc.returncode, "stderr": err.strip()[-300:]}
+    emit({"phase": "cli_profile", "n": N_CLI_PROFILE, "matrix": "scheme 1",
+          "wall_s_profiled": wall, "report": report_lines(stdout), **traced,
+          "errors": errors})
+    require(traced["kernel_events"] > 0, "cli_profile: no kernel traced")
+    for what, got in errors.items():
+        require(got["rc"] == 1 and "Could not read input file:"
+                in got["stderr"], f"cli error path ({what}): {got}")
+
+
+# --------------------------------------------------------------------------
 # the dense and banded front ends
 
 def dense_matrix(n: int, seed: int):
@@ -1515,6 +1867,17 @@ def kernel_table(d, e, ref):
     }
 
 
+def run_cli(d, e, ref, norm_ref):
+    """The CLI phases, in a fresh build/cli/."""
+    shutil.rmtree(CLI_DIR, ignore_errors=True)
+    CLI_DIR.mkdir(parents=True)
+    run_cli_mtx(d, e, ref, norm_ref)
+    run_cli_select()
+    run_cli_f32()
+    run_cli_profile_and_errors()
+    run_cli_streamed()
+
+
 def run_kernel_checks(table, names):
     """Run the checks of the kernels in ``names``, print one line per row
     and hold every row to its limits; returns {kernel: rows}."""
@@ -1568,7 +1931,11 @@ def main(argv=None) -> int:
                     help="build and check only these kernels "
                     f"({', '.join(KERNEL_NAMES)}), then stop: no solve, and "
                     "not the final line of a whole run")
-    only = [k for k in ap.parse_args(argv).only.split(",") if k]
+    ap.add_argument("--cli-only", action="store_true",
+                    help="build every kernel and run the CLI phases alone, "
+                    "then stop: not the final line of a whole run")
+    args = ap.parse_args(argv)
+    only = [k for k in args.only.split(",") if k]
     if set(only) - set(KERNEL_NAMES):
         ap.error(f"--only takes names from {', '.join(KERNEL_NAMES)}")
     if not torch.cuda.is_available():
@@ -1608,6 +1975,12 @@ def main(argv=None) -> int:
     d, e = random_matrix(N, SEED)
     ref = scipy.linalg.eigvalsh_tridiagonal(d, e)
     norm_ref = float(np.abs(ref).max())
+
+    if args.cli_only:
+        run_cli(d, e, ref, norm_ref)
+        print(smi_line, flush=True)
+        emit({"ok": True, "only": ["cli"]})
+        return 0
 
     # 3. each kernel against its plain version at its path's shapes
     checks = run_kernel_checks(kernel_table(d, e, ref), only or KERNEL_NAMES)
@@ -1760,8 +2133,13 @@ def main(argv=None) -> int:
     run_staged_large(cfg)
     d65, e65, lam65, norm65 = run_grouped(cfg)
     run_streamed(cfg, d65, e65, lam65, norm65)
+    del d65, e65, lam65
+    torch.cuda.empty_cache()
 
-    # 13. summary; launches from each kernel's own path: the main path's
+    # 13.-17. the CLI, as a user runs it
+    run_cli(d, e, ref, norm_ref)
+
+    # 18. summary; launches from each kernel's own path: the main path's
     # run, the pure-f64 one for dword_matmul (on the mixed path it serves
     # only the wide cluster-orth Grams), the dense one for dword_vecmat
     paths = {"dword_matmul": ("solve_f64", s64["launches"]),

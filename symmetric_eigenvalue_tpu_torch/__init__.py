@@ -19,9 +19,14 @@ symmetric input (``eigh``: one-stage Householder tridiagonalization, or the
 two-stage band reduction with ``band > 0``) and banded input in LAPACK band
 storage (``eigh_banded``), with eigenvectors transformed back through the
 reflectors; the batched Jacobi leaf solver (``kernels.jacobi.jacobi_eigh``,
-selectable in ``leaf.solve_leaves``).  Every Pallas kernel of the JAX
-package has its CUDA counterpart (six sources, nine kernels).  Entry points
-run on the device ``"cuda"`` unless the caller passes ``device="cpu"``.
+selectable in ``leaf.solve_leaves``); float32 mode
+(``SolverConfig(dtype=torch.float32)``, its kernel operands widened to
+f64); host IO (``io``: Matrix Market through the port's own C parser,
+selection and result files) and the ``cuppen`` CLI (``python -m
+symmetric_eigenvalue_tpu_torch``, ``cli.py``).  Every Pallas kernel of the
+JAX package has its CUDA counterpart (six sources, nine kernels).  Entry
+points run on the device ``"cuda"`` unless the caller passes
+``device="cpu"``.
 """
 
 from .config import DEFAULT_CONFIG, SolverConfig

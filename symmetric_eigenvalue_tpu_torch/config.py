@@ -3,6 +3,9 @@
 Same fields and defaults as ``symmetric_eigenvalue_tpu.config.SolverConfig``
 plus ``device``.  The GPU and the CPU both run IEEE float64, so the unit
 roundoff is 2^-52 everywhere and the auto leaf size is the non-TPU rule (32).
+``dtype=torch.float32`` (the CLI's ``--f32``) runs the eigenvalue phase in
+f32 with the f32 unit roundoff; the kernels, which are f64-only as the JAX
+package's, take its operands widened to f64, and results come back in f32.
 """
 
 from __future__ import annotations

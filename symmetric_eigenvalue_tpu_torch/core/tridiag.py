@@ -1,7 +1,7 @@
 """Tridiagonal matrix utilities: generators, mat-vec, residuals, oracles.
 
 Port of ``symmetric_eigenvalue_tpu/core/tridiag.py`` (scheme 1/2 generators,
-the analytic scheme-2 spectrum, the residual mat-vec).
+the analytic scheme-2 spectrum, the residual mat-vec, the dense oracle).
 """
 
 from __future__ import annotations
@@ -64,3 +64,14 @@ def tridiag_norm_bound(d, e):
     row[:-1] += ea
     row[1:] += ea
     return torch.max(row)
+
+
+def dense_from_tridiag(d, e) -> np.ndarray:
+    """Dense numpy matrix from (d, e) — test oracle helper.  Tensors are
+    read through the host."""
+    d = np.asarray(d.cpu() if isinstance(d, torch.Tensor) else d)
+    e = np.asarray(e.cpu() if isinstance(e, torch.Tensor) else e)
+    T = np.diag(d)
+    if e.shape[0] > 0:
+        T += np.diag(e, 1) + np.diag(e, -1)
+    return T

@@ -50,7 +50,7 @@ from .kernels.band_reduce import (apply_q2_wave_blocked, band_to_tridiag_wave,
                                   reduce_to_band)
 from .kernels.leaf import leaf_blocks, leaf_eigh_fn, solve_leaves
 from .kernels.refine import inverse_iteration, orthonormalize_clusters
-from .kernels.secular import merge_decompose
+from .kernels.secular import merge_decompose, widened
 from .kernels.tridiagonalize import apply_q, tridiagonalize
 from .utils.timing import PhaseTimer, sync
 
@@ -429,7 +429,18 @@ def _backtransform(reps, Q, d, e, lam, cols, plan: TreePlan,
     vectors when there is no merge, the f64 downsweep, or (``mixed``) the
     f32 downsweep and the refinement epilogue, grouped when 12*n*C bytes
     pass :func:`_grouped_bt_bytes`.  ``sub`` gets the steps' times and the
-    triage's counts."""
+    triage's counts.
+
+    f32 mode (d in f32): the MergeReps, Q_leaf, d, e and lam are widened to
+    f64 and the f64 mode's route runs on them, the same kernels at the same
+    shapes (they are f64-only, as the JAX package's); the columns come back
+    rounded to f32.  The refinement's thresholds read ``config.eps()`` (the
+    f32 unit roundoff) and u_f32, as the JAX package reads them."""
+    if d.dtype != torch.float64:
+        reps = None if reps is None else [widened(rep) for rep in reps]
+        f64 = [t.to(torch.float64) for t in (Q, d, e, lam)]
+        return _backtransform(reps, *f64, cols, plan, config, mixed,
+                              sub).to(d.dtype)
     n = plan.n
     if reps is None:
         return Q[0][:n, :n][:, cols]
@@ -530,10 +541,13 @@ def solve_tridiagonal_staged(d, e, *, config: SolverConfig = DEFAULT_CONFIG,
       device: "cuda" or "cpu" (default: ``config.device``).  CUDA without a
         card raises; nothing falls back to the CPU.
 
-    Returns ``(EighTridiagonalResult, timer)``.  Eigenvectors are f64.  With
-    ``config.mixed_precision_vectors`` (the default) they are swept down in
-    f32 and refined in f64 (the timer then also holds the backtransform's
-    steps as "bt.<step>" and the triage's column counts in ``counts``);
+    Returns ``(EighTridiagonalResult, timer)`` in ``config.dtype`` (f32
+    mode: the eigenvalue phase in f32, its kernels on widened operands;
+    the backtransform on the f64 mode's route, see :func:`_backtransform`).
+    With ``config.mixed_precision_vectors`` (the default) the eigenvectors
+    are swept down in f32 and refined in f64 (the timer then also holds
+    the backtransform's steps as "bt.<step>" and the triage's column counts
+    in ``counts``);
     otherwise the sweep runs in f64.  When the mixed path's f32 downsweep
     output and f64 copy (12*n*C bytes, C the selected columns) would pass
     :func:`_grouped_bt_bytes`, the downsweep and the first refinement pass
@@ -567,11 +581,11 @@ def solve_tridiagonal_streamed(d, e, *, config: SolverConfig = DEFAULT_CONFIG,
     Returns ``(lam, blocks, timer)``: ``lam`` the (n,) ascending
     eigenvalues (as :func:`solve_tridiagonal_staged` returns them),
     ``blocks`` a generator of ``(col_start, V_owned)`` in order, V_owned an
-    (n, <= group) f64 tensor on the run's device holding eigenvector
-    columns ``col_start : col_start + V_owned.shape[1]``.  ``timer`` gets
-    "eigenvalues" at the call and accumulates "backtransformation_streamed"
-    as the blocks are drained (one device sync a block).  ``device`` as
-    :func:`solve_tridiagonal_staged`."""
+    (n, <= group) tensor in ``config.dtype`` on the run's device holding
+    eigenvector columns ``col_start : col_start + V_owned.shape[1]``.
+    ``timer`` gets "eigenvalues" at the call and accumulates
+    "backtransformation_streamed" as the blocks are drained (one device
+    sync a block).  ``device`` as :func:`solve_tridiagonal_staged`."""
     d, e, _ = _inputs(d, e, config, device, None)
     n = int(d.shape[0])
     group = max(1, min(int(group), n))
@@ -612,8 +626,9 @@ def solve_tridiagonal(d, e, *, config: SolverConfig = DEFAULT_CONFIG,
                       compute_vectors: bool = False, select=None,
                       device=None) -> EighTridiagonalResult:
     """All eigenvalues (and optionally eigenvectors) of symmetric tridiagonal
-    T, eigenvectors in f64 (as the JAX package's off-TPU single-jit path,
-    whatever ``mixed_precision_vectors`` says).  Arguments as
+    T, eigenvectors from the f64 downsweep (as the JAX package's off-TPU
+    single-jit path, whatever ``mixed_precision_vectors`` says), returned in
+    ``config.dtype``.  Arguments as
     :func:`solve_tridiagonal_staged`."""
     d, e, sel = _inputs(d, e, config, device, select)
     n = int(d.shape[0])

@@ -216,7 +216,9 @@ def rows_through_merge(rep: MergeRep, w,
     wp = _replay_rotations_cols_t(waves, wt).reshape(k, m, r).transpose(1, 2)
     wz = (wp * rep.zhat[:, None, :]).contiguous()
     shift_val = rep.poles_sec.gather(1, rep.shift_idx)
-    S = cauchy_rowsum(rep.poles_sec, shift_val, rep.tau, wz, rep.K)
+    # f32 mode: the kernel takes f64 operands; S comes back in wz's dtype
+    S = cauchy_rowsum(*(t.to(torch.float64) for t in (
+        rep.poles_sec, shift_val, rep.tau, wz)), rep.K).to(wz.dtype)
     active = (torch.arange(m, device=w.device)[None, :]
               < rep.K[:, None])[:, None, :]
     y = torch.where(active, S / rep.colnorm[:, None, :], wp)

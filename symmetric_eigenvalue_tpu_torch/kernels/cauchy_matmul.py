@@ -20,6 +20,10 @@ slots at or past a merge's active count K_b contribute exactly nothing (the
 deflation skip).  Ragged shapes are masked inside the kernels, so every
 shape is taken.  CUDA tensors launch ``csrc/cauchy_matmul.cu``; CPU tensors
 run the plain versions.
+
+The merge data are f64 only: the solver's f32 mode widens its MergeReps to
+f64 before the backtransform (``driver._backtransform``), so these kernels
+run as in the f64 mode.
 """
 
 from __future__ import annotations

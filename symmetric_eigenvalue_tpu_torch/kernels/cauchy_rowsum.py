@@ -8,6 +8,9 @@ k merges of a tree level and cut at each merge's active count K (exact: the
 caller's wz is 0 past K and it keeps only the columns below K).  CUDA
 tensors launch ``csrc/cauchy_rowsum.cu`` (one launch a call, no host sync);
 CPU tensors run :func:`cauchy_rowsum_plain`.
+
+f64 operands only: the solver's f32 mode widens its f32 operands to f64
+at the call (``assemble.rows_through_merge``) and rounds S back to f32.
 """
 
 from __future__ import annotations

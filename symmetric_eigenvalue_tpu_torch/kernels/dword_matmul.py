@@ -12,6 +12,10 @@ be a strided view), without the product ever reaching device memory.
 The launch plan (tile shape and split-K count) is a pure function of the
 shape, :func:`split_plan`.  CUDA tensors launch ``csrc/dword_matmul.cu``; CPU
 tensors run the plain versions.
+
+f64 only: the solver's f32 mode runs its backtransform (the f64
+downsweep's products, the cluster Grams) on operands widened to f64
+(``driver._backtransform``).
 """
 
 from __future__ import annotations

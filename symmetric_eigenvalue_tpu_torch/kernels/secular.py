@@ -53,6 +53,13 @@ class MergeRep(NamedTuple):
     lam_sorted: torch.Tensor  # (k, m) eigenvalues ascending
 
 
+def widened(rep: MergeRep) -> MergeRep:
+    """``rep`` with its floating fields in f64 (the same tensors where they
+    already are): f32 mode's backtransform runs on the f64 mode's kernels."""
+    return MergeRep(*(t.to(torch.float64) if t.is_floating_point() else t
+                      for t in rep))
+
+
 class MergePartition(NamedTuple):
     """Sort/deflation/partition state (stage 1 of a merge): O(m) data only."""
 
@@ -294,12 +301,19 @@ def _solve_roots(poles_sec, zu, rho_e, K, active, eps, max_iters, tol_factor):
     ``secular_solve`` launch (each block of roots iterates until its own
     roots converge, as the JAX package's per-slot-block while_loop does; no
     host sync); CPU tensors run its plain version.  Returns (tau, shift_idx,
-    shift_val).
+    shift_val) in the poles' dtype.
+
+    f32 mode: the kernels are f64-only (as the JAX package's, which run
+    only in f64), so the setup and the iteration take the operands widened
+    to f64 and tau comes back rounded to f32; the tolerance is still the
+    f32 ``eps`` the caller passes.
     """
+    dt = poles_sec.dtype
     with torch.profiler.record_function("secular.solve_roots"):
-        setup, shift_idx = _root_setup(poles_sec, zu, rho_e, K, active)
+        setup, shift_idx = _root_setup(*(t.to(torch.float64) for t in (
+            poles_sec, zu, rho_e)), K, active)
         tau, _ = secular_solve(setup, tol_factor * eps, max_iters)
-    return tau, shift_idx, setup.shift_val
+    return tau.to(dt), shift_idx, setup.shift_val.to(dt)
 
 
 def _gu_eisenstat_z(poles_sec, zu, tau, shift_val, active, block):

@@ -16,6 +16,11 @@ secular_sums.py``, batched over the k merges of a tree level.
 iteration of ``kernels/secular.py`` (the JAX package's ``lax.while_loop``
 around that kernel) for every root of a level in one launch.  CUDA tensors
 launch ``csrc/secular_sums.cu``; CPU tensors run the plain versions.
+
+Both take f64 operands only.  The solver's f32 mode
+(``SolverConfig(dtype=torch.float32)``) widens its f32 operands to f64 at
+the call (``secular._solve_roots``) and rounds tau back to f32, so it
+launches these kernels as the f64 mode does.
 """
 
 from __future__ import annotations

@@ -24,6 +24,11 @@ S-row segment from a checkpoint in shared memory, so no factor leaves the
 SM and nothing is allocated beyond the outputs; :func:`launch_plan`);
 CPU tensors run :func:`spike_pass_a_plain` / :func:`spike_pass_b_plain`,
 both built on ``refine._block_lu_solve``.
+
+lam and the band are f64 only: the solver's f32 mode widens d, e and lam
+to f64 before the backtransform (``driver._backtransform``), so the
+passes run as in the f64 mode; the driver rounds the refined columns to
+f32 at the end.
 """
 
 from __future__ import annotations

@@ -204,3 +204,64 @@ def test_chip_smoke_alone_fails(tmp_path):
                          capture_output=True, text=True, timeout=300)
     assert out.returncode != 0
     assert '"ok": true' not in out.stdout
+
+
+def _code_strings(tree):
+    """String constants of a module that are not docstrings."""
+    docs = set()
+    for node in ast.walk(tree):
+        if isinstance(node, (ast.Module, ast.ClassDef, ast.FunctionDef,
+                             ast.AsyncFunctionDef)) and node.body:
+            first = node.body[0]
+            if isinstance(first, ast.Expr) and isinstance(
+                    first.value, ast.Constant):
+                docs.add(id(first.value))
+    return [node.value for node in ast.walk(tree)
+            if isinstance(node, ast.Constant) and isinstance(node.value, str)
+            and id(node) not in docs]
+
+
+@pytest.mark.parametrize("path", sorted(
+    p.relative_to(ROOT).as_posix() for p in PKG.rglob("*")
+    if p.suffix in (".py", ".c", ".cu")))
+def test_sources_name_no_path_in_the_jax_package(path):
+    """No file of the port reads, builds or loads anything inside
+    symmetric_eigenvalue_tpu/: no code string names such a path (the
+    native parser compiles the port's own native/mtxio.c), no CUDA source
+    includes a file from there, and the C copy does not name it at all."""
+    text = (ROOT / path).read_text()
+    if path.endswith(".c"):
+        assert "symmetric_eigenvalue_tpu/" not in text
+    if not path.endswith(".py"):
+        assert not any("symmetric_eigenvalue_tpu/" in ln
+                       for ln in text.splitlines()
+                       if ln.lstrip().startswith("#include"))
+        return
+    for s in _code_strings(ast.parse(text)):
+        assert "symmetric_eigenvalue_tpu/" not in s, (path, s)
+        assert s != "symmetric_eigenvalue_tpu", (path, s)
+
+
+def test_cli_help_runs_without_jax():
+    """``python -m symmetric_eigenvalue_tpu_torch -h`` prints the help and
+    imports nothing of JAX."""
+    out = subprocess.run([sys.executable, "-m",
+                          "symmetric_eigenvalue_tpu_torch", "-h"], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0 and out.stdout.startswith("usage: cuppen")
+    code = ("import runpy, sys\nsys.argv = ['cuppen', '-h']\ntry:\n"
+            "    runpy.run_module('symmetric_eigenvalue_tpu_torch', "
+            "run_name='__main__')\nexcept SystemExit:\n    pass\n"
+            "print(repr(sorted(k for k in sys.modules if k.split('.')[0] in "
+            "('jax', 'jaxlib', 'symmetric_eigenvalue_tpu'))))")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
+                         capture_output=True, text=True, timeout=120)
+    assert out.stdout.strip().splitlines()[-1] == "[]"
+
+
+def test_dense_from_tridiag_stays_out_of_all():
+    """As in the JAX package: a test oracle in core.tridiag, not exported."""
+    from symmetric_eigenvalue_tpu_torch.core.tridiag import dense_from_tridiag
+    assert "dense_from_tridiag" not in st.__all__
+    T = dense_from_tridiag(torch.tensor([1.0, 2.0, 3.0]), np.array([4.0, 5.0]))
+    assert np.array_equal(T, [[1, 4, 0], [4, 2, 5], [0, 5, 3]])

@@ -7,7 +7,9 @@ sign (and inside clusters), so they are held to residual <= 1e-12 ||T||,
 orthogonality (1e-12 for the f64 path; 1e-10, 1e-9 for clustered spectra,
 for the mixed one), and |<v_port, v_jax>| >= 1 - 1e-10 for eigenvalues
 separated from their neighbours by more than 1e-6 ||T|| (f64 path) or
-1e-4 ||T|| (mixed path).
+1e-4 ||T|| (mixed path).  Float32 mode (every tridiagonal entry point) is
+held to the JAX package's test_float32_mode grades: eigenvalues within
+1e-4 ||T||, residual within 1e-3 ||T||.
 """
 
 import numpy as np
@@ -242,3 +244,133 @@ def test_rejects_bad_inputs():
     with pytest.raises(ValueError):
         st.solve_tridiagonal(np.ones(4), np.ones(3), config=cfg, select=[4],
                              device="cpu")
+
+
+# --------------------------------------------------------------------------
+# float32 mode: the JAX package's test_float32_mode grades (eigenvalues
+# within 1e-4 ||T||, residual within 1e-3 ||T||), results in float32
+
+_F32_JAX = {}
+
+
+def _f32_case():
+    rng = np.random.default_rng(1234)           # test_float32_mode's input
+    d = rng.standard_normal(64)
+    e = rng.standard_normal(63)
+    if "lam" not in _F32_JAX:
+        import jax.numpy as jnp
+        lam, V = se.eigh_tridiagonal(d, e, config=se.SolverConfig(
+            leaf_size=16, dtype=jnp.float32))
+        _F32_JAX.update(lam=np.asarray(lam), V=np.asarray(V))
+    return d, e, _F32_JAX["lam"], _F32_JAX["V"]
+
+
+def _f32_run(entry, d, e, cfg):
+    """(lam, V, columns) of one port entry point in f32 mode."""
+    n = d.shape[0]
+    if entry == "eigh_tridiagonal":
+        lam, V = st.eigh_tridiagonal(d, e, config=cfg, device="cpu")
+        return lam, V, np.arange(n)
+    if entry in ("staged_mixed", "staged_f64"):
+        cfg = st.SolverConfig(leaf_size=16, dtype=torch.float32,
+                              mixed_precision_vectors=entry == "staged_mixed")
+        res, _ = st.solve_tridiagonal_staged(d, e, config=cfg,
+                                             compute_vectors=True,
+                                             device="cpu")
+        return res.eigenvalues, res.eigenvectors, np.arange(n)
+    if entry == "solve_select":
+        sel = np.array([0, 7, 31, 63])
+        res = st.solve_tridiagonal(d, e, config=cfg, select=sel,
+                                   device="cpu")
+        return res.eigenvalues, res.eigenvectors, sel
+    lam, blocks, _ = st.solve_tridiagonal_streamed(d, e, config=cfg,
+                                                   group=24, halo=4,
+                                                   device="cpu")
+    parts = [V for _, V in blocks]
+    assert all(V.dtype == torch.float32 for V in parts)
+    return lam, torch.cat(parts, dim=1), np.arange(n)
+
+
+@pytest.mark.parametrize("entry", ["eigh_tridiagonal", "staged_mixed",
+                                   "staged_f64", "solve_select", "streamed"])
+def test_float32_mode_matches_jax(entry):
+    """Counterpart of tests/test_solver.py::test_float32_mode (n=64, leaf
+    16) through every tridiagonal entry point: results in float32, at the
+    JAX test's grades against numpy's f64 spectrum and against the JAX
+    package's own float32 eigenvalues."""
+    d, e, lam_j, V_j = _f32_case()
+    cfg = st.SolverConfig(leaf_size=16, dtype=torch.float32)
+    lam, V, cols = _f32_run(entry, d, e, cfg)
+    assert lam.dtype == V.dtype == torch.float32
+    assert V.shape == (64, cols.size)
+    lam, V = lam.numpy().astype(np.float64), V.numpy().astype(np.float64)
+    T = dense_from_tridiag(d, e)
+    wref = np.linalg.eigvalsh(T)
+    nT = np.abs(wref).max()
+    assert lam_j.dtype == np.float32
+    assert np.abs(lam_j - wref).max() < 1e-4 * nT
+    assert np.abs(lam - wref).max() < 1e-4 * nT
+    assert np.abs(lam - lam_j).max() < 1e-4 * nT
+    assert np.abs(T @ V - V * lam[cols][None, :]).max() < 1e-3 * nT
+    assert np.abs(T @ V_j - V_j * lam_j[None, :]).max() < 1e-3 * nT
+
+
+def test_float32_mixed_spike_route(monkeypatch):
+    """The default (mixed) path in float32 at n=700, leaf 16: n >= 512, so
+    the first refinement pass goes through the Spike passes (their plain
+    versions here), on operands widened to f64; the result comes back in
+    float32 at the JAX test's grades."""
+    from symmetric_eigenvalue_tpu_torch.kernels import spike_solve
+
+    calls = []
+    inner = spike_solve.spike_refine
+
+    def counted(d, e, lam, V, *a, **k):
+        calls.append((d.dtype, lam.dtype, V.dtype))
+        return inner(d, e, lam, V, *a, **k)
+
+    monkeypatch.setattr(spike_solve, "spike_refine", counted)
+    rng = np.random.default_rng(0)
+    n = 700
+    d = rng.standard_normal(n)
+    e = rng.standard_normal(n - 1)
+    cfg = st.SolverConfig(leaf_size=16, dtype=torch.float32)
+    res, timer = st.solve_tridiagonal_staged(d, e, config=cfg,
+                                             compute_vectors=True,
+                                             device="cpu")
+    assert calls and calls[0] == (torch.float64, torch.float64,
+                                  torch.float32)
+    assert {"bt.downsweep", "bt.refine_pass1"} <= set(timer.times)
+    lam, V = res.eigenvalues, res.eigenvectors
+    assert lam.dtype == V.dtype == torch.float32 and V.shape == (n, n)
+    lam, V = lam.numpy().astype(np.float64), V.numpy().astype(np.float64)
+    T = dense_from_tridiag(d, e)
+    wref = np.linalg.eigvalsh(T)
+    nT = np.abs(wref).max()
+    assert np.abs(lam - wref).max() < 1e-4 * nT
+    assert np.abs(T @ V - V * lam[None, :]).max() < 1e-3 * nT
+    assert np.abs(V.T @ V - np.eye(n)).max() < 1e-3
+
+
+def test_f64_mode_untouched_by_the_f32_widening():
+    """The widening is the identity on f64 data (the same tensors), so the
+    f64 mode runs exactly as before; on f32 data it widens every floating
+    field of a MergeRep and leaves the index fields as they are."""
+    from symmetric_eigenvalue_tpu_torch.kernels.secular import (
+        merge_decompose, widened)
+
+    rng = np.random.default_rng(3)
+    kw = dict(eps=2.0 ** -52, deflation_factor=8.0, max_secular_iters=60,
+              secular_tol_factor=8.0, use_gu_eisenstat=True)
+    d = torch.as_tensor(np.sort(rng.standard_normal((2, 16)), axis=1))
+    z = torch.as_tensor(rng.standard_normal((2, 16)))
+    rho = torch.tensor([0.5, 1.5], dtype=torch.float64)
+    rep = merge_decompose(d, z, rho, **kw)
+    assert all(a is b for a, b in zip(widened(rep), rep))
+    rep32 = merge_decompose(d.float(), z.float(), rho.float(),
+                            **{**kw, "eps": 2.0 ** -23})
+    assert rep32.tau.dtype == rep32.lam_sorted.dtype == torch.float32
+    for a, b in zip(widened(rep32), rep32):
+        assert a.dtype == (torch.float64 if b.is_floating_point()
+                           else b.dtype)
+        assert torch.equal(a, b.to(a.dtype))
