@@ -2,7 +2,7 @@
 """Drive the PyTorch/CUDA port once on one GPU and check it.
 
 Run from the repository root:  python3 chip_smoke.py
-With ``--only dword_matmul,cauchy_matmul`` (any of the nine kernels' names)
+With ``--only dword_matmul,cauchy_matmul`` (any of the ten kernels' names)
 it builds those kernels' sources, runs phase 3 for them alone, held to the
 same limits, and stops: half a minute for work on one kernel.
 
@@ -35,13 +35,16 @@ exits non-zero:
                shape, batched, and in its fused form C -= A @ B on a strided
                view, with its split-K plan; cauchy_matmul also against the
                plain emulation of its TF32 split, against an f64 product,
-               and at denominators outside the normal range
+               and at denominators outside the normal range;
+               rotation_replay bit for bit its plain version (the wave
+               loop) on every level of the mixed n=16384 solve of the main
+               input and of the Poisson matrix, and once in f64
   4. solve     the main path: solve_tridiagonal_staged with the default
                (mixed-precision) SolverConfig, n=16384 random (bench.py's
                input, seed 0), all eigenpairs, cold then three times
                warm; residual, orthogonality and eigenvalues against
                scipy; the triage's column counts; launch counts of all
-               nine kernels, and each merge level's (k, m, K) and launches
+               ten kernels, and each merge level's (k, m, K) and launches
   5. solve_f64 the same input through the pure-f64 path
                (mixed_precision_vectors=False), cold then three times warm
   6. poisson   eigh_tridiagonal(eigvals_only=True) and the mixed path's full
@@ -49,33 +52,41 @@ exits non-zero:
                spectrum (it deflates slowly: each level's K from m/2 to m,
                the widest non-root level full; wide cluster segments), with
                each merge level's (k, m, K)
-  7. dense     the dense front end at full width: eigh of a random symmetric
+  7. small_n   n=4096 and n=8192, random (bench.py's, seed 0) and Poisson,
+               all eigenpairs, default config: the staged route and the
+               fused route (part A one CUDA graph replay) side by side,
+               each cold, then five warm rounds of one solve of each in
+               turns (median), with phases, host syncs, launches, graph
+               replays, peak memory and the three limits; two fused
+               solves in a row return distinct, right V; one profiled warm
+               solve of each route at n=8192; a capture under the profiler
+  8. dense     the dense front end at full width: eigh of a random symmetric
                n=16384 matrix (seed 0) with the default config, all
                eigenpairs, cold with every check (residual, orthogonality,
                eigenvalues against torch.linalg.eigvalsh on the card), once
                warm, and once with the pure-f64 config (same checks);
-               phases, peak memory, launches of all nine kernels;
+               phases, peak memory, launches of all ten kernels;
                torch.linalg.eigh's time on the same matrix
-  8. dense_two_stage  eigh(band=128) and eigh_banded (u=16) at n=4096, the
+  9. dense_two_stage  eigh(band=128) and eigh_banded (u=16) at n=4096, the
                same three limits; eigvals_only through both front ends
-  9. profile   one more warm solve under torch.profiler, for the tridiagonal
+ 10. profile   one more warm solve under torch.profiler, for the tridiagonal
                main path (n=16384) and for the dense path (n=4096): device
                time by kernel, the device's idle share, and the host time,
                device span and launches of the named ranges
- 10. staged_32768  the main path at n=32768 (bench.py's recipe, seed 0):
+ 11. staged_32768  the main path at n=32768 (bench.py's recipe, seed 0):
                the plain staged route (asserted), the same three limits,
                its peak memory beside 19.2 n^2 (n=16384's peak scaled)
- 11. grouped   n=65536 full eigenpairs resident: the switch takes the
+ 12. grouped   n=65536 full eigenpairs resident: the switch takes the
                grouped route on its own (asserted); its threshold, group
                width and groups, the refinement chunks the solve resolved,
                peak memory beside 8 n^2 + 12 n g (under the card's), the
                same three limits, launches, each level's K, triage counts
- 12. streamed  solve_tridiagonal_streamed at n=65536, group=4096, halo=256:
+ 13. streamed  solve_tridiagonal_streamed at n=65536, group=4096, halo=256:
                eigenvalues bit for bit the grouped phase's; per block the
                residual of every column, the block's Gram and its
                cross-Gram with the block before; a seeded sample of 8
                columns a block, orthogonal across all; peak memory
- 13. cli_mtx   the CLI as a user runs it: phase 4's input written with the
+ 14. cli_mtx   the CLI as a user runs it: phase 4's input written with the
                port's native MTX writer into build/cli/, read back bit for
                bit by the native and the Python readers, then
                ``python -m symmetric_eigenvalue_tpu_torch -i FILE -e OUT
@@ -83,22 +94,22 @@ exits non-zero:
                eigenvalue of the output file against phase 4's scipy
                spectrum (1e-12 ||T||), launches and device time of each
                kernel from the trace
- 14. cli_select  -s 2 -n 16384 -eFILE with 2048 index lines (duplicates, 0,
+ 15. cli_select  -s 2 -n 16384 -eFILE with 2048 index lines (duplicates, 0,
                n+1, a non-integer): residuals on exactly the valid lines,
                eigenvalues against the analytic spectrum
- 15. cli_f32   --f32 -s 1 -n 16384 -e, profiled: the JAX package's float32
+ 16. cli_f32   --f32 -s 1 -n 16384 -e, profiled: the JAX package's float32
                grades (eigenvalues 1e-4, residuals 1e-3 ||T|| against
                scipy's f64 spectrum), the merge and refinement kernels
                launched
- 16. cli_profile  --profile-dir at n=4096 leaves a trace; a missing and a
+ 17. cli_profile  --profile-dir at n=4096 leaves a trace; a missing and a
                malformed -i return 1 with "Could not read input file:"
- 17. cli_streamed  -s 2 -n 98304 -e in this process: the gate takes the
+ 18. cli_streamed  -s 2 -n 98304 -e in this process: the gate takes the
                streamed branch (the basis alone would be 77.3 GB); every
                residual and eigenvalue checked; peak, windows, phases
- 18. the per-kernel summary line, then the nvidia-smi line, then the final
+ 19. the per-kernel summary line, then the nvidia-smi line, then the final
      {"ok": true, ...} line
 
-With ``--cli-only`` it builds every kernel, runs phases 13-17 and stops.
+With ``--cli-only`` it builds every kernel, runs phases 14-18 and stops.
 
 Needs one CUDA card; exits 1 without printing a result when
 torch.cuda.is_available() is False.  Imports nothing of JAX.
@@ -117,6 +128,7 @@ import shutil
 import subprocess
 import sys
 import time
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -133,6 +145,7 @@ from symmetric_eigenvalue_tpu_torch.kernels import cauchy_matmul as cm
 from symmetric_eigenvalue_tpu_torch.kernels import cauchy_rowsum as cr
 from symmetric_eigenvalue_tpu_torch.kernels import dword_matmul as dm
 from symmetric_eigenvalue_tpu_torch.kernels import dword_matvec as dv
+from symmetric_eigenvalue_tpu_torch.kernels import rotation_replay as rr
 from symmetric_eigenvalue_tpu_torch.kernels import secular as sec
 from symmetric_eigenvalue_tpu_torch.kernels import secular_sums as ss
 from symmetric_eigenvalue_tpu_torch.kernels import spike_solve as sp
@@ -178,6 +191,9 @@ REPLACES = {
     # (symmetric_eigenvalue_tpu/kernels/secular.py:299-361)
     "secular_solve":
         "symmetric_eigenvalue_tpu/kernels/pallas/secular_sums.py:169",
+    # a lax.fori_loop over the waves, no pallas_call
+    "rotation_replay":
+        "symmetric_eigenvalue_tpu/kernels/assemble.py:277",
 }
 REPLACES_LOOP = {"secular_solve":
                  "symmetric_eigenvalue_tpu/kernels/secular.py:299-361"}
@@ -249,7 +265,8 @@ def launch_counts():
             "cauchy_materialize": cm.materialize_launches,
             "spike_pass_a": sp.pass_a_launches,
             "spike_pass_b": sp.pass_b_launches,
-            "dword_vecmat": dv.launches}
+            "dword_vecmat": dv.launches,
+            "rotation_replay": rr.launches}
 
 
 def reset_counts() -> None:
@@ -257,6 +274,7 @@ def reset_counts() -> None:
     cr.launches = dm.launches = dv.launches = 0
     cm.matmul_launches = cm.materialize_launches = 0
     sp.pass_a_launches = sp.pass_b_launches = 0
+    rr.launches = 0
 
 
 def random_matrix(n: int, seed: int):
@@ -837,6 +855,75 @@ def check_cauchy_materialize(m, C, kact, reps):
 
 
 @contextlib.contextmanager
+def recorded_replays():
+    """The (MergeRep, y) of each level's Givens replay in the downsweeps
+    run inside the block, y copied before the replay: the first call of
+    each level shape (k, m), in the order of the sweep (root first)."""
+    got = {}
+    inner = assemble.rotation_replay
+
+    def recorded(rep, y, waves=None):
+        key = tuple(y.shape[:2])
+        if key not in got:
+            got[key] = (rep, y.clone())
+        return inner(rep, y, waves)
+
+    assemble.rotation_replay = recorded
+    try:
+        yield got
+    finally:
+        assemble.rotation_replay = inner
+
+
+def check_rotation_replay(rep, y, what, reps=5):
+    """rotation_replay against its plain version (the wave loop planned on
+    the host, with its fetch of the log) on one level's own (MergeRep, y):
+    bit for bit, run to run; the bound is the bytes of two rows read and
+    written a logged rotation."""
+    k, m, C = y.shape
+    nrot = int(rep.nrot.sum())
+    got = rr.rotation_replay(rep, y.clone())
+    ref = rr.rotation_replay_plain(rep, y.clone())
+    again = rr.rotation_replay(rep, y.clone())
+    torch.cuda.synchronize()
+    abs_err = float((got - ref).abs().max())
+    bit = bool(torch.equal(got, ref))
+    same = bool(torch.equal(got, again))
+    del got, ref, again
+    work = y.clone()
+    ms = time_ms(lambda: rr.rotation_replay(rep, work), reps)
+    dms = device_ms(lambda: rr.rotation_replay(rep, work), reps)
+    plain = time_ms(lambda: rr.rotation_replay_plain(rep, work), 2)
+    size = y.element_size()
+    b_ms, b_by = bound(6.0 * nrot * C,
+                       PEAK_FP32 if size == 4 else PEAK_FP64,
+                       4.0 * nrot * C * size)
+    return dict(what=what, k=k, m=m, C=C, dtype=str(y.dtype).split(".")[-1],
+                nrot=nrot, nwave_max=int(rep.nwave.max()),
+                max_abs_err=abs_err, max_rel_err=abs_err, tol=0.0,
+                bit_exact=bit, run_to_run_identical=same, ms=ms,
+                device_ms=dms, plain_ms=plain, library_ms=None,
+                bound_ms=b_ms, bound_by=b_by)
+
+
+def replay_level_rows(d, e, what, f64_row=False):
+    """rotation_replay on every level of a mixed solve of (d, e) (staged
+    route: n > 8192), on the level's own data; ``f64_row``: the root
+    level's y once more in f64 (the pure-f64 path's type)."""
+    with recorded_replays() as got:
+        st.solve_tridiagonal_staged(d, e, compute_vectors=True)
+    rows = [check_rotation_replay(rep, y, f"{what}, level k={k}, m={m}")
+            for (k, m), (rep, y) in got.items()]
+    if f64_row:
+        (k, m), (rep, y) = next(iter(got.items()))
+        rows.append(check_rotation_replay(
+            rep, y.double(), f"{what}, level k={k}, m={m}, as f64"))
+    del got
+    torch.cuda.empty_cache()
+    return rows
+
+
+@contextlib.contextmanager
 def plain_spike_passes():
     """spike_refine composed from the plain passes (on the card)."""
     a, b = sp.spike_pass_a, sp.spike_pass_b
@@ -1212,6 +1299,183 @@ def profile_solve(run, top: int = 16):
 
 
 # --------------------------------------------------------------------------
+# the small-n routes: staged and fused (part A one CUDA graph) at n <= 8192
+
+N_SMALL = (4096, 8192)
+FUSED_KERNELS = ("rotation_replay", "cauchy_matmul", "cauchy_materialize",
+                 "spike_pass_a", "spike_pass_b")
+GRAPH_RANGES_NOTE = ("record_function ranges inside part A's CUDA graph "
+                     "(spike.interface_solve) are not recorded on a replay")
+
+
+def host_syncs(run) -> int:
+    """Synchronizing CUDA calls of ``run()`` (each one warns in torch.cuda's
+    sync debug mode), as tools/torch_solve_profile.py counts them."""
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            run()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    return sum("synchroniz" in str(w.message) for w in caught)
+
+
+def small_cell(d, e, ref, norm_ref, cfg, warm: int = 5):
+    """Both routes at one small cell.  Cold: the staged route, then the
+    fused one after dropping the cached graphs (its wall holds the warm-up
+    run and the capture), each with every check.  Warm: ``warm`` rounds of
+    one solve of each route, in turns (which goes first alternates: the
+    host's speed drifts within a call), nothing emptied between them (a
+    caller's repeated solves); the median wall and its phases.  Then one
+    more warm solve of each for launches, graph replays and peak memory
+    (the fused graph cached: its pool's live blocks count in both), and
+    one for host syncs.  Returns {"staged": ..., "fused": ...}."""
+    routes = (("staged", False), ("fused", True))
+    solve = functools.partial(st.solve_tridiagonal_staged, d, e, config=cfg,
+                              compute_vectors=True)
+    out = {}
+    for name, fused in routes:
+        # no graph cached at either cold solve: the staged peak holds none,
+        # the fused cold solve captures its own
+        driver.FUSED_BT_OVERRIDE = fused
+        driver.clear_fused_graphs()
+        torch.cuda.empty_cache()
+        reset_counts()
+        r0 = driver.graph_replays
+        cold, _ = solve_and_check(d, e, cfg, ref, norm_ref)
+        out[name] = {"cold": cold,
+                     "cold_graph_replays": driver.graph_replays - r0,
+                     "warm_walls_s": [], "phases": []}
+    for i in range(warm):
+        for name, fused in (routes if i % 2 == 0 else routes[::-1]):
+            driver.FUSED_BT_OVERRIDE = fused
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res, timer = solve()
+            torch.cuda.synchronize()
+            out[name]["warm_walls_s"].append(time.perf_counter() - t0)
+            out[name]["phases"].append(timer.times)
+            del res
+    for name, fused in routes:
+        o = out[name]
+        walls = o["warm_walls_s"]
+        o["warm_median_s"] = float(np.median(walls))
+        o["warm_median_phases_s"] = o.pop("phases")[
+            int(np.argsort(walls)[len(walls) // 2])]
+        driver.FUSED_BT_OVERRIDE = fused
+        reset_counts()
+        r0 = driver.graph_replays
+        torch.cuda.reset_peak_memory_stats()
+        res, _ = solve()
+        torch.cuda.synchronize()
+        o.update(warm_launches=launch_counts(),
+                 warm_graph_replays=driver.graph_replays - r0,
+                 warm_peak_mem_bytes=torch.cuda.max_memory_allocated())
+        del res
+        o["host_syncs"] = host_syncs(solve)
+        key = "bt.fused_bt" if fused else "bt.downsweep"
+        require(key in o["cold"]["phases_s"]
+                and key in o["warm_median_phases_s"],
+                f"{name} route not taken: {o['warm_median_phases_s']}")
+    f = out["fused"]
+    require(f["cold_graph_replays"] == 1 and f["warm_graph_replays"] == 1,
+            f"part A not one graph replay a solve: {f}")
+    for name in FUSED_KERNELS:
+        require(f["warm_launches"][name] > 0,
+                f"fused route: {name} not launched")
+    out["reserved_bytes_after"] = torch.cuda.memory_reserved()
+    return out
+
+
+def run_small_n(cfg):
+    """n=4096 and n=8192, random and Poisson: the staged and the fused
+    route side by side; then two fused solves in a row, one profiled warm
+    solve of each route at n=8192, and a capture made under the profiler
+    (the CLI's --profile-dir).  Returns each cell's warm medians."""
+    medians = {}
+    try:
+        for n in N_SMALL:
+            dp, ep = (np.asarray(a) for a in st.create_matrix_scheme2(n))
+            for matrix, (d, e) in (("random", random_matrix(n, SEED)),
+                                   ("poisson", (dp, ep))):
+                t0 = time.perf_counter()
+                ref = scipy.linalg.eigvalsh_tridiagonal(d, e)
+                ref_s = time.perf_counter() - t0
+                norm_ref = float(np.abs(ref).max())
+                cell = small_cell(d, e, ref, norm_ref, cfg)
+                ratio = (cell["fused"]["warm_median_s"]
+                         / cell["staged"]["warm_median_s"])
+                medians[f"{matrix}_{n}"] = ratio
+                emit({"phase": "small_n", "n": n, "matrix": matrix,
+                      "seed": SEED if matrix == "random" else None,
+                      "config": "SolverConfig()", "scipy_reference_s": ref_s,
+                      **cell, "fused_over_staged_warm_median": ratio})
+        # two fused solves in a row: the second replay overwrites part A's
+        # buffers, so each result must be a tensor of its own
+        n = N_SMALL[0]
+        d, e = random_matrix(n, SEED)
+        driver.FUSED_BT_OVERRIDE = True
+        r1, _ = st.solve_tridiagonal_staged(d, e, config=cfg,
+                                            compute_vectors=True)
+        r2, _ = st.solve_tridiagonal_staged(d, e, config=cfg,
+                                            compute_vectors=True)
+        norm_ref = float(r1.eigenvalues.abs().max())
+        res1 = float(st.residuals(d, e, r1).max()) / norm_ref
+        res2 = float(st.residuals(d, e, r2).max()) / norm_ref
+        twice = {"distinct": r1.eigenvectors.data_ptr()
+                 != r2.eigenvectors.data_ptr(),
+                 "identical_values": bool(torch.equal(r1.eigenvectors,
+                                                      r2.eigenvectors)),
+                 "residual_first_after_second": res1,
+                 "residual_second": res2}
+        del r1, r2
+        require(twice["distinct"] and res1 <= 1e-12 and res2 <= 1e-12,
+                f"two fused solves in a row: {twice}")
+        # where the time goes at n=8192, each route (warm, cached graph)
+        n = N_SMALL[1]
+        d, e = random_matrix(n, SEED)
+        profiles = {}
+        for route, fused in (("staged", False), ("fused", True)):
+            driver.FUSED_BT_OVERRIDE = fused
+            st.solve_tridiagonal_staged(d, e, config=cfg,
+                                        compute_vectors=True)
+            profiles[route] = profile_solve(
+                lambda: st.solve_tridiagonal_staged(d, e, config=cfg,
+                                                    compute_vectors=True))
+        # a capture under the profiler, as --profile-dir makes one
+        n = N_SMALL[0]
+        d, e = random_matrix(n, SEED)
+        driver.clear_fused_graphs()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]):
+            r, _ = st.solve_tridiagonal_staged(d, e, config=cfg,
+                                               compute_vectors=True)
+            torch.cuda.synchronize()
+        res_p = float(st.residuals(d, e, r).max()) / float(
+            r.eigenvalues.abs().max())
+        del r
+        require(res_p <= 1e-12, f"capture under the profiler: {res_p}")
+    finally:
+        # the default again, and no graph pool held into the later phases'
+        # peaks
+        driver.FUSED_BT_OVERRIDE = False
+        driver.clear_fused_graphs()
+    emit({"phase": "small_n_checks", "two_fused_solves": twice,
+          "profile_8192_random": profiles, "ranges_note": GRAPH_RANGES_NOTE,
+          "capture_under_profiler_residual_over_normT": res_p,
+          "fused_over_staged_warm_median": medians,
+          "fused_no_worse_everywhere": all(r <= 1.0
+                                           for r in medians.values()),
+          "gate_default": driver._fused_bt_enabled(
+              N_SMALL[1], cfg, False, True, N_SMALL[1])})
+    torch.cuda.empty_cache()
+    return medians
+
+
+# --------------------------------------------------------------------------
 # the memory routes: staged at n=32768, grouped and streamed at n=65536
 
 GROUPED = "bt.downsweep_refine_grouped"
@@ -1253,7 +1517,7 @@ def record_route():
 
 MAIN_PATH_KERNELS = ("cauchy_matmul", "cauchy_materialize", "spike_pass_a",
                      "spike_pass_b", "secular_sums", "secular_solve",
-                     "cauchy_rowsum")
+                     "cauchy_rowsum", "rotation_replay")
 
 
 def run_staged_large(cfg):
@@ -1381,11 +1645,12 @@ TRACE_KERNELS = {"secular_sums": "secular_sums_kernel",
                  "spike_pass_a": "spike_kernel<true",
                  "spike_pass_b": "spike_kernel<false",
                  "dword_matmul": "dgemm_mma_kernel",
-                 "dword_vecmat": "vecmat_kernel"}
+                 "dword_vecmat": "vecmat_kernel",
+                 "rotation_replay": "rotation_replay_kernel"}
 SPLITK = "splitk_reduce_kernel"
 MERGE_KERNELS = ("secular_sums", "secular_solve", "cauchy_rowsum")
 REFINE_KERNELS = ("cauchy_matmul", "cauchy_materialize", "spike_pass_a",
-                  "spike_pass_b")
+                  "spike_pass_b", "rotation_replay")
 
 
 def trace_kernels(trace_dir: Path):
@@ -1778,7 +2043,9 @@ def kernel_table(d, e, ref):
     its first refinement pass (the f32 downsweep's output); secular_solve on the root and the bottom level of a tear of
     (d, e), and on two levels that deflate little: K_b above the 3072 poles
     a block holds (the streamed sweeps) and between 256 and 3072 (resident
-    sweeps over more than 64 poles)."""
+    sweeps over more than 64 poles); rotation_replay on every level of a
+    mixed solve of the Poisson matrix and of (d, e), on the level's own
+    data."""
     spike = []
 
     def spike_rows(which):
@@ -1852,6 +2119,12 @@ def kernel_table(d, e, ref):
             check_cauchy_matmul_edges(64, 200)],
         "cauchy_materialize": lambda: [
             check_cauchy_materialize(N, 8192, 12000, 10)],
+        # every level of a mixed solve of the Poisson matrix (many
+        # rotations, the root's y once more in f64) and of the main input
+        "rotation_replay": lambda: [
+            *replay_level_rows(*st.create_matrix_scheme2(N),
+                               "mixed solve, Poisson n=16384", f64_row=True),
+            *replay_level_rows(d, e, "mixed solve, random n=16384")],
         "spike_pass_a": lambda: spike_rows(0),
         "spike_pass_b": lambda: spike_rows(1),
         # dword_vecmat at the first and the last bucket's width of the
@@ -2039,7 +2312,10 @@ def main(argv=None) -> int:
     require(pfull["launches"]["cauchy_rowsum"] == len(plevels) - 1,
             "cauchy_rowsum not launched once a non-root level (Poisson)")
 
-    # 7. the dense front end at full width: cold with every check, then warm
+    # 7. the small-n routes: staged and fused side by side
+    run_small_n(cfg)
+
+    # 8. the dense front end at full width: cold with every check, then warm
     A = dense_matrix(N, SEED)
     t0 = time.perf_counter()
     ref_a = torch.linalg.eigvalsh(A)
@@ -2082,7 +2358,7 @@ def main(argv=None) -> int:
     del A, ref_a
     torch.cuda.empty_cache()
 
-    # 8. the two-stage and the banded front ends (no new kernel on them)
+    # 9. the two-stage and the banded front ends (no new kernel on them)
     A2 = dense_matrix(N_TWO_STAGE, SEED + 1)
     ref2 = torch.linalg.eigvalsh(A2)
     reset_counts()
@@ -2118,17 +2394,18 @@ def main(argv=None) -> int:
             and banded["launches"]["dword_matmul"] > 0,
             "dword_matmul was not launched on the two-stage paths")
 
-    # 9. where the device time goes (one more warm run of each, profiled)
+    # 10. where the device time goes (one more warm run of each, profiled)
     emit({"phase": "profile", "path": "solve_tridiagonal_staged, n=16384",
           **profile_solve(lambda: st.solve_tridiagonal_staged(
               d, e, config=cfg, compute_vectors=True))})
     _, _, warm2 = timed_dense(lambda tm: st.eigh(A2, timer=tm))
     emit({"phase": "profile", "path": f"eigh, n={N_TWO_STAGE}",
-          "unprofiled_warm": warm2, **profile_solve(lambda: st.eigh(A2))})
+          "unprofiled_warm": warm2, "ranges_note": GRAPH_RANGES_NOTE,
+          **profile_solve(lambda: st.eigh(A2))})
     del A2
     torch.cuda.empty_cache()
 
-    # 10.-12. the memory routes: n=32768 staged, n=65536 grouped (the whole
+    # 11.-13. the memory routes: n=32768 staged, n=65536 grouped (the whole
     # basis resident) and streamed (halo'd blocks, never the whole basis)
     run_staged_large(cfg)
     d65, e65, lam65, norm65 = run_grouped(cfg)
@@ -2136,10 +2413,10 @@ def main(argv=None) -> int:
     del d65, e65, lam65
     torch.cuda.empty_cache()
 
-    # 13.-17. the CLI, as a user runs it
+    # 14.-18. the CLI, as a user runs it
     run_cli(d, e, ref, norm_ref)
 
-    # 18. summary; launches from each kernel's own path: the main path's
+    # 19. summary; launches from each kernel's own path: the main path's
     # run, the pure-f64 one for dword_matmul (on the mixed path it serves
     # only the wide cluster-orth Grams), the dense one for dword_vecmat
     paths = {"dword_matmul": ("solve_f64", s64["launches"]),

@@ -23,8 +23,11 @@ selectable in ``leaf.solve_leaves``); float32 mode
 (``SolverConfig(dtype=torch.float32)``, its kernel operands widened to
 f64); host IO (``io``: Matrix Market through the port's own C parser,
 selection and result files) and the ``cuppen`` CLI (``python -m
-symmetric_eigenvalue_tpu_torch``, ``cli.py``).  Every Pallas kernel of the
-JAX package has its CUDA counterpart (six sources, nine kernels).  Entry
+symmetric_eigenvalue_tpu_torch``, ``cli.py``); the fused small-n
+backtransform (n <= 8192, opened by ``driver.FUSED_BT_OVERRIDE``: the
+downsweep and the first refinement pass as one CUDA graph replay).  Every Pallas kernel of the JAX
+package has its CUDA counterpart, and the downsweep's Givens replay is a
+kernel too (seven sources, ten kernels).  Entry
 points run on the device ``"cuda"`` unless the caller passes
 ``device="cpu"``.
 """

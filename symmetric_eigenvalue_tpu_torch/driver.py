@@ -24,15 +24,21 @@ Two memory routes for solves whose eigenvectors crowd the device: the
 grouped route (the f32 downsweep and the first refinement pass run per
 column group into one preallocated f64 result) when 12*n*C bytes pass
 :func:`_grouped_bt_bytes`, and :func:`solve_tridiagonal_streamed`, which
-never holds the whole basis.  Not ported yet: the fused small-n
-backtransform (the reference takes it on a TPU backend only); small
-solves take the staged route.
+never holds the whole basis.  Small mixed solves (n <= 8192) of
+:func:`solve_tridiagonal_staged` take the fused route when
+``FUSED_BT_OVERRIDE`` opens :func:`_fused_bt_enabled` (closed by default:
+on the H100 its walls were not shown to be no worse than the staged
+route's): part A, the f32 downsweep and the first refinement pass, as one
+CUDA graph replay on CUDA; part B, the cluster orthonormalization planned
+on the host from the eigenvalues while part A runs, and the measured
+residuals, ending in one fetch.
 """
 
 from __future__ import annotations
 
 import contextlib
 import time
+from collections import OrderedDict
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -43,13 +49,15 @@ from .config import (DEFAULT_CONFIG, SolverConfig, resolve_device,
 from .core.tearing import tear
 from .core.tree import TreePlan, build_plan
 from .core.tridiag import residual_norms
-from .kernels import spike_solve
-from .kernels.assemble import (apply_u_level, assemble_u, rotation_waves,
-                               rows_through_merge)
+from .kernels import cauchy_matmul, rotation_replay, spike_solve
+from .kernels.assemble import apply_u_level, assemble_u, rows_through_merge
 from .kernels.band_reduce import (apply_q2_wave_blocked, band_to_tridiag_wave,
                                   reduce_to_band)
 from .kernels.leaf import leaf_blocks, leaf_eigh_fn, solve_leaves
-from .kernels.refine import inverse_iteration, orthonormalize_clusters
+from .kernels.refine import (_wide_orth, apply_cluster_orth_plan,
+                             inverse_iteration, orth_explicit_qr,
+                             orthonormalize_clusters, plan_cluster_orth)
+from .kernels.rotation_replay import planned_waves
 from .kernels.secular import merge_decompose, widened
 from .kernels.tridiagonalize import apply_q, tridiagonalize
 from .utils.timing import PhaseTimer, sync
@@ -153,7 +161,7 @@ def downsweep_stepped(reps, Q_leaf, plan: TreePlan, config: SolverConfig,
     n, C = plan.n, int(sel.shape[0])
     dev = Q_leaf.device
     block = config.block_size
-    waves = [rotation_waves(rep) for rep in reps]
+    waves = [planned_waves(rep) for rep in reps]
     row_map = torch.as_tensor(plan.row_map(), device=dev)
     V = torch.empty((n, C), dtype=dtype, device=dev)
     Q = Q_leaf.to(dtype)
@@ -423,13 +431,269 @@ def _grouped_downsweep_refine(reps, Q, d, e, lam, sel, plan: TreePlan,
     return X, torch.cat(res_parts)
 
 
+# True opens the fused route's gate past its size and config conditions
+# (the tests, chip_smoke.py): the counterpart of the JAX package's
+# SE_FORCE_FUSED_BT.  Closed by default on every device: the JAX package
+# opens it on a TPU only, and on the H100 the fused route's median warm wall
+# was not no worse than the staged route's in every n=4096 and n=8192 cell
+# of chip_smoke.py's small_n phase (PERF.md).
+FUSED_BT_OVERRIDE = False
+_FUSED_BT_MAX_N = 8192
+_FUSED_GRAPHS_MAX = 2
+_FUSED_GRAPHS: "OrderedDict[tuple, _PartAGraph]" = OrderedDict()
+# one warm-up stream per device for every capture: PyTorch keeps a cuBLAS
+# workspace for each stream that ran a product, so a new stream a capture
+# would hold one more workspace each time
+_WARMUP_STREAMS: dict = {}
+graph_replays = 0
+"""Replays of a part A graph so far."""
+
+
+def _fused_bt_enabled(n: int, config: SolverConfig, leaf_only: bool,
+                      want_vectors: bool, C: int) -> bool:
+    """Gate of the fused small-n backtransform (part A as one CUDA graph,
+    part B ending in one fetch): vectors of a tree with merges, the mixed
+    config with triage (refine_steps > 1), C > 1 columns and n <= 8192,
+    and ``FUSED_BT_OVERRIDE``."""
+    if not want_vectors or leaf_only:
+        return False
+    if not config.mixed_precision_vectors or config.refine_steps <= 1:
+        return False
+    if C <= 1 or n > _FUSED_BT_MAX_N:
+        return False
+    return bool(FUSED_BT_OVERRIDE)
+
+
+def _fused_bt_a_body(reps, Q, d, e, lam, sel, row_map, plan: TreePlan,
+                     config: SolverConfig, chunk: int):
+    """Part A of the fused route: the f32 downsweep of the columns ``sel``
+    in one column chunk (``cauchy_materialize`` at the root,
+    ``cauchy_matmul`` and ``rotation_replay`` per level, the leaf product in
+    full f32, the row map), then one f64 inverse-iteration pass (the Spike
+    passes when ``config.use_pallas_refine`` and n >= 512).  Returns (V (n,
+    C) f64, est (C,)): est the Spike residual estimates, zeros otherwise.
+    No host fetch: a CUDA graph holds it."""
+    n, C = plan.n, int(sel.shape[0])
+    block = config.block_size
+    X = assemble_u(reps[-1], cols=sel, block=block, dtype=torch.float32)
+    for li in range(plan.num_levels - 2, -1, -1):
+        lv = plan.levels[li]
+        X = apply_u_level(reps[li], X.reshape(lv.num_merges, lv.merge_size, C),
+                          block=block)
+    with full_f32_matmul():
+        X = torch.bmm(Q.to(torch.float32),
+                      X.reshape(plan.num_leaves, plan.leaf_pad, C))
+    V = X.reshape(plan.padded_n, C).index_select(0, row_map)
+    del X
+    lam_sel = lam[sel]
+    if config.use_pallas_refine and n >= 512:
+        return spike_solve.spike_refine(d, e, lam_sel, V,
+                                        nb=config.refine_block, chunk=chunk)
+    V = inverse_iteration(d, e, lam_sel, V, steps=1, block=config.refine_block)
+    return V, torch.zeros(C, dtype=V.dtype, device=V.device)
+
+
+class _PartAGraph(NamedTuple):
+    """A captured part A: the graph, its static inputs (every MergeRep
+    field, Q_leaf, d, e, lam, sel, flattened), its outputs (V, est) in the
+    graph's pool, and each kernel counter's launches in one replay."""
+
+    graph: "torch.cuda.CUDAGraph"
+    inputs: list
+    outputs: tuple
+    launches: dict
+
+
+# every kernel counter part A can reach: (module, name)
+_PART_A_COUNTERS = ((cauchy_matmul, "matmul_launches"),
+                    (cauchy_matmul, "materialize_launches"),
+                    (rotation_replay, "launches"),
+                    (spike_solve, "pass_a_launches"),
+                    (spike_solve, "pass_b_launches"))
+
+
+def _part_a_inputs(reps, Q, d, e, lam, sel):
+    return [t for rep in reps for t in rep] + [Q, d, e, lam, sel]
+
+
+def _capture_part_a(args, plan: TreePlan, config: SolverConfig, chunk: int):
+    """Capture part A on static copies of ``args`` (reps, Q, d, e, lam,
+    sel): one eager warm-up run on a side stream first (it builds the
+    kernels' libraries and the library handles and caches a capture may
+    not create), then the capture.  A failed capture raises."""
+    reps = args[0]
+    dev = args[1].device
+    static = [t.clone() for t in _part_a_inputs(*args)]
+    nf = len(reps[0])
+    s_reps = [type(reps[0])(*static[i * nf:(i + 1) * nf])
+              for i in range(len(reps))]
+    s_args = (s_reps, *static[len(reps) * nf:])
+    row_map = torch.as_tensor(plan.row_map(), device=dev)
+    with torch.cuda.device(dev):
+        side = _WARMUP_STREAMS.get(dev)
+        if side is None:
+            side = _WARMUP_STREAMS[dev] = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            _fused_bt_a_body(*s_args, row_map, plan, config, chunk)
+        torch.cuda.current_stream().wait_stream(side)
+        warm = {c: getattr(*c) for c in _PART_A_COUNTERS}
+        graph = torch.cuda.CUDAGraph()
+        try:
+            with torch.cuda.graph(graph):
+                out = _fused_bt_a_body(*s_args, row_map, plan, config, chunk)
+            per_replay = {c: getattr(*c) - warm[c] for c in _PART_A_COUNTERS}
+        finally:
+            # a capture launches nothing: keep the warm-up's real launches
+            for (mod, name), v in warm.items():
+                setattr(mod, name, v)
+    # row_map rides last: the graph reads it and no solve copies into it
+    return _PartAGraph(graph, static + [row_map], out, per_replay)
+
+
+def _fused_bt_a(reps, Q, d, e, lam, sel, plan: TreePlan, config: SolverConfig,
+                chunk: int):
+    """Part A (:func:`_fused_bt_a_body`) enqueued: eagerly on the CPU; on
+    CUDA as one replay of the graph cached for (n, C, config, device,
+    chunk) (at most two cached; a new key is captured at its first solve),
+    after copying this solve's inputs into the graph's static buffers.  The
+    returned (V, est) are then the graph's own buffers, which its next
+    replay overwrites.  Each replay adds its captured launches to the
+    kernels' counters."""
+    global graph_replays
+    if d.device.type != "cuda":
+        row_map = torch.as_tensor(plan.row_map(), device=d.device)
+        return _fused_bt_a_body(reps, Q, d, e, lam, sel, row_map, plan,
+                                config, chunk)
+    key = (plan.n, int(sel.shape[0]), config, d.device, chunk)
+    args = (reps, Q, d, e, lam, sel)
+    entry = _FUSED_GRAPHS.get(key)
+    if entry is None:
+        entry = _capture_part_a(args, plan, config, chunk)
+        _FUSED_GRAPHS[key] = entry
+        while len(_FUSED_GRAPHS) > _FUSED_GRAPHS_MAX:
+            _FUSED_GRAPHS.popitem(last=False)
+    else:
+        _FUSED_GRAPHS.move_to_end(key)
+        for dst, src in zip(entry.inputs, _part_a_inputs(*args)):
+            dst.copy_(src)
+    with torch.cuda.device(d.device):
+        entry.graph.replay()
+    graph_replays += 1
+    for (mod, name), k in entry.launches.items():
+        setattr(mod, name, getattr(mod, name) + k)
+    return entry.outputs
+
+
+def clear_fused_graphs() -> None:
+    """Drop the cached part A graphs and the device memory their pools
+    hold."""
+    _FUSED_GRAPHS.clear()
+
+
+def _plan_tensors(orth_plan, device):
+    """plan_cluster_orth's index arrays on ``device`` by one asynchronous
+    copy from pinned memory (no host sync): (starts_l, widths_l,
+    seg_of_col, srcpos, mask_plan)."""
+    _sig, starts_l, widths_l, seg_of_col, srcpos, mask_plan = orth_plan[:6]
+    parts = [*starts_l, *widths_l, seg_of_col, srcpos,
+             mask_plan.astype(np.int64)]
+    flat = torch.from_numpy(np.concatenate(parts))
+    if device.type == "cuda":
+        flat = flat.pin_memory().to(device, non_blocking=True)
+    out, o = [], 0
+    for a in parts:
+        out.append(flat[o:o + a.size])
+        o += a.size
+    nb = len(starts_l)
+    return (out[:nb], out[nb:2 * nb], out[2 * nb], out[2 * nb + 1],
+            out[2 * nb + 2].to(torch.bool))
+
+
+def _fused_backtransform(reps, Q, d, e, lam, sel, plan: TreePlan,
+                         config: SolverConfig, sub: PhaseTimer):
+    """The fused small-n backtransform of the prescaled system: fetch lam
+    and sel (the device is idle at the end of the eigenvalue phase), enqueue
+    part A (:func:`_fused_bt_a`), plan the cluster orthonormalization on
+    the host from the eigenvalues alone while it runs
+    (``plan_cluster_orth``), then part B: the planned CholeskyQRs merged
+    into a new V (``apply_cluster_orth_plan``), the measured residuals, and
+    ONE fetch of [res, est, seg_ok] ("fused_bt" in ``sub``).  Rejected and
+    wide segments get an explicit orthonormalization ("ortho_rescue") and
+    their residuals measured again; then the staged route's triage
+    (``_triage_passes``) and, for segments holding a replaced column,
+    "ortho_final": the JAX package's steps after its part B."""
+    n = plan.n
+    C = int(sel.shape[0])
+    lam_all = lam.cpu().numpy()
+    sel_np = sel.cpu().numpy()
+    lam_np = lam_all[sel_np]
+    norm_t = float(np.max(np.abs(lam_all)))
+    u_f32 = float(torch.finfo(torch.float32).eps) / 2.0
+    gap_mid = max(config.ortho_gap_factor,
+                  config.refine_risky_gap_factor * u_f32)
+    chunk = max(1, min(config.vec_chunk,
+                       config.resolved_refine_chunk(n, d.device)))
+    spike = config.use_pallas_refine and n >= 512
+    with sub.phase("fused_bt"):
+        V_a, est = _fused_bt_a(reps, Q, d, e, lam, sel, plan, config, chunk)
+        orth_plan = plan_cluster_orth(lam_np, norm_t, gap_mid, C, n)
+        seg_ranges, wide = orth_plan[6], orth_plan[7]
+        starts_l, widths_l, seg_of_col, srcpos, mask_plan = _plan_tensors(
+            orth_plan, d.device)
+        lam_sel = lam[sel]
+        V, ok_cat = apply_cluster_orth_plan(V_a, orth_plan[0], starts_l,
+                                            widths_l, seg_of_col, srcpos,
+                                            mask_plan)
+        if V is V_a:    # nothing planned: leave the graph's buffer to it
+            V = V_a.clone()
+        res = _residual_norms_chunked(d, e, lam_sel, V, chunk)
+        packed = torch.cat([res, est, ok_cat.to(res.dtype)]).cpu().numpy()
+    del V_a, est
+    res1 = packed[:C]
+    est_np = packed[C:2 * C]
+    ok = packed[2 * C:] > 0.5
+    bad = [seg_ranges[i] for i in np.nonzero(~ok)[0]]
+    if bad or wide:
+        with sub.phase("ortho_rescue"):
+            for s, t in wide:
+                okw, Yw = _wide_orth(V[:, s:t])
+                if bool(okw):
+                    V[:, s:t] = Yw
+                else:
+                    orth_explicit_qr(V, [(s, t)])
+            orth_explicit_qr(V, bad)
+    sentinel = est_np > _SENTINEL_MIN if spike else np.zeros(C, dtype=bool)
+    one_pass, residuals_chunked = _refine_ops(d, e, n, config)
+    if bad or wide:
+        # res1 was measured before the rescue: measure the rescued columns
+        # again, or the triage would judge a re-solve against a stale
+        # baseline
+        ridx = np.unique(np.concatenate([np.arange(s, t)
+                                         for s, t in bad + wide]))
+        ridx_t = torch.as_tensor(ridx, device=V.device)
+        res1 = res1.copy()
+        res1[ridx] = residuals_chunked(lam_sel[ridx_t], V[:, ridx_t])
+    with torch.profiler.record_function("refine.triage"):
+        V, touched = _triage_passes(d, e, lam_sel, V, res1, sentinel, norm_t,
+                                    config, one_pass, residuals_chunked, sub)
+    if touched.any():
+        with sub.phase("ortho_final"):
+            V = orthonormalize_clusters(lam_np, V, norm_t, gap_factor=gap_mid,
+                                        touched=touched)
+    return V
+
+
 def _backtransform(reps, Q, d, e, lam, cols, plan: TreePlan,
-                   config: SolverConfig, mixed: bool, sub: PhaseTimer):
+                   config: SolverConfig, mixed: bool, sub: PhaseTimer,
+                   fused: bool = True):
     """Eigenvector columns ``cols`` of the prescaled system: the leaf's own
     vectors when there is no merge, the f64 downsweep, or (``mixed``) the
-    f32 downsweep and the refinement epilogue, grouped when 12*n*C bytes
-    pass :func:`_grouped_bt_bytes`.  ``sub`` gets the steps' times and the
-    triage's counts.
+    f32 downsweep and the refinement epilogue: fused
+    (:func:`_fused_backtransform`) when ``fused`` (False for the streamed
+    route's windows) and :func:`_fused_bt_enabled` open, grouped when
+    12*n*C bytes pass :func:`_grouped_bt_bytes`, else staged.  ``sub``
+    gets the steps' times and the triage's counts.
 
     f32 mode (d in f32): the MergeReps, Q_leaf, d, e and lam are widened to
     f64 and the f64 mode's route runs on them, the same kernels at the same
@@ -440,12 +704,16 @@ def _backtransform(reps, Q, d, e, lam, cols, plan: TreePlan,
         reps = None if reps is None else [widened(rep) for rep in reps]
         f64 = [t.to(torch.float64) for t in (Q, d, e, lam)]
         return _backtransform(reps, *f64, cols, plan, config, mixed,
-                              sub).to(d.dtype)
+                              sub, fused).to(d.dtype)
     n = plan.n
     if reps is None:
         return Q[0][:n, :n][:, cols]
     if not mixed:
         return downsweep_stepped(reps, Q, plan, config, cols)
+    if fused and _fused_bt_enabled(n, config, False, True,
+                                   int(cols.shape[0])):
+        return _fused_backtransform(reps, Q, d, e, lam, cols, plan, config,
+                                    sub)
     if 12.0 * n * int(cols.shape[0]) > _grouped_bt_bytes(d.device):
         V, res1_dev = _grouped_downsweep_refine(reps, Q, d, e, lam, cols,
                                                 plan, config, sub)
@@ -548,7 +816,10 @@ def solve_tridiagonal_staged(d, e, *, config: SolverConfig = DEFAULT_CONFIG,
     are swept down in f32 and refined in f64 (the timer then also holds
     the backtransform's steps as "bt.<step>" and the triage's column counts
     in ``counts``);
-    otherwise the sweep runs in f64.  When the mixed path's f32 downsweep
+    otherwise the sweep runs in f64.  Mixed solves with n <= 8192 take
+    the fused route when ``FUSED_BT_OVERRIDE`` opens
+    :func:`_fused_bt_enabled` ("bt.fused_bt" and the rescue and triage
+    steps in the timer).  When the mixed path's f32 downsweep
     output and f64 copy (12*n*C bytes, C the selected columns) would pass
     :func:`_grouped_bt_bytes`, the downsweep and the first refinement pass
     run per column group ("bt.downsweep_refine_grouped").
@@ -598,8 +869,10 @@ def solve_tridiagonal_streamed(d, e, *, config: SolverConfig = DEFAULT_CONFIG,
 
     def window(s):
         cols = torch.arange(s, s + W, device=d.device)
+        # the windows never take the fused route (as the JAX package's)
         return _backtransform(reps, Q, d, e, lam, cols, plan, config,
-                              config.mixed_precision_vectors, PhaseTimer())
+                              config.mixed_precision_vectors, PhaseTimer(),
+                              fused=False)
 
     def blocks():
         V_all = None

@@ -12,62 +12,25 @@ concat-of-children order after ``p12`` inversion) and columns i = eigenvalues
 in ascending order (via ``colperm``).
 
 Rotation replays: rotations within one wave of the deflation tree touch
-disjoint rows, so a wave is one gather / rotate / scatter.  The waves are
-planned on the host from the rotation log (one device-to-host copy per
-level) and only logged rotations are touched; both rows of a rotation are
-read before either is written.
+disjoint rows.  The downsweep's replay (``_apply_u_finish``) is the
+``rotation_replay`` kernel on CUDA, which reads the rotation log on the
+device; on the CPU, and in ``rows_through_merge``'s transposed replay on
+both devices, the waves are planned on the host from the log (one
+device-to-host copy per level) and each wave is one gather / rotate /
+scatter; both rows of a rotation are read before either is written.
 """
 
 from __future__ import annotations
 
-from typing import List, Optional, Tuple
+from typing import List, Optional
 
-import numpy as np
 import torch
 
 from .cauchy_matmul import cauchy_materialize, cauchy_matmul
 from .cauchy_rowsum import cauchy_rowsum
 from .dword_matmul import dword_matmul
+from .rotation_replay import Wave, rotation_replay, rotation_waves
 from .secular import MergeRep, inverse_permutation, map_slot_blocks
-
-Wave = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
-
-
-def rotation_waves(rep: MergeRep) -> List[Wave]:
-    """The level's rotations grouped by wave, ascending: for each wave the
-    flat row indices (b*m + a, b*m + b) and (c, s) of all its rotations over
-    all k merges.  Empty when nothing rotated."""
-    k, m = rep.rot_a.shape
-    nrot = rep.nrot.cpu().numpy()
-    if not nrot.any():
-        return []
-    dev = rep.rot_a.device
-    wave = rep.rot_wave.cpu().numpy()
-    valid = np.arange(m)[None, :] < nrot[:, None]
-    a_flat = (rep.rot_a + torch.arange(k, device=dev)[:, None] * m).reshape(-1)
-    b_flat = (rep.rot_b + torch.arange(k, device=dev)[:, None] * m).reshape(-1)
-    c_flat = rep.rot_c.reshape(-1)
-    s_flat = rep.rot_s.reshape(-1)
-    waves = []
-    for w in range(1, int(wave[valid].max()) + 1):
-        sel = torch.as_tensor(np.flatnonzero(valid & (wave == w)), device=dev)
-        if sel.numel():
-            waves.append((a_flat[sel], b_flat[sel], c_flat[sel], s_flat[sel]))
-    return waves
-
-
-def _replay_rotations_level(waves: List[Wave], y):
-    """Inverse Givens chain on the rows of y (k*m, C), in place: waves in
-    descending order, u_a <- c u_a + s u_b, u_b <- -s u_a + c u_b, in y's
-    dtype."""
-    for a, b, c, s in reversed(waves):
-        ua = y[a]
-        ub = y[b]
-        c = c.to(y.dtype)[:, None]
-        s = s.to(y.dtype)[:, None]
-        y[a] = c * ua + s * ub
-        y[b] = -s * ua + c * ub
-    return y
 
 
 def _replay_rotations_cols_t(waves: List[Wave], wt):
@@ -102,12 +65,10 @@ def _denom_block(rep: MergeRep, rows, slots):
 
 
 def _apply_u_finish(rep: MergeRep, y, waves):
-    """Inverse-rotation replay on rows, then un-permute to original order."""
-    k, m, C = y.shape
-    if waves is None:
-        waves = rotation_waves(rep)
-    yf = _replay_rotations_level(waves, y.reshape(k * m, C))
-    return _gather_rows(yf.view(k, m, C), inverse_permutation(rep.p12))
+    """Inverse-rotation replay on rows (``rotation_replay``, in place; y is
+    a fresh contiguous product), then un-permute to original order."""
+    yf = rotation_replay(rep, y, waves)
+    return _gather_rows(yf, inverse_permutation(rep.p12))
 
 
 def assemble_u(rep: MergeRep, cols: Optional[torch.Tensor] = None,

@@ -14,8 +14,10 @@ Not carried over: the TPU writeback variants (``_compiled_orth_writeback``,
 ``_compiled_orth_writeback_dus``), which exist to dodge TPU scatters and
 VMEM limits.  Their counterpart here is an indexed column copy
 (``V[:, cols] = ...``): :func:`orthonormalize_clusters` updates V in place.
-The fused small-n plan (``plan_cluster_orth``, ``apply_cluster_orth_plan``)
-is not ported yet.
+The fused small-n route plans its orthonormalization from the eigenvalues
+alone (:func:`plan_cluster_orth`, numpy on the host, the JAX planner's
+output exactly) and applies the plan with no host fetch
+(:func:`apply_cluster_orth_plan`).
 
 Cholesky: ``jnp.linalg.cholesky`` returns NaN on a Gram that is not SPD and
 the acceptance test reads that; ``torch.linalg.cholesky_ex`` reports it as
@@ -89,8 +91,9 @@ def solve_shifted_tridiagonal(d, e, lam, B):
         a = a_new
 
     x_last = r / _clamp_piv(a, tiny)
-    two_m30 = torch.tensor(2.0 ** -30, dtype=dtype, device=B.device)
-    two_m40 = torch.tensor(2.0 ** -40, dtype=dtype, device=B.device)
+    # fills, not host copies: the fused route captures this in a CUDA graph
+    two_m30 = torch.full((), 2.0 ** -30, dtype=dtype, device=B.device)
+    two_m40 = torch.full((), 2.0 ** -40, dtype=dtype, device=B.device)
     one = torch.ones((), dtype=dtype, device=B.device)
     xs = torch.empty((n, K), dtype=dtype, device=B.device)
     ss = torch.empty((n, K), dtype=dtype, device=B.device)
@@ -407,6 +410,90 @@ def cluster_orth_narrow_body(V, starts, widths, *, w: int):
     for yi in Y:
         ok = ok & torch.isfinite(yi).all(dim=0)
     return torch.cat(Y, dim=1), ok
+
+
+def plan_cluster_orth(lam_np, norm_t, gap_factor: float, C: int, n: int):
+    """Host plan of a batched cluster orthonormalization from the
+    eigenvalues alone (segments depend only on the gaps, never on V), so it
+    can be made while the device computes V.
+
+    Returns (sig, starts_list, widths_list, seg_of_col, srcpos, mask_plan,
+    seg_ranges, wide_segs):
+      sig          tuple of (g2, w2, narrow, nseg) per bucket
+      starts/widths  per-bucket (g2,) int64 numpy arrays
+      seg_of_col   (C,) flat planned-segment index owning each column
+      srcpos       (C,) column's replacement index inside the concatenated
+                   bucket outputs (narrow buckets are position-major, wide
+                   ones segment-major)
+      mask_plan    (C,) True on planned columns
+      seg_ranges   [(s, t)] per planned segment in flat order (for the
+                   explicit QR of a rejected one)
+      wide_segs    [(s, t)] segments over ``_MAX_BATCH_W`` columns, left to
+                   the caller."""
+    lam_np = np.asarray(lam_np)
+    segs = cluster_segments(lam_np, gap_factor * norm_t)
+    small = [(s, t) for (s, t) in segs if t - s <= _MAX_BATCH_W]
+    wide = [(s, t) for (s, t) in segs if t - s > _MAX_BATCH_W]
+    buckets = {}
+    for (s, t) in small:
+        w2 = 1 << (t - s - 1).bit_length() if t - s > 1 else 1
+        buckets.setdefault(max(w2, 2), []).append((s, t))
+    budget_cols = max(_MIN_BUDGET_COLS, _BATCH_BUDGET_BYTES // (8 * n))
+    sig, starts_l, widths_l, seg_ranges = [], [], [], []
+    mask_plan = np.zeros(C, bool)
+    srcpos = np.zeros(C, np.int64)
+    seg_of_col = np.zeros(C, np.int64)
+    off = 0
+    segidx = 0
+    for w2, segs_w in sorted(buckets.items()):
+        gcap = max(1, budget_cols // w2)
+        for o in range(0, len(segs_w), gcap):
+            batch = segs_w[o:o + gcap]
+            nseg = len(batch)
+            g2 = 1 << (nseg - 1).bit_length() if nseg > 1 else 1
+            narrow = w2 <= _NARROW_ORTH_W
+            starts = np.zeros(g2, np.int64)
+            widths = np.zeros(g2, np.int64)
+            for i, (s, t) in enumerate(batch):
+                starts[i] = s
+                widths[i] = t - s
+                mask_plan[s:t] = True
+                seg_of_col[s:t] = segidx
+                srcpos[s:t] = (off + np.arange(t - s) * g2 + i) if narrow \
+                    else (off + i * w2 + np.arange(t - s))
+                seg_ranges.append((s, t))
+                segidx += 1
+            sig.append((g2, w2, narrow, nseg))
+            starts_l.append(starts)
+            widths_l.append(widths)
+            off += g2 * w2
+    return (tuple(sig), starts_l, widths_l, seg_of_col, srcpos, mask_plan,
+            seg_ranges, wide)
+
+
+def apply_cluster_orth_plan(V, sig, starts_l, widths_l, seg_of_col, srcpos,
+                            mask_plan):
+    """Run every planned bucket's CholeskyQR and merge the accepted
+    segments into V with one gather + select, acceptance decided on the
+    device (no host fetch).  ``starts_l``/``widths_l``, ``seg_of_col``,
+    ``srcpos`` and ``mask_plan``: :func:`plan_cluster_orth`'s arrays as
+    tensors on V's device.  Returns (V', ok_cat): V' a new tensor (V itself
+    when nothing is planned), rejected segments keeping their input
+    columns; ok_cat[i] says whether planned segment i was accepted."""
+    Yflats, oks = [], []
+    for (g2, w2, narrow, nseg), st, wd in zip(sig, starts_l, widths_l):
+        if narrow:
+            Yf, ok = cluster_orth_narrow_body(V, st, wd, w=w2)
+        else:
+            Yf, ok = cluster_orth_body(V, st, wd, nseg=g2, wmax=w2)
+        Yflats.append(Yf)
+        oks.append(ok[:nseg])
+    if not Yflats:
+        return V, torch.zeros((0,), dtype=torch.bool, device=V.device)
+    ok_cat = torch.cat(oks)
+    Ycat = torch.cat(Yflats, dim=1)
+    col_ok = mask_plan & ok_cat[seg_of_col]
+    return torch.where(col_ok[None, :], Ycat[:, srcpos], V), ok_cat
 
 
 def _wide_orth(S):

@@ -17,8 +17,10 @@ from symmetric_eigenvalue_tpu_torch.kernels import cauchy_matmul as cm
 from symmetric_eigenvalue_tpu_torch.kernels import cauchy_rowsum as cr
 from symmetric_eigenvalue_tpu_torch.kernels import dword_matmul as dm
 from symmetric_eigenvalue_tpu_torch.kernels import dword_matvec as dv
+from symmetric_eigenvalue_tpu_torch.kernels import rotation_replay as rr
 from symmetric_eigenvalue_tpu_torch.kernels import secular_sums as ss
 from symmetric_eigenvalue_tpu_torch.kernels import spike_solve as sp
+from symmetric_eigenvalue_tpu_torch.kernels.secular import MergeRep
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PKG = ROOT / "symmetric_eigenvalue_tpu_torch"
@@ -103,7 +105,7 @@ def test_exports_every_name_of_the_jax_package():
 def _counts():
     return (ss.launches, ss.solve_launches, cr.launches, dm.launches,
             cm.matmul_launches, cm.materialize_launches, sp.pass_a_launches,
-            sp.pass_b_launches, dv.launches)
+            sp.pass_b_launches, dv.launches, rr.launches)
 
 
 def test_cpu_tensors_count_no_launches(rng):
@@ -129,7 +131,7 @@ def test_cpu_tensors_count_no_launches(rng):
     assert V.device.type == "cpu"
     st.eigh(A + A.T, band=4, device="cpu")
     st.eigh_banded(np.ones((4, 40)), device="cpu")
-    assert _counts() == before == (0,) * 9
+    assert _counts() == before == (0,) * 10
 
 
 def test_non_cpu_tensors_never_take_the_plain_version():
@@ -167,6 +169,10 @@ def test_non_cpu_tensors_never_take_the_plain_version():
             torch.empty((n, C), **f64), nb, torch.empty((2, C), **f64),
             torch.empty((2, C), **f64), torch.empty(2, **f64),
             torch.empty(2, **f64)),
+        "rotation_replay": lambda: rr.rotation_replay(
+            MergeRep._make([torch.empty((k, m), **i64)]
+                           * len(MergeRep._fields)),
+            torch.empty((k, m, C), **f64)),
     }
     before = _counts()
     for name, call in calls.items():
