@@ -106,10 +106,35 @@ exits non-zero:
  18. cli_streamed  -s 2 -n 98304 -e in this process: the gate takes the
                streamed branch (the basis alone would be 77.3 GB); every
                residual and eigenvalue checked; peak, windows, phases
- 19. the per-kernel summary line, then the nvidia-smi line, then the final
+ 19. mesh      phase 4's input over a mesh (dist/mesh.py): every card when
+               two or more are visible, else cuda:0 x 4 (four logical
+               shards of one card), default config, all eigenpairs: the
+               cold solve with its three limits, eigenvalues against the
+               unsharded port solve (1e-13 ||T||) and scipy's, launches of
+               each kernel by shard and device (the merge, downsweep and
+               replay kernels on every shard, the Spike passes on the lead
+               device), per-device peaks, the slot-sharded top merges'
+               tau bit for bit the unsharded merge's; three warm walls of
+               each route in turns; host syncs of each and the lines that
+               make them; the pure-f64 path (dword_matmul on every shard)
+               and the Poisson eigenvalues over the same mesh
+ 20. mesh_grouped  n=65536 through the grouped route over the mesh:
+               eigenvalues against the grouped phase's (1e-13 ||T||),
+               residual in column chunks, per-device peaks, wall
+ 21. mesh_cli  -s 1 -n 16384 -e --devices <cards> in a subprocess against
+               scipy's spectrum; --devices <cards + 1> returns 1 with its
+               message
+ 22. mesh_multiprocess  with two or more cards: two processes (one card
+               each, CUDA_VISIBLE_DEVICES) on NCCL through
+               distributed_init, each solving phase 4's input over the
+               two-process mesh and checking its eigenvalues and
+               residual; with one card a line saying so, no work
+ 23. the per-kernel summary line, then the nvidia-smi line, then the final
      {"ok": true, ...} line
 
-With ``--cli-only`` it builds every kernel, runs phases 14-18 and stops.
+With ``--cli-only`` it builds every kernel, runs phases 14-18 and stops;
+with ``--mesh-only`` phases 19-22 (phase 20 then solves n=65536 unsharded
+first for its reference).
 
 Needs one CUDA card; exits 1 without printing a result when
 torch.cuda.is_available() is False.  Imports nothing of JAX.
@@ -125,6 +150,7 @@ import json
 import os
 import re
 import shutil
+import socket
 import subprocess
 import sys
 import time
@@ -139,6 +165,7 @@ from torch.profiler import ProfilerActivity, profile
 
 import symmetric_eigenvalue_tpu_torch as st
 from symmetric_eigenvalue_tpu_torch import _build, driver
+from symmetric_eigenvalue_tpu_torch.dist import mesh as tmesh
 from symmetric_eigenvalue_tpu_torch.driver import _prescale
 from symmetric_eigenvalue_tpu_torch.kernels import assemble
 from symmetric_eigenvalue_tpu_torch.kernels import cauchy_matmul as cm
@@ -153,7 +180,7 @@ from symmetric_eigenvalue_tpu_torch.kernels.refine import band_prep
 from symmetric_eigenvalue_tpu_torch.kernels.tridiagonalize import _bucket_cuts
 from symmetric_eigenvalue_tpu_torch.utils.checks import (
     max_cross_ortho_error, max_ortho_error)
-from symmetric_eigenvalue_tpu_torch.utils.timing import PhaseTimer
+from symmetric_eigenvalue_tpu_torch.utils.timing import PhaseTimer, sync
 
 N = 16384
 N_TWO_STAGE = 4096
@@ -1226,9 +1253,9 @@ def record_levels():
     inner = sec._solve_roots
     per_term, rate = secular_fp64_per_term(), fp64_rate()
 
-    def recorded(poles_sec, zu, rho_e, K, *args):
+    def recorded(poles_sec, zu, rho_e, K, *args, **kwargs):
         before = (ss.launches, ss.solve_launches)
-        out = inner(poles_sec, zu, rho_e, K, *args)
+        out = inner(poles_sec, zu, rho_e, K, *args, **kwargs)
         k, m = poles_sec.shape
         Ks = K.tolist()
         levels.append({
@@ -1955,6 +1982,440 @@ def run_cli_profile_and_errors():
 
 
 # --------------------------------------------------------------------------
+# the mesh: the solve sharded over several devices (dist/mesh.py)
+
+MESH_SHARDS = 4              # [cuda:0] * 4 on a card alone
+MESH_SHARD_KERNELS = ("secular_sums", "secular_solve", "cauchy_rowsum",
+                      "cauchy_matmul", "cauchy_materialize", "rotation_replay")
+MESH_LEAD_KERNELS = ("spike_pass_a", "spike_pass_b")
+MESH_DIR = ROOT / "build" / "mesh"
+# each kernel's wrapper where it launches (the counter moves inside it)
+LAUNCH_SITES = ((ss, "_launch"), (ss, "_launch_solve"), (cr, "_launch"),
+                (cm, "_launch_matmul"), (cm, "_launch_materialize"),
+                (rr, "_launch"), (sp, "spike_pass_a"), (sp, "spike_pass_b"),
+                (dm, "_launch"), (dv, "_launch"))
+
+
+def solve_mesh():
+    """Every card when there are two or more, else MESH_SHARDS shards of
+    cuda:0; and what the mesh line calls it."""
+    count = torch.cuda.device_count()
+    if count >= 2:
+        return tmesh.make_mesh(), f"{count} distinct cards"
+    return (tmesh.make_mesh(devices=["cuda:0"] * MESH_SHARDS),
+            f"cuda:0 x {MESH_SHARDS} (one card visible)")
+
+
+def _first_device(x):
+    if isinstance(x, torch.Tensor):
+        return x.device
+    if isinstance(x, (tuple, list)):
+        for y in x:
+            dev = _first_device(y)
+            if dev is not None:
+                return dev
+    return None
+
+
+@contextlib.contextmanager
+def record_shard_launches():
+    """Each kernel's launches by the mesh shard whose work enqueued them
+    ("shard s", recorded around ``dist.mesh._on_shard``; "lead" for the
+    replicated work and everything outside a sharded call: the
+    refinement) and by the device of the tensors it was given:
+    {"shard 0 @ cuda:0": {kernel: launches}, ...}."""
+    tally = {}
+    where = ["lead"]
+    on_shard = tmesh._on_shard
+    saved = [getattr(mod, name) for mod, name in LAUNCH_SITES]
+
+    def sharded(fn, args, device, shard):
+        where.append("lead" if shard is None else f"shard {shard}")
+        try:
+            return on_shard(fn, args, device, shard)
+        finally:
+            where.pop()
+
+    def counted(inner):
+        def launch(*args, **kwargs):
+            before = launch_counts()
+            out = inner(*args, **kwargs)
+            key = f"{where[-1]} @ {_first_device(args)}"
+            for name, v in launch_counts().items():
+                if v != before[name]:
+                    row = tally.setdefault(key, {})
+                    row[name] = row.get(name, 0) + v - before[name]
+            return out
+        return launch
+
+    tmesh._on_shard = sharded
+    for (mod, name), inner in zip(LAUNCH_SITES, saved):
+        setattr(mod, name, counted(inner))
+    try:
+        yield tally
+    finally:
+        tmesh._on_shard = on_shard
+        for (mod, name), inner in zip(LAUNCH_SITES, saved):
+            setattr(mod, name, inner)
+
+
+def launches_where(tally, kernel):
+    """{place: launches} of one kernel."""
+    return {k: row[kernel] for k, row in tally.items() if row.get(kernel)}
+
+
+@contextlib.contextmanager
+def record_slot_merges():
+    """The slot-sharded merges of a meshed solve: each one's partition and
+    arguments and the tau it gave (recorded around driver.merge_roots)."""
+    got = []
+    inner = driver.merge_roots
+
+    def recorded(part, **kwargs):
+        rep = inner(part, **kwargs)
+        if kwargs.get("slot_mesh") is not None:
+            got.append((part, kwargs, rep.tau))
+        return rep
+
+    driver.merge_roots = recorded
+    try:
+        yield got
+    finally:
+        driver.merge_roots = inner
+
+
+def slot_tau_bit_exact(merges):
+    """Each recorded slot-sharded merge solved again without the mesh: is
+    every tau bit for bit the sharded one?  [(m, K, bit_exact)]."""
+    out = []
+    for part, kwargs, tau in merges:
+        plain = driver.merge_roots(part, **{**kwargs, "slot_mesh": None})
+        out.append({"m": int(part.poles.shape[1]), "K": int(part.K[0]),
+                    "bit_exact": bool(torch.equal(plain.tau, tau))})
+    return out
+
+
+def mesh_peaks(mesh, reset: bool = False):
+    """{device: peak bytes} over the mesh's distinct devices, or, with
+    ``reset``, their peaks set back to what they hold now."""
+    devs = dict.fromkeys(mesh.devices)
+    if reset:
+        for dv_ in devs:
+            torch.cuda.reset_peak_memory_stats(dv_)
+        return None
+    return {str(dv_): torch.cuda.max_memory_allocated(dv_) for dv_ in devs}
+
+
+def host_sync_sites(run, top: int = 8):
+    """Synchronizing CUDA calls of ``run()`` (torch.cuda's sync debug mode)
+    and the Python lines that made the most of them."""
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            run()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    sites = {}
+    for w in caught:
+        if "synchroniz" in str(w.message):
+            key = f"{Path(w.filename).name}:{w.lineno}"
+            sites[key] = sites.get(key, 0) + 1
+    ranked = sorted(sites.items(), key=lambda kv: -kv[1])[:top]
+    return sum(sites.values()), dict(ranked)
+
+
+def mesh_solve_checked(d, e, cfg, mesh, ref, norm_ref):
+    """One meshed solve_tridiagonal_staged with eigenvectors: wall, phases,
+    per-device peaks, launches by shard, eigenvalues (host) and the three
+    limits."""
+    torch.cuda.empty_cache()
+    mesh_peaks(mesh, reset=True)
+    reset_counts()
+    with record_shard_launches() as where:
+        sync(device=mesh.devices)
+        t0 = time.perf_counter()
+        res, timer = st.solve_tridiagonal_staged(d, e, config=cfg,
+                                                 compute_vectors=True,
+                                                 mesh=mesh)
+        sync(device=mesh.devices)
+        wall = time.perf_counter() - t0
+    peaks = mesh_peaks(mesh)
+    lam = res.eigenvalues.cpu().numpy()
+    V = res.eigenvectors
+    n = lam.shape[0]
+    require(V.shape == (n, n) and V.device == mesh.lead and all_finite(V)
+            and np.isfinite(lam).all(), "meshed solve: misshapen result")
+    resid = float(st.residuals(d, e, res).max()) / norm_ref
+    ortho = max_ortho_error(V)
+    lam_err = float(np.abs(lam - ref).max()) / norm_ref
+    del res, V
+    torch.cuda.empty_cache()
+    require(resid <= 1e-12, f"meshed solve: residual {resid} > 1e-12 ||T||")
+    require(ortho <= 1e-10, f"meshed solve: orthogonality {ortho}")
+    require(lam_err <= 1e-12, f"meshed solve: eigenvalues off scipy's by "
+            f"{lam_err} ||T||")
+    return {"wall_s": wall, "phases_s": timer.times, "counts": timer.counts,
+            "peak_mem_bytes_by_device": peaks, "launches_by_shard": where,
+            "residual_over_normT": resid, "ortho": ortho,
+            "eig_err_vs_scipy_over_normT": lam_err}, lam
+
+
+def run_mesh(d, e, ref, norm_ref, cfg):
+    """Phase mesh: the main path's input over the mesh against the
+    unsharded solve in the same call."""
+    mesh, kind = solve_mesh()
+    lam0 = st.solve_tridiagonal_staged(d, e, config=cfg)[0] \
+        .eigenvalues.cpu().numpy()
+    with record_slot_merges() as merges:
+        cold, lam = mesh_solve_checked(d, e, cfg, mesh, ref, norm_ref)
+    tau = slot_tau_bit_exact(merges)
+    vs_unsharded = float(np.abs(lam - lam0).max()) / norm_ref
+    where = cold["launches_by_shard"]
+    # warm walls, the two routes in turns (which goes first alternates)
+    walls = {"unsharded": [], "mesh": []}
+    runs = {"unsharded": lambda: st.solve_tridiagonal_staged(
+                d, e, config=cfg, compute_vectors=True),
+            "mesh": lambda: st.solve_tridiagonal_staged(
+                d, e, config=cfg, compute_vectors=True, mesh=mesh)}
+    for r in range(3):
+        for name in (("unsharded", "mesh") if r % 2 == 0
+                     else ("mesh", "unsharded")):
+            sync(device=mesh.devices)
+            t0 = time.perf_counter()
+            out = runs[name]()
+            sync(device=mesh.devices)
+            walls[name].append(time.perf_counter() - t0)
+            del out
+            torch.cuda.empty_cache()
+    syncs = {name: host_sync_sites(run) for name, run in runs.items()}
+    # the pure-f64 path and the Poisson spectrum over the same mesh
+    cfg64 = st.SolverConfig(mixed_precision_vectors=False)
+    f64, _ = mesh_solve_checked(d, e, cfg64, mesh, ref, norm_ref)
+    dp, ep = st.create_matrix_scheme2(N)
+    exact = st.eigenvalues_of_scheme2(N)
+    norm_p = float(np.abs(exact).max())
+    sync(device=mesh.devices)
+    t0 = time.perf_counter()
+    lam_p = st.eigh_tridiagonal(dp, ep, config=cfg64, eigvals_only=True,
+                                mesh=mesh)
+    sync(device=mesh.devices)
+    wall_p = time.perf_counter() - t0
+    p_err = float(np.abs(lam_p.cpu().numpy() - exact).max()) / norm_p
+    emit({"phase": "mesh", "n": N, "matrix": "random", "seed": SEED,
+          "config": "SolverConfig()", "mesh": kind,
+          "mesh_devices": [str(x) for x in mesh.devices],
+          "cold": cold, "eig_err_vs_unsharded_over_normT": vs_unsharded,
+          "slot_sharded_tau": tau,
+          "warm_walls_s": walls,
+          "warm_median_s": {k: float(np.median(v)) for k, v in walls.items()},
+          "host_syncs": {k: v[0] for k, v in syncs.items()},
+          "host_sync_sites": {k: v[1] for k, v in syncs.items()},
+          "f64": f64,
+          "poisson_eigvals_only": {"wall_s": wall_p,
+                                   "err_vs_analytic_over_normT": p_err}})
+    require(vs_unsharded <= 1e-13, f"mesh: eigenvalues {vs_unsharded} ||T|| "
+            "off the unsharded solve's")
+    require(tau and all(t["bit_exact"] for t in tau),
+            f"mesh: slot-sharded tau not bit for bit the unsharded: {tau}")
+    require(p_err <= 1e-12, f"mesh: Poisson eigenvalues off by {p_err}")
+    shards = [f"shard {s} @ {x}" for s, x in enumerate(mesh.devices)]
+    for name in MESH_SHARD_KERNELS:
+        got = launches_where(where, name)
+        require(all(got.get(s, 0) > 0 for s in shards),
+                f"mesh: {name} not launched on every shard: {got}")
+    for name in MESH_LEAD_KERNELS:
+        got = launches_where(where, name)
+        require(got.get(f"lead @ {mesh.lead}", 0) > 0 and len(got) == 1,
+                f"mesh: {name} not on the lead device alone: {got}")
+    got = launches_where(f64["launches_by_shard"], "dword_matmul")
+    require(all(got.get(s, 0) > 0 for s in shards),
+            f"mesh: dword_matmul not launched on every shard (f64): {got}")
+
+
+def run_mesh_grouped(cfg, d, e, lam_ref, norm_ref):
+    """Phase mesh_grouped: n=65536 through the grouped route over the mesh,
+    eigenvalues against ``lam_ref`` (the unsharded grouped solve's; None:
+    solved here first, and ||T|| read from its eigenvalues), residual in
+    column chunks."""
+    mesh, kind = solve_mesh()
+    n = d.shape[0]
+    unsharded_s = None
+    if lam_ref is None:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = st.solve_tridiagonal_staged(d, e, config=cfg,
+                                          compute_vectors=True)[0]
+        torch.cuda.synchronize()
+        unsharded_s = time.perf_counter() - t0
+        lam_ref = res.eigenvalues.cpu().numpy()
+        norm_ref = float(np.abs(lam_ref).max())
+        del res
+    torch.cuda.empty_cache()
+    mesh_peaks(mesh, reset=True)
+    reset_counts()
+    with record_shard_launches() as where:
+        sync(device=mesh.devices)
+        t0 = time.perf_counter()
+        res, timer = st.solve_tridiagonal_staged(d, e, config=cfg,
+                                                 compute_vectors=True,
+                                                 mesh=mesh)
+        sync(device=mesh.devices)
+        wall = time.perf_counter() - t0
+    peaks = mesh_peaks(mesh)
+    lam = res.eigenvalues.cpu().numpy()
+    require(res.eigenvectors.shape == (n, n) and all_finite(res.eigenvectors),
+            "mesh_grouped: misshapen result")
+    resid = float(st.residuals(d, e, res).max()) / norm_ref
+    lam_err = float(np.abs(lam - lam_ref).max()) / norm_ref
+    del res
+    torch.cuda.empty_cache()
+    emit({"phase": "mesh_grouped", "n": n, "matrix": "random", "seed": SEED,
+          "mesh": kind, "wall_s": wall, "phases_s": timer.times,
+          "unsharded_wall_s": unsharded_s,
+          "peak_mem_bytes_by_device": peaks, "launches_by_shard": where,
+          "residual_over_normT": resid,
+          "eig_err_vs_unsharded_over_normT": lam_err})
+    require(GROUPED in timer.times, "mesh_grouped: not the grouped route")
+    require(resid <= 1e-12, f"mesh_grouped: residual {resid} ||T||")
+    require(lam_err <= 1e-13, f"mesh_grouped: eigenvalues {lam_err} ||T|| "
+            "off the unsharded solve's")
+    for name in ("cauchy_matmul", "cauchy_materialize", "rotation_replay"):
+        got = launches_where(where, name)
+        require(len(got) == len(mesh.devices),
+                f"mesh_grouped: {name} not on every shard: {got}")
+
+
+def run_mesh_cli(ref, norm_ref):
+    """Phase mesh_cli: -s 1 -n 16384 -e --devices <cards> in a subprocess
+    (the scheme's spectrum from scipy here), and --devices <cards + 1>:
+    rc 1 and the message."""
+    count = torch.cuda.device_count()
+    MESH_DIR.mkdir(parents=True, exist_ok=True)
+    out = MESH_DIR / "cli.txt"
+    argv = ["-s", "1", "-n", str(N), "-e", "--devices", str(count), str(out)]
+    rc, stdout, stderr, wall = cli_subprocess(argv)
+    check_cli_run("mesh_cli", rc, stdout, stderr)
+    d1, e1 = st.create_matrix_scheme1(N)
+    ref1 = scipy.linalg.eigvalsh_tridiagonal(d1.cpu().numpy(),
+                                             e1.cpu().numpy())
+    norm1 = float(np.abs(ref1).max())
+    lam, res = results_file(out, N)
+    lam_err = float(np.abs(lam - ref1).max()) / norm1
+    worst = float(np.nanmax(res)) / norm1
+    rc_bad, out_bad, err_bad, _ = cli_subprocess(
+        ["-s", "1", "-n", "64", "--devices", str(count + 1)])
+    emit({"phase": "mesh_cli", "n": N, "argv": argv[:-1],
+          "wall_s": wall, "report": report_lines(stdout),
+          "devices_line": [ln for ln in stdout.splitlines()
+                           if ln.startswith("Number of devices")],
+          "eig_err_vs_scipy_over_normT": lam_err,
+          "max_residual_over_normT": worst,
+          "too_many": {"argv": ["--devices", str(count + 1)],
+                       "rc": rc_bad, "stderr": err_bad.strip()[-300:]}})
+    require(f"Number of devices is: {count}  (backend: cuda)" in stdout,
+            "mesh_cli: no device line")
+    require(lam_err <= 1e-12 and worst <= 1e-12,
+            f"mesh_cli: eigenvalues {lam_err}, residuals {worst} ||T||")
+    require(rc_bad == 1 and out_bad == "" and "Cannot shard over "
+            f"{count + 1} devices" in err_bad,
+            f"mesh_cli: --devices {count + 1} did not fail cleanly")
+
+
+def mesh_worker(rank: int, port: int) -> int:
+    """One process of mesh_multiprocess (``--mesh-worker RANK,PORT``): its
+    own card (CUDA_VISIBLE_DEVICES), NCCL through distributed_init, the
+    n=16384 random input solved over the two processes' mesh; checks its
+    own eigenvalues (against the spectrum the parent wrote) and residual,
+    prints one JSON line."""
+    import torch.distributed as dist
+    tmesh.distributed_init(f"localhost:{port}", 2, rank)
+    mesh = tmesh.make_mesh()
+    d, e = random_matrix(N, SEED)
+    ref = np.load(MESH_DIR / "ref.npy")
+    norm_ref = float(np.abs(ref).max())
+    cfg = st.SolverConfig()
+    walls = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res, timer = st.solve_tridiagonal_staged(d, e, config=cfg,
+                                                 compute_vectors=True,
+                                                 mesh=mesh)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    lam = res.eigenvalues.cpu().numpy()
+    resid = float(st.residuals(d, e, res).max()) / norm_ref
+    lam_err = float(np.abs(lam - ref).max()) / norm_ref
+    emit({"rank": rank, "mesh_size": mesh.size,
+          "device": torch.cuda.get_device_name(0), "walls_s": walls,
+          "phases_s": timer.times, "residual_over_normT": resid,
+          "eig_err_vs_scipy_over_normT": lam_err,
+          "peak_mem_bytes": torch.cuda.max_memory_allocated()})
+    dist.destroy_process_group()
+    require(mesh.size == 2, f"rank {rank}: mesh of {mesh.size}")
+    require(resid <= 1e-12 and lam_err <= 1e-12,
+            f"rank {rank}: residual {resid}, eigenvalues {lam_err} ||T||")
+    return 0
+
+
+def run_mesh_multiprocess(ref):
+    """Phase mesh_multiprocess: two processes, one card each, on NCCL; on a
+    card alone it says it needs two and runs nothing."""
+    count = torch.cuda.device_count()
+    if count < 2:
+        emit({"phase": "mesh_multiprocess", "ran": False,
+              "cards_visible": count,
+              "note": "needs two cards (NCCL does not let two ranks share "
+                      "one); one is visible: this phase ran no work"})
+        return
+    MESH_DIR.mkdir(parents=True, exist_ok=True)
+    np.save(MESH_DIR / "ref.npy", ref)
+    with contextlib.closing(socket.socket()) as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, str(ROOT / "chip_smoke.py"), "--mesh-worker",
+         f"{rank},{port}"], cwd=ROOT,
+        env={**os.environ, "PYTHONPATH": str(ROOT),
+             "CUDA_VISIBLE_DEVICES": str(rank)},
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for rank in range(2)]
+    results = []
+    try:
+        for proc in procs:
+            out, err = proc.communicate(timeout=600)
+            lines = [ln for ln in out.splitlines() if ln.startswith("{")]
+            results.append({"rc": proc.returncode,
+                            "result": json.loads(lines[-1]) if lines
+                            else None, "stderr": err.strip()[-1500:]})
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+    emit({"phase": "mesh_multiprocess", "ran": True, "processes": 2,
+          "wall_s": time.perf_counter() - t0, "ranks": results})
+    for rank, got in enumerate(results):
+        require(got["rc"] == 0 and got["result"] is not None,
+                f"mesh_multiprocess: rank {rank} failed: {got}")
+
+
+def run_mesh_phases(d, e, ref, norm_ref, cfg, d65=None, e65=None,
+                    lam65=None, norm65=None):
+    """The four mesh phases (n=65536's input made here when not given)."""
+    run_mesh(d, e, ref, norm_ref, cfg)
+    if d65 is None:
+        d65, e65 = random_matrix(N_HUGE, SEED)
+    run_mesh_grouped(cfg, d65, e65, lam65, norm65)
+    run_mesh_cli(ref, norm_ref)
+    run_mesh_multiprocess(ref)
+
+
+# --------------------------------------------------------------------------
 # the dense and banded front ends
 
 def dense_matrix(n: int, seed: int):
@@ -2207,6 +2668,11 @@ def main(argv=None) -> int:
     ap.add_argument("--cli-only", action="store_true",
                     help="build every kernel and run the CLI phases alone, "
                     "then stop: not the final line of a whole run")
+    ap.add_argument("--mesh-only", action="store_true",
+                    help="build every kernel and run the mesh phases alone, "
+                    "then stop: not the final line of a whole run")
+    ap.add_argument("--mesh-worker", metavar="RANK,PORT", default=None,
+                    help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     only = [k for k in args.only.split(",") if k]
     if set(only) - set(KERNEL_NAMES):
@@ -2217,6 +2683,9 @@ def main(argv=None) -> int:
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if args.mesh_worker:
+        rank, port = (int(x) for x in args.mesh_worker.split(","))
+        return mesh_worker(rank, port)
     t_start = time.perf_counter()
     # 1. device
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -2253,6 +2722,11 @@ def main(argv=None) -> int:
         run_cli(d, e, ref, norm_ref)
         print(smi_line, flush=True)
         emit({"ok": True, "only": ["cli"]})
+        return 0
+    if args.mesh_only:
+        run_mesh_phases(d, e, ref, norm_ref, st.SolverConfig())
+        print(smi_line, flush=True)
+        emit({"ok": True, "only": ["mesh"]})
         return 0
 
     # 3. each kernel against its plain version at its path's shapes
@@ -2410,13 +2884,16 @@ def main(argv=None) -> int:
     run_staged_large(cfg)
     d65, e65, lam65, norm65 = run_grouped(cfg)
     run_streamed(cfg, d65, e65, lam65, norm65)
-    del d65, e65, lam65
     torch.cuda.empty_cache()
 
     # 14.-18. the CLI, as a user runs it
     run_cli(d, e, ref, norm_ref)
 
-    # 19. summary; launches from each kernel's own path: the main path's
+    # 19.-22. the mesh; n=65536 against the grouped phase's eigenvalues
+    run_mesh_phases(d, e, ref, norm_ref, cfg, d65, e65, lam65, norm65)
+    del d65, e65, lam65
+
+    # 23. summary; launches from each kernel's own path: the main path's
     # run, the pure-f64 one for dword_matmul (on the mixed path it serves
     # only the wide cluster-orth Grams), the dense one for dword_vecmat
     paths = {"dword_matmul": ("solve_f64", s64["launches"]),

@@ -25,11 +25,17 @@ f64); host IO (``io``: Matrix Market through the port's own C parser,
 selection and result files) and the ``cuppen`` CLI (``python -m
 symmetric_eigenvalue_tpu_torch``, ``cli.py``); the fused small-n
 backtransform (n <= 8192, opened by ``driver.FUSED_BT_OVERRIDE``: the
-downsweep and the first refinement pass as one CUDA graph replay).  Every Pallas kernel of the JAX
+downsweep and the first refinement pass as one CUDA graph replay); the
+multi-device mesh (``mesh=`` on every solving entry point, a mesh from
+``symmetric_eigenvalue_tpu_torch.dist.mesh.make_mesh`` as in the JAX
+package, ``distributed_init`` for several processes, and the CLI's
+``--devices`` and multi-process flags): the upsweep's levels sharded by
+merge or by slot, the downsweep by column, the refinement on the lead
+device.  Every Pallas kernel of the JAX
 package has its CUDA counterpart, and the downsweep's Givens replay is a
 kernel too (seven sources, ten kernels).  Entry
 points run on the device ``"cuda"`` unless the caller passes
-``device="cpu"``.
+``device="cpu"`` (or a mesh, which runs on its devices).
 """
 
 from .config import DEFAULT_CONFIG, SolverConfig

@@ -17,9 +17,19 @@ The port's deltas from the JAX package's CLI:
 - ``--device {cuda,cpu}`` (default ``cuda``) takes the place of the JAX
   package's ``JAX_PLATFORMS``.  A ``cuda`` request without a card raises
   (``config.resolve_device``); nothing falls back to the CPU.
-- Multiple devices are not ported yet: ``--devices N`` with N > 1, and
-  ``--coordinator``, ``--num-processes`` or ``--process-id``, print so and
-  return 1.
+- ``--devices N`` shards the solve over a mesh (``dist.mesh``): on CUDA
+  N distinct cards (fewer than N visible prints so and returns 1, where
+  ``jax.make_mesh`` would cut the list), with ``--device cpu`` N logical
+  shards of the CPU (the JAX package's virtual CPU devices).  Without
+  ``--devices`` the run takes one device (one card a process), where the
+  JAX CLI takes every device: the port's mesh gathers the basis on the
+  lead card (the JAX package's stays sharded), so a mesh would not widen
+  what fits, and a run with a mesh never takes the streamed branch.
+  ``--coordinator``, ``--num-processes`` and
+  ``--process-id`` start ``torch.distributed`` (NCCL on CUDA, gloo on the
+  CPU; each process must see its own cards); they go together, and an
+  incomplete or inconsistent set prints so and returns 1.  Only process 0
+  writes the output file.
 - The output file's residual column is computed on the device in column
   chunks (``driver.residuals``), not in one pass over the whole basis,
   whose temporaries would not fit beside the largest resident solves.
@@ -88,16 +98,16 @@ def build_parser() -> argparse.ArgumentParser:
                    help="where the solve runs (default: cuda; no fallback "
                         "to the CPU)")
     p.add_argument("--devices", type=int, default=None,
-                   help="number of devices to shard over (only 1 is ported)")
+                   help="number of devices to shard over (default: one "
+                        "a process)")
     p.add_argument("--profile-dir", default=None,
                    help="write a torch.profiler trace to this directory")
     p.add_argument("--f32", action="store_true",
                    help="solve in float32 (~1e-5 residuals)")
-    # multi-host bootstrap of the JAX package (mpd.hosts / mpirun -f analog,
-    # Makefile:37): not ported
+    # multi-process bootstrap (mpd.hosts / mpirun -f analog, Makefile:37)
     p.add_argument("--coordinator", default=None,
-                   help="coordinator address for multi-host execution "
-                        "(not ported)")
+                   help="coordinator address (host:port) for "
+                        "multi-process execution")
     p.add_argument("--num-processes", type=int, default=None)
     p.add_argument("--process-id", type=int, default=None)
     return p
@@ -106,13 +116,55 @@ def build_parser() -> argparse.ArgumentParser:
 def _use_streamed(n: int, compute_ev: bool, select, device) -> bool:
     """The streamed branch's gate: all eigenvectors, no selection, a CUDA
     device, and 12 n^2 bytes (the resident route's f32 downsweep output
-    and f64 copy) above ``_STREAM_SHARE`` of ``usable_device_bytes``."""
+    and f64 copy) above ``_STREAM_SHARE`` of ``usable_device_bytes``.  A
+    run with a mesh never streams (the mesh shards the resident solve)."""
     import torch
 
     from .config import usable_device_bytes
     dev = torch.device(device)
     return (compute_ev and select is None and dev.type == "cuda"
             and 12.0 * float(n) * n > _STREAM_SHARE * usable_device_bytes(dev))
+
+
+def _process_flags_error(args) -> Optional[str]:
+    """Why the multi-process flags cannot start a run, or None: they go
+    together, with 0 <= process id < process count."""
+    given = (args.coordinator is not None, args.num_processes is not None,
+             args.process_id is not None)
+    if not any(given):
+        return None
+    if not all(given):
+        return ("--coordinator, --num-processes and --process-id must be "
+                "given together.")
+    if args.num_processes < 1 or not 0 <= args.process_id < \
+            args.num_processes:
+        return (f"--process-id {args.process_id} is outside [0, "
+                f"--num-processes {args.num_processes}).")
+    return None
+
+
+def _shard_count(args) -> int:
+    """The mesh's size: ``--devices``, else one device a process."""
+    import torch.distributed as dist
+    if args.devices is not None:
+        return args.devices
+    return dist.get_world_size() if dist.is_initialized() else 1
+
+
+def _make_run_mesh(ndev: int, dev):
+    """The mesh of ``ndev`` global shards on ``dev``'s type: distinct cards
+    on CUDA, logical shards of the CPU.  Raises ValueError when it cannot
+    be made."""
+    import torch.distributed as dist
+
+    from .dist.mesh import make_mesh
+    if dev.type == "cuda":
+        return make_mesh(ndev)
+    nproc = dist.get_world_size() if dist.is_initialized() else 1
+    if ndev % nproc:
+        raise ValueError(f"--devices {ndev} is not a multiple of the "
+                         f"{nproc} processes")
+    return make_mesh(devices=[dev] * (ndev // nproc))
 
 
 def main(argv: Optional[List[str]] = None) -> int:
@@ -128,15 +180,36 @@ def main(argv: Optional[List[str]] = None) -> int:
     if args.dim < 1:
         print("Invalid argument for option -n. See help.", file=sys.stderr)
         return 1
-    if ((args.devices is not None and args.devices > 1) or args.coordinator
-            or args.num_processes or args.process_id is not None):
-        print("Multi-GPU execution (--devices > 1, --coordinator, "
-              "--num-processes, --process-id) is not ported yet.",
+    if args.devices is not None and args.devices < 1:
+        print("Invalid argument for option --devices. See help.",
               file=sys.stderr)
+        return 1
+    why = _process_flags_error(args)
+    if why is not None:
+        print(why, file=sys.stderr)
         return 1
 
     # Heavy imports after arg validation (fast ``-h``).
     import torch
+    import torch.distributed as dist
+
+    if args.coordinator is not None:
+        from .dist.mesh import distributed_init
+        distributed_init(args.coordinator, args.num_processes,
+                         args.process_id,
+                         backend="nccl" if args.device == "cuda" else "gloo")
+    try:
+        return _run(args)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _run(args) -> int:
+    """The CLI's run after its flags are checked (and torch.distributed
+    started, for several processes)."""
+    import torch
+    import torch.distributed as dist
 
     from .config import SolverConfig, resolve_device
     from .core.tridiag import create_matrix_scheme1, create_matrix_scheme2
@@ -150,6 +223,14 @@ def main(argv: Optional[List[str]] = None) -> int:
 
     dev = resolve_device(args.device)
     dtype = torch.float32 if args.f32 else torch.float64
+    ndev, mesh = _shard_count(args), None
+    if ndev > 1:
+        try:
+            mesh = _make_run_mesh(ndev, dev)
+        except ValueError as exc:
+            print(f"Cannot shard over {ndev} devices: {exc}", file=sys.stderr)
+            return 1
+        dev = mesh.lead
 
     if args.inputfile is not None:
         print(f"Input file: {args.inputfile}")
@@ -182,7 +263,7 @@ def main(argv: Optional[List[str]] = None) -> int:
         print(f"Output file: {args.outputfile}")
 
     print()
-    print(f"Number of devices is: 1  (backend: {dev.type})")
+    print(f"Number of devices is: {ndev}  (backend: {dev.type})")
 
     selection = determine_eigenvectors_to_compute(compute_ev, ev_filename, n)
     select = None
@@ -203,7 +284,7 @@ def main(argv: Optional[List[str]] = None) -> int:
     res_vals = None
     computed_idx = None
     with maybe_profile(args.profile_dir):
-        if _use_streamed(n, compute_ev, select, dev):
+        if mesh is None and _use_streamed(n, compute_ev, select, dev):
             lam, blocks, timer = solve_tridiagonal_streamed(
                 d, e, config=config, timer=timer, device=dev)
             parts = []
@@ -219,7 +300,7 @@ def main(argv: Optional[List[str]] = None) -> int:
             result, timer = solve_tridiagonal_staged(
                 d, e, config=config,
                 compute_vectors=(compute_ev and select is None),
-                select=select, timer=timer, device=dev)
+                select=select, timer=timer, device=dev, mesh=mesh)
 
     print()
     print(timer.report())
@@ -230,8 +311,9 @@ def main(argv: Optional[List[str]] = None) -> int:
         if result.eigenvectors is not None:
             res_vals = residuals(d, e, result, select, chunk).cpu().numpy()
             computed_idx = select
-        write_results(args.outputfile, result.eigenvalues.cpu().numpy(),
-                      res_vals, computed_idx)
+        if not dist.is_initialized() or dist.get_rank() == 0:
+            write_results(args.outputfile, result.eigenvalues.cpu().numpy(),
+                          res_vals, computed_idx)
 
     print()
     print("Program finished successfully!")

@@ -32,11 +32,17 @@ route's): part A, the f32 downsweep and the first refinement pass, as one
 CUDA graph replay on CUDA; part B, the cluster orthonormalization planned
 on the host from the eigenvalues while part A runs, and the measured
 residuals, ending in one fetch.
+
+With a mesh (``dist/mesh.py``, ``mesh=`` on the entry points) the
+upsweep's levels are sharded over its devices by merge (or, for the few
+wide top merges, by root slot) and the downsweep by column; the
+refinement runs on the lead device on the gathered columns.
 """
 
 from __future__ import annotations
 
 import contextlib
+import functools
 import time
 from collections import OrderedDict
 from typing import NamedTuple, Optional
@@ -49,6 +55,8 @@ from .config import (DEFAULT_CONFIG, SolverConfig, resolve_device,
 from .core.tearing import tear
 from .core.tree import TreePlan, build_plan
 from .core.tridiag import residual_norms
+from .dist.mesh import (Replicas, agreed, batch_mapped, last_axis_sharded,
+                        replicated)
 from .kernels import cauchy_matmul, rotation_replay, spike_solve
 from .kernels.assemble import apply_u_level, assemble_u, rows_through_merge
 from .kernels.band_reduce import (apply_q2_wave_blocked, band_to_tridiag_wave,
@@ -58,7 +66,8 @@ from .kernels.refine import (_wide_orth, apply_cluster_orth_plan,
                              inverse_iteration, orth_explicit_qr,
                              orthonormalize_clusters, plan_cluster_orth)
 from .kernels.rotation_replay import planned_waves
-from .kernels.secular import merge_decompose, widened
+from .kernels.secular import (MergeRep, merge_decompose, merge_partition,
+                              merge_roots, widened)
 from .kernels.tridiagonalize import apply_q, tridiagonalize
 from .utils.timing import PhaseTimer, sync
 
@@ -89,22 +98,50 @@ def _sentinels(d, e, plan: TreePlan):
                                device=d.device) * (1e-3 * bound + 1e-3)
 
 
-def _upsweep(d, e, plan: TreePlan, config: SolverConfig):
+def _one_merge(x, i: int):
+    """Merge i of a level's k-batched MergePartition or MergeRep."""
+    return type(x)(*(t[i:i + 1] for t in x))
+
+
+def _upsweep(d, e, plan: TreePlan, config: SolverConfig, mesh=None):
     """Tear, solve leaves, and run all merge levels bottom-up.
 
-    Returns (reps, lam_top_sorted (padded_n,), Q_leaf)."""
+    With ``mesh`` (JAX ``driver.py:96-187``): tearing and the leaf blocks
+    run replicated on the lead device, the leaf eigensolves batch-sharded
+    over the leaves; a level whose merge count k divides the mesh (k >=
+    its size) runs ``merge_decompose`` and ``rows_through_merge``
+    batch-sharded over its merges, a wider one runs ``merge_partition``
+    replicated and ``merge_roots`` one merge at a time with its slots
+    sharded over the mesh (``slot_mesh``).  The sharded calls make the
+    single-device code's host fetches once a shard (the leaf eigensolve's,
+    ``rows_through_merge``'s rotation logs), and each waits for its own
+    card, so the batch-sharded levels run on the cards one after another.
+
+    Returns (reps, lam_top_sorted (padded_n,), Q_leaf) on the lead
+    device."""
     dev = d.device
-    d_t, betas, thetas = tear(d, e, plan)
-    A = leaf_blocks(d_t, e, plan, _sentinels(d, e, plan))
-    lam, Q = leaf_eigh_fn(plan.leaf_pad)(A)
+
+    def prep(d, e):
+        d_t, betas, thetas = tear(d, e, plan)
+        return leaf_blocks(d_t, e, plan, _sentinels(d, e, plan)), betas, thetas
+
+    A, betas, thetas = replicated(prep, mesh)(d, e)
     last_rows = torch.as_tensor(
         np.asarray(plan.leaf_sizes, dtype=np.int64) - 1, device=dev)
-    f = Q[:, 0, :]
-    l = Q[torch.arange(plan.num_leaves, device=dev), last_rows, :]
+    eigh_fn = leaf_eigh_fn(plan.leaf_pad)
+
+    def leaf_eigh(A, last_rows):
+        lam, Q = eigh_fn(A)
+        rows = torch.arange(A.shape[0], device=A.device)
+        return lam, Q, Q[:, 0, :], Q[rows, last_rows, :]
+
+    lam, Q, f, l = batch_mapped(leaf_eigh, mesh, plan.num_leaves)(A,
+                                                                   last_rows)
 
     reps = []
     L = plan.num_levels
     kw = _merge_kwargs(config)
+    ndev = mesh.size if mesh is not None else 1
     for li, lv in enumerate(plan.levels):
         k, m = lv.num_merges, lv.merge_size
         h = m // 2
@@ -115,13 +152,28 @@ def _upsweep(d, e, plan: TreePlan, config: SolverConfig):
         # z = [last row of W_left ; first row of W_right / theta]
         z = torch.cat([l2[:, 0, :], f2[:, 1, :] / theta[:, None]], dim=1)
         rho = betas[li] * theta          # = |beta| >= 0 by construction
-        rep = merge_decompose(lam2.reshape(k, m), z, rho, **kw)
+        dm = lam2.reshape(k, m)
+        if mesh is not None and (k < ndev or k % ndev):
+            # wide top-of-tree merges: the O(m) deflation replicates, the
+            # O(m^2) root finding is sharded over slots
+            part = replicated(functools.partial(
+                merge_partition, eps=kw["eps"],
+                deflation_factor=kw["deflation_factor"]), mesh)(dm, z, rho)
+            roots_kw = {key: kw[key] for key in (
+                "eps", "max_secular_iters", "secular_tol_factor",
+                "use_gu_eisenstat", "block_size")}
+            per_merge = [merge_roots(_one_merge(part, i), slot_mesh=mesh,
+                                     **roots_kw) for i in range(k)]
+            rep = MergeRep(*(torch.cat(fs) for fs in zip(*per_merge)))
+        else:
+            rep = batch_mapped(functools.partial(merge_decompose, **kw),
+                               mesh, k)(dm, z, rho)
         if li < L - 1:
             # propagate the subtree's first/last actual boundary rows
             zero = torch.zeros((k, h), dtype=d.dtype, device=dev)
             w = torch.stack([torch.cat([f2[:, 0, :], zero], dim=1),
                              torch.cat([zero, l2[:, 1, :]], dim=1)], dim=1)
-            y = rows_through_merge(rep, w)
+            y = batch_mapped(rows_through_merge, mesh, k)(rep, w)
             f, l = y[:, 0, :], y[:, 1, :]
         lam = rep.lam_sorted
         reps.append(rep)
@@ -149,7 +201,8 @@ def full_f32_matmul():
 
 
 def downsweep_stepped(reps, Q_leaf, plan: TreePlan, config: SolverConfig,
-                      sel, dtype: torch.dtype = torch.float64):
+                      sel, dtype: torch.dtype = torch.float64, mesh=None,
+                      replicas: Optional[Replicas] = None):
     """W[:, sel] = BD(Q_leaf) BD(U_{L-1}) ... U_root[:, sel] in ``dtype``,
     one level at a time and in column chunks of ``config.vec_chunk``
     (columns are independent end to end).  Each step drops its input before
@@ -157,7 +210,27 @@ def downsweep_stepped(reps, Q_leaf, plan: TreePlan, config: SolverConfig,
 
     dtype float32 (the mixed path): the root U through
     ``cauchy_materialize``, every other level through ``cauchy_matmul``,
-    the leaf product in full f32."""
+    the leaf product in full f32.
+
+    ``mesh`` (JAX ``driver.py:367-434``): when C is a multiple of its size
+    (C >= it), column-sharded: each shard sweeps its own contiguous C/ndev
+    columns end to end on its device, on copies of the O(n) ``reps`` and
+    ``Q_leaf`` (``replicas``: those copies made once by the caller, as
+    ``Replicas(mesh, (reps, Q_leaf))``, for several calls of one solve),
+    and the columns are gathered on the lead device with no other
+    collective; otherwise the sweep runs on the lead device."""
+    if mesh is not None:
+        C = int(sel.shape[0])
+        if C % mesh.size == 0 and C >= mesh.size:
+            if replicas is None:
+                replicas = Replicas(mesh, (reps, Q_leaf))
+
+            def shard(rq, cols):
+                return downsweep_stepped(rq[0], rq[1], plan, config, cols,
+                                         dtype)
+
+            return last_axis_sharded(shard, mesh, (None, 1), 2)(replicas,
+                                                               sel)
     n, C = plan.n, int(sel.shape[0])
     dev = Q_leaf.device
     block = config.block_size
@@ -395,7 +468,8 @@ def _group_width(n: int, config: SolverConfig, device) -> int:
 
 
 def _grouped_downsweep_refine(reps, Q, d, e, lam, sel, plan: TreePlan,
-                              config: SolverConfig, subtimer: PhaseTimer):
+                              config: SolverConfig, subtimer: PhaseTimer,
+                              mesh=None):
     """Column-grouped f32 downsweep + first refinement pass, for solves
     whose whole f32 downsweep output and f64 refined copy (12*n*C bytes)
     crowd the device.  Columns are independent through both steps, so each
@@ -409,18 +483,25 @@ def _grouped_downsweep_refine(reps, Q, d, e, lam, sel, plan: TreePlan,
 
     PyTorch's caching allocator reuses a freed group's blocks in stream
     order, so one group's working set is live at a time without the host
-    sync the JAX package needs between groups."""
+    sync the JAX package needs between groups.
+
+    ``mesh``: each group's downsweep is column-sharded over it (the reps
+    and Q_leaf copied to the shards once for all groups; the width the
+    least over the mesh's processes, so all make the same gathers); the
+    refinement pass runs on the lead device."""
     n = plan.n
     C = int(sel.shape[0])
     one_pass, _ = _refine_ops(d, e, n, config)
-    g = _group_width(n, config, d.device)
+    g = int(agreed(mesh, _group_width(n, config, d.device)))
     lam_sel = lam[sel]
     X = torch.empty((n, C), dtype=d.dtype, device=d.device)
     res_parts = []
+    replicas = Replicas(mesh, (reps, Q)) if mesh is not None else None
     with subtimer.phase("downsweep_refine_grouped"):
         for o in range(0, C, g):
             Vg = downsweep_stepped(reps, Q, plan, config, sel[o:o + g],
-                                   dtype=torch.float32)
+                                   dtype=torch.float32, mesh=mesh,
+                                   replicas=replicas)
             Xg, rg = one_pass(lam_sel[o:o + g], Vg, config.refine_block)
             del Vg
             X[:, o:o + g].copy_(Xg)
@@ -450,12 +531,12 @@ graph_replays = 0
 
 
 def _fused_bt_enabled(n: int, config: SolverConfig, leaf_only: bool,
-                      want_vectors: bool, C: int) -> bool:
+                      want_vectors: bool, C: int, mesh=None) -> bool:
     """Gate of the fused small-n backtransform (part A as one CUDA graph,
-    part B ending in one fetch): vectors of a tree with merges, the mixed
-    config with triage (refine_steps > 1), C > 1 columns and n <= 8192,
-    and ``FUSED_BT_OVERRIDE``."""
-    if not want_vectors or leaf_only:
+    part B ending in one fetch): vectors of a tree with merges on one
+    device (no ``mesh``), the mixed config with triage (refine_steps > 1),
+    C > 1 columns and n <= 8192, and ``FUSED_BT_OVERRIDE``."""
+    if not want_vectors or leaf_only or mesh is not None:
         return False
     if not config.mixed_precision_vectors or config.refine_steps <= 1:
         return False
@@ -686,7 +767,7 @@ def _fused_backtransform(reps, Q, d, e, lam, sel, plan: TreePlan,
 
 def _backtransform(reps, Q, d, e, lam, cols, plan: TreePlan,
                    config: SolverConfig, mixed: bool, sub: PhaseTimer,
-                   fused: bool = True):
+                   fused: bool = True, mesh=None):
     """Eigenvector columns ``cols`` of the prescaled system: the leaf's own
     vectors when there is no merge, the f64 downsweep, or (``mixed``) the
     f32 downsweep and the refinement epilogue: fused
@@ -699,29 +780,35 @@ def _backtransform(reps, Q, d, e, lam, cols, plan: TreePlan,
     f64 and the f64 mode's route runs on them, the same kernels at the same
     shapes (they are f64-only, as the JAX package's); the columns come back
     rounded to f32.  The refinement's thresholds read ``config.eps()`` (the
-    f32 unit roundoff) and u_f32, as the JAX package reads them."""
+    f32 unit roundoff) and u_f32, as the JAX package reads them.
+
+    ``mesh``: the downsweep is column-sharded over it
+    (:func:`downsweep_stepped`); the refinement runs on the lead device
+    on the gathered columns, as the JAX package's refinement, whose kernel
+    calls are not sharded either; the fused route is closed."""
     if d.dtype != torch.float64:
         reps = None if reps is None else [widened(rep) for rep in reps]
         f64 = [t.to(torch.float64) for t in (Q, d, e, lam)]
         return _backtransform(reps, *f64, cols, plan, config, mixed,
-                              sub, fused).to(d.dtype)
+                              sub, fused, mesh).to(d.dtype)
     n = plan.n
     if reps is None:
         return Q[0][:n, :n][:, cols]
     if not mixed:
-        return downsweep_stepped(reps, Q, plan, config, cols)
+        return downsweep_stepped(reps, Q, plan, config, cols, mesh=mesh)
     if fused and _fused_bt_enabled(n, config, False, True,
-                                   int(cols.shape[0])):
+                                   int(cols.shape[0]), mesh):
         return _fused_backtransform(reps, Q, d, e, lam, cols, plan, config,
                                     sub)
-    if 12.0 * n * int(cols.shape[0]) > _grouped_bt_bytes(d.device):
+    if 12.0 * n * int(cols.shape[0]) > agreed(mesh,
+                                              _grouped_bt_bytes(d.device)):
         V, res1_dev = _grouped_downsweep_refine(reps, Q, d, e, lam, cols,
-                                                plan, config, sub)
+                                                plan, config, sub, mesh)
         return _refine_vectors(d, e, lam, cols, V, config, subtimer=sub,
                                pass1_done=True, res1_dev=res1_dev)
     with sub.phase("downsweep"):
         V = downsweep_stepped(reps, Q, plan, config, cols,
-                              dtype=torch.float32)
+                              dtype=torch.float32, mesh=mesh)
     return _refine_vectors(d, e, lam, cols, V, config, subtimer=sub)
 
 
@@ -733,42 +820,60 @@ def _prescale(d, e):
 
 
 def _eigenvalues(d, e, plan: TreePlan, config: SolverConfig,
-                 timer: PhaseTimer):
+                 timer: PhaseTimer, mesh=None):
     """The timed eigenvalue phase: (reps or None, lam (n,), Q_leaf)."""
     with timer.phase("eigenvalues"):
         if plan.num_levels == 0:
             lam_flat, Q = _upsweep_leaf_only(d, e, plan)
             reps = None
         else:
-            reps, lam_flat, Q = _upsweep(d, e, plan, config)
+            reps, lam_flat, Q = _upsweep(d, e, plan, config, mesh)
     return reps, lam_flat[:plan.n], Q
 
 
 def _solve_scaled(d, e, sel, plan: TreePlan, config: SolverConfig,
-                  want_vectors: bool, timer: PhaseTimer, mixed: bool):
-    reps, lam, Q = _eigenvalues(d, e, plan, config, timer)
+                  want_vectors: bool, timer: PhaseTimer, mixed: bool,
+                  mesh=None):
+    reps, lam, Q = _eigenvalues(d, e, plan, config, timer, mesh)
     if not want_vectors:
         return lam, None
     cols = sel if sel is not None else torch.arange(plan.n, device=d.device)
-    sub = PhaseTimer(d.device)
+    sub = PhaseTimer(timer.device)
     with timer.phase("backtransformation"):
         V = _backtransform(reps, Q, d, e, lam, cols, plan, config, mixed,
-                           sub)
+                           sub, mesh=mesh)
     timer.times.update({f"bt.{k}": v for k, v in sub.times.items()})
     timer.counts.update(sub.counts)
     return lam, V
 
 
 def _solve(d, e, sel, plan: TreePlan, config: SolverConfig,
-           want_vectors: bool, timer: PhaseTimer, mixed: bool = False):
+           want_vectors: bool, timer: PhaseTimer, mixed: bool = False,
+           mesh=None):
     d, e, snorm = _prescale(d, e)
     lam, V = _solve_scaled(d, e, sel, plan, config, want_vectors, timer,
-                           mixed)
+                           mixed, mesh)
     return lam * snorm, V
 
 
-def _inputs(d, e, config: SolverConfig, device, select):
-    dev = resolve_device(device if device is not None else config.device)
+def _run_device(config: SolverConfig, device, mesh) -> torch.device:
+    """The device an entry point runs on: ``device``, else the mesh's lead
+    device, else ``config.device``; a ``device`` other than the mesh's
+    lead raises."""
+    if mesh is None:
+        return resolve_device(device if device is not None
+                              else config.device)
+    dev = None if device is None else resolve_device(device)
+    if dev is not None and dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    if dev is not None and dev != mesh.lead:
+        raise ValueError(f"device={device!r} is not the mesh's lead device "
+                         f"{mesh.lead}")
+    return mesh.lead
+
+
+def _inputs(d, e, config: SolverConfig, device, select, mesh=None):
+    dev = _run_device(config, device, mesh)
     d = torch.as_tensor(d, dtype=config.dtype).to(dev)
     e = torch.as_tensor(e, dtype=config.dtype).to(dev)
     n = int(d.shape[0])
@@ -786,17 +891,19 @@ def _inputs(d, e, config: SolverConfig, device, select):
     return d, e, sel
 
 
-def _run_timer(timer: Optional[PhaseTimer], dev) -> PhaseTimer:
+def _run_timer(timer: Optional[PhaseTimer], dev, mesh=None) -> PhaseTimer:
+    """``timer`` (or a new one) syncing the run's device, or every device
+    of ``mesh``, at the end of each phase."""
     if timer is None:
-        timer = PhaseTimer(dev)
-    timer.device = dev
+        timer = PhaseTimer()
+    timer.device = dev if mesh is None else mesh.devices
     return timer
 
 
 def solve_tridiagonal_staged(d, e, *, config: SolverConfig = DEFAULT_CONFIG,
                              compute_vectors: bool = False, select=None,
                              timer: Optional[PhaseTimer] = None,
-                             device=None):
+                             device=None, mesh=None):
     """All eigenvalues (and optionally eigenvectors) of symmetric tridiagonal
     T with the eigenvalue phase and the backtransformation timed apart.
 
@@ -806,8 +913,14 @@ def solve_tridiagonal_staged(d, e, *, config: SolverConfig = DEFAULT_CONFIG,
       select: optional 0-based indices (ascending eigenvalue order) of the
         eigenvectors to compute.
       timer: a PhaseTimer to record "eigenvalues" / "backtransformation".
-      device: "cuda" or "cpu" (default: ``config.device``).  CUDA without a
-        card raises; nothing falls back to the CPU.
+      device: "cuda" or "cpu" (default: ``config.device``, or the mesh's
+        lead device).  CUDA without a card raises; nothing falls back to
+        the CPU.
+      mesh: optional ``dist.mesh.Mesh`` for multi-device execution: the
+        upsweep's levels sharded by merge or by slot, the downsweep by
+        column, the refinement on the lead device, where the results
+        are; ``device`` may only name that device.  Every process of a
+        multi-process mesh gets the whole result.
 
     Returns ``(EighTridiagonalResult, timer)`` in ``config.dtype`` (f32
     mode: the eigenvalue phase in f32, its kernels on widened operands;
@@ -825,12 +938,12 @@ def solve_tridiagonal_staged(d, e, *, config: SolverConfig = DEFAULT_CONFIG,
     run per column group ("bt.downsweep_refine_grouped").
     """
     want_vectors = compute_vectors or (select is not None)
-    d, e, sel = _inputs(d, e, config, device, select)
+    d, e, sel = _inputs(d, e, config, device, select, mesh)
     n = int(d.shape[0])
     plan = build_plan(n, config.resolved_leaf_size(n), config.max_leaves)
-    timer = _run_timer(timer, d.device)
+    timer = _run_timer(timer, d.device, mesh)
     lam, V = _solve(d, e, sel, plan, config, want_vectors, timer,
-                    mixed=config.mixed_precision_vectors)
+                    mixed=config.mixed_precision_vectors, mesh=mesh)
     return EighTridiagonalResult(eigenvalues=lam, eigenvectors=V), timer
 
 
@@ -847,7 +960,7 @@ def solve_tridiagonal_streamed(d, e, *, config: SolverConfig = DEFAULT_CONFIG,
     orthonormalize the same columns the same way, so the owned halves stay
     mutually orthogonal; the tests and ``chip_smoke.py`` measure each
     block's Gram and its cross-Gram with the previous block.  One device by
-    design.
+    design (it takes no mesh: the mesh shards the resident solve).
 
     Returns ``(lam, blocks, timer)``: ``lam`` the (n,) ascending
     eigenvalues (as :func:`solve_tridiagonal_staged` returns them),
@@ -897,26 +1010,27 @@ def solve_tridiagonal_streamed(d, e, *, config: SolverConfig = DEFAULT_CONFIG,
 
 def solve_tridiagonal(d, e, *, config: SolverConfig = DEFAULT_CONFIG,
                       compute_vectors: bool = False, select=None,
-                      device=None) -> EighTridiagonalResult:
+                      device=None, mesh=None) -> EighTridiagonalResult:
     """All eigenvalues (and optionally eigenvectors) of symmetric tridiagonal
     T, eigenvectors from the f64 downsweep (as the JAX package's off-TPU
     single-jit path, whatever ``mixed_precision_vectors`` says), returned in
     ``config.dtype``.  Arguments as
     :func:`solve_tridiagonal_staged`."""
-    d, e, sel = _inputs(d, e, config, device, select)
+    d, e, sel = _inputs(d, e, config, device, select, mesh)
     n = int(d.shape[0])
     plan = build_plan(n, config.resolved_leaf_size(n), config.max_leaves)
     want_vectors = compute_vectors or (select is not None)
     lam, V = _solve(d, e, sel, plan, config, want_vectors,
-                    PhaseTimer(d.device))
+                    _run_timer(None, d.device, mesh), mesh=mesh)
     return EighTridiagonalResult(eigenvalues=lam, eigenvectors=V)
 
 
 def eigh_tridiagonal(d, e, *, config: SolverConfig = DEFAULT_CONFIG,
-                     eigvals_only: bool = False, device=None):
+                     eigvals_only: bool = False, device=None, mesh=None):
     """scipy-style convenience wrapper: returns lam or (lam, V)."""
     res = solve_tridiagonal(d, e, config=config,
-                            compute_vectors=not eigvals_only, device=device)
+                            compute_vectors=not eigvals_only, device=device,
+                            mesh=mesh)
     if eigvals_only:
         return res.eigenvalues
     return res.eigenvalues, res.eigenvectors
@@ -929,7 +1043,7 @@ def _bucket_count(n: int) -> int:
 
 def eigh(A, *, config: SolverConfig = DEFAULT_CONFIG,
          eigvals_only: bool = False, panel: int = 32, band: int = 0,
-         device=None, timer: Optional[PhaseTimer] = None):
+         device=None, timer: Optional[PhaseTimer] = None, mesh=None):
     """Dense symmetric eigensolver: Householder tridiagonalization front end
     (kernels/tridiagonalize.py) + :func:`solve_tridiagonal_staged` (so
     ``config.mixed_precision_vectors`` decides how the tridiagonal
@@ -945,16 +1059,18 @@ def eigh(A, *, config: SolverConfig = DEFAULT_CONFIG,
     without a card raises.  ``timer`` records "dense.tridiagonalize" (or
     "dense.reduce_to_band" and "dense.band_to_tridiag"), the tridiagonal
     solve's "eigenvalues" and "backtransformation", and "dense.apply_q"
-    (after "dense.apply_q2" on the two-stage path).
+    (after "dense.apply_q2" on the two-stage path).  ``mesh``: passed to
+    the tridiagonal solve (:func:`solve_tridiagonal_staged`); the
+    reductions and the reflector backtransform run on its lead device.
     """
-    dev = resolve_device(device if device is not None else config.device)
+    dev = _run_device(config, device, mesh)
     A = torch.as_tensor(A, dtype=config.dtype).to(dev)
     if A.ndim != 2 or A.shape[0] != A.shape[1] or A.shape[0] < 1:
         raise ValueError(f"A must be square and non-empty, got "
                          f"{tuple(A.shape)}")
     n = int(A.shape[0])
     band = int(band)
-    timer = _run_timer(timer, dev)
+    timer = _run_timer(timer, dev, mesh)
     want_vectors = not eigvals_only
     vlog = None
     if band > 0:
@@ -971,7 +1087,7 @@ def eigh(A, *, config: SolverConfig = DEFAULT_CONFIG,
     del A       # a device copy of a host input is dead from here on
     res, _ = solve_tridiagonal_staged(d, e, config=config,
                                       compute_vectors=want_vectors,
-                                      timer=timer, device=dev)
+                                      timer=timer, device=dev, mesh=mesh)
     if eigvals_only:
         return res.eigenvalues
     W = res.eigenvectors
@@ -987,7 +1103,7 @@ def eigh(A, *, config: SolverConfig = DEFAULT_CONFIG,
 def eigh_banded(a_band, *, lower: bool = False,
                 config: SolverConfig = DEFAULT_CONFIG,
                 eigvals_only: bool = False, device=None,
-                timer: Optional[PhaseTimer] = None):
+                timer: Optional[PhaseTimer] = None, mesh=None):
     """All eigenpairs of a real symmetric BANDED matrix, from LAPACK-style
     band storage (``scipy.linalg.eig_banded`` conventions).
 
@@ -999,8 +1115,8 @@ def eigh_banded(a_band, *, lower: bool = False,
         Entries outside the valid range are ignored.
       lower: which form ``a_band`` uses.
       eigvals_only: skip eigenvectors.
-      device, timer: as :func:`eigh` (the chase is "dense.band_to_tridiag",
-        the backtransform "dense.apply_q2").
+      device, timer, mesh: as :func:`eigh` (the chase is
+        "dense.band_to_tridiag", the backtransform "dense.apply_q2").
 
     Returns ``lam`` or ``(lam, V)`` with eigenvalues ascending.
 
@@ -1009,7 +1125,7 @@ def eigh_banded(a_band, *, lower: bool = False,
     matrix prescaled to max|A| = 1 and transforms eigenvectors back through
     the reflector log.
     """
-    dev = resolve_device(device if device is not None else config.device)
+    dev = _run_device(config, device, mesh)
     if isinstance(a_band, torch.Tensor):
         a_band = a_band.detach().cpu().numpy()
     a_band = np.asarray(a_band)
@@ -1019,7 +1135,7 @@ def eigh_banded(a_band, *, lower: bool = False,
     n = int(a_band.shape[1])
     if n == 0:
         raise ValueError("empty matrix")
-    timer = _run_timer(timer, dev)
+    timer = _run_timer(timer, dev, mesh)
     want_vectors = not eigvals_only
 
     def diag_k(k):
@@ -1038,7 +1154,8 @@ def eigh_banded(a_band, *, lower: bool = False,
     if u == 1:
         res, _ = solve_tridiagonal_staged(
             np.array(diag_k(0)), np.array(diag_k(1)), config=config,
-            compute_vectors=want_vectors, timer=timer, device=dev)
+            compute_vectors=want_vectors, timer=timer, device=dev,
+            mesh=mesh)
         if eigvals_only:
             return res.eigenvalues
         return res.eigenvalues, res.eigenvectors
@@ -1058,7 +1175,7 @@ def eigh_banded(a_band, *, lower: bool = False,
         del B
     res, _ = solve_tridiagonal_staged(d, e, config=config,
                                       compute_vectors=want_vectors,
-                                      timer=timer, device=dev)
+                                      timer=timer, device=dev, mesh=mesh)
     if eigvals_only:
         return res.eigenvalues * s
     with timer.phase("dense.apply_q2"):

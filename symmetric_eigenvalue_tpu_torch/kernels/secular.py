@@ -21,6 +21,7 @@ from typing import Callable, NamedTuple
 
 import torch
 
+from ..dist.mesh import last_axis_sharded
 from .secular_sums import RootSetup, secular_solve, secular_sums
 
 
@@ -78,20 +79,43 @@ class MergePartition(NamedTuple):
     nwave: torch.Tensor
 
 
-def map_slot_blocks(fn: Callable, m: int, block: int, device) -> torch.Tensor:
-    """Run ``fn(slot_indices)`` over contiguous blocks of [0, m) and
+def _slot_chunks(fn, slots, block: int, args) -> torch.Tensor:
+    """``fn(slot_block, *args)`` over contiguous blocks of ``slots``,
+    concatenated along dim 1; the block is |slots| halved while it exceeds
+    ``block`` (the JAX package's rule)."""
+    ms = slots.shape[0]
+    B = ms
+    while B > block and B % 2 == 0:
+        B //= 2
+    B = max(1, min(B, ms))
+    if B == ms:
+        return fn(slots, *args)
+    return torch.cat([fn(slots[o:o + B], *args) for o in range(0, ms, B)],
+                     dim=1)
+
+
+def map_slot_blocks(fn: Callable, m: int, block: int, device, mesh=None,
+                    args=()) -> torch.Tensor:
+    """Run ``fn(slot_indices, *args)`` over contiguous blocks of [0, m) and
     concatenate along dim 1 (the slot dimension of (k, m, ...) results).
 
     Bounds live memory to O(k * block * m) in the O(m^2) phases; the block
-    is m halved while it exceeds ``block`` (the JAX package's rule)."""
-    B = m
-    while B > block and B % 2 == 0:
-        B //= 2
-    B = max(1, min(B, m))
+    is m halved while it exceeds ``block`` (the JAX package's rule).
+
+    With ``mesh`` (and m a multiple of its size), [0, m) is first split
+    into contiguous slot ranges over the shards (``last_axis_sharded``):
+    each shard runs its own blocks on its device, on copies of ``args``
+    (the O(m) tensors ``fn`` reads; it reads no other tensor), and the
+    (k, m) results are gathered on the lead device.  This is how the wide
+    top-of-tree merges use the whole mesh."""
     slots = torch.arange(m, device=device)
-    if B == m:
-        return fn(slots)
-    return torch.cat([fn(slots[o:o + B]) for o in range(0, m, B)], dim=1)
+    if mesh is not None and m % mesh.size == 0 and m >= mesh.size:
+        def shard(sl, *a):
+            return _slot_chunks(fn, sl, block, a)
+
+        return last_axis_sharded(shard, mesh, (1,) + (None,) * len(args),
+                                 2)(slots, *args)
+    return _slot_chunks(fn, slots, block, args)
 
 
 def inverse_permutation(perm):
@@ -240,32 +264,35 @@ def merge_partition(d, z, rho, *, eps: float,
                           rot_s=rs, rot_wave=rw, nrot=nrot, nwave=nwave)
 
 
-def _root_setup(poles_sec, zu, rho_e, K, active):
-    """The root finder's state before its iteration, for every root of every
-    merge of the level: one midpoint sweep (``secular_sums``) picks each
-    root's nearest pole as its shift, and the bracket of tau = lambda -
-    d_shift, the starting tau and the middle-way model's bracket poles
-    follow.
+def _root_setup(poles_sec, zu, rho_e, K, active, slots=None):
+    """The root finder's state before its iteration, for the roots at
+    ``slots`` ((B,) slot indices; None: every slot) of every merge of the
+    level: one midpoint sweep (``secular_sums``) picks each root's nearest
+    pole as its shift, and the bracket of tau = lambda - d_shift, the
+    starting tau and the middle-way model's bracket poles follow.
 
     For active slot i (rho_e > 0) the root lies in (d_i, d_{i+1}), or in
     (d_{K-1}, d_{K-1} + rho_e] for the exterior root.  Returns (RootSetup,
-    shift_idx)."""
+    shift_idx) with the per-root fields (k, B); each root's fields are
+    bit for bit the same whatever ``slots`` holds besides it."""
     k, m = poles_sec.shape
     dev = poles_sec.device
-    idx = torch.arange(m, device=dev)
-    sl = idx.expand(k, m).contiguous()
+    idx = torch.arange(m, device=dev) if slots is None else slots
+    B = idx.shape[0]
+    sl = idx.expand(k, B).contiguous()
     last = (K - 1).clamp(min=0)
     d_last = poles_sec.gather(1, last[:, None])
     rho_pos = rho_e.clamp(min=1e-30)[:, None]
     rho = rho_e[:, None]
-    nxt = (idx + 1).clamp(max=m - 1).expand(k, m)
+    own = poles_sec.gather(1, sl)
+    nxt = (idx + 1).clamp(max=m - 1).expand(k, B)
     interior = (idx + 1)[None, :] < K[:, None]
     right = torch.where(interior, poles_sec.gather(1, nxt), d_last + rho_pos)
-    gap = right - poles_sec
+    gap = right - own
     gap = torch.where(gap > 0, gap, torch.ones_like(gap))
     zu2 = zu * zu
 
-    mid = poles_sec + 0.5 * gap
+    mid = own + 0.5 * gap
     S1mid = secular_sums(poles_sec, zu2, mid, torch.zeros_like(mid), sl, K)[0]
     fmid = 1.0 + rho * S1mid
     is_exterior = idx[None, :] == (K - 1)[:, None]
@@ -280,16 +307,53 @@ def _root_setup(poles_sec, zu, rho_e, K, active):
     zs2 = zu2.gather(1, shift_idx)
     # bracket poles for the middle-way model: delta_lo at slot sl, delta_hi
     # at sl+1 (or a far fake pole for the exterior root)
-    delta_lo = poles_sec - shift_val
+    delta_lo = own - shift_val
     delta_hi = torch.where(interior, poles_sec.gather(1, nxt) - shift_val,
                            4.0 * (torch.abs(gap) + 1.0))
     setup = RootSetup(poles_sec=poles_sec, zu2=zu2, rho_e=rho_e, K=K,
                       shift_val=shift_val, zs2=zs2, lo=lo, hi=hi, tau0=tau0,
-                      delta_lo=delta_lo, delta_hi=delta_hi, done0=~active)
+                      delta_lo=delta_lo, delta_hi=delta_hi,
+                      done0=~active.gather(1, sl))
     return setup, shift_idx
 
 
-def _solve_roots(poles_sec, zu, rho_e, K, active, eps, max_iters, tol_factor):
+_PER_ROOT = ("shift_val", "zs2", "lo", "hi", "tau0", "delta_lo", "delta_hi")
+
+
+def _embedded(setup: RootSetup, slots, m: int) -> RootSetup:
+    """A (k, B) setup of the roots at ``slots`` as the (k, m) setup that
+    ``secular_solve`` takes: every other root done before it starts (its
+    fields 0), so its block of 32 roots leaves at once."""
+    k = setup.poles_sec.shape[0]
+    fields = setup._asdict()
+    for name in _PER_ROOT:
+        full = setup.poles_sec.new_zeros((k, m))
+        full[:, slots] = fields[name]
+        fields[name] = full
+    done0 = torch.ones((k, m), dtype=torch.bool, device=slots.device)
+    done0[:, slots] = setup.done0
+    fields["done0"] = done0
+    return RootSetup(**fields)
+
+
+def _solve_slot_roots(slots, poles_sec, zu, rho_e, K, active, tolf,
+                      max_iters):
+    """tau, shift_idx and shift_val (each (k, B)) of the roots at ``slots``
+    (None: all): their setup, then one ``secular_solve`` over the level
+    with every other root done.  A root's iteration reads only its own
+    state, so each tau is bit for bit the one an all-slot solve gives."""
+    setup, shift_idx = _root_setup(poles_sec, zu, rho_e, K, active, slots)
+    if slots is not None and slots.shape[0] < poles_sec.shape[1]:
+        tau, _ = secular_solve(_embedded(setup, slots, poles_sec.shape[1]),
+                               tolf, max_iters)
+        tau = tau[:, slots]
+    else:
+        tau, _ = secular_solve(setup, tolf, max_iters)
+    return tau, shift_idx, setup.shift_val
+
+
+def _solve_roots(poles_sec, zu, rho_e, K, active, eps, max_iters, tol_factor,
+                 slot_mesh=None):
     """Safeguarded Newton / middle-way iteration on the shifted secular
     equation, for every root of every merge of the level at once.
 
@@ -303,50 +367,86 @@ def _solve_roots(poles_sec, zu, rho_e, K, active, eps, max_iters, tol_factor):
     host sync); CPU tensors run its plain version.  Returns (tau, shift_idx,
     shift_val) in the poles' dtype.
 
+    ``slot_mesh``: the slots [0, m) split over the mesh's shards (m a
+    multiple of its size), each shard setting up and solving its own roots
+    on its device (:func:`_solve_slot_roots`), the results gathered on the
+    lead device: bit for bit the unsharded tau.
+
     f32 mode: the kernels are f64-only (as the JAX package's, which run
     only in f64), so the setup and the iteration take the operands widened
     to f64 and tau comes back rounded to f32; the tolerance is still the
     f32 ``eps`` the caller passes.
     """
     dt = poles_sec.dtype
+    m = poles_sec.shape[1]
+    args = (*(t.to(torch.float64) for t in (poles_sec, zu, rho_e)), K,
+            active)
     with torch.profiler.record_function("secular.solve_roots"):
-        setup, shift_idx = _root_setup(*(t.to(torch.float64) for t in (
-            poles_sec, zu, rho_e)), K, active)
-        tau, _ = secular_solve(setup, tol_factor * eps, max_iters)
-    return tau.to(dt), shift_idx, setup.shift_val.to(dt)
+        if (slot_mesh is not None and m % slot_mesh.size == 0
+                and m >= slot_mesh.size):
+            def shard(slots, *a):
+                return _solve_slot_roots(slots, *a, tol_factor * eps,
+                                         max_iters)
+
+            tau, shift_idx, shift_val = last_axis_sharded(
+                shard, slot_mesh, (1,) + (None,) * len(args), 2)(
+                torch.arange(m, device=poles_sec.device), *args)
+        else:
+            tau, shift_idx, shift_val = _solve_slot_roots(
+                None, *args, tol_factor * eps, max_iters)
+    return tau.to(dt), shift_idx, shift_val.to(dt)
 
 
-def _gu_eisenstat_z(poles_sec, zu, tau, shift_val, active, block):
+def _z2_block(js, poles_sec, shift_val, tau, active):
+    """zhat^2 at the poles ``js`` by the Lowner product (see
+    :func:`_gu_eisenstat_z`): (k, |js|)."""
+    m = poles_sec.shape[1]
+    idx = torch.arange(m, device=poles_sec.device)
+    pj = poles_sec[:, js]                                       # (k, J)
+    A = (shift_val[:, :, None] - pj[:, None, :]) + tau[:, :, None]
+    Bm = poles_sec[:, :, None] - pj[:, None, :]
+    use = active[:, :, None] & (idx[:, None] != js[None, :])[None]
+    B_safe = torch.where(use, Bm, torch.ones_like(Bm))
+    ratio = torch.where(use, A / B_safe, torch.ones_like(A))
+    prod = torch.prod(ratio, dim=1)
+    lam_minus_d = (shift_val[:, js] - pj) + tau[:, js]
+    return prod * lam_minus_d
+
+
+def _gu_eisenstat_z(poles_sec, zu, tau, shift_val, active, block,
+                    slot_mesh=None):
     """Recompute z so the computed lambdas are *exact* eigenvalues of the
     model (Lowner formula; LAPACK dlaed3):
 
     zhat_j^2 = prod_{k active, k != j} (lam_k - d_j)/(d_k - d_j) * (lam_j - d_j)
 
-    with lam_k - d_j evaluated as (shift_k - d_j) + tau_k.  Per j-block."""
-    k, m = poles_sec.shape
-    idx = torch.arange(m, device=poles_sec.device)
-
-    def j_block(js):
-        pj = poles_sec[:, js]                                   # (k, J)
-        A = (shift_val[:, :, None] - pj[:, None, :]) + tau[:, :, None]
-        Bm = poles_sec[:, :, None] - pj[:, None, :]
-        use = active[:, :, None] & (idx[:, None] != js[None, :])[None]
-        B_safe = torch.where(use, Bm, torch.ones_like(Bm))
-        ratio = torch.where(use, A / B_safe, torch.ones_like(A))
-        prod = torch.prod(ratio, dim=1)
-        lam_minus_d = (shift_val[:, js] - pj) + tau[:, js]
-        return prod * lam_minus_d
-
-    z2 = map_slot_blocks(j_block, m, block, poles_sec.device)
+    with lam_k - d_j evaluated as (shift_k - d_j) + tau_k.  Per j-block,
+    the blocks sharded over ``slot_mesh`` when given."""
+    m = poles_sec.shape[1]
+    z2 = map_slot_blocks(_z2_block, m, block, poles_sec.device,
+                         mesh=slot_mesh,
+                         args=(poles_sec, shift_val, tau, active))
     zhat = torch.sign(zu) * torch.sqrt(z2.clamp(min=0.0))
     return torch.where(active, zhat, torch.zeros_like(zhat))
 
 
+def _norm_block(sl, poles_sec, shift_val, tau, zvec):
+    """Column norms N_i = ||zhat_j / (d_j - lam_i)|| of the roots ``sl``,
+    ratio first: (k, |sl|)."""
+    dif = ((poles_sec[:, None, :] - shift_val[:, sl, None])
+           - tau[:, sl, None])
+    ratio = zvec[:, None, :] / dif
+    return torch.sqrt(torch.sum(ratio * ratio, dim=2))
+
+
 def merge_roots(part: MergePartition, *, eps: float, max_secular_iters: int,
                 secular_tol_factor: float, use_gu_eisenstat: bool,
-                block_size: int = 2048) -> MergeRep:
+                block_size: int = 2048, slot_mesh=None) -> MergeRep:
     """Stage 2: the O(m^2) slot-parallel work — root finding, Gu-Eisenstat z,
-    column norms, eigenvalue order."""
+    column norms, eigenvalue order.  With ``slot_mesh`` the first three are
+    sharded over the mesh's shards by slot (each shard's roots, z entries
+    and norms on its device, gathered on the lead device); the eigenvalue
+    order runs on the lead device."""
     da = part.poles
     poles_sec = part.poles_sec
     k, m = da.shape
@@ -355,21 +455,16 @@ def merge_roots(part: MergePartition, *, eps: float, max_secular_iters: int,
 
     tau, shift_idx, shift_val = _solve_roots(
         poles_sec, part.zu, part.rho_e, part.K, active, eps,
-        max_secular_iters, secular_tol_factor)
+        max_secular_iters, secular_tol_factor, slot_mesh=slot_mesh)
 
     zvec = part.zu
     if use_gu_eisenstat:
         zvec = _gu_eisenstat_z(poles_sec, part.zu, tau, shift_val, active,
-                               block_size)
+                               block_size, slot_mesh=slot_mesh)
 
-    # column norms N_i = ||zhat_j / (d_j - lam_i)||, ratio-first, per block
-    def norm_block(sl):
-        dif = ((poles_sec[:, None, :] - shift_val[:, sl, None])
-               - tau[:, sl, None])
-        ratio = zvec[:, None, :] / dif
-        return torch.sqrt(torch.sum(ratio * ratio, dim=2))
-
-    colnorm = map_slot_blocks(norm_block, m, block_size, dev)
+    colnorm = map_slot_blocks(_norm_block, m, block_size, dev,
+                              mesh=slot_mesh,
+                              args=(poles_sec, shift_val, tau, zvec))
     colnorm = torch.where(active & (colnorm > 0), colnorm,
                           torch.ones_like(colnorm))
 

@@ -19,18 +19,25 @@ import torch
 
 
 def sync(x=None, device=None):
-    """Wait for the device that holds ``x`` (or ``device``) to finish queued
-    work: ``torch.cuda.synchronize`` on CUDA, nothing on the CPU.  Returns
-    ``x`` unchanged."""
+    """Wait for the device that holds ``x`` (or ``device``: one device, or
+    several, as a mesh's shard devices) to finish queued work:
+    ``torch.cuda.synchronize`` on each distinct CUDA device, nothing on the
+    CPU.  Returns ``x`` unchanged."""
     dev = x.device if isinstance(x, torch.Tensor) else device
-    if dev is not None and torch.device(dev).type == "cuda":
-        torch.cuda.synchronize(dev)
+    if dev is None:
+        return x
+    devs = dev if isinstance(dev, (tuple, list)) else (dev,)
+    for d in dict.fromkeys(torch.device(d) for d in devs):
+        if d.type == "cuda":
+            torch.cuda.synchronize(d)
     return x
 
 
 class PhaseTimer:
     """Wall time per named phase (``times``), and event counts a run
-    records beside them (``counts``)."""
+    records beside them (``counts``).  Each phase ends by syncing
+    ``device`` (every device of a mesh's run), so its time runs until the
+    last card has finished."""
 
     def __init__(self, device=None):
         self.device = device

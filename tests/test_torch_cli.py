@@ -120,13 +120,58 @@ def test_invalid_arguments(argv):
     assert rc == rc_j == 1 and err == err_j
 
 
-@pytest.mark.parametrize("argv", [
-    ["--devices", "2"], ["--coordinator", "localhost:1234"],
-    ["--num-processes", "2"], ["--process-id", "0"]])
-def test_multi_device_not_ported(argv):
+@pytest.mark.parametrize("argv, why", [
+    (["--coordinator", "localhost:1234"], "must be given together"),
+    (["--num-processes", "2", "--process-id", "0"], "must be given together"),
+    (["--coordinator", "localhost:1234", "--num-processes", "2",
+      "--process-id", "2"], "outside [0, --num-processes 2)"),
+    (["--devices", "0"], "Invalid argument for option --devices")])
+def test_multi_process_flags_checked(argv, why):
+    """The multi-process flags go together, with the process id below the
+    process count: otherwise rc 1 and a message, before any start."""
     rc, out, err = _run(tcli.main, ["-s", "1", "-n", "8", "--device", "cpu",
                                     *argv])
-    assert rc == 1 and "not ported" in err and out == ""
+    assert rc == 1 and why in err and out == ""
+
+
+def test_more_cards_than_visible(monkeypatch):
+    """--devices N on CUDA with fewer cards: rc 1 and a message, no cut."""
+    import torch
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    rc, out, err = _run(tcli.main, ["-s", "1", "-n", "8", "--devices", "2"])
+    assert rc == 1 and out == ""
+    assert err.startswith("Cannot shard over 2 devices: ")
+    assert "1 CUDA card(s) are visible" in err
+
+
+def test_one_card_unless_devices_given(monkeypatch):
+    """Without --devices the CLI takes one card even where several are
+    visible (its mesh would gather the basis on the lead card and close
+    the streamed route); --devices 2 takes two distinct cards."""
+    import torch
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
+
+    def count(*argv):
+        return tcli._shard_count(tcli.build_parser().parse_args(list(argv)))
+
+    assert count("-s", "1", "-e") == 1
+    assert count("-s", "1", "--devices", "2") == 2
+    mesh = tcli._make_run_mesh(2, torch.device("cuda"))
+    assert mesh.devices == (torch.device("cuda", 0), torch.device("cuda", 1))
+
+
+@pytest.mark.parametrize("ndev", [2, 4])
+def test_mesh_same_output_as_jax(tmp_path, ndev):
+    """--devices N: the JAX CLI on N of its virtual CPU devices, the port
+    on N logical CPU shards."""
+    argv = ["-s", "1", "-n", "64", "-e", "--devices", str(ndev)]
+    f_j, f = tmp_path / "jax.txt", tmp_path / "port.txt"
+    jax_run = (*_run(jcli.main, argv + [str(f_j)]), f_j)
+    port_run = (*_run(tcli.main, argv + ["--device", "cpu", str(f)]), f)
+    assert f"Number of devices is: {ndev}  (backend: cpu)" in port_run[1]
+    _assert_same_output("mesh", jax_run, port_run)
 
 
 @pytest.mark.parametrize("bad", ["missing", "malformed"])
@@ -144,7 +189,14 @@ def test_unreadable_input(tmp_path, bad):
 
 @pytest.mark.parametrize("name", sorted(CASES))
 def test_same_output_as_jax(runs, name):
-    tmp, (rc_j, out_j, err_j, f_j), (rc, out, err, f) = runs[name]
+    tmp, jax_run, port_run = runs[name]
+    _assert_same_output(name, jax_run, port_run)
+
+
+def _assert_same_output(name, jax_run, port_run):
+    """Both runs (rc, stdout, stderr, output file) end well with the same
+    masked stdout and matching files."""
+    (rc_j, out_j, err_j, f_j), (rc, out, err, f) = jax_run, port_run
     assert rc == rc_j == 0, (err, err_j)
     assert "Program finished successfully!" in out
     assert _mask(out) == _mask(out_j)
