@@ -2,7 +2,7 @@
 """Drive the PyTorch/CUDA port once on one GPU and check it.
 
 Run from the repository root:  python3 chip_smoke.py
-With ``--only dword_matmul,cauchy_matmul`` (any of the ten kernels' names)
+With ``--only dword_matmul,cauchy_matmul`` (any of the twelve kernels' names)
 it builds those kernels' sources, runs phase 3 for them alone, held to the
 same limits, and stops: half a minute for work on one kernel.
 
@@ -38,13 +38,27 @@ exits non-zero:
                and at denominators outside the normal range;
                rotation_replay bit for bit its plain version (the wave
                loop) on every level of the mixed n=16384 solve of the main
-               input and of the Poisson matrix, and once in f64
+               input and of the Poisson matrix, and once in f64;
+               interface_solve bit for bit its plain loop on the mixed
+               random and Poisson n=16384 solves' own pass-1 boundary
+               values (P=128, K=16384, the Spike pass's scaled and shifted
+               form) and on the boundary rows of their triage's blocked
+               solves; block_lu_solve bit for bit its plain loop on their
+               first refinement chunk at nb=128 and at the triage's extra
+               and rescue shapes (nb=96 and 64, the risky columns); both
+               with bounds from their yardsticks' SASS
   4. solve     the main path: solve_tridiagonal_staged with the default
                (mixed-precision) SolverConfig, n=16384 random (bench.py's
                input, seed 0), all eigenpairs, cold then three times
                warm; residual, orthogonality and eigenvalues against
                scipy; the triage's column counts; launch counts of all
-               ten kernels, and each merge level's (k, m, K) and launches
+               twelve kernels (interface_solve once a Spike pass and once a
+               blocked solve, block_lu_solve exactly when a column is
+               risky), each merge level's (k, m, K) and launches, the host
+               time of the spike.interface_solve and refine.triage ranges;
+               the same input solved twice more through the kernels and
+               once with the scans' plain versions substituted here: V
+               bit for bit the same
   5. solve_f64 the same input through the pure-f64 path
                (mixed_precision_vectors=False), cold then three times warm
   6. poisson   eigh_tridiagonal(eigvals_only=True) and the mixed path's full
@@ -65,14 +79,16 @@ exits non-zero:
                eigenpairs, cold with every check (residual, orthogonality,
                eigenvalues against torch.linalg.eigvalsh on the card), once
                warm, and once with the pure-f64 config (same checks);
-               phases, peak memory, launches of all ten kernels;
+               phases, peak memory, launches of all twelve kernels;
                torch.linalg.eigh's time on the same matrix
   9. dense_two_stage  eigh(band=128) and eigh_banded (u=16) at n=4096, the
                same three limits; eigvals_only through both front ends
  10. profile   one more warm solve under torch.profiler, for the tridiagonal
                main path (n=16384) and for the dense path (n=4096): device
                time by kernel, the device's idle share, and the host time,
-               device span and launches of the named ranges
+               device span and launches of the named ranges (at most 5
+               launches a spike.interface_solve, under 100 in
+               refine.triage)
  11. staged_32768  the main path at n=32768 (bench.py's recipe, seed 0):
                the plain staged route (asserted), the same three limits,
                its peak memory beside 19.2 n^2 (n=16384's peak scaled)
@@ -175,6 +191,7 @@ from symmetric_eigenvalue_tpu_torch.kernels import dword_matvec as dv
 from symmetric_eigenvalue_tpu_torch.kernels import rotation_replay as rr
 from symmetric_eigenvalue_tpu_torch.kernels import secular as sec
 from symmetric_eigenvalue_tpu_torch.kernels import secular_sums as ss
+from symmetric_eigenvalue_tpu_torch.kernels import shifted_solve as shs
 from symmetric_eigenvalue_tpu_torch.kernels import spike_solve as sp
 from symmetric_eigenvalue_tpu_torch.kernels.refine import band_prep
 from symmetric_eigenvalue_tpu_torch.kernels.tridiagonalize import _bucket_cuts
@@ -221,12 +238,22 @@ REPLACES = {
     # a lax.fori_loop over the waves, no pallas_call
     "rotation_replay":
         "symmetric_eigenvalue_tpu/kernels/assemble.py:277",
+    # lax.scan loops of the refinement, no pallas_call
+    "interface_solve":
+        "symmetric_eigenvalue_tpu/kernels/refine.py:275",
+    "block_lu_solve":
+        "symmetric_eigenvalue_tpu/kernels/refine.py:124",
 }
 REPLACES_LOOP = {"secular_solve":
-                 "symmetric_eigenvalue_tpu/kernels/secular.py:299-361"}
+                 "symmetric_eigenvalue_tpu/kernels/secular.py:299-361",
+                 "interface_solve":
+                 "symmetric_eigenvalue_tpu/kernels/refine.py:317,329",
+                 "block_lu_solve":
+                 "symmetric_eigenvalue_tpu/kernels/refine.py:183,197"}
 SOURCES = {"spike_pass_a": "spike_solve", "spike_pass_b": "spike_solve",
            "cauchy_materialize": "cauchy_matmul",
-           "dword_vecmat": "dword_matvec", "secular_solve": "secular_sums"}
+           "dword_vecmat": "dword_matvec", "secular_solve": "secular_sums",
+           "block_lu_solve": "spike_solve"}
 KERNEL_NAMES = tuple(REPLACES)
 
 
@@ -293,7 +320,9 @@ def launch_counts():
             "spike_pass_a": sp.pass_a_launches,
             "spike_pass_b": sp.pass_b_launches,
             "dword_vecmat": dv.launches,
-            "rotation_replay": rr.launches}
+            "rotation_replay": rr.launches,
+            "interface_solve": shs.interface_launches,
+            "block_lu_solve": shs.block_lu_launches}
 
 
 def reset_counts() -> None:
@@ -302,6 +331,7 @@ def reset_counts() -> None:
     cm.matmul_launches = cm.materialize_launches = 0
     sp.pass_a_launches = sp.pass_b_launches = 0
     rr.launches = 0
+    shs.interface_launches = shs.block_lu_launches = 0
 
 
 def random_matrix(n: int, seed: int):
@@ -1079,6 +1109,328 @@ def check_spike(d, e, lam, V, nb, shifts, reps):
                  bound_by=bb[1]))
 
 
+# --------------------------------------------------------------------------
+# the refinement's scans: interface_solve and block_lu_solve
+
+@contextlib.contextmanager
+def plain_scans():
+    """The two scan kernels' wrappers replaced by their plain versions (on
+    the card), in this script only: the solve as it ran before they were
+    kernels."""
+    inner = shs.interface_solve, shs.block_lu_solve
+    shs.interface_solve = shs.interface_solve_plain
+    shs.block_lu_solve = shs.block_lu_solve_plain
+    try:
+        yield
+    finally:
+        shs.interface_solve, shs.block_lu_solve = inner
+
+
+@contextlib.contextmanager
+def recorded_scans():
+    """Records what a solve inside the block hands the scans: the first
+    Spike pass's interface inputs (pass A's boundary values, the couplers),
+    its first refinement chunk (d, e, lam, V widened to f64: the blocked
+    solver's shape at refine_block when use_pallas_refine=False), and every
+    block-LU call of the triage's extra and rescue passes."""
+    seen = {"interface": [], "first_pass": [], "block_lu": []}
+    inner = sp._interface, sp.spike_refine, shs.block_lu_solve
+
+    def interface(bnd, e_cross, ec_above):
+        if not seen["interface"]:
+            seen["interface"].append((bnd, e_cross, ec_above))
+        return inner[0](bnd, e_cross, ec_above)
+
+    def refine(d, e, lam, V, *args, **kwargs):
+        if not seen["first_pass"]:
+            k = min(2048, V.shape[1])
+            seen["first_pass"].append((d, e, lam[:k], V[:, :k].to(
+                torch.float64)))
+        return inner[1](d, e, lam, V, *args, **kwargs)
+
+    def block_lu(*args):
+        seen["block_lu"].append(args)
+        return inner[2](*args)
+
+    sp._interface, sp.spike_refine, shs.block_lu_solve = (interface, refine,
+                                                          block_lu)
+    try:
+        yield seen
+    finally:
+        sp._interface, sp.spike_refine, shs.block_lu_solve = inner
+
+
+@functools.cache
+def scan_inputs(matrix):
+    """One mixed n=16384 solve of bench.py's input ("random") or of the
+    Poisson matrix, recorded (:func:`recorded_scans`), and its triage
+    counts."""
+    d, e = (random_matrix(N, SEED) if matrix == "random"
+            else st.create_matrix_scheme2(N))
+    with recorded_scans() as seen:
+        res, timer = st.solve_tridiagonal_staged(d, e, compute_vectors=True)
+    del res
+    torch.cuda.empty_cache()
+    return seen, dict(timer.counts)
+
+
+def block_lu_args(d, e, lam, V, nb):
+    """block_lu_solve's arguments for the blocked solve of (d, e) at block
+    size nb."""
+    db, e_all, e_cross, ec_above, tiny = band_prep(d, e, nb)
+    return (db, e_all, tiny, ec_above, e_cross, lam, V.contiguous(), nb)
+
+
+def rebanded(args, nb):
+    """A recorded block-LU call's system and columns at block size nb (the
+    band's first n entries are d, e_all's first n-1 are e)."""
+    db, e_all, _tiny, _eca, _ecr, lam, V, _nb = args
+    n = V.shape[0]
+    return block_lu_args(db[:n], e_all[:n - 1], lam, V, nb)
+
+
+def interface_fp64_per_step():
+    """FP64 instructions of one (block, column) step of interface_solve,
+    both sweeps, in the Spike pass's scaled form:
+    interface_step_yardstick."""
+    counts = sass_fp64_counts("interface_solve", "interface_step_yardstick")
+    require(len(counts) == 1, f"one interface yardstick: {counts}")
+    return next(iter(counts.values()))
+
+
+def block_lu_fp64_per_row():
+    """FP64 instructions of one (row, column) of the block LU, its couplers'
+    products included: block_lu_row_yardstick."""
+    counts = sass_fp64_counts("spike_solve", "block_lu_row_yardstick")
+    require(len(counts) == 1, f"one block-LU yardstick: {counts}")
+    return next(iter(counts.values()))
+
+
+def _exactness(got, want, again):
+    err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+    scale = max(float(w.abs().max()) for w in want)
+    return dict(bit_exact=all(torch.equal(g, w) for g, w in zip(got, want)),
+                run_to_run_identical=all(torch.equal(g, a)
+                                         for g, a in zip(got, again)),
+                max_abs_err=err, max_rel_err=err / max(scale, 1e-300),
+                tol=0.0, tol_of="bit for bit its plain version")
+
+
+def check_interface(ins, scales, shifted, what, reps):
+    """interface_solve against its plain version on the card, on one set of
+    the six (P, K) boundary inputs: bit for bit, identical run to run, its
+    scratch, times (events, profiler), the plain loop's time, and a bound
+    from the bytes of the inputs and outputs or the FP64 instructions of
+    the yardstick step."""
+    ec, ecr = scales
+    kw = dict(ec_above=ec, e_cross=ecr, shifted=shifted)
+    call = functools.partial(shs.interface_solve, *ins, **kw)
+    got = call()
+    want = shs.interface_solve_plain(*ins, **kw)
+    row = _exactness(got, want, call())
+    P, K = ins[4].shape
+    per_step = interface_fp64_per_step()
+    b = bound(float(P) * K * per_step, fp64_rate(),
+              8.0 * (8.0 * P * K + sum(P for s in scales if s is not None)))
+    row.update(what=what, P=P, K=K, scaled=ec is not None, shifted=shifted,
+               input_row_stride=ins[4].stride(0), threads=64,
+               blocks=-(-K // 64), scratch_bytes=scratch_bytes(call),
+               fp64_instr_per_step=per_step,
+               ms=time_ms(call, reps), device_ms=device_ms(call, reps),
+               plain_ms=time_ms(functools.partial(
+                   shs.interface_solve_plain, *ins, **kw), 2),
+               library_ms=None, bound_ms=b[0], bound_by=b[1],
+               bound_is="8 P K doubles (six inputs, two outputs) or the "
+               "Spike form's FP64 instructions a (block, column) step "
+               "(SASS of the yardstick) at 64 a clock an SM")
+    return row
+
+
+def check_block_lu(args, what, reps):
+    """block_lu_solve against its plain version on the card, on one blocked
+    solve's arguments: bit for bit, identical run to run, the launch plan,
+    registers and spills, times, the plain loop's time, and a bound from
+    the FP64 instructions of the yardstick row or the bytes."""
+    call = functools.partial(shs.block_lu_solve, *args)
+    got = call()
+    want = shs.block_lu_solve_plain(*args)
+    row = _exactness(got, want, call())
+    db, V, nb = args[0], args[6], args[7]
+    npad = db.shape[0]
+    n, K = V.shape
+    P = npad // nb
+    plan = shs.plan_for("L", nb, V)
+    regs, spill, blocks = shs.kernel_info("L", False, plan.threads,
+                                          plan.shared_bytes)
+    per_row = block_lu_fp64_per_row()
+    b = bound(float(npad) * K * per_row, fp64_rate(),
+              8.0 * (n * K + 2 * npad + 2 * P + K + 1 + 3 * npad * K))
+    row.update(what=what, n=n, nb=nb, P=P, K=K, v_row_stride=V.stride(0),
+               segment_rows=plan.segment, checkpoints=plan.checkpoints,
+               threads=plan.threads, shared_bytes=plan.shared_bytes,
+               registers=regs, spill_bytes=spill, blocks_per_sm=blocks,
+               fp64_instr_per_row=per_row,
+               ms=time_ms(call, reps), device_ms=device_ms(call, reps),
+               plain_ms=time_ms(functools.partial(
+                   shs.block_lu_solve_plain, *args), 2),
+               library_ms=None, bound_ms=b[0], bound_by=b[1],
+               bound_is="the plain LU's FP64 instructions a row and column "
+               "with the couplers' products (SASS of the yardstick) at 64 a "
+               "clock an SM, or V's bytes and the three outputs'")
+    return row
+
+
+def blocked_boundary(args):
+    """The blocked solver's interface inputs from one block-LU call: the
+    kernel's u, p, q at each block's first and last row."""
+    nb = args[7]
+    K = args[6].shape[1]
+    u, p, q = (t.view(-1, nb, K) for t in shs.block_lu_solve(*args))
+    return (p[:, 0], p[:, nb - 1], q[:, 0], q[:, nb - 1], u[:, 0],
+            u[:, nb - 1])
+
+
+def triage_calls(matrix):
+    """The recorded block-LU calls of a solve's extra pass (nb =
+    refine_block_alt) and rescue pass (refine_block_rescue); a pass the
+    solve did not make is the extra pass's columns re-banded at its block
+    size (its shape, on the same columns).  [] when nothing was risky."""
+    seen, counts = scan_inputs(matrix)
+    cfg = st.SolverConfig()
+    calls = seen["block_lu"]
+    out = []
+    for tag, nb in (("extra pass", cfg.refine_block_alt),
+                    ("rescue pass", cfg.refine_block_rescue)):
+        mine = [a for a in calls if a[7] == nb]
+        if mine:
+            out.append((f"{tag}, nb={nb}, the solve's own call", mine[0]))
+        elif calls:
+            out.append((f"{tag}'s shape, nb={nb}, on the extra pass's "
+                        "columns (no such pass in this solve)",
+                        rebanded(calls[0], nb)))
+    return out, counts
+
+
+def interface_rows():
+    """interface_solve on the mixed n=16384 solve's own pass-1 boundary
+    values (P=128, K=16384, scaled and shifted: the Spike pass), on the
+    boundary rows of its triage's blocked solves (nb=96 and 64), and on the
+    Poisson solve's pass-1 boundary values."""
+    rows = []
+    for matrix in ("random", "poisson"):
+        seen, counts = scan_inputs(matrix)
+        bnd, e_cross, ec_above = seen["interface"][0]
+        rows.append(check_interface(
+            (bnd[2], bnd[3], bnd[4], bnd[5], bnd[0], bnd[1]),
+            (ec_above, e_cross), True,
+            f"{matrix} n={N}: the Spike pass's pass-1 boundary values", 5))
+        calls, _ = triage_calls(matrix)
+        for what, args in calls:
+            rows.append(check_interface(
+                blocked_boundary(args), (None, None), True,
+                f"{matrix} n={N}: {what} ({counts.get('risky')} risky)",
+                20))
+    return rows
+
+
+def block_lu_rows():
+    """block_lu_solve at the mixed n=16384 solve's triage shapes (its extra
+    and rescue passes: nb=96 and 64, the risky columns; the main path's
+    launches), then on its first refinement chunk at nb=128 (the
+    use_pallas_refine=False shape, K=2048); the same for the Poisson
+    solve."""
+    rows = []
+    for matrix in ("random", "poisson"):
+        seen, counts = scan_inputs(matrix)
+        calls, _ = triage_calls(matrix)
+        for what, args in calls:
+            rows.append(check_block_lu(
+                args, f"{matrix} n={N}: {what} ({counts.get('risky')} "
+                "risky)", 20))
+        d, e, lam, V = seen["first_pass"][0]
+        rows.append(check_block_lu(
+            block_lu_args(d, e, lam, V, 128),
+            f"{matrix} n={N}: the first refinement chunk, nb=128", 5))
+    return rows
+
+
+@contextlib.contextmanager
+def range_host_times():
+    """The host time and calls of the two refinement ranges in the block
+    (host clock around spike_solve._interface, the spike.interface_solve
+    range, and driver._triage_passes, the refine.triage range): what a
+    solve's host spends there, profiler off."""
+    out = {"spike.interface_solve": {"calls": 0, "host_s": 0.0},
+           "refine.triage": {"calls": 0, "host_s": 0.0}}
+    inner = sp._interface, driver._triage_passes
+
+    def timed(name, fn):
+        def run(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                out[name]["calls"] += 1
+                out[name]["host_s"] += time.perf_counter() - t0
+        return run
+
+    sp._interface = timed("spike.interface_solve", inner[0])
+    driver._triage_passes = timed("refine.triage", inner[1])
+    try:
+        yield out
+    finally:
+        sp._interface, driver._triage_passes = inner
+
+
+def check_scan_launches(launches, counts, spike_passes, path):
+    """One interface_solve launch a Spike pass and one a blocked solve
+    (each with one block_lu_solve launch); block_lu_solve launched exactly
+    when the triage found risky columns (the extra pass runs the blocked
+    solver by default)."""
+    require(launches["interface_solve"]
+            == spike_passes + launches["block_lu_solve"],
+            f"{path}: interface_solve launched {launches['interface_solve']} "
+            f"times for {spike_passes} Spike passes and "
+            f"{launches['block_lu_solve']} blocked solves")
+    require((launches["block_lu_solve"] > 0) == (counts.get("risky", 0) > 0),
+            f"{path}: block_lu_solve launched {launches['block_lu_solve']} "
+            f"times with {counts.get('risky', 0)} risky columns")
+
+
+def plain_substituted_check(d, e, cfg):
+    """Phase 4's input solved twice through the kernels and once with the
+    scans' plain versions substituted: V bit for bit the same, the triage's
+    counts the same."""
+    out = {}
+    Vs = []
+    for route in ("kernels", "plain", "kernels_again"):
+        reset_counts()
+        with plain_scans() if route == "plain" else contextlib.nullcontext():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res, timer = st.solve_tridiagonal_staged(d, e, config=cfg,
+                                                     compute_vectors=True)
+            torch.cuda.synchronize()
+        c = launch_counts()
+        out[route] = {"wall_s": time.perf_counter() - t0,
+                      "counts": dict(timer.counts),
+                      "interface_solve": c["interface_solve"],
+                      "block_lu_solve": c["block_lu_solve"]}
+        Vs.append(res.eigenvectors)
+        del res
+    out["V_plain_equal_kernels"] = bool(torch.equal(Vs[0], Vs[1]))
+    out["V_kernels_run_to_run"] = bool(torch.equal(Vs[0], Vs[2]))
+    out["max_abs_diff"] = float((Vs[0] - Vs[1]).abs().max())
+    del Vs
+    torch.cuda.empty_cache()
+    require(out["V_plain_equal_kernels"] and out["V_kernels_run_to_run"]
+            and out["plain"]["counts"] == out["kernels"]["counts"]
+            and out["plain"]["interface_solve"] == 0
+            and out["plain"]["block_lu_solve"] == 0,
+            f"the scans' kernels change the solve: {out}")
+    return out
+
+
 def scratch_bytes(call) -> int:
     """Device memory one call allocates beyond what it returns: its peak
     allocation over what was allocated before, less its outputs."""
@@ -1330,7 +1682,7 @@ def profile_solve(run, top: int = 16):
 
 N_SMALL = (4096, 8192)
 FUSED_KERNELS = ("rotation_replay", "cauchy_matmul", "cauchy_materialize",
-                 "spike_pass_a", "spike_pass_b")
+                 "spike_pass_a", "spike_pass_b", "interface_solve")
 GRAPH_RANGES_NOTE = ("record_function ranges inside part A's CUDA graph "
                      "(spike.interface_solve) are not recorded on a replay")
 
@@ -1544,7 +1896,7 @@ def record_route():
 
 MAIN_PATH_KERNELS = ("cauchy_matmul", "cauchy_materialize", "spike_pass_a",
                      "spike_pass_b", "secular_sums", "secular_solve",
-                     "cauchy_rowsum", "rotation_replay")
+                     "cauchy_rowsum", "rotation_replay", "interface_solve")
 
 
 def run_staged_large(cfg):
@@ -2506,7 +2858,9 @@ def kernel_table(d, e, ref):
     a block holds (the streamed sweeps) and between 256 and 3072 (resident
     sweeps over more than 64 poles); rotation_replay on every level of a
     mixed solve of the Poisson matrix and of (d, e), on the level's own
-    data."""
+    data; interface_solve and block_lu_solve on what mixed solves of (d, e)
+    and of the Poisson matrix hand them (:func:`interface_rows`,
+    :func:`block_lu_rows`)."""
     spike = []
 
     def spike_rows(which):
@@ -2588,6 +2942,13 @@ def kernel_table(d, e, ref):
             *replay_level_rows(d, e, "mixed solve, random n=16384")],
         "spike_pass_a": lambda: spike_rows(0),
         "spike_pass_b": lambda: spike_rows(1),
+        # the Spike pass's interface on the mixed random and Poisson
+        # solves' own pass-1 boundary values, and the blocked solver's on
+        # the boundary rows of their triage's block LU
+        "interface_solve": interface_rows,
+        # the blocked solver's block LU at nb=128 on a refinement chunk and
+        # at the triage's extra and rescue shapes, random and Poisson
+        "block_lu_solve": block_lu_rows,
         # dword_vecmat at the first and the last bucket's width of the
         # n=16384 reduction, full height and as the reduction calls it
         # (rows below the reflector's zeros only), and at an odd width
@@ -2731,6 +3092,8 @@ def main(argv=None) -> int:
 
     # 3. each kernel against its plain version at its path's shapes
     checks = run_kernel_checks(kernel_table(d, e, ref), only or KERNEL_NAMES)
+    scan_inputs.cache_clear()
+    torch.cuda.empty_cache()
     if only:
         print(smi_line, flush=True)
         emit({"ok": True, "only": only})
@@ -2739,19 +3102,27 @@ def main(argv=None) -> int:
     # 4. the main path: default (mixed) config, all eigenpairs, cold
     cfg = st.SolverConfig()
     reset_counts()
-    with record_levels() as levels:
+    with record_levels() as levels, range_host_times() as cold_ranges:
         solve, _ = solve_and_check(d, e, cfg, ref, norm_ref)
     solve["levels"] = levels
     launches = solve["launches"]
-    walls, phases = warm_walls(d, e, cfg)
+    with range_host_times() as warm_ranges:
+        walls, phases = warm_walls(d, e, cfg)
+    scans = plain_substituted_check(d, e, cfg)
     emit({"phase": "solve", "n": N, "matrix": "random", "seed": SEED,
           "config": "SolverConfig() (mixed_precision_vectors=True)",
-          **solve, "warm_walls_s": walls, "warm_median_phases_s": phases})
+          **solve, "warm_walls_s": walls, "warm_median_phases_s": phases,
+          "ranges_host_cold": cold_ranges,
+          "ranges_host_warm_total": warm_ranges, "warm_solves": len(walls),
+          "scans_plain_substituted": scans})
     for name in MAIN_PATH_KERNELS:
         require(launches[name] > 0,
                 f"kernel {name} was not launched on the main path")
     require(launches["cauchy_rowsum"] == len(levels) - 1,
             "cauchy_rowsum not launched once a non-root level")
+    check_scan_launches(launches, solve["counts"],
+                        cold_ranges["spike.interface_solve"]["calls"],
+                        "the main path")
 
     # 5. the pure-f64 path on the same input
     cfg64 = st.SolverConfig(mixed_precision_vectors=False)
@@ -2777,14 +3148,17 @@ def main(argv=None) -> int:
     p_err = float(np.abs(lam_p.cpu().numpy() - exact).max()) / norm_p
     require(p_err <= 1e-12, f"Poisson eigenvalues off by {p_err} ||T||")
     reset_counts()
-    with record_levels() as plevels:
+    with record_levels() as plevels, range_host_times() as pranges:
         pfull, _ = solve_and_check(dp, ep, cfg, exact, norm_p)
     pfull["levels"] = plevels
+    pfull["ranges_host"] = pranges
     emit({"phase": "poisson", "n": N, "eigvals_only_wall_s": wall_p,
           "eigvals_only_err_vs_analytic_over_normT": p_err,
           "full_mixed": pfull})
     require(pfull["launches"]["cauchy_rowsum"] == len(plevels) - 1,
             "cauchy_rowsum not launched once a non-root level (Poisson)")
+    check_scan_launches(pfull["launches"], pfull["counts"],
+                        pranges["spike.interface_solve"]["calls"], "Poisson")
 
     # 7. the small-n routes: staged and fused side by side
     run_small_n(cfg)
@@ -2796,8 +3170,10 @@ def main(argv=None) -> int:
     torch.cuda.synchronize()
     eigvalsh_s = time.perf_counter() - t0
     reset_counts()
-    lam_a, V_a, cold = timed_dense(lambda tm: st.eigh(A, timer=tm))
+    with range_host_times() as dranges:
+        lam_a, V_a, cold = timed_dense(lambda tm: st.eigh(A, timer=tm))
     dense_launches = launch_counts()
+    cold["ranges_host"] = dranges
     dense = {**cold, **dense_checks(A, lam_a, V_a, ref_a),
              "launches": dense_launches}
     del lam_a, V_a
@@ -2829,6 +3205,8 @@ def main(argv=None) -> int:
             f"on the dense path, not n-2 = {N - 2}")
     require(dense_launches["dword_matmul"] > 0,
             "dword_matmul was not launched on the dense path")
+    check_scan_launches(dense_launches, cold["counts"],
+                        dranges["spike.interface_solve"]["calls"], "dense")
     del A, ref_a
     torch.cuda.empty_cache()
 
@@ -2869,9 +3247,17 @@ def main(argv=None) -> int:
             "dword_matmul was not launched on the two-stage paths")
 
     # 10. where the device time goes (one more warm run of each, profiled)
+    reset_counts()
+    prof = profile_solve(lambda: st.solve_tridiagonal_staged(
+        d, e, config=cfg, compute_vectors=True))
     emit({"phase": "profile", "path": "solve_tridiagonal_staged, n=16384",
-          **profile_solve(lambda: st.solve_tridiagonal_staged(
-              d, e, config=cfg, compute_vectors=True))})
+          **prof, "launches": launch_counts()})
+    ranges = prof["ranges"]
+    require(ranges["spike.interface_solve"]["launches"]
+            <= 5 * max(ranges["spike.interface_solve"]["calls"], 1),
+            f"spike.interface_solve: more than 5 launches a pass: {ranges}")
+    require(ranges["refine.triage"]["launches"] < 100,
+            f"refine.triage: 100 launches or more: {ranges}")
     _, _, warm2 = timed_dense(lambda tm: st.eigh(A2, timer=tm))
     emit({"phase": "profile", "path": f"eigh, n={N_TWO_STAGE}",
           "unprofiled_warm": warm2, "ranges_note": GRAPH_RANGES_NOTE,

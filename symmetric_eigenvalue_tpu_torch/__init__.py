@@ -32,8 +32,10 @@ package, ``distributed_init`` for several processes, and the CLI's
 ``--devices`` and multi-process flags): the upsweep's levels sharded by
 merge or by slot, the downsweep by column, the refinement on the lead
 device.  Every Pallas kernel of the JAX
-package has its CUDA counterpart, and the downsweep's Givens replay is a
-kernel too (seven sources, ten kernels).  Entry
+package has its CUDA counterpart, and so do three of its device loops:
+the downsweep's Givens replay and the refinement's two scans, the Spike
+interface solve and the blocked solver's block LU (eight sources, twelve
+kernels).  Entry
 points run on the device ``"cuda"`` unless the caller passes
 ``device="cpu"`` (or a mesh, which runs on its devices).
 """

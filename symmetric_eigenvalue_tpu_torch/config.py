@@ -51,10 +51,12 @@ class SolverConfig:
     ``solve_tridiagonal_staged`` sweep the eigenvectors down in f32 (the
     ``cauchy_matmul`` / ``cauchy_materialize`` kernels) and restore f64
     accuracy with the refinement epilogue: Spike inverse-iteration passes
-    (``use_pallas_refine``: the Spike kernels for n >= 512, else the plain
-    PyTorch solver; ``use_pallas_refine_extra``: the same for the risky
-    columns' extra pass), residual triage and cluster CholeskyQR, steered by
-    the ``refine_*`` and ``*_gap_factor`` fields.  ``solve_tridiagonal``
+    (``use_pallas_refine``: the Spike kernels for n >= 512, else the blocked
+    solver; ``use_pallas_refine_extra``: the same for the risky columns'
+    extra pass, False by default as in the JAX package, so that pass and
+    the rescue pass run the blocked solver, whose block LU and interface
+    solve are kernels on CUDA), residual triage and cluster CholeskyQR,
+    steered by the ``refine_*`` and ``*_gap_factor`` fields.  ``solve_tridiagonal``
     always returns f64-path eigenvectors.  The dense and banded entry points
     (``eigh``, ``eigh_banded``) reduce to tridiagonal form and then call
     ``solve_tridiagonal_staged``, so ``mixed_precision_vectors`` decides

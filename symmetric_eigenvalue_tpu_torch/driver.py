@@ -57,7 +57,7 @@ from .core.tree import TreePlan, build_plan
 from .core.tridiag import residual_norms
 from .dist.mesh import (Replicas, agreed, batch_mapped, last_axis_sharded,
                         replicated)
-from .kernels import cauchy_matmul, rotation_replay, spike_solve
+from .kernels import cauchy_matmul, rotation_replay, shifted_solve, spike_solve
 from .kernels.assemble import apply_u_level, assemble_u, rows_through_merge
 from .kernels.band_reduce import (apply_q2_wave_blocked, band_to_tridiag_wave,
                                   reduce_to_band)
@@ -272,9 +272,10 @@ def _refine_ops(d, e, n: int, config: SolverConfig):
     one_pass(lam_c, V_c, nb, allow_spike=True): one inverse-iteration pass,
     returning (V, res_estimate or None): ``spike_solve.spike_refine`` (the
     Spike kernels on CUDA, their plain versions on the CPU) when
-    ``config.use_pallas_refine`` and n >= 512, else the PyTorch solver in
-    column chunks.  residuals_chunked(lam_c, V_c): MEASURED residual norms
-    as a host array (one fetch)."""
+    ``config.use_pallas_refine`` and n >= 512, else ``inverse_iteration``
+    in column chunks (for n >= 512 the blocked solver: on CUDA its block
+    LU and interface kernels).  residuals_chunked(lam_c, V_c): MEASURED
+    residual norms as a host array (one fetch)."""
     chunk = max(1, min(config.vec_chunk,
                        config.resolved_refine_chunk(n, d.device)))
     use_spike = config.use_pallas_refine and n >= 512
@@ -397,7 +398,7 @@ def _triage_passes(d, e, lam_sel, V, res1, sentinel, norm_t,
     eps * ||T|| (or whose Spike estimate hit the 1e30 clip sentinel), gives
     them extra passes at ``refine_block_alt`` and accepts a re-solve only
     when the measured residual improves; columns still above the threshold
-    get two PyTorch-solver passes at ``refine_block_rescue``, accepted the
+    get two blocked-solver passes at ``refine_block_rescue``, accepted the
     same way.  No column ends worse than its best attempt.  Returns (V,
     touched), touched marking the replaced columns; the column counts go to
     ``subtimer.counts``."""
@@ -590,7 +591,9 @@ _PART_A_COUNTERS = ((cauchy_matmul, "matmul_launches"),
                     (cauchy_matmul, "materialize_launches"),
                     (rotation_replay, "launches"),
                     (spike_solve, "pass_a_launches"),
-                    (spike_solve, "pass_b_launches"))
+                    (spike_solve, "pass_b_launches"),
+                    (shifted_solve, "interface_launches"),
+                    (shifted_solve, "block_lu_launches"))
 
 
 def _part_a_inputs(reps, Q, d, e, lam, sel):

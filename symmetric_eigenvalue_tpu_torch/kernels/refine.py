@@ -6,9 +6,11 @@ path's f32 downsweep leaves f32-grade eigenvectors; one f64 inverse-iteration
 pass per eigenpair, (T - lam_i I) y_i = v_i for all columns at once, restores
 working-precision residuals, and groups of close eigenvalues are
 re-orthonormalized by a batched CholeskyQR (dstein-style).  ``lax.scan``
-recurrences become Python loops over rows with every column as one tensor
-lane; the Spike kernels (``spike_solve``) replace the blocked solve on the
-main path.
+recurrences of the unblocked solver (n < 512) are Python loops over rows
+with every column as one tensor lane; those of the blocked solver, the
+block LU and the interface solve, are the CUDA kernels of
+``shifted_solve`` on the card (their plain loops on the CPU), and the Spike
+kernels (``spike_solve``) take the first pass on the main path.
 
 Not carried over: the TPU writeback variants (``_compiled_orth_writeback``,
 ``_compiled_orth_writeback_dus``), which exist to dodge TPU scatters and
@@ -29,20 +31,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from . import shifted_solve
 from .dword_matmul import dword_matmul
-
-_BIG = 2.0 ** 80            # back-substitution cascade clip
-_TINY2 = 2.0 ** -96         # interface 2x2 determinant floor
-
-
-def _clamp_piv(piv, tiny):
-    """Magnitude floor of a pivot at +-tiny (sign kept; zero goes to +tiny)."""
-    return torch.where(piv.abs() < tiny,
-                       torch.where(piv < 0, -tiny, tiny), piv)
-
-
-def _clip(x):
-    return torch.clamp(x, -_BIG, _BIG)
+# the plain loops live in shifted_solve, beside their kernels; these names
+# stay importable from here
+from .shifted_solve import (  # noqa: F401
+    _block_lu_solve, _clamp_piv, interface_solve)
 
 
 def _pivot_floor(d, e):
@@ -123,54 +117,6 @@ def solve_shifted_tridiagonal(d, e, lam, B):
     return xs * torch.exp2(ss - s_max)
 
 
-def _block_lu_solve(db, eb, lam, rhs, tiny):
-    """Pivoted LU solve of every block system (T_b - lam_i I) x = rhs.
-
-    db (P, nb), eb (P, nb-1): per-block bands; lam (K,); rhs (P, nb, R, K),
-    R right-hand sides sharing each column's shift.  Partial pivoting
-    between adjacent rows within each block (swap when |sub| > |a|), pivots
-    clamped at +-tiny, back substitution clipped at +-2^80.  Returns the
-    solutions (P, nb, R, K).  This is the arithmetic the Spike kernels
-    (``spike_solve``) repeat operation for operation."""
-    P, nb = db.shape
-    K = lam.shape[0]
-    e_ext = torch.cat([eb, eb.new_zeros((P, 1))], dim=1)
-    a = db[:, 0, None] - lam[None, :]                         # (P, K)
-    c = e_ext[:, 0, None].expand(P, K)
-    r = rhs[:, 0]                                             # (P, R, K)
-    ud, u1, u2, rr = [], [], [], []
-    for j in range(nb - 1):
-        sub = eb[:, j, None]                                  # (P, 1)
-        a0n = db[:, j + 1, None] - lam[None, :]
-        c0n = e_ext[:, j + 1, None]
-        rn = rhs[:, j + 1]
-        swap = sub.abs() > a.abs()
-        piv = _clamp_piv(torch.where(swap, sub, a), tiny)
-        mlt = torch.where(swap, a / piv, sub / piv)
-        ud.append(piv)
-        u1.append(torch.where(swap, a0n, c))
-        u2.append(torch.where(swap, c0n, torch.zeros_like(c)))
-        sw = swap[:, None, :]
-        ml = mlt[:, None, :]
-        rr.append(torch.where(sw, rn, r))
-        a_new = torch.where(swap, c - mlt * a0n, a0n - mlt * c)
-        c = torch.where(swap, -mlt * c0n, c0n.expand(P, K))
-        r = torch.where(sw, r - ml * rn, rn - ml * r)
-        a = a_new
-
-    out = torch.empty(rhs.shape, dtype=rhs.dtype, device=rhs.device)
-    x1 = _clip(r / _clamp_piv(a, tiny)[:, None, :])
-    x2 = torch.zeros_like(x1)
-    out[:, nb - 1] = x1
-    for j in range(nb - 2, -1, -1):
-        x = (rr[j] - u1[j][:, None, :] * x1
-             - u2[j][:, None, :] * x2) / ud[j][:, None, :]
-        x = _clip(x)
-        out[:, j] = x
-        x1, x2 = x, x1
-    return out
-
-
 def band_prep(d, e, nb: int):
     """Split the band into P = ceil(n/nb) blocks of nb rows, padding with
     decoupled, well-conditioned rows (diagonal 4*scale + 4, zero coupling).
@@ -196,77 +142,32 @@ def solve_shifted_tridiagonal_blocked(d, e, lam, B, nb: int = 128):
 
     The same pivoted elimination within P = n/nb independent row blocks
     (three right-hand sides each: B and unit loads at the block's first and
-    last row), a 2x2 block-tridiagonal interface solve over the blocks'
-    boundary values, and the interiors from
+    last row; ``shifted_solve.block_lu_solve``), a 2x2 block-tridiagonal
+    interface solve over the blocks' boundary values
+    (``shifted_solve.interface_solve``), and the interiors from
 
-        x_b = u_b - p_b * L_{b-1} - q_b * F_{b+1}."""
-    n = d.shape[0]
-    K = lam.shape[0]
-    db, e_all, e_cross, ec_above, tiny = band_prep(d, e, nb)
+        x_b = u_b - p_b * L_{b-1} - q_b * F_{b+1}.
+
+    f64 only (B is widened): on CUDA each of the two loops is one kernel
+    launch."""
+    return _blocked_solve(band_prep(d, e, nb), lam, B.to(d.dtype), nb)
+
+
+def _blocked_solve(band, lam, B, nb: int):
+    """:func:`solve_shifted_tridiagonal_blocked` on a band already split by
+    :func:`band_prep` (B f64 (n, K)): the block LU, the interface solve on
+    its boundary rows, and the reconstruction."""
+    db, e_all, e_cross, ec_above, tiny = band
+    n, K = B.shape
     npad = db.shape[0]
     P = npad // nb
-    Bp = B
-    if npad > n:
-        Bp = torch.cat([B, B.new_zeros((npad - n, K))], dim=0)
-    rhs = B.new_zeros((P, nb, 3, K))
-    rhs[:, :, 0] = Bp.view(P, nb, K)
-    rhs[:, 0, 1] = 1.0
-    rhs[:, nb - 1, 2] = 1.0
-    sol = _block_lu_solve(db.view(P, nb), e_all.view(P, nb)[:, :nb - 1],
-                          lam, rhs, tiny)
-    u = sol[:, :, 0]
-    p = sol[:, :, 1] * ec_above[:, None, None]
-    q = sol[:, :, 2] * e_cross[:, None, None]
-    F, L = interface_solve(p[:, 0], p[:, nb - 1], q[:, 0], q[:, nb - 1],
-                           u[:, 0], u[:, nb - 1])
-    L_above = torch.cat([L.new_zeros((1, K)), L[:-1]], dim=0)
-    F_below = torch.cat([F[1:], F.new_zeros((1, K))], dim=0)
+    u, p, q = (t.view(P, nb, K) for t in shifted_solve.block_lu_solve(
+        db, e_all, tiny, ec_above, e_cross, lam, B, nb))
+    F_below, L_above = shifted_solve.interface_solve(
+        p[:, 0], p[:, nb - 1], q[:, 0], q[:, nb - 1], u[:, 0], u[:, nb - 1],
+        shifted=True)
     x = u - p * L_above[:, None, :] - q * F_below[:, None, :]
     return x.reshape(npad, K)[:n]
-
-
-def interface_solve(pf, pl_, qf, ql, uf, ul):
-    """The Spike interface system: 2x2 block-tridiagonal solve over blocks.
-
-    Inputs (P, K) are each block's boundary responses: p*/q* the scaled
-    unit responses at the first/last row, u* the rhs responses.  Returns
-    (F, L) (P, K), the solution at every block's first/last row.  A P-step
-    forward sweep and a P-step back sweep over (K,) columns.
-
-    The JAX recurrence carries G_b = D_b^-1 Up_b as a 2x2 whose second
-    column is always zero; the terms it multiplies into are dropped here,
-    which leaves every nonzero value bit-identical."""
-    P, K = uf.shape
-    G11 = torch.empty_like(uf)
-    G21 = torch.empty_like(uf)
-    H1 = torch.empty_like(uf)
-    H2 = torch.empty_like(uf)
-    g21 = uf.new_zeros(K)
-    h2 = uf.new_zeros(K)
-    for b in range(P):
-        # D_b = I - Lo_b G_{b-1} = [[1 - pf g21, 0], [-pl g21, 1]]
-        d11 = 1.0 - pf[b] * g21
-        det = torch.where(d11.abs() < _TINY2,
-                          torch.where(d11 < 0, -_TINY2, _TINY2), d11)
-        i11 = 1.0 / det
-        i21 = (pl_[b] * g21) / det
-        i22 = d11 / det
-        r1 = uf[b] - pf[b] * h2
-        r2 = ul[b] - pl_[b] * h2
-        H1[b] = i11 * r1
-        h2 = i21 * r1 + i22 * r2
-        H2[b] = h2
-        G11[b] = i11 * qf[b]
-        g21 = i21 * qf[b] + i22 * ql[b]
-        G21[b] = g21
-    F = torch.empty_like(uf)
-    L = torch.empty_like(uf)
-    f_next = uf.new_zeros(K)
-    for b in range(P - 1, -1, -1):
-        F[b] = H1[b] - G11[b] * f_next
-        L[b] = H2[b] - G21[b] * f_next
-        f_next = F[b]
-    return F, L
 
 
 def inverse_iteration(d, e, lam, V, steps: int = 1, block: int = 128):
@@ -274,12 +175,13 @@ def inverse_iteration(d, e, lam, V, steps: int = 1, block: int = 128):
 
     V may be f32 (the mixed downsweep); the solves run in d's dtype.
     Columns are re-normalized each step (max-prescaled).  n >= 512 uses the
-    blocked solver."""
+    blocked solver, its band split once for all steps."""
     n = d.shape[0]
     X = V.to(d.dtype)
+    band = band_prep(d, e, block) if n >= 512 else None
     for _ in range(steps):
-        if n >= 512:
-            X = solve_shifted_tridiagonal_blocked(d, e, lam, X, nb=block)
+        if band is not None:
+            X = _blocked_solve(band, lam, X, block)
         else:
             X = solve_shifted_tridiagonal(d, e, lam, X)
         mx = torch.clamp(X.abs().amax(dim=0, keepdim=True), min=1e-30)

@@ -7,8 +7,10 @@ inverse-iteration pass (T - lam_i I) x_i = v_i for every column runs as
   pass A (kernel): per (row block, column), the pivoted block LU for v and
       unit loads on the block's first and last rows; only the six boundary
       values per block and column are written;
-  interface (PyTorch): the 2x2 block-tridiagonal coupling solve over the P
-      blocks (``refine.interface_solve``), once for all column chunks;
+  interface (kernel): the 2x2 block-tridiagonal coupling solve over the P
+      blocks (``shifted_solve.interface_solve``), once for all column
+      chunks, one launch that also scales pass A's boundary responses by
+      their couplers and writes the neighbour values pass B reads;
   pass B (kernel): each block re-eliminated with the neighbour couplings
       folded into its first/last rows at load time; writes x and the
       per-block max |x|,
@@ -21,9 +23,11 @@ tile, its row padding or the ``scan=True`` chunk loop, which works around
 XLA buffer fragmentation).  CUDA tensors launch ``csrc/spike_solve.cu``
 (one thread a (block, column); the back substitution re-eliminates each
 S-row segment from a checkpoint in shared memory, so no factor leaves the
-SM and nothing is allocated beyond the outputs; :func:`launch_plan`);
-CPU tensors run :func:`spike_pass_a_plain` / :func:`spike_pass_b_plain`,
-both built on ``refine._block_lu_solve``.
+SM and nothing is allocated beyond the outputs; :func:`launch_plan`, which
+``shifted_solve`` keeps for all three of that source's block-LU
+instances); CPU tensors run :func:`spike_pass_a_plain` /
+:func:`spike_pass_b_plain`, both built on ``shifted_solve._block_lu_solve``,
+and the interface's plain loop.
 
 lam and the band are f64 only: the solver's f32 mode widens d, e and lam
 to f64 before the backtransform (``driver._backtransform``), so the
@@ -34,12 +38,15 @@ f32 at the end.
 from __future__ import annotations
 
 import ctypes
-from typing import Callable, Dict, NamedTuple, Tuple
 
 import torch
 
 from .. import _build
-from .refine import _BIG, _block_lu_solve, band_prep, interface_solve
+from . import shifted_solve
+from .refine import band_prep
+from .shifted_solve import (  # noqa: F401  (the launch plan's names)
+    _BIG, _SEGMENT, _block_lu_solve, kernel_info, launch_plan, plan_for,
+    shared_bytes)
 
 pass_a_launches = 0
 """Pass A kernel launches so far (the CPU path never counts)."""
@@ -49,84 +56,7 @@ pass_b_launches = 0
 _COMMON = ([ctypes.c_void_p] * 5 + [ctypes.c_longlong] + [ctypes.c_int] * 7)
 _ARGTYPES_A = _COMMON + [ctypes.c_void_p] * 2
 _ARGTYPES_B = _COMMON + [ctypes.c_void_p] * 7
-_INFO_ARGTYPES = [ctypes.c_int] * 4 + [ctypes.c_void_p]
 _CLIP_FLAG = 1e30
-
-_SEGMENT = 8                 # kSegment of the kernel: rows a checkpoint covers
-_THREADS = (32, 64, 128)     # the block widths the launch plan weighs
-_MAX_SHARED = 232448         # bytes of shared memory a block may use (H100)
-_INFO: Dict[Tuple, Tuple[int, int, int]] = {}
-
-
-class Plan(NamedTuple):
-    """How one pass is launched: S-row segments (one checkpoint each),
-    ``threads`` columns a block, the dynamic shared memory a block holds
-    (the band and the checkpoints), and the blocks an SM holds at once."""
-
-    segment: int
-    threads: int
-    checkpoints: int
-    shared_bytes: int
-    blocks_per_sm: int
-
-
-def shared_bytes(nb: int, which: str, threads: int) -> int:
-    """A block's dynamic shared memory: the band (2 nb doubles) and, per
-    checkpoint, a, c and the right-hand sides it keeps (two in pass A, one
-    in pass B) for every thread."""
-    checkpoints = -(-(nb - 1) // _SEGMENT)
-    fields = 4 if which == "A" else 3
-    return 8 * (2 * nb + checkpoints * fields * threads)
-
-
-def launch_plan(nb: int, which: str,
-                resident: Callable[[int, int], int]) -> Plan:
-    """The launch of pass ``which`` ("A" or "B") at block size nb: the
-    block width, of ``_THREADS``, whose blocks fill an SM with the most
-    threads (``resident(threads, shared_bytes)``: the blocks an SM holds,
-    from the occupancy API on the card); on a tie the wider block.  Raises
-    when no width fits."""
-    best = None
-    for threads in _THREADS:
-        smem = shared_bytes(nb, which, threads)
-        if smem > _MAX_SHARED:
-            continue
-        blocks = resident(threads, smem)
-        if blocks > 0 and (best is None
-                           or blocks * threads >= best[0] * best[1]):
-            best = (blocks, threads, smem)
-    if best is None:
-        raise ValueError(f"spike_solve: nb={nb} needs more shared memory "
-                         f"than a block holds (pass {which})")
-    blocks, threads, smem = best
-    return Plan(_SEGMENT, threads, -(-(nb - 1) // _SEGMENT), smem, blocks)
-
-
-def kernel_info(which: str, v_f32: bool, threads: int, smem: int,
-                index: int = 0) -> Tuple[int, int, int]:
-    """(registers a thread, spill bytes a thread, blocks an SM holds) of the
-    pass's kernel on CUDA device ``index`` (cached)."""
-    key = (index, which, v_f32, threads, smem)
-    info = _INFO.get(key)
-    if info is None:
-        out = (ctypes.c_int * 3)()
-        fn = _build.function("spike_solve", "spike_kernel_info",
-                             _INFO_ARGTYPES)
-        with torch.cuda.device(index):
-            rc = fn(int(which == "A"), int(v_f32), threads, smem,
-                    ctypes.addressof(out))
-        _build.check_launch(rc, "spike_kernel_info")
-        info = _INFO[key] = (out[0], out[1], out[2])
-    return info
-
-
-def plan_for(which: str, nb: int, V) -> Plan:
-    """The launch plan of pass ``which`` for V's device and type."""
-    index = V.device.index if V.device.index is not None \
-        else torch.cuda.current_device()
-    f32 = V.dtype == torch.float32
-    return launch_plan(nb, which, lambda t, smem: kernel_info(
-        which, f32, t, smem, index)[2])
 
 
 def _blocks(V, npad, nb):
@@ -259,15 +189,13 @@ def _run(which, db, e_all, tiny, lam, V, nb, K, tail):
 
 def _interface(bnd, e_cross, ec_above):
     """bnd (6, P, K) -> (L_above, F_below) (P, K): each block's neighbour
-    values x[first row of the block below], x[last row of the block above]."""
-    K = bnd.shape[2]
+    values x[first row of the block below], x[last row of the block above].
+    One ``interface_solve`` launch on CUDA: the couplers' products, both
+    sweeps and the shift by one block."""
     with torch.profiler.record_function("spike.interface_solve"):
-        F, L = interface_solve(bnd[2] * ec_above[:, None],
-                               bnd[3] * ec_above[:, None],
-                               bnd[4] * e_cross[:, None],
-                               bnd[5] * e_cross[:, None], bnd[0], bnd[1])
-        L_above = torch.cat([L.new_zeros((1, K)), L[:-1]], dim=0)
-        F_below = torch.cat([F[1:], F.new_zeros((1, K))], dim=0)
+        F_below, L_above = shifted_solve.interface_solve(
+            bnd[2], bnd[3], bnd[4], bnd[5], bnd[0], bnd[1],
+            ec_above=ec_above, e_cross=e_cross, shifted=True)
     return L_above, F_below
 
 

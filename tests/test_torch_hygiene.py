@@ -19,6 +19,7 @@ from symmetric_eigenvalue_tpu_torch.kernels import dword_matmul as dm
 from symmetric_eigenvalue_tpu_torch.kernels import dword_matvec as dv
 from symmetric_eigenvalue_tpu_torch.kernels import rotation_replay as rr
 from symmetric_eigenvalue_tpu_torch.kernels import secular_sums as ss
+from symmetric_eigenvalue_tpu_torch.kernels import shifted_solve as shs
 from symmetric_eigenvalue_tpu_torch.kernels import spike_solve as sp
 from symmetric_eigenvalue_tpu_torch.kernels.secular import MergeRep
 
@@ -105,7 +106,8 @@ def test_exports_every_name_of_the_jax_package():
 def _counts():
     return (ss.launches, ss.solve_launches, cr.launches, dm.launches,
             cm.matmul_launches, cm.materialize_launches, sp.pass_a_launches,
-            sp.pass_b_launches, dv.launches, rr.launches)
+            sp.pass_b_launches, dv.launches, rr.launches,
+            shs.interface_launches, shs.block_lu_launches)
 
 
 def test_cpu_tensors_count_no_launches(rng):
@@ -131,7 +133,7 @@ def test_cpu_tensors_count_no_launches(rng):
     assert V.device.type == "cpu"
     st.eigh(A + A.T, band=4, device="cpu")
     st.eigh_banded(np.ones((4, 40)), device="cpu")
-    assert _counts() == before == (0,) * 10
+    assert _counts() == before == (0,) * 12
 
 
 def test_non_cpu_tensors_never_take_the_plain_version():
@@ -173,6 +175,13 @@ def test_non_cpu_tensors_never_take_the_plain_version():
             MergeRep._make([torch.empty((k, m), **i64)]
                            * len(MergeRep._fields)),
             torch.empty((k, m, C), **f64)),
+        "interface_solve": lambda: shs.interface_solve(
+            *(torch.empty((2, C), **f64) for _ in range(6))),
+        "block_lu_solve": lambda: shs.block_lu_solve(
+            torch.empty(n, **f64), torch.empty(n, **f64),
+            torch.empty((), **f64), torch.empty(2, **f64),
+            torch.empty(2, **f64), torch.empty(C, **f64),
+            torch.empty((n, C), **f64), nb),
     }
     before = _counts()
     for name, call in calls.items():

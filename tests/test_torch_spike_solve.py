@@ -16,6 +16,7 @@ import torch
 from symmetric_eigenvalue_tpu.kernels import refine as jref
 from symmetric_eigenvalue_tpu.kernels.pallas import spike_solve as jsp
 from symmetric_eigenvalue_tpu_torch.kernels import refine as tref
+from symmetric_eigenvalue_tpu_torch.kernels import shifted_solve as shs
 from symmetric_eigenvalue_tpu_torch.kernels import spike_solve as tsp
 
 
@@ -116,7 +117,7 @@ def test_clip_flags_residual_estimate(rng, monkeypatch):
     """A back substitution that hits the +-2^80 clip (lowered to 1e4 here)
     is not a solution: its estimate must be the 1e30 sentinel, as the JAX
     kernels report, and its output still finite unit vectors."""
-    monkeypatch.setattr(tref, "_BIG", 1e4)
+    monkeypatch.setattr(shs, "_BIG", 1e4)
     monkeypatch.setattr(tsp, "_BIG", 1e4)
     monkeypatch.setattr(jsp, "_BIG", 1e4)
     n, K, nb = 384, 6, 48
@@ -140,8 +141,9 @@ def test_clip_flags_residual_estimate(rng, monkeypatch):
 
 def test_passes_match_block_lu(rng):
     """Pass A's six boundary values and pass B's folded solve are exactly
-    the block LU of refine._block_lu_solve, and together with the interface
-    solve they reproduce the reconstruction of the blocked solver."""
+    the block LU of shifted_solve._block_lu_solve, and together with the
+    interface solve they reproduce the reconstruction of the blocked
+    solver."""
     n, K, nb = 300, 5, 64
     d, e, lam, B = _system(rng, n, K)
     dt, et, lt, Bt = _t(d, e, lam, B)
@@ -171,18 +173,18 @@ def test_passes_match_block_lu(rng):
 # above.  Pass A's third right-hand side, the unit load on the last row, is
 # zero at every checkpoint (only the last step reads the load), so the kernel
 # keeps no checkpoint of it and rebuilds its factor rr from the swap.  The
-# model must equal refine._block_lu_solve bit for bit: the same operations
-# on the same inputs.
+# model must equal shifted_solve._block_lu_solve bit for bit: the same
+# operations on the same inputs.
 
 def _lu_step(db, e_ext, lam, rhs, tiny, j, a, c, r):
-    """Row j's pivoted elimination step, as refine._block_lu_solve writes
-    it: the factors of row j and the state of row j + 1."""
+    """Row j's pivoted elimination step, as shifted_solve._block_lu_solve
+    writes it: the factors of row j and the state of row j + 1."""
     sub = e_ext[:, j, None]
     a0n = db[:, j + 1, None] - lam[None, :]
     c0n = e_ext[:, j + 1, None]
     rn = rhs[:, j + 1]
     swap = sub.abs() > a.abs()
-    piv = tref._clamp_piv(torch.where(swap, sub, a), tiny)
+    piv = shs._clamp_piv(torch.where(swap, sub, a), tiny)
     mlt = torch.where(swap, a / piv, sub / piv)
     u1 = torch.where(swap, a0n, c)
     sw = swap[:, None, :]
@@ -211,7 +213,7 @@ def _segment_schedule(db, eb, lam, rhs, tiny, S, last_unit=False):
         for j in range(j0, j1):
             (a, c, r), _ = _lu_step(db, e_ext, lam, rhs, tiny, j, a, c, r)
     out = torch.empty(rhs.shape, dtype=rhs.dtype)
-    x1 = tref._clip(r / tref._clamp_piv(a, tiny)[:, None, :])
+    x1 = shs._clip(r / shs._clamp_piv(a, tiny)[:, None, :])
     x2 = torch.zeros_like(x1)
     out[:, nb - 1] = x1
     for (j0, j1), (a, c, r) in zip(reversed(segments),
@@ -229,7 +231,7 @@ def _segment_schedule(db, eb, lam, rhs, tiny, S, last_unit=False):
                 unit = torch.where(swap & (j + 1 == nb - 1), 1.0, 0.0)
                 rr = torch.cat([rr[:, :2], unit[:, None]], dim=1)
             u2 = torch.where(swap, e_ext[:, j + 1, None], 0.0)
-            x = tref._clip((rr - u1[:, None, :] * x1 - u2[:, None, :] * x2)
+            x = shs._clip((rr - u1[:, None, :] * x1 - u2[:, None, :] * x2)
                            / piv[:, None, :])
             out[:, j] = x
             x1, x2 = x, x1
@@ -265,17 +267,27 @@ def _check_schedule(d, e, lam, V, nb, S):
     P = db.shape[0] // nb
     band = (db.view(P, nb), e_all.view(P, nb)[:, :nb - 1], lt)
     rhs_a = _pass_rhs(db, e_all, nb, V)
-    want_a = tref._block_lu_solve(*band, rhs_a, tiny)
+    want_a = shs._block_lu_solve(*band, rhs_a, tiny)
     got_a = _segment_schedule(*band, rhs_a, tiny, S, last_unit=True)
     assert torch.equal(got_a, want_a)
     bnd = tsp.spike_pass_a(db, e_all, tiny, lt, V, nb)
     La, Fb = tsp._interface(bnd, e_cross, ec_above)
     rhs_b = _pass_rhs(db, e_all, nb, V, La, Fb, ec_above, e_cross)
-    want_b = tref._block_lu_solve(*band, rhs_b, tiny)
+    want_b = shs._block_lu_solve(*band, rhs_b, tiny)
     assert torch.equal(_segment_schedule(*band, rhs_b, tiny, S), want_b)
     X, mx = tsp.spike_pass_b(db, e_all, tiny, lt, V, nb, La, Fb, ec_above,
                              e_cross)
     assert torch.equal(X, want_b[:, :, 0].reshape(-1, lam.shape[0]))
+    # the block LU instance: pass A's schedule with every row written, the
+    # unit loads' solutions scaled by their couplers
+    K = lam.shape[0]
+    u, p, q = shs.block_lu_solve(db, e_all, tiny, ec_above, e_cross, lt,
+                                 V.to(torch.float64), nb)
+    assert torch.equal(u, got_a[:, :, 0].reshape(-1, K))
+    assert torch.equal(p, (got_a[:, :, 1] * ec_above[:, None, None])
+                       .reshape(-1, K))
+    assert torch.equal(q, (got_a[:, :, 2] * e_cross[:, None, None])
+                       .reshape(-1, K))
     return want_a
 
 
@@ -296,13 +308,13 @@ def test_segment_schedule_is_block_lu(rng, monkeypatch, nb, S, shifts):
     if shifts == "eigenvalues":
         e[[0, 1, n - 3, n - 2]] = 0.0
         lam[:2] = d[1], d[n - 2]
-        clamp = tref._clamp_piv
+        clamp = shs._clamp_piv
 
         def counted(piv, tiny):
             floored.append(int((piv.abs() < tiny).sum()))
             return clamp(piv, tiny)
 
-        monkeypatch.setattr(tref, "_clamp_piv", counted)
+        monkeypatch.setattr(shs, "_clamp_piv", counted)
     for V in (torch.as_tensor(B), torch.as_tensor(B.astype(np.float32))):
         _check_schedule(d, e, lam, V, nb, S)
     assert (sum(floored) > 0) == (shifts == "eigenvalues")
@@ -313,7 +325,7 @@ def test_segment_schedule_clip_case(rng, monkeypatch, S):
     """The back substitution of test_clip_flags_residual_estimate (clip at
     1e4, so the cascade hits it) through the segment schedule: bit for bit
     the block LU's, clipped values included."""
-    monkeypatch.setattr(tref, "_BIG", 1e4)
+    monkeypatch.setattr(shs, "_BIG", 1e4)
     n, K, nb = 384, 6, 48
     d = rng.standard_normal(n)
     e = rng.standard_normal(n - 1) * 0.5

@@ -8,9 +8,11 @@ orthogonality and the triage's column counts), three warm walls
 with their phases, the host syncs of one warm solve (torch.cuda's sync
 debug mode counts them), and one warm solve under torch.profiler: device
 events, busy time and idle share, the Spike passes' device time and share
-of it, cauchy_rowsum's device time, and the host time of the named ranges;
-the peak device memory of the warm solves.  Prints one JSON line per
-solve.
+of it, the block LU's and the interface solve's (kernels or, in a tree
+that predates them, their loops' launches under the ranges),
+cauchy_rowsum's device time, and the host time, calls and kernel launches
+of the named ranges; the peak device memory of the warm solves.  Prints
+one JSON line per solve.
 
 It imports the package from the tree it sits in, so a copy placed in
 another checkout's ``tools/`` (an older commit unpacked by ``git archive``)
@@ -61,6 +63,11 @@ def host_syncs(d, e, cfg) -> int:
     return sum("synchroniz" in str(w.message) for w in caught)
 
 
+def _launches_under(ev) -> int:
+    """Kernels launched by a profiler event and everything it called."""
+    return len(ev.kernels) + sum(_launches_under(c) for c in ev.cpu_children)
+
+
 def profiled(d, e, cfg):
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -71,31 +78,40 @@ def profiled(d, e, cfg):
         wall = time.perf_counter() - t0
     busy, events, ranges, spike = 0.0, 0, {}, {}
     rowsum = {"device_s": 0.0, "calls": 0}
+    iface = {"device_s": 0.0, "calls": 0}
     for ev in prof.key_averages():
         if ev.key in RANGES:
             if ev.device_type != DeviceType.CUDA:
                 ranges[ev.key] = {"host_s": ev.cpu_time_total * 1e-6,
-                                  "calls": ev.count}
+                                  "calls": ev.count, "launches": 0}
             continue
         if ev.device_type == DeviceType.CUDA and ev.self_device_time_total:
             busy += ev.self_device_time_total * 1e-6
             events += ev.count
             if "spike_kernel<" in ev.key:
-                # spike_kernel<true, ...> is pass A, <false, ...> pass B
-                which = "A" if "spike_kernel<true" in ev.key else "B"
+                # spike_kernel<true, double, true> is the blocked solver's
+                # block LU, <true, ...> pass A, <false, ...> pass B
+                which = ("L" if "spike_kernel<true, double, true>" in ev.key
+                         else "A" if "spike_kernel<true" in ev.key else "B")
                 row = spike.setdefault(which, {"device_s": 0.0, "calls": 0})
                 row["device_s"] += ev.self_device_time_total * 1e-6
                 row["calls"] += ev.count
             if "cauchy_rowsum_kernel" in ev.key:
                 rowsum["device_s"] += ev.self_device_time_total * 1e-6
                 rowsum["calls"] += ev.count
-    spike_s = sum(r["device_s"] for r in spike.values())
+            if "interface_kernel" in ev.key:
+                iface["device_s"] += ev.self_device_time_total * 1e-6
+                iface["calls"] += ev.count
+    for ev in prof.events():
+        if ev.name in ranges and ev.device_type != DeviceType.CUDA:
+            ranges[ev.name]["launches"] += _launches_under(ev)
+    spike_s = sum(r["device_s"] for k, r in spike.items() if k != "L")
     return {"wall_s": wall, "phases_s": timer.times, "device_busy_s": busy,
             "idle_share": max(0.0, 1.0 - busy / wall),
             "device_events": events, "ranges": ranges,
             "spike_passes": spike, "spike_device_s": spike_s,
             "spike_share_of_busy": spike_s / busy if busy else None,
-            "cauchy_rowsum": rowsum}
+            "interface_solve": iface, "cauchy_rowsum": rowsum}
 
 
 def main() -> int:
