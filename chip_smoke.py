@@ -2,7 +2,7 @@
 """Drive the PyTorch/CUDA port once on one GPU and check it.
 
 Run from the repository root:  python3 chip_smoke.py
-With ``--only dword_matmul,cauchy_matmul`` (any of the twelve kernels' names)
+With ``--only dword_matmul,cauchy_matmul`` (any of the fifteen kernels' names)
 it builds those kernels' sources, runs phase 3 for them alone, held to the
 same limits, and stops: half a minute for work on one kernel.
 
@@ -46,7 +46,14 @@ exits non-zero:
                solves; block_lu_solve bit for bit its plain loop on their
                first refinement chunk at nb=128 and at the triage's extra
                and rescue shapes (nb=96 and 64, the risky columns); both
-               with bounds from their yardsticks' SASS
+               with bounds from their yardsticks' SASS; the dense
+               reduction's column step (column_reflector, column_w) from
+               identical inputs against the plain step at m=16384 (jj = 0,
+               15, 31), a later bucket's strided view (m=12288), sigma2 ==
+               0 and the identity column j = m-2, and a whole
+               tridiagonalize at n=1024 against the plain column step
+               (2e-12 n max|A|); larft at nb=32 and 128 against its plain
+               loop
   4. solve     the main path: solve_tridiagonal_staged with the default
                (mixed-precision) SolverConfig, n=16384 random (bench.py's
                input, seed 0), all eigenpairs, cold then three times
@@ -79,16 +86,24 @@ exits non-zero:
                eigenpairs, cold with every check (residual, orthogonality,
                eigenvalues against torch.linalg.eigvalsh on the card), once
                warm, and once with the pure-f64 config (same checks);
-               phases, peak memory, launches of all twelve kernels;
-               torch.linalg.eigh's time on the same matrix
+               phases, peak memory, launches of all fifteen kernels
+               (column_reflector n-1, column_w and dword_vecmat n-2, larft
+               once an apply_q panel, at most 4 launches a column);
+               dense.tridiagonalize beside its bound (the matvecs' bytes at
+               3.35 TB/s) and torch.linalg.eigh's time on the same matrix
   9. dense_two_stage  eigh(band=128) and eigh_banded (u=16) at n=4096, the
-               same three limits; eigvals_only through both front ends
+               same three limits (larft once a panel of reduce_to_band and
+               of apply_q); eigvals_only through both front ends; then
+               dense_f32: eigh in float32 mode at n=4096, the JAX package's
+               f32 grades (eigenvalues 1e-4, residual and orthogonality
+               1e-3)
  10. profile   one more warm solve under torch.profiler, for the tridiagonal
                main path (n=16384) and for the dense path (n=4096): device
                time by kernel, the device's idle share, and the host time,
                device span and launches of the named ranges (at most 5
                launches a spike.interface_solve, under 100 in
-               refine.triage)
+               refine.triage); tridiagonalize alone at n=4096: its idle
+               share and at most 4 device events a column
  11. staged_32768  the main path at n=32768 (bench.py's recipe, seed 0):
                the plain staged route (asserted), the same three limits,
                its peak memory beside 19.2 n^2 (n=16384's peak scaled)
@@ -188,12 +203,14 @@ from symmetric_eigenvalue_tpu_torch.kernels import cauchy_matmul as cm
 from symmetric_eigenvalue_tpu_torch.kernels import cauchy_rowsum as cr
 from symmetric_eigenvalue_tpu_torch.kernels import dword_matmul as dm
 from symmetric_eigenvalue_tpu_torch.kernels import dword_matvec as dv
+from symmetric_eigenvalue_tpu_torch.kernels import householder_panel as hp
 from symmetric_eigenvalue_tpu_torch.kernels import rotation_replay as rr
 from symmetric_eigenvalue_tpu_torch.kernels import secular as sec
 from symmetric_eigenvalue_tpu_torch.kernels import secular_sums as ss
 from symmetric_eigenvalue_tpu_torch.kernels import shifted_solve as shs
 from symmetric_eigenvalue_tpu_torch.kernels import spike_solve as sp
 from symmetric_eigenvalue_tpu_torch.kernels.refine import band_prep
+from symmetric_eigenvalue_tpu_torch.kernels import tridiagonalize as tridiag_mod
 from symmetric_eigenvalue_tpu_torch.kernels.tridiagonalize import _bucket_cuts
 from symmetric_eigenvalue_tpu_torch.utils.checks import (
     max_cross_ortho_error, max_ortho_error)
@@ -243,17 +260,37 @@ REPLACES = {
         "symmetric_eigenvalue_tpu/kernels/refine.py:275",
     "block_lu_solve":
         "symmetric_eigenvalue_tpu/kernels/refine.py:124",
+    # the dense reduction's column body and the T factor's loop, lax
+    # fori_loops with no pallas_call
+    "column_reflector":
+        "symmetric_eigenvalue_tpu/kernels/tridiagonalize.py:114",
+    "column_w":
+        "symmetric_eigenvalue_tpu/kernels/tridiagonalize.py:114",
+    "larft":
+        "symmetric_eigenvalue_tpu/kernels/tridiagonalize.py:213",
 }
 REPLACES_LOOP = {"secular_solve":
                  "symmetric_eigenvalue_tpu/kernels/secular.py:299-361",
                  "interface_solve":
                  "symmetric_eigenvalue_tpu/kernels/refine.py:317,329",
                  "block_lu_solve":
-                 "symmetric_eigenvalue_tpu/kernels/refine.py:183,197"}
+                 "symmetric_eigenvalue_tpu/kernels/refine.py:183,197",
+                 "column_reflector":
+                 "symmetric_eigenvalue_tpu/kernels/tridiagonalize.py:139,146",
+                 "column_w":
+                 "symmetric_eigenvalue_tpu/kernels/tridiagonalize.py:139,146",
+                 "larft":
+                 "symmetric_eigenvalue_tpu/kernels/tridiagonalize.py:227"}
 SOURCES = {"spike_pass_a": "spike_solve", "spike_pass_b": "spike_solve",
            "cauchy_materialize": "cauchy_matmul",
            "dword_vecmat": "dword_matvec", "secular_solve": "secular_sums",
-           "block_lu_solve": "spike_solve"}
+           "block_lu_solve": "spike_solve",
+           "column_reflector": "householder_panel",
+           "column_w": "householder_panel", "larft": "householder_panel"}
+# the column step's matvec: the dword_vecmat source builds beside it
+EXTRA_SOURCES = {"column_reflector": ("dword_matvec", "dword_matmul"),
+                 "column_w": ("dword_matvec", "dword_matmul"),
+                 "larft": ("dword_matmul",)}
 KERNEL_NAMES = tuple(REPLACES)
 
 
@@ -322,7 +359,10 @@ def launch_counts():
             "dword_vecmat": dv.launches,
             "rotation_replay": rr.launches,
             "interface_solve": shs.interface_launches,
-            "block_lu_solve": shs.block_lu_launches}
+            "block_lu_solve": shs.block_lu_launches,
+            "column_reflector": hp.reflector_launches,
+            "column_w": hp.w_launches,
+            "larft": hp.larft_launches}
 
 
 def reset_counts() -> None:
@@ -332,6 +372,7 @@ def reset_counts() -> None:
     sp.pass_a_launches = sp.pass_b_launches = 0
     rr.launches = 0
     shs.interface_launches = shs.block_lu_launches = 0
+    hp.reflector_launches = hp.w_launches = hp.larft_launches = 0
 
 
 def random_matrix(n: int, seed: int):
@@ -621,6 +662,243 @@ def check_dword_vecmat(m, zeros, sliced, reps):
                 library_is="torch.matmul(v, A) / torch.mv(A.T, v), cuBLAS "
                 "dgemv", bound_ms=b_ms, bound_by=b_by)
 
+
+# --------------------------------------------------------------------------
+# the dense reduction's column step and larft (csrc/householder_panel.cu)
+
+
+def panel_state(m: int, o: int, jj: int, base: int = 0, seed: int = 11,
+                zero_below: bool = False, nb: int = 32):
+    """The state of a bucket at column j = o + jj of the panel at o, made on
+    the card: a symmetric A (``base`` > 0: As is the strided view A[base:,
+    base:] of a larger matrix, as a later bucket), the panel's first jj
+    columns reduced by the plain loop (with the dword_vecmat kernel as
+    matvec), Vtb, Wbuf, te as ``_tridiagonalize_block`` holds them.
+    ``zero_below``: column j has nothing below its pivot (sigma2 == 0; only
+    at jj = 0, where no delayed update fills it in)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    full = m + base
+    A = torch.randn((full, full), dtype=torch.float64, device="cuda",
+                    generator=g)
+    A = (A + A.T).div_(2.0 * full ** 0.5)
+    As = A[base:, base:]
+    j = o + jj
+    if zero_below:
+        As[j, j + 2:] = 0.0
+        As[j + 2:, j] = 0.0
+    ncols = j + 1
+    Vtb = As.new_zeros((ncols, m))
+    te = As.new_zeros((ncols, 2))
+    Wbuf = As.new_zeros((nb, m))
+    Wbuf.normal_(generator=g)        # stale rows of an earlier panel
+    plain = hp._PlainSteps(As, Vtb, Wbuf, te)
+    for c in range(o, j):
+        plain(c, o)
+    return A, As, Vtb, Wbuf, te
+
+
+def _state_copy(state):
+    A, As, Vtb, Wbuf, te = state
+    A2 = A.clone()
+    base = A.shape[0] - As.shape[0]
+    return A2, A2[base:, base:], Vtb.clone(), Wbuf.clone(), te.clone()
+
+
+def _rel(got, ref):
+    scale = float(ref.abs().max())
+    return float((got - ref).abs().max()) / (scale if scale > 0 else 1.0)
+
+
+def check_column_step(m: int, jj: int, what: str, base: int = 0,
+                      zero_below: bool = False, o: int = 0, reps: int = 20,
+                      nb: int = 32):
+    """One column step from identical inputs, the kernels against the plain
+    versions on the card: column_reflector's v, tau, alpha (and the identity
+    column's alpha and zeroed W row at j = m - 2), then column_w's W row
+    from the same v and y (y by the plain matvec).  Returns the
+    (column_reflector, column_w) rows; each error is relative to max|row|
+    (|tau|, |alpha| for the scalars)."""
+    state = panel_state(m, o, jj, base, zero_below=zero_below, nb=nb)
+    j = o + jj
+    identity = j == m - 2
+    kern, plain = _state_copy(state), _state_copy(state)
+    del state
+    _, As_k, Vtb_k, Wbuf_k, te_k = kern
+    _, As_p, Vtb_p, Wbuf_p, te_p = plain
+    ks = hp._CudaSteps(As_k, Vtb_k, Wbuf_k, te_k, nb)
+    before = hp.reflector_launches
+    ks.reflector(j, o)
+    v_p = hp.column_reflector_plain(As_p, Vtb_p[o:], Wbuf_p, te_p, j, jj)
+    torch.cuda.synchronize()
+    one = hp.reflector_launches - before == 1
+    errs = {"v": _rel(Vtb_k[j], Vtb_p[j]),
+            "tau": _rel(te_k[j, 0], te_p[j, 0]),
+            "alpha": _rel(te_k[j, 1], te_p[j, 1])}
+    again = te_k[j].clone(), Vtb_k[j].clone()
+    ks.reflector(j, o)
+    same = bool(torch.equal(again[0], te_k[j])
+                and torch.equal(again[1], Vtb_k[j]))
+    rows_in = m - j - 1
+    ms = time_ms(lambda: ks.reflector(j, o), reps)
+    dms = device_ms(lambda: ks.reflector(j, o), reps)
+    work = _state_copy(plain)
+    plain_ms = time_ms(lambda: hp.column_reflector_plain(
+        work[1], work[2][o:], work[3], work[4], j, jj), reps)
+    b_ms, b_by = bound(4.0 * jj * rows_in + 6.0 * rows_in, PEAK_FP64,
+                       8.0 * (rows_in * (2 * jj + 2) + 2))
+    base_row = dict(m=m, j=j, jj=jj, nb=nb, what=what,
+                    row_stride=As_k.stride(0),
+                    identity_column=identity, sigma2_zero=zero_below)
+    if identity:
+        errs["W_row"] = _rel(Wbuf_k[jj], Wbuf_p[jj])
+        errs["W_row_zero"] = float(Wbuf_k[jj].abs().max())
+        errs["v_untouched"] = float(Vtb_k[j].abs().max())
+    if zero_below:
+        errs["no_op_tau"] = float(te_k[j, 0].abs())
+    r1 = dict(base_row, max_rel_err=max(errs.values()), errors=errs,
+              tol=1e-13, tol_of="max|row| (|tau|, |alpha|)",
+              max_abs_err=max(float((Vtb_k[j] - Vtb_p[j]).abs().max()),
+                              float((te_k[j] - te_p[j]).abs().max())),
+              one_launch=one, run_to_run_identical=same, ms=ms,
+              device_ms=dms, plain_ms=plain_ms, library_ms=None,
+              bound_ms=b_ms, bound_by=b_by)
+    if identity:
+        return r1, None
+    # column_w on the kernel's v, with the same y for both
+    y = dv.dword_vecmat_plain(Vtb_k[j, j + 1:], As_k[j + 1:])
+    wstate = (Vtb_k.clone(), Wbuf_k.clone(), te_k.clone())
+    ks.y.copy_(y)
+    before = hp.w_launches
+    ks.w(j, o)
+    hp.column_w_plain(wstate[0][o:], wstate[1], wstate[2], y.clone(), j, jj)
+    torch.cuda.synchronize()
+    one = hp.w_launches - before == 1
+    err_w = _rel(Wbuf_k[jj], wstate[1][jj])
+    abs_w = float((Wbuf_k[jj] - wstate[1][jj]).abs().max())
+    again = Wbuf_k[jj].clone()
+    ks.w(j, o)
+    same = bool(torch.equal(again, Wbuf_k[jj]))
+    ms = time_ms(lambda: ks.w(j, o), reps)
+    dms = device_ms(lambda: ks.w(j, o), reps)
+    plain_ms = time_ms(lambda: hp.column_w_plain(
+        wstate[0][o:], wstate[1], wstate[2], y.clone(), j, jj), reps)
+    b_ms, b_by = bound(4.0 * jj * m + 4.0 * m, PEAK_FP64,
+                       8.0 * ((2 * jj + 2) * m + rows_in))
+    r3 = dict(base_row, max_rel_err=err_w, tol=1e-13, tol_of="max|W row|",
+              max_abs_err=abs_w, one_launch=one, run_to_run_identical=same,
+              ms=ms, device_ms=dms,
+              plain_ms=plain_ms, plain_includes="a copy of y (the plain "
+              "version overwrites it)", library_ms=None, bound_ms=b_ms,
+              bound_by=b_by)
+    return r1, r3
+
+
+@functools.lru_cache(maxsize=1)
+def column_step_rows():
+    """The column step's rows: m=16384 at jj = 0, 15, 31; a later bucket's
+    strided view (m=12288 inside 16384); sigma2 == 0 forced; the identity
+    column j = m - 2 (column_reflector alone); and a panel of 512 columns
+    (eigh(panel=512): rows past the 32 a thread holds in registers, the
+    reflector kernel's shared memory past 48 KB)."""
+    rows = [check_column_step(N, 0, "first column of a panel"),
+            check_column_step(N, 15, "mid panel"),
+            check_column_step(N, 31, "last column of a panel"),
+            check_column_step(12288, 31, "bucket start: strided view",
+                              base=N - 12288),
+            check_column_step(N, 0, "sigma2 == 0 forced", zero_below=True,
+                              o=4096),
+            check_column_step(N, 30, "identity column j = m - 2",
+                              o=N - 32, reps=50),
+            check_column_step(4096, 300, "wide panel (nb=512)", nb=512)]
+    return ([r1 for r1, _ in rows], [r3 for _, r3 in rows if r3 is not None])
+
+
+def whole_reduction_row(n: int = 1024, reps: int = 3):
+    """A whole tridiagonalize at n, the kernels' column step against the
+    plain one (both with the dword_vecmat kernel as matvec) on the card:
+    d, e, Vt and taus within 2e-12 n max|A| (the CPU test's bound)."""
+    A = dense_matrix(n, SEED + 7)
+    got = tridiag_mod.tridiagonalize(A)
+    with plain_column_steps():
+        ref = tridiag_mod.tridiagonalize(A)
+    scale = n * float(A.abs().max())
+    errs = {name: float((g - r).abs().max()) for name, g, r in
+            zip(("d", "e", "Vt", "taus"), got, ref)}
+    ms = 1e3 * min(timed(lambda: tridiag_mod.tridiagonalize(A))
+                   for _ in range(reps))
+    dms = device_ms(lambda: tridiag_mod.tridiagonalize(A), 1)
+    with plain_column_steps():
+        plain = 1e3 * min(timed(lambda: tridiag_mod.tridiagonalize(A))
+                          for _ in range(reps))
+    b_ms, b_by = bound(2.0 * vecmat_stream_bytes(n, 32, 1) / 8.0, PEAK_FP64,
+                       vecmat_stream_bytes(n, 32, 1))
+    return dict(m=n, what=f"whole tridiagonalize, n={n}",
+                max_rel_err=max(errs.values()) / scale, tol=2e-12,
+                tol_of="n max|A| (the CPU test's bound)",
+                errors=errs, max_abs_err=max(errs.values()),
+                ms=ms, ms_is="host wall of the whole reduction (min of "
+                f"{reps})", device_ms=dms, plain_ms=plain, library_ms=None,
+                bound_ms=b_ms, bound_by=b_by,
+                bound_is="the matvecs' bytes (vecmat_stream_bytes)")
+
+
+def timed(fn) -> float:
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+@contextlib.contextmanager
+def plain_column_steps():
+    """The reduction's column step as the plain loop on CUDA tensors (the
+    loop the kernels replaced), for a comparison on the card."""
+    saved = tridiag_mod.column_steps
+    tridiag_mod.column_steps = lambda As, Vtb, Wbuf, te, nb: \
+        hp._PlainSteps(As, Vtb, Wbuf, te)
+    try:
+        yield
+    finally:
+        tridiag_mod.column_steps = saved
+
+
+def check_larft(nb: int, width: int, reps: int):
+    """larft on an apply_q panel's Gram (nb reflectors over ``width``
+    columns, reflector structure, one tau 0) against larft_plain: T within
+    1e-13 max|T|."""
+    g = torch.Generator(device="cuda").manual_seed(12)
+    Vp = torch.randn((nb, width), dtype=torch.float64, device="cuda",
+                     generator=g).triu_(1).div_(width ** 0.5)
+    idx = torch.arange(nb, device="cuda")
+    Vp[idx, idx + 1] = 1.0
+    tau = torch.rand(nb, dtype=torch.float64, device="cuda",
+                     generator=g).add_(1.0)
+    tau[nb // 3] = 0.0
+    Vp[nb // 3] = 0.0
+    G = dm.dword_matmul(Vp, Vp.T.contiguous())
+    before = hp.larft_launches
+    got = hp.larft(G, tau)
+    one = hp.larft_launches - before == 1
+    ref = hp.larft_plain(G, tau)
+    err = _rel(got, ref)
+    same = bool(torch.equal(got, hp.larft(G, tau)))
+    lower_zero = bool((torch.tril(got, -1) == 0).all())
+    ms = time_ms(lambda: hp.larft(G, tau), reps)
+    dms = device_ms(lambda: hp.larft(G, tau), reps)
+    plain = time_ms(lambda: hp.larft_plain(G, tau), reps)
+    b_ms, b_by = bound(nb ** 3 / 3.0, PEAK_FP64, 8.0 * (2 * nb * nb + nb))
+    return dict(nb=nb, width=width, max_rel_err=err, tol=1e-13,
+                tol_of="max|T|", max_abs_err=float((got - ref).abs().max()),
+                one_launch=one, run_to_run_identical=same,
+                lower_triangle_zero=lower_zero,
+                shared_bytes=hp._build.function(
+                    "householder_panel", "larft_shared_bytes",
+                    hp._SHARED_ARGTYPES)(nb),
+                ms=ms, device_ms=dms, plain_ms=plain, library_ms=None,
+                bound_ms=b_ms, bound_by=b_by,
+                latency_note=f"{nb - 1} dependent triangular matvecs "
+                f"({nb * (nb - 1) // 2} dependent FMA steps on row 0)")
 
 def split_level(d, e, k: int, m: int):
     """The inputs of one merge level of a tear of T = (d, e): T's first k*m
@@ -2829,6 +3107,58 @@ def timed_dense(run):
                     "peak_mem_bytes": torch.cuda.max_memory_allocated()}
 
 
+def dense_f32(A, ref):
+    """eigh in float32 mode (SolverConfig(dtype=torch.float32)) on the
+    card: float32 results within the JAX package's f32 grades
+    (eigenvalues 1e-4 ||A|| off the f64 eigvalsh, residual 1e-3 ||A||,
+    orthogonality 1e-3), eigvals_only as well."""
+    cfg32 = st.SolverConfig(dtype=torch.float32)
+    n = A.shape[0]
+    norm = float(ref.abs().max())
+    reset_counts()
+    lam, V, run = timed_dense(lambda tm: st.eigh(A, config=cfg32, timer=tm))
+    launches = launch_counts()
+    require(lam.dtype == V.dtype == torch.float32 and V.shape == (n, n),
+            f"eigh f32 returned {lam.dtype}, {V.dtype}, {tuple(V.shape)}")
+    lam64, V64 = lam.double(), V.double()
+    worst = 0.0
+    for o in range(0, n, 2048):
+        R = torch.matmul(A, V64[:, o:o + 2048]) - V64[:, o:o + 2048] \
+            * lam64[o:o + 2048]
+        worst = max(worst, float(R.abs().max()))
+    resid = worst / norm
+    ortho = max_ortho_error(V64)
+    lam_err = float((lam64 - ref).abs().max()) / norm
+    only = st.eigh(A, config=cfg32, eigvals_only=True)
+    only_err = float((only.double() - ref).abs().max()) / norm
+    _, _, warm = timed_dense(lambda tm: st.eigh(A, config=cfg32, timer=tm))
+    emit({"phase": "dense_f32", "n": n, "config": "SolverConfig(dtype="
+          "torch.float32)", **run, "warm": warm, "residual_over_normA": resid,
+          "ortho": ortho, "eig_err_vs_eigvalsh_over_normA": lam_err,
+          "eigvals_only_err_over_normA": only_err, "launches": launches})
+    require(resid <= 1e-3 and ortho <= 1e-3 and lam_err <= 1e-4
+            and only_err <= 1e-4 and only.dtype == torch.float32,
+            "eigh in float32 outside the f32 grades")
+    require(launches["column_reflector"] == n - 1
+            and launches["larft"] == -(-(n - 1) // 32),
+            "eigh in float32 did not take the column step and larft kernels")
+    del V, V64
+
+
+def tridiagonalize_profile(A):
+    """tridiagonalize(A) alone under the profiler: the device's idle share
+    of the reduction and its device events a column (at most 4)."""
+    n = A.shape[0]
+    reset_counts()
+    prof = profile_solve(lambda: tridiag_mod.tridiagonalize(A))
+    per_column = prof["device_events"] / (n - 1)
+    emit({"phase": "profile", "path": f"tridiagonalize, n={n}", **prof,
+          "device_events_per_column": per_column,
+          "launches": launch_counts()})
+    require(per_column <= 4.0,
+            f"the reduction made {per_column} device events a column")
+
+
 def upper_band_storage(A, u: int):
     """scipy's upper band storage (u+1, n) of the band of A, on the host."""
     n = A.shape[0]
@@ -2959,6 +3289,16 @@ def kernel_table(d, e, ref):
             check_dword_vecmat(N, N // 8, True, 20),
             check_dword_vecmat(4096, 512, True, 50),
             check_dword_vecmat(4001, 333, True, 50)],
+        # the column step from identical inputs at the n=16384 reduction's
+        # first bucket (jj = 0, 15, 31), a later bucket's strided view,
+        # sigma2 == 0 and the identity column, then a whole reduction at
+        # n=1024 against the plain column step
+        "column_reflector": lambda: [*column_step_rows()[0],
+                                     whole_reduction_row()],
+        "column_w": lambda: column_step_rows()[1],
+        # apply_q's panel (nb=32 over n=16384) and the two-stage path's
+        # (nb = band = 128 over n=4096)
+        "larft": lambda: [check_larft(32, N, 50), check_larft(128, 4096, 20)],
     }
 
 
@@ -2999,6 +3339,8 @@ def run_kernel_checks(table, names):
                     f"{name}: wrote outside the view it was given: {row}")
             require(row.get("one_launch", True),
                     f"{name}: more than one launch a call: {row}")
+            require(row.get("lower_triangle_zero", True),
+                    f"{name}: nonzero below the diagonal: {row}")
             require(row.get("shift_choices_identical", True),
                     f"{name}: shift choices differ from the plain ones: "
                     f"{row}")
@@ -3060,8 +3402,10 @@ def main(argv=None) -> int:
 
     # 2. build (one nvcc per source, all at once)
     t0 = time.perf_counter()
-    reports = _build.build_all(sorted({SOURCES.get(k, k) for k in only})
-                               or _build.KERNELS)
+    reports = _build.build_all(sorted(
+        {SOURCES.get(k, k) for k in only}
+        | {x for k in only for x in EXTRA_SOURCES.get(k, ())})
+        or _build.KERNELS)
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "built": sorted(reports), "ptxas": {
               name: [ln.strip() for ln in rep.splitlines()
@@ -3191,11 +3535,23 @@ def main(argv=None) -> int:
     torch.linalg.eigh(A)
     torch.cuda.synchronize()
     library_s = time.perf_counter() - t0
+    stream_bytes = vecmat_stream_bytes(N, 32, 4)
     emit({"phase": "dense", "n": N, "matrix": "(G+G^T)/(2 sqrt n)",
           "seed": SEED, "config": "SolverConfig(), panel=32, buckets=4",
           "min_gap_over_normA": float((ref_a[1:] - ref_a[:-1]).min()
                                       / ref_a.abs().max()),
-          "vecmat_stream_bytes": vecmat_stream_bytes(N, 32, 4),
+          "vecmat_stream_bytes": stream_bytes,
+          "tridiagonalize_s": {
+              "cold": cold["phases_s"]["dense.tridiagonalize"],
+              "warm": warm["phases_s"]["dense.tridiagonalize"],
+              "bound_s": stream_bytes / PEAK_BYTES,
+              "bound_is": "vecmat_stream_bytes / 3.35e12",
+              "library_eigh_s": library_s},
+          "apply_q_s": {"cold": cold["phases_s"]["dense.apply_q"],
+                        "warm": warm["phases_s"]["dense.apply_q"]},
+          "column_step_launches_per_column": (
+              dense_launches["column_reflector"] + dense_launches["column_w"]
+              + dense_launches["dword_vecmat"]) / (N - 1),
           **dense, "warm": warm, "f64_config": dense64,
           "library_eigvalsh_s": eigvalsh_s,
           "library_eigh_s": library_s,
@@ -3205,6 +3561,22 @@ def main(argv=None) -> int:
             f"on the dense path, not n-2 = {N - 2}")
     require(dense_launches["dword_matmul"] > 0,
             "dword_matmul was not launched on the dense path")
+    # every one of the n-1 reduced columns makes one column_reflector launch
+    # (the last one, j = n-2, alone: its identity reflector), the n-2 others
+    # one column_w; apply_q one larft a panel
+    require(dense_launches["column_reflector"] == N - 1,
+            f"column_reflector launched {dense_launches['column_reflector']}"
+            f" times on the dense path, not n-1 = {N - 1}")
+    require(dense_launches["column_w"] == N - 2,
+            f"column_w launched {dense_launches['column_w']} times on the "
+            f"dense path, not n-2 = {N - 2}")
+    apply_q_panels = -(-(N - 1) // 32)
+    require(dense_launches["larft"] == apply_q_panels,
+            f"larft launched {dense_launches['larft']} times on the dense "
+            f"path, not once an apply_q panel ({apply_q_panels})")
+    require((dense_launches["column_reflector"] + dense_launches["column_w"]
+             + dense_launches["dword_vecmat"]) <= 4 * (N - 1),
+            "the column step made more than 4 launches a column")
     check_scan_launches(dense_launches, cold["counts"],
                         dranges["spike.interface_solve"]["calls"], "dense")
     del A, ref_a
@@ -3245,6 +3617,12 @@ def main(argv=None) -> int:
     require(two["launches"]["dword_matmul"] > 0
             and banded["launches"]["dword_matmul"] > 0,
             "dword_matmul was not launched on the two-stage paths")
+    # reduce_to_band's panels (n-2)//b and apply_q's (n-1)/b take larft
+    two_stage_larft = (N_TWO_STAGE - 2) // 128 + -(-(N_TWO_STAGE - 1) // 128)
+    require(two["launches"]["larft"] == two_stage_larft,
+            f"larft launched {two['launches']['larft']} times on the "
+            f"two-stage path, not {two_stage_larft}")
+    dense_f32(A2, ref2)
 
     # 10. where the device time goes (one more warm run of each, profiled)
     reset_counts()
@@ -3262,6 +3640,10 @@ def main(argv=None) -> int:
     emit({"phase": "profile", "path": f"eigh, n={N_TWO_STAGE}",
           "unprofiled_warm": warm2, "ranges_note": GRAPH_RANGES_NOTE,
           **profile_solve(lambda: st.eigh(A2))})
+    # the one-stage reduction alone: its device idle share and its device
+    # events a column (the column step's three launches, the panel's
+    # rank-2k update and its two concatenations)
+    tridiagonalize_profile(A2)
     del A2
     torch.cuda.empty_cache()
 
@@ -3283,7 +3665,10 @@ def main(argv=None) -> int:
     # run, the pure-f64 one for dword_matmul (on the mixed path it serves
     # only the wide cluster-orth Grams), the dense one for dword_vecmat
     paths = {"dword_matmul": ("solve_f64", s64["launches"]),
-             "dword_vecmat": ("dense", dense_launches)}
+             "dword_vecmat": ("dense", dense_launches),
+             "column_reflector": ("dense", dense_launches),
+             "column_w": ("dense", dense_launches),
+             "larft": ("dense", dense_launches)}
     kernels = []
     for name, rows in checks.items():
         row = rows[0]

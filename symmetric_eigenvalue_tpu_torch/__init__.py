@@ -32,10 +32,12 @@ package, ``distributed_init`` for several processes, and the CLI's
 ``--devices`` and multi-process flags): the upsweep's levels sharded by
 merge or by slot, the downsweep by column, the refinement on the lead
 device.  Every Pallas kernel of the JAX
-package has its CUDA counterpart, and so do three of its device loops:
-the downsweep's Givens replay and the refinement's two scans, the Spike
-interface solve and the blocked solver's block LU (eight sources, twelve
-kernels).  Entry
+package has its CUDA counterpart, and so do five of its device loops:
+the downsweep's Givens replay, the refinement's two scans (the Spike
+interface solve and the blocked solver's block LU), the dense
+reduction's column step and the compact-WY T factor (nine sources,
+fifteen kernels); the dense and banded front ends take float32 mode as
+well (their reductions on an f64 copy).  Entry
 points run on the device ``"cuda"`` unless the caller passes
 ``device="cpu"`` (or a mesh, which runs on its devices).
 """

@@ -1065,6 +1065,12 @@ def eigh(A, *, config: SolverConfig = DEFAULT_CONFIG,
     (after "dense.apply_q2" on the two-stage path).  ``mesh``: passed to
     the tridiagonal solve (:func:`solve_tridiagonal_staged`); the
     reductions and the reflector backtransform run on its lead device.
+
+    f32 mode (``config.dtype`` float32): A is rounded to f32 as given, the
+    reductions and the reflector backtransforms run their kernels on an f64
+    copy (they are f64-only), the tridiagonal solve runs in f32 as it
+    does for a tridiagonal input, and the results come back in f32, as the
+    JAX package returns them.  Widening is the identity on f64 tensors.
     """
     dev = _run_device(config, device, mesh)
     A = torch.as_tensor(A, dtype=config.dtype).to(dev)
@@ -1076,6 +1082,7 @@ def eigh(A, *, config: SolverConfig = DEFAULT_CONFIG,
     timer = _run_timer(timer, dev, mesh)
     want_vectors = not eigvals_only
     vlog = None
+    A = A.to(torch.float64)
     if band > 0:
         with timer.phase("dense.reduce_to_band"):
             B, Yt, taus = reduce_to_band(A, band, buckets=_bucket_count(n),
@@ -1093,14 +1100,14 @@ def eigh(A, *, config: SolverConfig = DEFAULT_CONFIG,
                                       timer=timer, device=dev, mesh=mesh)
     if eigvals_only:
         return res.eigenvalues
-    W = res.eigenvectors
+    W = res.eigenvectors.to(torch.float64)
     if band > 0:
         with timer.phase("dense.apply_q2"):
             W = apply_q2_wave_blocked(n, band, vlog, W)
         panel = band
     with timer.phase("dense.apply_q"):
         X = apply_q(Yt, taus, W, panel=panel)
-    return res.eigenvalues, X
+    return res.eigenvalues, X.to(config.dtype)
 
 
 def eigh_banded(a_band, *, lower: bool = False,
@@ -1126,7 +1133,8 @@ def eigh_banded(a_band, *, lower: bool = False,
     u <= 1 routes straight to the tridiagonal solver.  u >= 2 runs the
     band -> tridiagonal WAVEFRONT bulge chase (kernels/band_reduce.py) on the
     matrix prescaled to max|A| = 1 and transforms eigenvectors back through
-    the reflector log.
+    the reflector log.  f32 mode as :func:`eigh`: the chase and the
+    backtransform on an f64 copy, the tridiagonal solve in f32, f32 results.
     """
     dev = _run_device(config, device, mesh)
     if isinstance(a_band, torch.Tensor):
@@ -1170,7 +1178,7 @@ def eigh_banded(a_band, *, lower: bool = False,
         idx = np.arange(n - k)
         A[idx, idx + k] = diag_k(k)
         A[idx + k, idx] = diag_k(k)
-    B = torch.as_tensor(A, dtype=config.dtype).to(dev)
+    B = torch.as_tensor(A, dtype=config.dtype).to(dev).to(torch.float64)
     # prescale to O(1): reflectors are scale-invariant
     s = torch.clamp(B.abs().max(), min=1e-30)
     with timer.phase("dense.band_to_tridiag"):
@@ -1179,11 +1187,13 @@ def eigh_banded(a_band, *, lower: bool = False,
     res, _ = solve_tridiagonal_staged(d, e, config=config,
                                       compute_vectors=want_vectors,
                                       timer=timer, device=dev, mesh=mesh)
+    s = s.to(config.dtype)
     if eigvals_only:
         return res.eigenvalues * s
     with timer.phase("dense.apply_q2"):
-        V = apply_q2_wave_blocked(n, u, vlog, res.eigenvectors)
-    return res.eigenvalues * s, V
+        V = apply_q2_wave_blocked(n, u, vlog,
+                                  res.eigenvectors.to(torch.float64))
+    return res.eigenvalues * s, V.to(config.dtype)
 
 
 def residuals(d, e, result: EighTridiagonalResult, select=None,

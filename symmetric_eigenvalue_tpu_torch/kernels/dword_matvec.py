@@ -48,7 +48,8 @@ def dword_vecmat_plain(v, A):
 def dword_vecmat(v, A):
     """y (m,) = v (n,) @ A (n, m) in f64.  CPU tensors use the plain version;
     CUDA tensors launch the kernel (or raise).  A may be a view with any row
-    stride; a non-unit column stride costs one copy."""
+    stride; a non-unit column stride costs one copy.  (The dense reduction's
+    column step launches it through :func:`launch_raw`.)"""
     if v.ndim != 1 or A.ndim != 2 or A.shape[0] != v.shape[0]:
         raise ValueError(f"shape mismatch {tuple(v.shape)} @ {tuple(A.shape)}")
     if v.dtype != torch.float64 or A.dtype != torch.float64:
@@ -106,7 +107,6 @@ def _scratch(index: int, stream: int, plan: Plan, cols: int):
 
 
 def _launch(v, A):
-    global launches
     dev = v.device
     if dev.type != "cuda":
         raise ValueError(f"dword_vecmat: unsupported device {dev}")
@@ -125,17 +125,28 @@ def _launch(v, A):
         v = v.contiguous()
     index = dev.index if dev.index is not None else torch.cuda.current_device()
     stream = torch.cuda.current_stream(index).cuda_stream
+    if torch.cuda.current_device() == index:
+        launch_raw(v.data_ptr(), A.data_ptr(), y.data_ptr(), rows, cols,
+                   A.stride(0), index, stream)
+    else:
+        with torch.cuda.device(index):
+            launch_raw(v.data_ptr(), A.data_ptr(), y.data_ptr(), rows, cols,
+                       A.stride(0), index, stream)
+    return y
+
+
+def launch_raw(v_ptr: int, A_ptr: int, y_ptr: int, rows: int, cols: int,
+               lda: int, index: int, stream: int) -> None:
+    """One launch on raw pointers: y (cols,) = v (rows,) @ A (rows, cols,
+    row stride ``lda``, unit column stride), f64, rows and cols > 0, all on
+    device ``index`` (the current device) and ``stream``.  For a caller that
+    has checked its tensors once and launches many times (the dense
+    reduction's column step); counts the launch."""
+    global launches
     plan = _plan(rows, cols, *_capacity(index))
     ws, counters = _scratch(index, stream, plan, cols)
     fn = _build.function("dword_matvec", "dword_vecmat_launch", _ARGTYPES)
-    args = (v.data_ptr(), A.data_ptr(), y.data_ptr(), ws.data_ptr(),
-            counters.data_ptr(), rows, cols, A.stride(0),
-            plan.rows_per_chunk, stream)
-    if torch.cuda.current_device() == index:
-        rc = fn(*args)
-    else:
-        with torch.cuda.device(index):
-            rc = fn(*args)
+    rc = fn(v_ptr, A_ptr, y_ptr, ws.data_ptr(), counters.data_ptr(), rows,
+            cols, lda, plan.rows_per_chunk, stream)
     _build.check_launch(rc, "dword_vecmat")
     launches += 1
-    return y

@@ -2,12 +2,14 @@
 
 Port of ``symmetric_eigenvalue_tpu/kernels/tridiagonalize.py`` (its TPU
 route): a LAPACK ``sytrd``/``latrd``-style panel algorithm.  The inner panel
-loop does one full matvec ``v @ As`` per Householder column
-(:func:`dword_vecmat`, the hand-written kernel on CUDA) and small matvecs
-against the panel's delayed-update accumulators Vp/Wp; each panel ends with
-one symmetric rank-2k trailing update (:func:`dword_matmul_sub_`).
-Eigenvectors are transformed back in compact-WY form (``larft``/``larfb``
-equivalents).
+loop reduces one column at a time against the panel's delayed-update
+accumulators Vp/Wp, with one full matvec ``v @ As`` per Householder column
+(:func:`dword_vecmat`); on CUDA the column step is three kernel launches
+(``kernels/householder_panel.py``: the reflector, the matvec, the W row), on
+the CPU the plain torch loop.  Each panel ends with one symmetric rank-2k
+trailing update (:func:`dword_matmul_sub_`).  Eigenvectors are transformed
+back in compact-WY form (``larft``/``larfb`` equivalents; the T factor is
+the ``larft`` kernel on CUDA).
 
 Layout, as in the JAX package: reflector k is ROW k of ``Vt``, full width,
 zero at entries <= k and one at entry k+1, so ``Vt`` and ``taus`` compare
@@ -17,7 +19,7 @@ masked (the matvec streams only the rows below the pivot, a panel of
 ``apply_q`` touches only the rows its reflectors reach), and there is no pad
 to tile sizes, no per-panel f32 split and no padded no-op column.  No step
 of the column loop reads a value back to the host: the data-dependent
-"already tridiagonal" branch is a ``torch.where`` on the device.
+"already tridiagonal" branch is taken on the device.
 """
 
 from __future__ import annotations
@@ -25,30 +27,8 @@ from __future__ import annotations
 import torch
 
 from .dword_matmul import dword_matmul, dword_matmul_sub_
-from .dword_matvec import dword_vecmat
-
-
-def _householder(x, j: int, out=None):
-    """Householder vector zeroing x[j+2:], pivot at j+1; entries <= j are 0.
-
-    Returns (v (n,), tau, alpha) with H = I - tau v v^T, H x = (..., alpha,
-    0...), v normalized so v[j+1] = 1 (LAPACK convention).  ``out``: a
-    zero-filled (n,) tensor that receives v.  tau and alpha are 0-dim
-    tensors; nothing is read back to the host.
-    """
-    v = torch.zeros_like(x) if out is None else out
-    pivot = x[j + 1]
-    below = x[j + 2:]
-    sigma2 = torch.dot(below, below)
-    norm = torch.sqrt(torch.addcmul(sigma2, pivot, pivot))
-    alpha = torch.where(pivot >= 0, -norm, norm)   # sign avoids cancellation
-    no_op = sigma2 == 0.0        # already tridiagonal in this column
-    denom_safe = torch.where(no_op, 1.0, pivot - alpha)
-    torch.div(below, denom_safe, out=v[j + 2:])
-    v[j + 1].copy_(~no_op)
-    tau = torch.where(no_op, 0.0, (alpha - pivot) / alpha)
-    alpha = torch.where(no_op, pivot, alpha)
-    return v, tau, alpha
+# _householder is band_reduce's too (its panel QR imports it from here)
+from .householder_panel import _householder, column_steps, larft  # noqa: F401
 
 
 def _tridiagonalize_block(As, ncols: int, nb: int):
@@ -59,45 +39,26 @@ def _tridiagonalize_block(As, ncols: int, nb: int):
     Returns (Vtb (ncols, m) reflector rows in LOCAL coordinates, taus
     (ncols,), evec (ncols,)).  Reflector for local column j has zeros at
     entries <= j and unit at j+1, exactly the full-matrix convention shifted.
+    The column step (:func:`householder_panel.column_steps`) is the kernels'
+    on CUDA and the plain loop on the CPU.
     """
     m = As.shape[0]
     Vtb = As.new_zeros((ncols, m))
     te = As.new_zeros((ncols, 2))            # (tau, alpha) per column
     Wbuf = As.new_zeros((nb, m))             # panel W accumulators, rows
-    for o in range(0, ncols, nb):
-        cnt = min(nb, ncols - o)
-        Vp = Vtb[o:o + cnt]                  # panel reflectors, rows
-        Wp = Wbuf[:cnt]
-        for jj in range(cnt):
-            j = o + jj
-            # delayed update of column j (= row j: As and its updates stay
-            # symmetric):  a = (As - Vp^T Wp - Wp^T Vp)[j, :]
-            a = As[j]
-            if jj:
-                a = torch.addmv(a, Vp[:jj].T, Wp[:jj, j], alpha=-1.0)
-                a.addmv_(Wp[:jj].T, Vp[:jj, j], alpha=-1.0)
-            if j == m - 2:
-                # nothing lies below the pivot: the identity reflector
-                # (v = 0, tau = 0, alpha = pivot), so no matvec either
-                te[j, 1] = a[j + 1]
-                Wp[jj].zero_()
-                continue
-            v, tau, alpha = _householder(a, j, out=Vp[jj])
-            # w = tau * (A_updated v), delayed; As v = v As (symmetry), and
-            # v is zero above the pivot, so only rows j+1.. are streamed
-            Av = dword_vecmat(v[j + 1:], As[j + 1:])
-            if jj:
-                Av.addmv_(Vp[:jj].T, Wp[:jj] @ v, alpha=-1.0)
-                Av.addmv_(Wp[:jj].T, Vp[:jj] @ v, alpha=-1.0)
-            w = Av.mul_(tau)
-            half = torch.dot(w, v).mul_(tau).mul_(0.5)
-            torch.addcmul(w, half, v, value=-1.0, out=Wp[jj])
-            torch.stack((tau, alpha), out=te[j])
-        # trailing symmetric rank-2k update, fused: As -= [V;W]^T [W;V],
-        # subtracted inside the kernel (As is a strided view after the
-        # first bucket)
-        dword_matmul_sub_(As, torch.cat([Vp, Wp]).T.contiguous(),
-                          torch.cat([Wp, Vp]))
+    step = column_steps(As, Vtb, Wbuf, te, nb)
+    with step.context():
+        for o in range(0, ncols, nb):
+            cnt = min(nb, ncols - o)
+            for j in range(o, o + cnt):
+                step(j, o)
+            Vp = Vtb[o:o + cnt]
+            Wp = Wbuf[:cnt]
+            # trailing symmetric rank-2k update, fused: As -= [V;W]^T [W;V],
+            # subtracted inside the kernel (As is a strided view after the
+            # first bucket)
+            dword_matmul_sub_(As, torch.cat([Vp, Wp]).T.contiguous(),
+                              torch.cat([Wp, Vp]))
     return Vtb, te[:, 0], te[:, 1]
 
 
@@ -159,15 +120,11 @@ def _larft(Vp, tau):
 
     Vp (nb, n): reflectors as rows with unit structure already baked in;
     T upper triangular (nb, nb):
-    T[:k, k] = -tau_k T[:k, :k] (V^T v_k), T[k, k] = tau_k.
+    T[:k, k] = -tau_k T[:k, :k] (V^T v_k), T[k, k] = tau_k, from the Gram
+    by :func:`larft` (one kernel launch on CUDA, the plain loop on the CPU).
     """
-    nb = Vp.shape[0]
     G = dword_matmul(Vp, Vp.T.contiguous())   # (nb, nb) gram
-    T = torch.diag(tau)
-    ntau = -tau
-    for k in range(1, nb):
-        torch.mul(torch.mv(T[:k, :k], G[:k, k]), ntau[k], out=T[:k, k])
-    return T
+    return larft(G, tau)
 
 
 def apply_q(Vt, taus, X, panel: int = 32, transpose: bool = False):

@@ -17,6 +17,7 @@ from symmetric_eigenvalue_tpu_torch.kernels import cauchy_matmul as cm
 from symmetric_eigenvalue_tpu_torch.kernels import cauchy_rowsum as cr
 from symmetric_eigenvalue_tpu_torch.kernels import dword_matmul as dm
 from symmetric_eigenvalue_tpu_torch.kernels import dword_matvec as dv
+from symmetric_eigenvalue_tpu_torch.kernels import householder_panel as hp
 from symmetric_eigenvalue_tpu_torch.kernels import rotation_replay as rr
 from symmetric_eigenvalue_tpu_torch.kernels import secular_sums as ss
 from symmetric_eigenvalue_tpu_torch.kernels import shifted_solve as shs
@@ -107,7 +108,8 @@ def _counts():
     return (ss.launches, ss.solve_launches, cr.launches, dm.launches,
             cm.matmul_launches, cm.materialize_launches, sp.pass_a_launches,
             sp.pass_b_launches, dv.launches, rr.launches,
-            shs.interface_launches, shs.block_lu_launches)
+            shs.interface_launches, shs.block_lu_launches,
+            hp.reflector_launches, hp.w_launches, hp.larft_launches)
 
 
 def test_cpu_tensors_count_no_launches(rng):
@@ -133,7 +135,7 @@ def test_cpu_tensors_count_no_launches(rng):
     assert V.device.type == "cpu"
     st.eigh(A + A.T, band=4, device="cpu")
     st.eigh_banded(np.ones((4, 40)), device="cpu")
-    assert _counts() == before == (0,) * 12
+    assert _counts() == before == (0,) * 15
 
 
 def test_non_cpu_tensors_never_take_the_plain_version():
@@ -182,6 +184,11 @@ def test_non_cpu_tensors_never_take_the_plain_version():
             torch.empty((), **f64), torch.empty(2, **f64),
             torch.empty(2, **f64), torch.empty(C, **f64),
             torch.empty((n, C), **f64), nb),
+        "column_step": lambda: hp.column_steps(
+            torch.empty((n, n), **f64), torch.empty((n - 1, n), **f64),
+            torch.empty((nb, n), **f64), torch.empty((n - 1, 2), **f64), nb),
+        "larft": lambda: hp.larft(torch.empty((nb, nb), **f64),
+                                  torch.empty(nb, **f64)),
     }
     before = _counts()
     for name, call in calls.items():
