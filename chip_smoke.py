@@ -2,7 +2,7 @@
 """Drive the PyTorch/CUDA port once on one GPU and check it.
 
 Run from the repository root:  python3 chip_smoke.py
-With ``--only dword_matmul,cauchy_matmul`` (any of the fifteen kernels' names)
+With ``--only dword_matmul,cauchy_matmul`` (any of the sixteen kernels' names)
 it builds those kernels' sources, runs phase 3 for them alone, held to the
 same limits, and stops: half a minute for work on one kernel.
 
@@ -47,13 +47,19 @@ exits non-zero:
                first refinement chunk at nb=128 and at the triage's extra
                and rescue shapes (nb=96 and 64, the risky columns); both
                with bounds from their yardsticks' SASS; the dense
-               reduction's column step (column_reflector, column_w) from
-               identical inputs against the plain step at m=16384 (jj = 0,
-               15, 31), a later bucket's strided view (m=12288), sigma2 ==
-               0 and the identity column j = m-2, and a whole
-               tridiagonalize at n=1024 against the plain column step
-               (2e-12 n max|A|); larft at nb=32 and 128 against its plain
-               loop
+               reduction's column step, one cooperative kernel launched
+               three ways (column_reflector alone, column_w alone, and
+               column_w_reflector: a column's W row fused with the next
+               column's reflector), from identical inputs against the
+               plain step at m=16384 (jj = 0, 15, 31), a later bucket's
+               strided view (m=12288), sigma2 == 0 (a panel's first
+               column, and inside a panel), the identity column j = m-2
+               and a 512-column panel, each run-to-run identical; a whole
+               32-column panel at m=16384 through the kernels' schedule
+               against the plain loop (device time a column by kernel,
+               launches, the cost of a grid sync); a whole tridiagonalize
+               at n=1024 against the plain column step (2e-12 n max|A|);
+               larft at nb=32 and 128 against its plain loop
   4. solve     the main path: solve_tridiagonal_staged with the default
                (mixed-precision) SolverConfig, n=16384 random (bench.py's
                input, seed 0), all eigenpairs, cold then three times
@@ -86,9 +92,10 @@ exits non-zero:
                eigenpairs, cold with every check (residual, orthogonality,
                eigenvalues against torch.linalg.eigvalsh on the card), once
                warm, and once with the pure-f64 config (same checks);
-               phases, peak memory, launches of all fifteen kernels
-               (column_reflector n-1, column_w and dword_vecmat n-2, larft
-               once an apply_q panel, at most 4 launches a column);
+               phases, peak memory, launches of all sixteen kernels (the
+               column step's three and dword_vecmat exactly
+               householder_panel.column_launches(n, 32, 4): about two a
+               column; larft once an apply_q panel);
                dense.tridiagonalize beside its bound (the matvecs' bytes at
                3.35 TB/s) and torch.linalg.eigh's time on the same matrix
   9. dense_two_stage  eigh(band=128) and eigh_banded (u=16) at n=4096, the
@@ -103,7 +110,7 @@ exits non-zero:
                device span and launches of the named ranges (at most 5
                launches a spike.interface_solve, under 100 in
                refine.triage); tridiagonalize alone at n=4096: its idle
-               share and at most 4 device events a column
+               share and at most 3 device events a column
  11. staged_32768  the main path at n=32768 (bench.py's recipe, seed 0):
                the plain staged route (asserted), the same three limits,
                its peak memory beside 19.2 n^2 (n=16384's peak scaled)
@@ -266,6 +273,8 @@ REPLACES = {
         "symmetric_eigenvalue_tpu/kernels/tridiagonalize.py:114",
     "column_w":
         "symmetric_eigenvalue_tpu/kernels/tridiagonalize.py:114",
+    "column_w_reflector":
+        "symmetric_eigenvalue_tpu/kernels/tridiagonalize.py:114",
     "larft":
         "symmetric_eigenvalue_tpu/kernels/tridiagonalize.py:213",
 }
@@ -279,6 +288,8 @@ REPLACES_LOOP = {"secular_solve":
                  "symmetric_eigenvalue_tpu/kernels/tridiagonalize.py:139,146",
                  "column_w":
                  "symmetric_eigenvalue_tpu/kernels/tridiagonalize.py:139,146",
+                 "column_w_reflector":
+                 "symmetric_eigenvalue_tpu/kernels/tridiagonalize.py:139,146",
                  "larft":
                  "symmetric_eigenvalue_tpu/kernels/tridiagonalize.py:227"}
 SOURCES = {"spike_pass_a": "spike_solve", "spike_pass_b": "spike_solve",
@@ -286,10 +297,13 @@ SOURCES = {"spike_pass_a": "spike_solve", "spike_pass_b": "spike_solve",
            "dword_vecmat": "dword_matvec", "secular_solve": "secular_sums",
            "block_lu_solve": "spike_solve",
            "column_reflector": "householder_panel",
-           "column_w": "householder_panel", "larft": "householder_panel"}
+           "column_w": "householder_panel",
+           "column_w_reflector": "householder_panel",
+           "larft": "householder_panel"}
 # the column step's matvec: the dword_vecmat source builds beside it
 EXTRA_SOURCES = {"column_reflector": ("dword_matvec", "dword_matmul"),
                  "column_w": ("dword_matvec", "dword_matmul"),
+                 "column_w_reflector": ("dword_matvec", "dword_matmul"),
                  "larft": ("dword_matmul",)}
 KERNEL_NAMES = tuple(REPLACES)
 
@@ -318,26 +332,38 @@ def time_ms(fn, reps: int) -> float:
     return t0.elapsed_time(t1) / reps
 
 
-def device_ms(fn, reps: int) -> float:
-    """Device time per call of ``fn`` (torch.profiler: every kernel, copy
-    and fill it launched), over ``reps`` calls after one warm-up.  Beside
-    ``time_ms`` it shows a call whose time is its host's, not its
-    kernels'.  A window that recorded no device event at all (the profiler
-    drops one now and then) is profiled again, up to three times."""
+def device_ms_by_kernel(fn, reps: int):
+    """Device time per call of ``fn`` by kernel name (torch.profiler: every
+    kernel, copy and fill it launched), and the events per call, over
+    ``reps`` calls after one warm-up.  A window that recorded no device
+    event at all (the profiler drops one now and then) is profiled again,
+    up to three times."""
     fn()
     torch.cuda.synchronize()
-    us = 0.0
+    times, events = {}, 0
     for _ in range(3):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        us = sum(ev.self_device_time_total for ev in prof.key_averages()
-                 if ev.device_type == DeviceType.CUDA)
-        if us > 0:
+        times, events = {}, 0
+        for ev in prof.key_averages():
+            if ev.device_type == DeviceType.CUDA \
+                    and ev.self_device_time_total > 0:
+                times[ev.key] = ev.self_device_time_total * 1e-3 / reps
+                events += ev.count
+        if times:
             break
-    return us * 1e-3 / reps
+    return times, events / reps
+
+
+def device_ms(fn, reps: int, only: str = "") -> float:
+    """Device time per call of ``fn``, of the kernels whose name holds
+    ``only`` (all by default).  Beside ``time_ms`` it shows a call whose
+    time is its host's, not its kernels'."""
+    times, _ = device_ms_by_kernel(fn, reps)
+    return sum(t for name, t in times.items() if only in name)
 
 
 def bound(ops: float, peak: float, nbytes: float):
@@ -362,6 +388,7 @@ def launch_counts():
             "block_lu_solve": shs.block_lu_launches,
             "column_reflector": hp.reflector_launches,
             "column_w": hp.w_launches,
+            "column_w_reflector": hp.w_reflector_launches,
             "larft": hp.larft_launches}
 
 
@@ -372,7 +399,8 @@ def reset_counts() -> None:
     sp.pass_a_launches = sp.pass_b_launches = 0
     rr.launches = 0
     shs.interface_launches = shs.block_lu_launches = 0
-    hp.reflector_launches = hp.w_launches = hp.larft_launches = 0
+    hp.reflector_launches = hp.w_launches = hp.w_reflector_launches = 0
+    hp.larft_launches = 0
 
 
 def random_matrix(n: int, seed: int):
@@ -668,14 +696,14 @@ def check_dword_vecmat(m, zeros, sliced, reps):
 
 
 def panel_state(m: int, o: int, jj: int, base: int = 0, seed: int = 11,
-                zero_below: bool = False, nb: int = 32):
+                zero_below: bool = False, nb: int = 32, done=None):
     """The state of a bucket at column j = o + jj of the panel at o, made on
     the card: a symmetric A (``base`` > 0: As is the strided view A[base:,
-    base:] of a larger matrix, as a later bucket), the panel's first jj
-    columns reduced by the plain loop (with the dword_vecmat kernel as
-    matvec), Vtb, Wbuf, te as ``_tridiagonalize_block`` holds them.
-    ``zero_below``: column j has nothing below its pivot (sigma2 == 0; only
-    at jj = 0, where no delayed update fills it in)."""
+    base:] of a larger matrix, as a later bucket), the panel's first
+    ``done`` (default jj) columns reduced by the plain loop (with the
+    dword_vecmat kernel as matvec), Vtb, Wbuf, te as ``_tridiagonalize_block``
+    holds them.  ``zero_below``: columns o .. j have nothing below their
+    subdiagonal (sigma2 == 0 at each: no delayed update fills it in)."""
     g = torch.Generator(device="cuda").manual_seed(seed)
     full = m + base
     A = torch.randn((full, full), dtype=torch.float64, device="cuda",
@@ -684,15 +712,16 @@ def panel_state(m: int, o: int, jj: int, base: int = 0, seed: int = 11,
     As = A[base:, base:]
     j = o + jj
     if zero_below:
-        As[j, j + 2:] = 0.0
-        As[j + 2:, j] = 0.0
+        for c in range(o, j + 1):
+            As[c, c + 2:] = 0.0
+            As[c + 2:, c] = 0.0
     ncols = j + 1
     Vtb = As.new_zeros((ncols, m))
     te = As.new_zeros((ncols, 2))
     Wbuf = As.new_zeros((nb, m))
     Wbuf.normal_(generator=g)        # stale rows of an earlier panel
     plain = hp._PlainSteps(As, Vtb, Wbuf, te)
-    for c in range(o, j):
+    for c in range(o, o + (jj if done is None else done)):
         plain(c, o)
     return A, As, Vtb, Wbuf, te
 
@@ -709,46 +738,140 @@ def _rel(got, ref):
     return float((got - ref).abs().max()) / (scale if scale > 0 else 1.0)
 
 
+def check_fused(state, o: int, jj: int, base_row, reps: int, nb: int):
+    """column_w_reflector (the W row of column j - 1, then the reflector of
+    column j = o + jj) from identical inputs against column_w_plain then
+    column_reflector_plain on the card.  ``state``: the panel with columns
+    before j - 1 reduced; column j - 1's reflector is made here by the
+    kernel, as the path makes it, so the fused launch finds its (p, q) in
+    the step's buffer, and y by the plain matvec.  The (p, q) the launch
+    leaves are held against Wp v and Vp v of the plain result (to 1e-13 of
+    |Wp| |v|).  The timed calls restore (p, q) first (a copy, left out of
+    ``device_ms``)."""
+    j = o + jj
+    m = state[1].shape[0]
+    identity = j == m - 2
+    kern = _state_copy(state)
+    _, As_k, Vtb_k, Wbuf_k, te_k = kern
+    ks = hp._CudaSteps(As_k, Vtb_k, Wbuf_k, te_k, nb)
+    ks.column_reflector(j - 1, o)
+    ks.y.copy_(dv.dword_vecmat_plain(Vtb_k[j - 1, j:], As_k[j:]))
+    torch.cuda.synchronize()
+    pq0 = ks.pq.clone()
+    plain = _state_copy(kern)
+    _, As_p, Vtb_p, Wbuf_p, te_p = plain
+    before = hp.w_reflector_launches
+    ks.column_w_reflector(j - 1, o)
+    hp.column_w_plain(Vtb_p[o:], Wbuf_p, te_p, ks.y.clone(), j - 1, jj - 1)
+    hp.column_reflector_plain(As_p, Vtb_p[o:], Wbuf_p, te_p, j, jj)
+    torch.cuda.synchronize()
+    one = hp.w_reflector_launches - before == 1
+    errs = {"W_row": _rel(Wbuf_k[jj - 1], Wbuf_p[jj - 1]),
+            "v": _rel(Vtb_k[j], Vtb_p[j]),
+            "tau": _rel(te_k[j, 0], te_p[j, 0]),
+            "alpha": _rel(te_k[j, 1], te_p[j, 1])}
+    if identity:
+        errs["W_row_zero"] = float(Wbuf_k[jj].abs().max())
+        errs["v_untouched"] = float(Vtb_k[j].abs().max())
+    else:
+        v, Vp, Wp = Vtb_p[j], Vtb_p[o:j], Wbuf_p[:jj]
+        for name, got, rows in (("p", ks.pq[:jj], Wp),
+                                ("q", ks.pq[jj:2 * jj], Vp)):
+            scale = float((rows.abs() @ v.abs()).max())
+            errs[name] = float((got - rows @ v).abs().max()) / (
+                scale if scale > 0 else 1.0)
+    out = (Wbuf_k[jj - 1].clone(), Vtb_k[j].clone(), te_k[j].clone(),
+           ks.pq[:2 * jj].clone())
+
+    def run():
+        ks.pq.copy_(pq0)
+        ks.column_w_reflector(j - 1, o)
+
+    run()
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in zip(out, (
+        Wbuf_k[jj - 1], Vtb_k[j], te_k[j], ks.pq[:2 * jj])))
+    ms = time_ms(run, reps)
+    dms = device_ms(run, reps, only="column_step_kernel")
+    work = _state_copy(plain)
+    y = ks.y.clone()
+    plain_ms = time_ms(lambda: (
+        hp.column_w_plain(work[2][o:], work[3], work[4], y.clone(), j - 1,
+                          jj - 1),
+        hp.column_reflector_plain(work[1], work[2][o:], work[3], work[4], j,
+                                  jj)), reps)
+    rows_in = m - j - 1
+    b_ms, b_by = bound(
+        4.0 * (jj - 1) * m + 4.0 * m + 4.0 * jj * rows_in + 6.0 * rows_in,
+        PEAK_FP64,
+        8.0 * (2 * (jj - 1) * m + 3 * m - j + 2 * rows_in + 2 * jj + 4))
+    return dict(base_row, j=j, w_column=j - 1, max_rel_err=max(errs.values()),
+                errors=errs, tol=1e-13,
+                tol_of="max|row| (|tau|, |alpha|; |Wp| |v| for p, q)",
+                max_abs_err=max(float((Wbuf_k[jj - 1] - Wbuf_p[jj - 1])
+                                      .abs().max()),
+                                float((Vtb_k[j] - Vtb_p[j]).abs().max()),
+                                float((te_k[j] - te_p[j]).abs().max())),
+                one_launch=one, run_to_run_identical=same, ms=ms,
+                ms_includes="a copy restoring (p, q)", device_ms=dms,
+                device_ms_is="the column step kernel's alone",
+                plain_ms=plain_ms, plain_includes="a copy of y",
+                library_ms=None, bound_ms=b_ms, bound_by=b_by,
+                plan=ks.plan._asdict())
+
+
 def check_column_step(m: int, jj: int, what: str, base: int = 0,
                       zero_below: bool = False, o: int = 0, reps: int = 20,
                       nb: int = 32):
     """One column step from identical inputs, the kernels against the plain
     versions on the card: column_reflector's v, tau, alpha (and the identity
     column's alpha and zeroed W row at j = m - 2), then column_w's W row
-    from the same v and y (y by the plain matvec).  Returns the
-    (column_reflector, column_w) rows; each error is relative to max|row|
-    (|tau|, |alpha| for the scalars)."""
-    state = panel_state(m, o, jj, base, zero_below=zero_below, nb=nb)
+    from the same v and y (y by the plain matvec), and (jj > 0)
+    column_w_reflector's W row of column j - 1 and reflector of column j
+    (:func:`check_fused`).  Returns the (column_reflector, column_w,
+    column_w_reflector) rows, None where the shape has none; each error is
+    relative to max|row| (|tau|, |alpha| for the scalars)."""
     j = o + jj
     identity = j == m - 2
+    base_row = dict(m=m, j=j, jj=jj, nb=nb, what=what,
+                    identity_column=identity, sigma2_zero=zero_below)
+    r2 = None
+    if jj:
+        state = panel_state(m, o, jj, base, zero_below=zero_below, nb=nb,
+                            done=jj - 1)
+        r2 = check_fused(state, o, jj, base_row, reps, nb)
+        _, As, Vtb, Wbuf, te = state
+        hp._PlainSteps(As, Vtb, Wbuf, te)(j - 1, o)
+    else:
+        state = panel_state(m, o, jj, base, zero_below=zero_below, nb=nb)
     kern, plain = _state_copy(state), _state_copy(state)
     del state
     _, As_k, Vtb_k, Wbuf_k, te_k = kern
     _, As_p, Vtb_p, Wbuf_p, te_p = plain
     ks = hp._CudaSteps(As_k, Vtb_k, Wbuf_k, te_k, nb)
     before = hp.reflector_launches
-    ks.reflector(j, o)
-    v_p = hp.column_reflector_plain(As_p, Vtb_p[o:], Wbuf_p, te_p, j, jj)
+    ks.column_reflector(j, o)
+    hp.column_reflector_plain(As_p, Vtb_p[o:], Wbuf_p, te_p, j, jj)
     torch.cuda.synchronize()
     one = hp.reflector_launches - before == 1
     errs = {"v": _rel(Vtb_k[j], Vtb_p[j]),
             "tau": _rel(te_k[j, 0], te_p[j, 0]),
             "alpha": _rel(te_k[j, 1], te_p[j, 1])}
     again = te_k[j].clone(), Vtb_k[j].clone()
-    ks.reflector(j, o)
+    ks.column_reflector(j, o)
     same = bool(torch.equal(again[0], te_k[j])
                 and torch.equal(again[1], Vtb_k[j]))
     rows_in = m - j - 1
-    ms = time_ms(lambda: ks.reflector(j, o), reps)
-    dms = device_ms(lambda: ks.reflector(j, o), reps)
+    ms = time_ms(lambda: ks.column_reflector(j, o), reps)
+    dms = device_ms(lambda: ks.column_reflector(j, o), reps)
     work = _state_copy(plain)
     plain_ms = time_ms(lambda: hp.column_reflector_plain(
         work[1], work[2][o:], work[3], work[4], j, jj), reps)
     b_ms, b_by = bound(4.0 * jj * rows_in + 6.0 * rows_in, PEAK_FP64,
                        8.0 * (rows_in * (2 * jj + 2) + 2))
-    base_row = dict(m=m, j=j, jj=jj, nb=nb, what=what,
-                    row_stride=As_k.stride(0),
-                    identity_column=identity, sigma2_zero=zero_below)
+    base_row["row_stride"] = As_k.stride(0)
+    if r2 is not None:
+        r2["row_stride"] = As_k.stride(0)
     if identity:
         errs["W_row"] = _rel(Wbuf_k[jj], Wbuf_p[jj])
         errs["W_row_zero"] = float(Wbuf_k[jj].abs().max())
@@ -761,25 +884,25 @@ def check_column_step(m: int, jj: int, what: str, base: int = 0,
                               float((te_k[j] - te_p[j]).abs().max())),
               one_launch=one, run_to_run_identical=same, ms=ms,
               device_ms=dms, plain_ms=plain_ms, library_ms=None,
-              bound_ms=b_ms, bound_by=b_by)
+              bound_ms=b_ms, bound_by=b_by, plan=ks.plan._asdict())
     if identity:
-        return r1, None
+        return r1, None, r2
     # column_w on the kernel's v, with the same y for both
     y = dv.dword_vecmat_plain(Vtb_k[j, j + 1:], As_k[j + 1:])
     wstate = (Vtb_k.clone(), Wbuf_k.clone(), te_k.clone())
     ks.y.copy_(y)
     before = hp.w_launches
-    ks.w(j, o)
+    ks.column_w(j, o)
     hp.column_w_plain(wstate[0][o:], wstate[1], wstate[2], y.clone(), j, jj)
     torch.cuda.synchronize()
     one = hp.w_launches - before == 1
     err_w = _rel(Wbuf_k[jj], wstate[1][jj])
     abs_w = float((Wbuf_k[jj] - wstate[1][jj]).abs().max())
     again = Wbuf_k[jj].clone()
-    ks.w(j, o)
+    ks.column_w(j, o)
     same = bool(torch.equal(again, Wbuf_k[jj]))
-    ms = time_ms(lambda: ks.w(j, o), reps)
-    dms = device_ms(lambda: ks.w(j, o), reps)
+    ms = time_ms(lambda: ks.column_w(j, o), reps)
+    dms = device_ms(lambda: ks.column_w(j, o), reps)
     plain_ms = time_ms(lambda: hp.column_w_plain(
         wstate[0][o:], wstate[1], wstate[2], y.clone(), j, jj), reps)
     b_ms, b_by = bound(4.0 * jj * m + 4.0 * m, PEAK_FP64,
@@ -790,27 +913,92 @@ def check_column_step(m: int, jj: int, what: str, base: int = 0,
               plain_ms=plain_ms, plain_includes="a copy of y (the plain "
               "version overwrites it)", library_ms=None, bound_ms=b_ms,
               bound_by=b_by)
-    return r1, r3
+    return r1, r3, r2
 
 
 @functools.lru_cache(maxsize=1)
 def column_step_rows():
     """The column step's rows: m=16384 at jj = 0, 15, 31; a later bucket's
-    strided view (m=12288 inside 16384); sigma2 == 0 forced; the identity
-    column j = m - 2 (column_reflector alone); and a panel of 512 columns
-    (eigh(panel=512): rows past the 32 a thread holds in registers, the
-    reflector kernel's shared memory past 48 KB)."""
-    rows = [check_column_step(N, 0, "first column of a panel"),
-            check_column_step(N, 15, "mid panel"),
+    strided view (m=12288 inside 16384); sigma2 == 0 forced at a panel's
+    first column and inside a panel (the fused launch's no-op branch); the
+    identity column j = m - 2 (its reflector alone and fused after the
+    column before it); and a panel of 512 columns (eigh(panel=512): panel
+    rows past what a block caches in shared memory, read from L2).
+    Returns the rows of (column_reflector, column_w, column_w_reflector)."""
+    rows = [check_column_step(N, 15, "mid panel"),
+            check_column_step(N, 0, "first column of a panel"),
             check_column_step(N, 31, "last column of a panel"),
             check_column_step(12288, 31, "bucket start: strided view",
                               base=N - 12288),
             check_column_step(N, 0, "sigma2 == 0 forced", zero_below=True,
                               o=4096),
+            check_column_step(N, 1, "sigma2 == 0 forced, inside a panel",
+                              zero_below=True, o=4096),
             check_column_step(N, 30, "identity column j = m - 2",
                               o=N - 32, reps=50),
             check_column_step(4096, 300, "wide panel (nb=512)", nb=512)]
-    return ([r1 for r1, _ in rows], [r3 for _, r3 in rows if r3 is not None])
+    return tuple([r[k] for r in rows if r[k] is not None] for k in range(3))
+
+
+def whole_panel_row(m: int = N, nb: int = 32, reps: int = 5):
+    """A whole panel of nb columns at the start of an m-wide bucket through
+    the kernels' schedule (``_CudaSteps.panel``: a lone reflector, the
+    matvec and a fused launch a column, a lone W row) against the plain
+    loop (the same matvec kernel) on the card: Vtb, te and the W rows
+    within 1e-13 of their largest entries, run-to-run identical; launches;
+    device time a column by kernel; the cost of a grid sync at the plan's
+    grid (grid_sync_probe: 0 and 100 syncs in one cooperative launch)."""
+    A = dense_matrix(m, SEED + 9)
+    g = torch.Generator(device="cuda").manual_seed(13)
+    stale = torch.randn((nb, m), dtype=torch.float64, device="cuda",
+                        generator=g)
+
+    def fresh():
+        return (A.clone(), A.new_zeros((nb, m)), stale.clone(),
+                A.new_zeros((nb, 2)))
+
+    kern, plain = fresh(), fresh()
+    ks = hp._CudaSteps(*kern, nb)
+    reset_counts()
+    ks.panel(0, nb)
+    launches = {k: v for k, v in launch_counts().items() if v}
+    hp._PlainSteps(*plain).panel(0, nb)
+    torch.cuda.synchronize()
+    errs = {name: _rel(kern[i], plain[i])
+            for i, name in ((1, "Vtb"), (2, "W_rows"), (3, "te"))}
+    abs_err = max(float((kern[i] - plain[i]).abs().max()) for i in (1, 2, 3))
+    again = fresh()
+    hp._CudaSteps(*again, nb).panel(0, nb)
+    torch.cuda.synchronize()
+    same = all(torch.equal(kern[i], again[i]) for i in (1, 2, 3))
+    del again, plain
+    ms = time_ms(lambda: ks.panel(0, nb), reps)
+    by_kernel, events = device_ms_by_kernel(lambda: ks.panel(0, nb), reps)
+    step_ms = sum(t for k, t in by_kernel.items()
+                  if "column_step_kernel" in k)
+    vecmat_ms = sum(t for k, t in by_kernel.items() if "vecmat" in k)
+    grid = ks.plan.grid
+    sync0 = time_ms(lambda: hp.grid_sync_probe(grid, 0), 50)
+    sync100 = time_ms(lambda: hp.grid_sync_probe(grid, 100), 20)
+    work = fresh()
+    plain_ms = time_ms(lambda: hp._PlainSteps(*work).panel(0, nb), 2)
+    vec_bytes = sum(8.0 * (m - j - 1) * m for j in range(nb))
+    b_ms, b_by = bound(vec_bytes / 4.0, PEAK_FP64, vec_bytes)
+    return dict(m=m, nb=nb, what=f"a whole {nb}-column panel at m={m}, "
+                "the kernels' schedule", max_rel_err=max(errs.values()),
+                errors=errs, tol=1e-13, tol_of="max|Vtb|, max|W rows|, "
+                "max|te|", max_abs_err=abs_err,
+                run_to_run_identical=same, launches=launches,
+                ms=ms, device_ms=sum(by_kernel.values()),
+                device_events=events,
+                column_step_device_ms_per_column=step_ms / nb,
+                vecmat_device_ms_per_column=vecmat_ms / nb,
+                device_ms_by_kernel=by_kernel,
+                empty_cooperative_launch_ms=sync0,
+                grid_sync_us=(sync100 - sync0) * 10.0,
+                plan=ks.plan._asdict(), plain_ms=plain_ms,
+                library_ms=None, bound_ms=b_ms, bound_by=b_by,
+                bound_is="the panel's matvecs' bytes")
 
 
 def whole_reduction_row(n: int = 1024, reps: int = 3):
@@ -3139,7 +3327,8 @@ def dense_f32(A, ref):
     require(resid <= 1e-3 and ortho <= 1e-3 and lam_err <= 1e-4
             and only_err <= 1e-4 and only.dtype == torch.float32,
             "eigh in float32 outside the f32 grades")
-    require(launches["column_reflector"] == n - 1
+    expected = hp.column_launches(n, 32, driver._bucket_count(n))
+    require(all(launches[k] == v for k, v in expected.items())
             and launches["larft"] == -(-(n - 1) // 32),
             "eigh in float32 did not take the column step and larft kernels")
     del V, V64
@@ -3147,7 +3336,8 @@ def dense_f32(A, ref):
 
 def tridiagonalize_profile(A):
     """tridiagonalize(A) alone under the profiler: the device's idle share
-    of the reduction and its device events a column (at most 4)."""
+    of the reduction and its device events a column (at most 3: the column
+    step makes two launches a column)."""
     n = A.shape[0]
     reset_counts()
     prof = profile_solve(lambda: tridiag_mod.tridiagonalize(A))
@@ -3155,7 +3345,7 @@ def tridiagonalize_profile(A):
     emit({"phase": "profile", "path": f"tridiagonalize, n={n}", **prof,
           "device_events_per_column": per_column,
           "launches": launch_counts()})
-    require(per_column <= 4.0,
+    require(per_column <= 3.0,
             f"the reduction made {per_column} device events a column")
 
 
@@ -3290,12 +3480,15 @@ def kernel_table(d, e, ref):
             check_dword_vecmat(4096, 512, True, 50),
             check_dword_vecmat(4001, 333, True, 50)],
         # the column step from identical inputs at the n=16384 reduction's
-        # first bucket (jj = 0, 15, 31), a later bucket's strided view,
-        # sigma2 == 0 and the identity column, then a whole reduction at
-        # n=1024 against the plain column step
+        # first bucket (jj = 15, 0, 31), a later bucket's strided view,
+        # sigma2 == 0, the identity column and a 512-column panel, then a
+        # whole reduction at n=1024 against the plain column step; the
+        # fused launch also over a whole panel at m=16384
         "column_reflector": lambda: [*column_step_rows()[0],
                                      whole_reduction_row()],
         "column_w": lambda: column_step_rows()[1],
+        "column_w_reflector": lambda: [*column_step_rows()[2],
+                                       whole_panel_row()],
         # apply_q's panel (nb=32 over n=16384) and the two-stage path's
         # (nb = band = 128 over n=4096)
         "larft": lambda: [check_larft(32, N, 50), check_larft(128, 4096, 20)],
@@ -3536,6 +3729,7 @@ def main(argv=None) -> int:
     torch.cuda.synchronize()
     library_s = time.perf_counter() - t0
     stream_bytes = vecmat_stream_bytes(N, 32, 4)
+    column_expected = hp.column_launches(N, 32, driver._bucket_count(N))
     emit({"phase": "dense", "n": N, "matrix": "(G+G^T)/(2 sqrt n)",
           "seed": SEED, "config": "SolverConfig(), panel=32, buckets=4",
           "min_gap_over_normA": float((ref_a[1:] - ref_a[:-1]).min()
@@ -3549,9 +3743,9 @@ def main(argv=None) -> int:
               "library_eigh_s": library_s},
           "apply_q_s": {"cold": cold["phases_s"]["dense.apply_q"],
                         "warm": warm["phases_s"]["dense.apply_q"]},
-          "column_step_launches_per_column": (
-              dense_launches["column_reflector"] + dense_launches["column_w"]
-              + dense_launches["dword_vecmat"]) / (N - 1),
+          "column_step_launches_per_column": sum(
+              dense_launches[k] for k in column_expected) / (N - 1),
+          "column_launches_expected": column_expected,
           **dense, "warm": warm, "f64_config": dense64,
           "library_eigvalsh_s": eigvalsh_s,
           "library_eigh_s": library_s,
@@ -3561,22 +3755,20 @@ def main(argv=None) -> int:
             f"on the dense path, not n-2 = {N - 2}")
     require(dense_launches["dword_matmul"] > 0,
             "dword_matmul was not launched on the dense path")
-    # every one of the n-1 reduced columns makes one column_reflector launch
-    # (the last one, j = n-2, alone: its identity reflector), the n-2 others
-    # one column_w; apply_q one larft a panel
-    require(dense_launches["column_reflector"] == N - 1,
-            f"column_reflector launched {dense_launches['column_reflector']}"
-            f" times on the dense path, not n-1 = {N - 1}")
-    require(dense_launches["column_w"] == N - 2,
-            f"column_w launched {dense_launches['column_w']} times on the "
-            f"dense path, not n-2 = {N - 2}")
+    # the column step's schedule: each panel's first reflector alone, a
+    # fused W row + next reflector a column, each panel's last W row alone
+    # (none after the identity column j = n-2); apply_q one larft a panel
+    for name, count in column_expected.items():
+        require(dense_launches[name] == count,
+                f"{name} launched {dense_launches[name]} times on the dense "
+                f"path, not {count} (householder_panel.column_launches)")
     apply_q_panels = -(-(N - 1) // 32)
     require(dense_launches["larft"] == apply_q_panels,
             f"larft launched {dense_launches['larft']} times on the dense "
             f"path, not once an apply_q panel ({apply_q_panels})")
-    require((dense_launches["column_reflector"] + dense_launches["column_w"]
-             + dense_launches["dword_vecmat"]) <= 4 * (N - 1),
-            "the column step made more than 4 launches a column")
+    require(sum(dense_launches[k] for k in column_expected)
+            <= 2.1 * (N - 1),
+            "the column step made more than 2.1 launches a column")
     check_scan_launches(dense_launches, cold["counts"],
                         dranges["spike.interface_solve"]["calls"], "dense")
     del A, ref_a
@@ -3641,8 +3833,8 @@ def main(argv=None) -> int:
           "unprofiled_warm": warm2, "ranges_note": GRAPH_RANGES_NOTE,
           **profile_solve(lambda: st.eigh(A2))})
     # the one-stage reduction alone: its device idle share and its device
-    # events a column (the column step's three launches, the panel's
-    # rank-2k update and its two concatenations)
+    # events a column (the column step's two launches, the panel's rank-2k
+    # update and its two concatenations)
     tridiagonalize_profile(A2)
     del A2
     torch.cuda.empty_cache()
@@ -3668,6 +3860,7 @@ def main(argv=None) -> int:
              "dword_vecmat": ("dense", dense_launches),
              "column_reflector": ("dense", dense_launches),
              "column_w": ("dense", dense_launches),
+             "column_w_reflector": ("dense", dense_launches),
              "larft": ("dense", dense_launches)}
     kernels = []
     for name, rows in checks.items():

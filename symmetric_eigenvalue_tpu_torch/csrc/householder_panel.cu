@@ -5,36 +5,51 @@
 //    its column body `col_body` (:114), run by the lax.fori_loops at :139
 //    (columns of a panel) and :146 (panels).  JAX compiles the loop into one
 //    program; the port drove it from Python with ~31 small launches a column.
-//    Here a column is three launches: column_reflector (K1), the unchanged
-//    dword_vecmat matvec (K2, csrc/dword_matvec.cu) and column_w (K3).
+//    Here a column is two launches: the unchanged dword_vecmat matvec
+//    (csrc/dword_matvec.cu) and one column_step_kernel that finishes the
+//    column's W row and then makes the next column's reflector.
 //  - _larft (:213), its lax.fori_loop at :227 (two launches a reflector in the
 //    port's torch loop): larft, one launch a panel.
 //
 // The column step at local column j of a bucket of width m, panel offset o,
 // jj = j - o, with Vp / Wp the panel's reflector and W accumulator rows
 // (row stride ld = m) and As the bucket's trailing matrix (row stride lda):
-//  K1  a[i] = As[j,i] - sum_{k<jj} Vp[k,i] Wp[k,j] - sum_{k<jj} Wp[k,i] Vp[k,j]
-//      for i >= j+1 (all the Householder vector reads), sigma2 = sum_{i>=j+2}
-//      a[i]^2, the pivot, norm, alpha, tau and the no-op flag, v written into
-//      Vp[jj] and (tau, alpha) into te[j]; also p = Wp[:jj] v and q = Vp[:jj] v
-//      (sum_i Wp[k,i] a[i] is gathered while the block holds those rows, and
-//      divided by the pivot's denominator at the end).
-//  K2  y = v[j+1:] @ As[j+1:]  (dword_vecmat).
-//  K3  Wp[jj] = tau (y - Vp[:jj]^T p - Wp[:jj]^T q) - half v with
+//  R  (the reflector half) a[i] = As[j,i] - sum_{k<jj} Vp[k,i] Wp[k,j]
+//      - sum_{k<jj} Wp[k,i] Vp[k,j] for i >= j+1, sigma2 = sum_{i>=j+2} a[i]^2,
+//      the pivot, norm, alpha, tau and the no-op flag, v into Vp[jj] and
+//      (tau, alpha) into te[j]; also p = Wp[:jj] v and q = Vp[:jj] v, from
+//      P = sum_i Wp[k,i] a[i] and Q = sum_i Vp[k,i] a[i] divided by the
+//      pivot's denominator.
+//  M  y = v[j+1:] @ As[j+1:]  (dword_vecmat).
+//  W  (the W half) Wp[jj] = tau (y - Vp[:jj]^T p - Wp[:jj]^T q) - half v with
 //      half = 0.5 tau^2 (y.v - 2 p.q): v.(A_updated v) = y.v - 2 p.q because
 //      Vp[k].v = q[k] and Wp[k].v = p[k], so no second pass over w.
-// The last column of the last bucket (j = m - 2) has nothing below its pivot:
-// K1 alone, in identity mode, writes te[j][1] = a[j+1] and zeroes Wp[jj] (v
-// and tau stay zero), as the plain loop does.
+// A panel of cnt columns at o launches R(o) alone, then M(j) and the fused
+// W(j) + R(j+1) for j = o .. o+cnt-2, then M and W alone for its last
+// column (kernels/householder_panel.py::panel_launches): every launch but
+// two of a panel does both halves, and the three instances below are one
+// kernel with a half switched off.  The last column of the last bucket
+// (j = m - 2) has nothing below its pivot: its R half, in identity mode,
+// writes te[j][1] = a[j+1] and zeroes Wp[jj] (v and tau stay zero), as the
+// plain loop does, and no M or W follows.
 //
-// What bounds the step on an H100: K2's bytes (the bucket's rows below the
-// pivot, ~0.64 ms at 16384 x 16384).  K1 and K3 read 2 jj + 1 rows of the
-// panel (about 16 MB at m = 16384, jj = 31, mostly from L2: ~5 us at HBM
-// rate); what they must avoid is host pace, so each is one launch with a grid
-// over the row and an arrival counter (as dword_matvec.cu) whose last block
-// finishes the step: K1's scales v by the pivot's denominator, K3's adds the
-// -half v term.  Sums across blocks are taken in block order: the same result
-// from run to run.
+// What bounds the step on an H100: M's bytes (the bucket's rows below the
+// pivot, ~0.64 ms at 16384 x 16384).  R and W read 2 jj + 1 rows of the panel
+// (about 8 MB at m = 16384, jj = 31, mostly from L2); what they must avoid is
+// latency.  So each launch is cooperative (cudaLaunchCooperativeKernel) with
+// a grid that spans every SM (the occupancy API times the SM count,
+// kernels/householder_panel.py::column_plan), each block owns one slice of
+// the row's entries and copies its slice of the panel rows into shared
+// memory once (cp.async) for both halves, and the grid-wide steps are
+// cooperative_groups grid syncs: one after W's y.v partials, one after R's
+// sigma2 / P / Q partials.  After a sync every block sums the per-block
+// partials in the same fixed block order, so all blocks hold the same bits,
+// identical from run to run, and each finishes its own slice: W's -half v,
+// R's division of v by the pivot's denominator.  The P / Q totals are
+// spread over the blocks, a warp a row.  Between the halves no sync is
+// needed: a thread owns the same entries in both, so its W entries are final
+// when R reads them, and the one W entry every block needs, Wp[jj][j+1], each
+// block recomputes in the order its owner does.
 //
 // larft: T (nb x nb, upper) with T[k,k] = tau_k and
 // T[:k,k] = -tau_k T[:k,:k] G[:k,k] for k = 0..nb-1, from the panel's Gram G.
@@ -46,18 +61,21 @@
 // column l of T and one broadcast G[l,k].
 //
 // Contractions are fused multiply-adds (__fma_rn); every other rounding is
-// written out.
+// written out; v is divided by the denominator (__ddiv_rn), not multiplied
+// by its reciprocal.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+namespace cg = cooperative_groups;
+
 namespace {
 
-constexpr int kThreads = 256;   // K1 and K3: one row entry a thread
+constexpr int kThreads = 128;   // column step: a block's slice, 128 entries at a time
 constexpr int kWarps = kThreads / 32;
-constexpr int kMaxPanel = 1024; // nb the column step takes (shared memory)
-constexpr int kCache = 32;      // panel rows a thread holds in registers
-constexpr int kBatch = 8;       // a last block's loads in flight per thread
+constexpr int kMaxPanel = 1024; // nb the column step takes
+constexpr int kScalars = 4;     // shared doubles for a block's scalars
 
 __device__ __forceinline__ double warp_sum(double x) {
 #pragma unroll
@@ -65,228 +83,304 @@ __device__ __forceinline__ double warp_sum(double x) {
   return x;
 }
 
-// The block's partial of row r (lane 0 of each warp has stored its warp's
-// sum at wpart[warp * R + r]) in warp order.
-__device__ __forceinline__ double block_partial(const double* wpart, int R, int r) {
+// The block's sum of x (every thread calls), in thread 0: warps' sums in
+// warp order.
+__device__ __forceinline__ double block_sum(double x, double* red) {
+  x = warp_sum(x);
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = x;
+  __syncthreads();
   double s = 0.0;
+  if (threadIdx.x == 0) {
 #pragma unroll
-  for (int w = 0; w < kWarps; ++w) s = __dadd_rn(s, wpart[w * R + r]);
+    for (int w = 0; w < kWarps; ++w) s = __dadd_rn(s, red[w]);
+  }
+  __syncthreads();
   return s;
 }
 
-// Rows r = warp, warp + kWarps, ... of the (blocks x R) partials, summed
-// over blocks by one warp each (lanes over blocks, then a fixed tree):
-// into tot[r].
-__device__ void sum_partials(const double* ws, int blocks, int R, double* tot) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  for (int r = warp; r < R; r += kWarps) {
-    double s = 0.0;
-    for (int b = lane; b < blocks; b += 32) s = __dadd_rn(s, __ldcg(ws + (size_t)b * R + r));
-    s = warp_sum(s);
-    if (lane == 0) tot[r] = s;
+// The sums over b < blocks of ws[b * stride] and, for t >= 0, of
+// ws[b * stride + t], by one warp: each lane adds its blocks b = lane,
+// lane + 32, ... in order (their loads all in flight), then a fixed tree; in
+// lane 0.  Every warp that calls it gets the same bits.
+__device__ __forceinline__ void grid_totals(const double* ws, int stride, int blocks, int t,
+                                            double& first, double& at_t) {
+  constexpr int kAhead = 8;
+  const int lane = threadIdx.x & 31;
+  double s0 = 0.0, s1 = 0.0;
+  for (int b0 = 0; b0 < blocks; b0 += 32 * kAhead) {
+    double x0[kAhead], x1[kAhead];
+#pragma unroll
+    for (int u = 0; u < kAhead; ++u) {
+      const int b = b0 + lane + 32 * u;
+      x0[u] = b < blocks ? __ldcg(ws + (size_t)b * stride) : 0.0;
+      x1[u] = b < blocks && t >= 0 ? __ldcg(ws + (size_t)b * stride + t) : 0.0;
+    }
+#pragma unroll
+    for (int u = 0; u < kAhead; ++u) {
+      s0 = __dadd_rn(s0, x0[u]);
+      s1 = __dadd_rn(s1, x1[u]);
+    }
   }
+  first = warp_sum(s0);
+  at_t = warp_sum(s1);
 }
 
-__device__ __forceinline__ bool arrive_last(unsigned int* counter) {
-  __shared__ bool last;
-  __threadfence();
-  __syncthreads();
-  if (threadIdx.x == 0) last = atomicAdd(counter, 1u) == gridDim.x - 1;
-  __syncthreads();
-  if (last) __threadfence();
-  return last;
+__device__ __forceinline__ void cp_async8(double* smem, const double* gmem) {
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(dst), "l"(gmem));
 }
 
-__global__ void __launch_bounds__(kThreads)
-column_reflector_kernel(const double* __restrict__ As, long long lda, double* Vp,
-                        double* Wp, int ld, double* te, double* pq, double* ws,
-                        unsigned int* counter, int m, int j, int jj, int identity) {
+struct Step {
+  const double* As;  // the bucket (m, m), unit column stride, row stride lda
+  long long lda;
+  double* Vp;        // the panel's reflector rows, row stride ld
+  double* Wp;        // its W rows
+  int ld;
+  const double* y;   // M's output (the W half)
+  double* te;        // (tau, alpha) of the bucket's columns
+  double* pq;        // p then q of the last reflector (2 nb)
+  double* ws;        // partials and two slots: blocks (2 nb + 2) + 2
+  int m, j, jj;      // the first half's column and panel row
+  int slice, cached; // entries a block owns; panel rows it may cache
+};
+
+// Shared doubles of a launch (the plan sizes them for the panel's widest).
+__host__ __device__ __forceinline__ long long step_shared(int np, int nv, int slice,
+                                                          int cached) {
+  return 2LL * np + 2LL * nv + kScalars + kWarps + 3LL * slice
+         + 2LL * cached * slice;
+}
+
+// kW: the W row of column j (panel row jj).  kR: the reflector of column
+// c = j + kW (panel row jr = jj + kW).
+template <bool kW, bool kR>
+__global__ void __launch_bounds__(kThreads) column_step_kernel(const Step a) {
   extern __shared__ double sh[];
-  const int R = 2 * jj + 1;               // sigma2, then jj of P, jj of Q
-  double* vj = sh;                        // Vp[k][j]
-  double* wj = sh + jj;                   // Wp[k][j]
-  double* wpart = sh + 2 * jj;            // kWarps x R
-  double* tot = wpart + kWarps * R;       // R, then the scalars
+  cg::grid_group grid = cg::this_grid();
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  for (int k = tid; k < jj; k += kThreads) {
-    vj[k] = Vp[(size_t)k * ld + j];
-    wj[k] = Wp[(size_t)k * ld + j];
+  const int G = gridDim.x, S = a.slice, m = a.m, ld = a.ld;
+  const int lo = blockIdx.x * S;
+  const int ne = max(0, min(S, m - lo));  // entries lo .. lo + ne - 1
+  const int jw = a.jj;                    // the W row (kW)
+  const int c = a.j + (kW ? 1 : 0);       // the reflector's column (kR)
+  const int jr = a.jj + (kW ? 1 : 0);     // and its panel row
+  const int nold = kW ? jw : jr;          // rows finished by earlier launches
+  const int kc = min(nold, a.cached);     // of them in shared memory
+  double* sp = sh;                        // p, q of column j (kW)
+  double* sq = sp + (kW ? jw : 0);
+  double* vj = sq + (kW ? jw : 0);        // Vp[k][c], Wp[k][c], k < jr (kR)
+  double* wj = vj + (kR ? jr : 0);
+  double* scal = wj + (kR ? jr : 0);
+  double* red = scal + kScalars;
+  double* ev = red + kWarps;              // Vp[jw] at the slice (kW)
+  double* ew = ev + S;                    // y, then the W row (kW)
+  double* ea = ew + S;                    // As[c], then the delayed row (kR)
+  double* Vc = ea + S;                    // rows k < kc of Vp, Wp at the slice
+  double* Wc = Vc + (size_t)kc * S;
+  double* ws_w = a.ws;                    // W's y.v partials
+  double* piv = a.ws + G;                 // R's pivot
+  double* wslot = a.ws + G + 1;           // W's Wp[jw][c] before -half v
+  double* ws_r = a.ws + G + 2;            // R's sigma2, P, Q partials
+
+  for (int k = 0; k < kc; ++k) {
+    for (int s = tid; s < ne; s += kThreads) {
+      cp_async8(Vc + (size_t)k * S + s, a.Vp + (size_t)k * ld + lo + s);
+      cp_async8(Wc + (size_t)k * S + s, a.Wp + (size_t)k * ld + lo + s);
+    }
   }
+  asm volatile("cp.async.commit_group;\n" ::);
+  if (kW) {
+    for (int k = tid; k < jw; k += kThreads) {
+      sp[k] = __ldcg(a.pq + k);
+      sq[k] = __ldcg(a.pq + jw + k);
+    }
+  }
+  if (kR) {
+    for (int k = tid; k < nold; k += kThreads) {
+      vj[k] = __ldg(a.Vp + (size_t)k * ld + c);
+      wj[k] = __ldg(a.Wp + (size_t)k * ld + c);
+    }
+    if (kW && tid == 0) vj[jw] = __ldg(a.Vp + (size_t)jw * ld + c);
+  }
+  for (int s = tid; s < ne; s += kThreads) {
+    const int i = lo + s;
+    if (kW) {
+      ev[s] = __ldg(a.Vp + (size_t)jw * ld + i);
+      ew[s] = __ldg(a.y + i);
+    }
+    if (kR) ea[s] = i > c ? __ldg(a.As + (size_t)c * a.lda + i) : 0.0;
+  }
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
   __syncthreads();
 
-  // the delayed row, one entry a thread; the panel's first kCache rows
-  // stay in registers (all their loads in flight at once) for the sums
-  // below, wider panels load the rest twice
-  const int i = j + 1 + blockIdx.x * kThreads + tid;
-  const bool in = i < m;
-  double vr[kCache], wr[kCache];
-#pragma unroll
-  for (int k = 0; k < kCache; ++k) {
-    vr[k] = (in && k < jj) ? __ldg(Vp + (size_t)k * ld + i) : 0.0;
-    wr[k] = (in && k < jj) ? __ldg(Wp + (size_t)k * ld + i) : 0.0;
-  }
-  double a = 0.0;
-  if (in) {
-    double s1 = 0.0, s2 = 0.0;
-#pragma unroll
-    for (int k = 0; k < kCache; ++k) {
-      if (k < jj) {
-        s1 = __fma_rn(vr[k], wj[k], s1);
-        s2 = __fma_rn(wr[k], vj[k], s2);
+  if (kW) {
+    const double tau = __ldcg(a.te + 2 * a.j);
+    if (warp == 1) {
+      // p.q, a lane's terms in order, then a fixed tree
+      double x = 0.0;
+      for (int k = lane; k < jw; k += 32) x = __fma_rn(sp[k], sq[k], x);
+      x = warp_sum(x);
+      if (lane == 0) scal[1] = x;
+    }
+    double sv = 0.0;
+    for (int s = tid; s < ne; s += kThreads) {
+      const int i = lo + s;
+      double s1 = 0.0, s2 = 0.0;
+      int k = 0;
+#pragma unroll 4
+      for (; k < kc; ++k) {
+        s1 = __fma_rn(Vc[(size_t)k * S + s], sp[k], s1);
+        s2 = __fma_rn(Wc[(size_t)k * S + s], sq[k], s2);
       }
+      for (; k < jw; ++k) {
+        s1 = __fma_rn(__ldg(a.Vp + (size_t)k * ld + i), sp[k], s1);
+        s2 = __fma_rn(__ldg(a.Wp + (size_t)k * ld + i), sq[k], s2);
+      }
+      const double yi = ew[s];
+      const double w = __dmul_rn(tau, __dsub_rn(__dsub_rn(yi, s1), s2));
+      ew[s] = w;
+      if (kR && i == c) *wslot = w;       // every block needs it after the sync
+      if (i > a.j) sv = __dadd_rn(sv, __dmul_rn(yi, ev[s]));
     }
-    for (int k = kCache; k < jj; ++k) {
-      s1 = __fma_rn(__ldg(Vp + (size_t)k * ld + i), wj[k], s1);
-      s2 = __fma_rn(__ldg(Wp + (size_t)k * ld + i), vj[k], s2);
+    const double part = block_sum(sv, red);
+    if (tid == 0) ws_w[blockIdx.x] = part;
+    grid.sync();
+    if (warp == 0) {
+      double yv, unused;
+      grid_totals(ws_w, 1, G, -1, yv, unused);
+      if (lane == 0) {
+        // v.(A_updated v) = y.v - 2 p.q; half = 0.5 tau (tau v.(A v)) as
+        // the plain loop's dot(w, v) * tau * 0.5
+        const double vav = __fma_rn(-2.0, scal[1], yv);
+        scal[0] = __dmul_rn(__dmul_rn(__dmul_rn(tau, vav), tau), 0.5);
+      }
+    } else if (kR && tid == 32) {
+      scal[3] = __ldcg(wslot);
     }
-    a = __dsub_rn(__dsub_rn(As[(size_t)j * lda + i], s1), s2);
+    __syncthreads();
+    const double half = scal[0];
+    for (int s = tid; s < ne; s += kThreads) {
+      const int i = lo + s;
+      const double w = i > a.j ? __fma_rn(-half, ev[s], ew[s]) : ew[s];
+      a.Wp[(size_t)jw * ld + i] = w;
+      ew[s] = w;
+    }
+    // Wp[jw][c] as its owner finishes it
+    if (kR && tid == 0) wj[jw] = __fma_rn(-half, vj[jw], scal[3]);
+    __syncthreads();
+  }
+  if (!kR) return;
+
+  // the delayed row past c; the pivot (i = c + 1) apart, ea keeps the
+  // entries below it
+  const bool identity = c == m - 2;
+  for (int s = tid; s < ne; s += kThreads) {
+    const int i = lo + s;
+    if (i <= c) continue;
+    double s1 = 0.0, s2 = 0.0;
+    int k = 0;
+#pragma unroll 4
+    for (; k < kc; ++k) {
+      s1 = __fma_rn(Vc[(size_t)k * S + s], wj[k], s1);
+      s2 = __fma_rn(Wc[(size_t)k * S + s], vj[k], s2);
+    }
+    for (; k < nold; ++k) {
+      s1 = __fma_rn(__ldg(a.Vp + (size_t)k * ld + i), wj[k], s1);
+      s2 = __fma_rn(__ldg(a.Wp + (size_t)k * ld + i), vj[k], s2);
+    }
+    if (kW) {                             // row jw, finished above
+      s1 = __fma_rn(ev[s], wj[jw], s1);
+      s2 = __fma_rn(ew[s], vj[jw], s2);
+    }
+    const double x = __dsub_rn(__dsub_rn(ea[s], s1), s2);
+    if (i == c + 1) {
+      if (identity) a.te[2 * c + 1] = x;
+      else *piv = x;
+    }
+    ea[s] = i == c + 1 ? 0.0 : x;
   }
   if (identity) {
-    // j = m - 2: the identity reflector; v and tau stay zero
-    if (in) te[1] = a;
-    for (int c = tid; c < m; c += kThreads) Wp[(size_t)jj * ld + c] = 0.0;
+    // j = m - 2: the identity reflector; v and tau stay zero, and the W row
+    // (an earlier panel's, maybe) is zeroed
+    for (int s = tid; s < ne; s += kThreads) a.Wp[(size_t)jr * ld + lo + s] = 0.0;
     return;
   }
-  if (in) Vp[(size_t)jj * ld + i] = a;    // scaled into v by the last block
+  __syncthreads();
 
-  // sigma2, P[k] = sum Wp[k][i] a[i], Q[k] = sum Vp[k][i] a[i] over i >= j+2
-  const double am = (in && i >= j + 2) ? a : 0.0;
-  double x = warp_sum(__dmul_rn(am, am));
-  if (lane == 0) wpart[warp * R] = x;
-#pragma unroll
-  for (int k = 0; k < kCache; ++k) {
-    if (k < jj) {
-      const double pw = warp_sum(__dmul_rn(wr[k], am));
-      const double pv = warp_sum(__dmul_rn(vr[k], am));
-      if (lane == 0) {
-        wpart[warp * R + 1 + k] = pw;
-        wpart[warp * R + 1 + jj + k] = pv;
+  // the block's partials of row t: t = 0 sigma2 = sum a^2, t = 1 + k
+  // P[k] = sum Wp[k] a, t = 1 + jr + k Q[k] = sum Vp[k] a, over the entries
+  // past the pivot; `parts` consecutive lanes a row, each over every
+  // parts-th entry in order, then a fixed tree
+  const int R = 2 * jr + 1;
+  int parts = 32;
+  while (parts > 1 && parts * R > kThreads) parts >>= 1;
+  const int part = tid & (parts - 1);
+  const int s0 = max(0, c + 2 - lo);
+  for (int t0 = 0; t0 < R; t0 += kThreads / parts) {
+    const int t = t0 + tid / parts;
+    double x = 0.0;
+    if (t < R) {
+      const bool is_p = t <= jr;
+      const int k = is_p ? t - 1 : t - 1 - jr;
+      const double* row = t == 0 ? ea
+                          : k < kc ? (is_p ? Wc : Vc) + (size_t)k * S
+                          : kW && k == jw ? (is_p ? ew : ev)
+                          : nullptr;
+      const double* far = row != nullptr ? row : (is_p ? a.Wp : a.Vp) + (size_t)k * ld + lo;
+      for (int s = s0 + part; s < ne; s += parts) {
+        const double r = row != nullptr ? row[s] : __ldg(far + s);
+        x = __dadd_rn(x, __dmul_rn(r, ea[s]));
       }
     }
+    for (int off = parts >> 1; off > 0; off >>= 1) x += __shfl_down_sync(0xffffffffu, x, off);
+    if (t < R && part == 0) ws_r[(size_t)blockIdx.x * R + t] = x;
   }
-  for (int k = kCache; k < jj; ++k) {
-    const double wk = in ? __ldg(Wp + (size_t)k * ld + i) : 0.0;
-    const double vk = in ? __ldg(Vp + (size_t)k * ld + i) : 0.0;
-    const double pw = warp_sum(__dmul_rn(wk, am));
-    const double pv = warp_sum(__dmul_rn(vk, am));
-    if (lane == 0) {
-      wpart[warp * R + 1 + k] = pw;
-      wpart[warp * R + 1 + jj + k] = pv;
-    }
-  }
-  __syncthreads();
-  for (int r = tid; r < R; r += kThreads) ws[(size_t)blockIdx.x * R + r] = block_partial(wpart, R, r);
+  grid.sync();
 
-  if (!arrive_last(counter)) return;
-  sum_partials(ws, gridDim.x, R, tot);
-  __syncthreads();
-  double* scal = tot + R;                 // denom, unit
-  if (tid == 0) {
-    const double pivot = __ldcg(Vp + (size_t)jj * ld + j + 1);
-    const double sigma2 = tot[0];
-    const double norm = __dsqrt_rn(__dadd_rn(sigma2, __dmul_rn(pivot, pivot)));
-    double alpha = pivot >= 0.0 ? -norm : norm;   // sign avoids cancellation
-    const bool no_op = sigma2 == 0.0;             // already tridiagonal here
-    const double denom = no_op ? 1.0 : __dsub_rn(pivot, alpha);
-    const double tau = no_op ? 0.0 : __ddiv_rn(__dsub_rn(alpha, pivot), alpha);
-    alpha = no_op ? pivot : alpha;
-    const double unit = no_op ? 0.0 : 1.0;
-    te[0] = tau;
-    te[1] = alpha;
-    scal[0] = denom;
-    scal[1] = unit;
-    Vp[(size_t)jj * ld + j + 1] = unit;
-  }
-  __syncthreads();
-  const double denom = scal[0], unit = scal[1];
-  for (int k = tid; k < jj; k += kThreads) {
-    pq[k] = __fma_rn(__ldg(Wp + (size_t)k * ld + j + 1), unit, __ddiv_rn(tot[1 + k], denom));
-    pq[jj + k] = __fma_rn(__ldg(Vp + (size_t)k * ld + j + 1), unit,
-                          __ddiv_rn(tot[1 + jj + k], denom));
-  }
-  double* row = Vp + (size_t)jj * ld;
-  for (int c0 = j + 2 + tid; c0 < m; c0 += kBatch * kThreads) {
-    double x[kBatch];
-#pragma unroll
-    for (int u = 0; u < kBatch; ++u) {
-      const int c = c0 + u * kThreads;
-      x[u] = c < m ? __ldcg(row + c) : 0.0;
+  // every warp: sigma2's total (the same bits in every warp and block),
+  // beside the total of its first P / Q row (rows 1 + blockIdx.x + G w, ...)
+  double denom = 0.0, unit = 0.0;
+  for (int t = 1 + blockIdx.x + G * warp, first = 1; first || t < R;
+       t += G * kWarps, first = 0) {
+    double sigma2, tot;
+    grid_totals(ws_r, R, G, t < R ? t : -1, sigma2, tot);
+    if (first) {
+      if (lane == 0) {
+        const double pivot = __ldcg(piv);
+        const double norm = __dsqrt_rn(__dadd_rn(sigma2, __dmul_rn(pivot, pivot)));
+        double alpha = pivot >= 0.0 ? -norm : norm;   // sign avoids cancellation
+        const bool no_op = sigma2 == 0.0;             // already tridiagonal here
+        denom = no_op ? 1.0 : __dsub_rn(pivot, alpha);
+        const double tau = no_op ? 0.0 : __ddiv_rn(__dsub_rn(alpha, pivot), alpha);
+        alpha = no_op ? pivot : alpha;
+        unit = no_op ? 0.0 : 1.0;
+        if (blockIdx.x == 0 && warp == 0) {
+          a.te[2 * c] = tau;
+          a.te[2 * c + 1] = alpha;
+          a.Vp[(size_t)jr * ld + c + 1] = unit;
+        }
+      }
+      denom = __shfl_sync(0xffffffffu, denom, 0);
+      unit = __shfl_sync(0xffffffffu, unit, 0);
     }
-#pragma unroll
-    for (int u = 0; u < kBatch; ++u) {
-      const int c = c0 + u * kThreads;
-      if (c < m) row[c] = __ddiv_rn(x[u], denom);
+    if (t < R && lane == 0) {
+      // p = Wp v, q = Vp v: the pivot column's term and the rest / denom
+      const bool is_p = t <= jr;
+      const int k = is_p ? t - 1 : t - 1 - jr;
+      const double* at = (is_p ? a.Wp : a.Vp) + (size_t)k * ld + c + 1;
+      a.pq[t - 1] = __fma_rn(__ldcg(at), unit, __ddiv_rn(tot, denom));
     }
   }
-  if (tid == 0) *counter = 0u;
+  for (int s = s0 + tid; s < ne; s += kThreads) {
+    a.Vp[(size_t)jr * ld + lo + s] = __ddiv_rn(ea[s], denom);
+  }
 }
 
-__global__ void __launch_bounds__(kThreads)
-column_w_kernel(const double* __restrict__ y, const double* Vp, double* Wp, int ld,
-                const double* te, const double* pq, double* ws, unsigned int* counter,
-                int m, int j, int jj) {
-  __shared__ double wpart[kWarps];
-  __shared__ double half_s;
-  extern __shared__ double sh[];
-  double* p = sh;                         // jj
-  double* q = sh + jj;                    // jj
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  for (int k = tid; k < jj; k += kThreads) {
-    p[k] = pq[k];
-    q[k] = pq[jj + k];
-  }
-  const double tau = te[0];
-  __syncthreads();
-
-  const int i = blockIdx.x * kThreads + tid;
-  const bool in = i < m;
-  double sv = 0.0;
-  if (in) {
-    double s1 = 0.0, s2 = 0.0;
-#pragma unroll 16
-    for (int k = 0; k < jj; ++k) {
-      s1 = __fma_rn(__ldg(Vp + (size_t)k * ld + i), p[k], s1);
-      s2 = __fma_rn(__ldg(Wp + (size_t)k * ld + i), q[k], s2);
-    }
-    const double yi = y[i];
-    Wp[(size_t)jj * ld + i] = __dmul_rn(tau, __dsub_rn(__dsub_rn(yi, s1), s2));
-    if (i >= j + 1) sv = __dmul_rn(yi, Vp[(size_t)jj * ld + i]);
-  }
-  const double x = warp_sum(sv);
-  if (lane == 0) wpart[warp] = x;
-  __syncthreads();
-  if (tid == 0) ws[blockIdx.x] = block_partial(wpart, 1, 0);
-
-  if (!arrive_last(counter)) return;
-  sum_partials(ws, gridDim.x, 1, &half_s);   // y.v
-  __syncthreads();
-  if (tid == 0) {
-    double pdotq = 0.0;
-    for (int k = 0; k < jj; ++k) pdotq = __fma_rn(p[k], q[k], pdotq);
-    // v.(A_updated v) = y.v - 2 p.q; half = 0.5 tau (tau v.(A v)) as the
-    // plain loop's dot(w, v) * tau * 0.5
-    const double vav = __fma_rn(-2.0, pdotq, half_s);
-    half_s = __dmul_rn(__dmul_rn(__dmul_rn(tau, vav), tau), 0.5);
-  }
-  __syncthreads();
-  const double half = half_s;
-  double* wrow = Wp + (size_t)jj * ld;
-  const double* vrow = Vp + (size_t)jj * ld;
-  for (int c0 = j + 1 + tid; c0 < m; c0 += kBatch * kThreads) {
-    double x[kBatch], v[kBatch];
-#pragma unroll
-    for (int u = 0; u < kBatch; ++u) {
-      const int c = c0 + u * kThreads;
-      x[u] = c < m ? __ldcg(wrow + c) : 0.0;
-      v[u] = c < m ? vrow[c] : 0.0;
-    }
-#pragma unroll
-    for (int u = 0; u < kBatch; ++u) {
-      const int c = c0 + u * kThreads;
-      if (c < m) wrow[c] = __fma_rn(-half, v[u], x[u]);
-    }
-  }
-  if (tid == 0) *counter = 0u;
+// The cost of a grid-wide sync at a launch's grid (a yardstick for
+// chip_smoke.py, never launched on the reduction's path).
+__global__ void __launch_bounds__(kThreads) grid_sync_probe_kernel(int syncs) {
+  cg::grid_group grid = cg::this_grid();
+  for (int s = 0; s < syncs; ++s) grid.sync();
 }
 
 __global__ void larft_kernel(const double* __restrict__ G, const double* __restrict__ tau,
@@ -325,58 +419,121 @@ __global__ void larft_kernel(const double* __restrict__ G, const double* __restr
 
 }  // namespace
 
-// Shared memory of the column step's kernels for a panel of nb columns.
-static size_t reflector_shmem(int jj) {
-  const int R = 2 * jj + 1;
-  return sizeof(double) * (size_t)(2 * jj + kWarps * R + R + 2);
+// (blocks of every column step instance one SM holds at `smem` dynamic
+// shared bytes, the SM count, the shared bytes a block may opt into) of the
+// current device, into out[0..2].  Opts the instances into that much shared
+// memory first (a launch past 48 KB needs it), and fails where the device
+// takes no cooperative launch.
+extern "C" int column_step_occupancy(int smem, void* out) {
+  int dev = 0, coop = 0, sms = 0, optin = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess) {
+    err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  }
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (!coop) return static_cast<int>(cudaErrorNotSupported);
+  const void* fns[3] = {(const void*)column_step_kernel<false, true>,
+                        (const void*)column_step_kernel<true, false>,
+                        (const void*)column_step_kernel<true, true>};
+  int least = 1 << 30;
+  for (const void* fn : fns) {
+    err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    int blocks = 0;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn, kThreads, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    least = blocks < least ? blocks : least;
+  }
+  int* o = static_cast<int*>(out);
+  o[0] = least;
+  o[1] = sms;
+  o[2] = optin;
+  return 0;
 }
 
-// As: the bucket's (m, m) f64 matrix, unit column stride, row stride lda.
-// Vp, Wp: the panel's reflector and W rows (row stride ld >= m), rows < jj
-// complete; te: (tau, alpha) of column j (2 doubles); pq: 2 jj doubles
-// (out: p, q); ws: ceil((m - j - 1) / 256) * (2 jj + 1) doubles of scratch;
-// counter: one zeroed unsigned int, left zeroed.  identity (j = m - 2): one
-// block, te[1] and Wp[jj] only.  0 <= j <= m - 2, 0 <= jj < 1024.  Launches
-// one kernel on `stream`, allocates nothing, returns cudaGetLastError().
-extern "C" int column_reflector_launch(const void* As, long long lda, void* Vp, void* Wp,
-                                       int ld, void* te, void* pq, void* ws, void* counter,
-                                       int m, int j, int jj, int identity, void* stream) {
-  if (m < 2 || j < 0 || j > m - 2 || jj < 0 || jj >= kMaxPanel || ld < m) {
+template <bool kW, bool kR>
+static int launch_step(const void* As, long long lda, void* Vp, void* Wp, int ld,
+                       const void* y, void* te, void* pq, void* ws, int m, int j, int jj,
+                       int grid, int slice, int cached, int smem, void* stream) {
+  const int c = j + (kW ? 1 : 0), jr = jj + (kW ? 1 : 0);
+  const int nold = kW ? jj : jr;
+  const int kc = cached < nold ? cached : nold;
+  const long long need = 8LL * step_shared(kW ? jj : 0, kR ? jr : 0, slice, kc);
+  if (m < 2 || j < 0 || jj < 0 || c > m - 2 || (kW && j > m - 3)
+      || (kR ? jr : jj) >= kMaxPanel
+      || ld < m || grid < 1 || slice < 1 || (long long)grid * slice < m || cached < 0
+      || smem < need || (kW && y == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const size_t shmem = reflector_shmem(jj);
-  if (shmem > 48 * 1024) {
-    // panels wider than 170 columns (164 KB at the widest)
-    const cudaError_t err = cudaFuncSetAttribute(
-        column_reflector_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(reflector_shmem(kMaxPanel - 1)));
-    if (err != cudaSuccess) return static_cast<int>(err);
+  Step st{static_cast<const double*>(As), lda, static_cast<double*>(Vp),
+          static_cast<double*>(Wp), ld, static_cast<const double*>(y),
+          static_cast<double*>(te), static_cast<double*>(pq), static_cast<double*>(ws),
+          m, j, jj, slice, cached};
+  void* args[] = {&st};
+  const cudaError_t err = cudaLaunchCooperativeKernel(
+      (const void*)column_step_kernel<kW, kR>, dim3(grid), dim3(kThreads),
+      args, static_cast<size_t>(smem), static_cast<cudaStream_t>(stream));
+  if (err != cudaSuccess) {
+    cudaGetLastError();   // a refused launch leaves no error for the next one
+    return static_cast<int>(err);
   }
-  const int blocks = (m - j - 1 + kThreads - 1) / kThreads;
-  column_reflector_kernel<<<blocks, kThreads, shmem,
-                            static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const double*>(As), lda, static_cast<double*>(Vp),
-      static_cast<double*>(Wp), ld, static_cast<double*>(te), static_cast<double*>(pq),
-      static_cast<double*>(ws), static_cast<unsigned int*>(counter), m, j, jj,
-      identity ? 1 : 0);
   return static_cast<int>(cudaGetLastError());
 }
 
-// y: K2's (m,) output; Vp (row jj = v), Wp (out: row jj), te, pq as K1 left
-// them; ws: ceil(m / 256) doubles; counter as above.  One kernel on `stream`.
-extern "C" int column_w_launch(const void* y, const void* Vp, void* Wp, int ld,
-                               const void* te, const void* pq, void* ws, void* counter,
-                               int m, int j, int jj, void* stream) {
-  if (m < 2 || j < 0 || j > m - 3 || jj < 0 || jj >= kMaxPanel || ld < m) {
-    return static_cast<int>(cudaErrorInvalidValue);
+// The column step's three launches, one argument list (kernels/
+// householder_panel.py's _CudaSteps):
+// As: the bucket's (m, m) f64 matrix, unit column stride, row stride lda.
+// Vp, Wp: the panel's reflector and W rows (row stride ld >= m), rows < jj
+// complete; y: M's (m,) output (the W half; may be null for the reflector
+// alone); te: the bucket's (ncols, 2) (tau, alpha); pq: 2 nb doubles (in:
+// p, q of column j; out: those of the reflector made); ws: grid (2 nb + 2)
+// + 2 doubles of scratch.  grid, slice, cached and smem from the plan
+// (kernels/householder_panel.py::column_plan after column_step_occupancy on
+// this device): grid blocks co-resident, grid * slice >= m.  One cooperative
+// kernel on `stream`; allocates nothing; returns the launch's cudaError_t.
+//
+// column_reflector_launch: the reflector of column j (panel row jj; at
+// j = m - 2 the identity reflector).
+extern "C" int column_reflector_launch(const void* As, long long lda, void* Vp, void* Wp,
+                                       int ld, const void* y, void* te, void* pq, void* ws,
+                                       int m, int j, int jj, int grid, int slice, int cached,
+                                       int smem, void* stream) {
+  return launch_step<false, true>(As, lda, Vp, Wp, ld, y, te, pq, ws, m, j, jj, grid, slice,
+                                  cached, smem, stream);
+}
+
+// column_w_launch: the W row of column j (panel row jj), j <= m - 3.
+extern "C" int column_w_launch(const void* As, long long lda, void* Vp, void* Wp, int ld,
+                               const void* y, void* te, void* pq, void* ws, int m, int j,
+                               int jj, int grid, int slice, int cached, int smem,
+                               void* stream) {
+  return launch_step<true, false>(As, lda, Vp, Wp, ld, y, te, pq, ws, m, j, jj, grid, slice,
+                                  cached, smem, stream);
+}
+
+// column_w_reflector_launch: the W row of column j (panel row jj), then the
+// reflector of column j + 1 (panel row jj + 1).
+extern "C" int column_w_reflector_launch(const void* As, long long lda, void* Vp, void* Wp,
+                                         int ld, const void* y, void* te, void* pq, void* ws,
+                                         int m, int j, int jj, int grid, int slice,
+                                         int cached, int smem, void* stream) {
+  return launch_step<true, true>(As, lda, Vp, Wp, ld, y, te, pq, ws, m, j, jj, grid, slice,
+                                 cached, smem, stream);
+}
+
+// `syncs` grid syncs in a cooperative launch of `grid` blocks of the column
+// step's width (chip_smoke.py times it at the column step's grid).
+extern "C" int grid_sync_probe_launch(int grid, int syncs, void* stream) {
+  void* args[] = {&syncs};
+  const cudaError_t err = cudaLaunchCooperativeKernel(
+      (const void*)grid_sync_probe_kernel, dim3(grid), dim3(kThreads), args,
+      0, static_cast<cudaStream_t>(stream));
+  if (err != cudaSuccess) {
+    cudaGetLastError();
+    return static_cast<int>(err);
   }
-  const int blocks = (m + kThreads - 1) / kThreads;
-  column_w_kernel<<<blocks, kThreads, sizeof(double) * (size_t)(2 * jj),
-                    static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const double*>(y), static_cast<const double*>(Vp),
-      static_cast<double*>(Wp), ld, static_cast<const double*>(te),
-      static_cast<const double*>(pq), static_cast<double*>(ws),
-      static_cast<unsigned int*>(counter), m, j, jj);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -7,11 +7,16 @@ column body ``col_body`` (:114, run by the ``lax.fori_loop``s at :139 and
 :146) and ``_larft``'s loop (:227).  CUDA tensors launch
 ``csrc/householder_panel.cu``:
 
-- the column step (:func:`column_steps`): ``column_reflector`` (the delayed
-  row, the Householder vector, tau, alpha and the small products p = Wp v,
-  q = Vp v), the unchanged ``dword_vecmat`` matvec, and ``column_w`` (the W
-  row, with the half-step from v.(A v) = y.v - 2 p.q): three launches a
-  column, no host read;
+- the column step (:func:`column_steps`), a panel at a time in the order of
+  :func:`panel_launches`: ``column_reflector`` (the delayed row, the
+  Householder vector, tau, alpha and the small products p = Wp v,
+  q = Vp v) for the panel's first column, then a column at a time the
+  unchanged ``dword_vecmat`` matvec and ``column_w_reflector`` (the column's
+  W row, with the half-step from v.(A v) = y.v - 2 p.q, then the next
+  column's reflector), and ``column_w`` (the W row alone) for the last:
+  two launches a column, no host read.  The three are one cooperative
+  kernel with a half switched off, its grid over every SM
+  (:func:`column_plan`);
 - ``larft``: T from the panel's Gram and its taus, one launch a panel.
 
 CPU tensors run the plain versions, which are the loop the port ran before
@@ -24,6 +29,7 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+from typing import Callable, Dict, List, NamedTuple, Tuple
 
 import torch
 
@@ -34,19 +40,38 @@ reflector_launches = 0
 """``column_reflector`` kernel launches so far (the CPU path never counts)."""
 w_launches = 0
 """``column_w`` kernel launches so far."""
+w_reflector_launches = 0
+"""``column_w_reflector`` kernel launches so far."""
 larft_launches = 0
 """``larft`` kernel launches so far."""
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-_REFLECTOR_ARGTYPES = [_P, _LL, _P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I,
-                       _P]
-_W_ARGTYPES = [_P, _P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _P]
+# column_reflector_launch, column_w_launch, column_w_reflector_launch
+_STEP_ARGTYPES = [_P, _LL, _P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                  _I, _P]
+_OCCUPANCY_ARGTYPES = [_I, _P]
+_PROBE_ARGTYPES = [_I, _I, _P]
 _LARFT_ARGTYPES = [_P, _P, _P, _P, _I, _P]
 _SHARED_ARGTYPES = [_I]
-_THREADS = 256              # kThreads of the column kernels
+_THREADS = 128              # kThreads of the column step
+_WARPS = _THREADS // 32
+_SCALARS = 4                # kScalars
+_RESERVED = 1024            # shared bytes the card keeps for each block
 MAX_PANEL = 1024            # kMaxPanel: the panel width the column step takes
 _INT_MAX = 2 ** 31 - 1
-_SCRATCH = {}               # (device index, stream) -> (ws, counter, pq)
+_SCRATCH = {}               # (device index, stream) -> (ws, pq)
+_OCCUPANCY = {}             # (device index, shared bytes) -> (blocks, SMs, opt-in)
+
+
+class ColumnPlan(NamedTuple):
+    """The column step's cooperative launch over a bucket: ``grid`` blocks
+    (every SM takes part), each owning ``slice`` entries of the row and
+    caching up to ``cached`` panel rows of its slice in ``smem`` bytes of
+    shared memory."""
+    grid: int
+    slice: int
+    cached: int
+    smem: int
 
 
 def _householder(x, j: int, out=None):
@@ -134,15 +159,98 @@ def larft_plain(G, tau):
 # the column step
 
 
+def panel_launches(m: int, o: int, cnt: int) -> List[Tuple[str, int]]:
+    """The column step's launches over the panel of ``cnt`` columns at local
+    column o of a bucket of width m, in order, as (kernel, column j): the
+    first column's reflector alone, then for each column the matvec and
+    either the fused W row of j and reflector of j + 1 or, at the panel's
+    last column, the W row alone.  The identity column j = m - 2 (the last
+    bucket's last column) has its reflector (fused into the step before it,
+    or alone when it opens a panel) and no matvec or W row."""
+    out = [("column_reflector", o)]
+    for j in range(o, o + cnt):
+        if j == m - 2:
+            break
+        out.append(("dword_vecmat", j))
+        out.append(("column_w_reflector", j) if j + 1 < o + cnt
+                   else ("column_w", j))
+    return out
+
+
+def column_launches(n: int, panel: int = 32, buckets: int = 1) -> Dict[str, int]:
+    """Launches of each kernel in the column steps of ``tridiagonalize(A,
+    panel, buckets)`` at n: the reflector half runs n - 1 times
+    (``column_reflector`` + ``column_w_reflector``), the W half and the
+    matvec n - 2 times (``column_w`` + ``column_w_reflector``)."""
+    from .tridiagonalize import _bucket_cuts   # it imports this module
+    counts = dict.fromkeys(("column_reflector", "column_w_reflector",
+                            "column_w", "dword_vecmat"), 0)
+    if n < 2:
+        return counts
+    nb = max(1, min(panel, n))
+    cuts = _bucket_cuts(n, nb, buckets)
+    for c0, c1 in zip(cuts[:-1], cuts[1:]):
+        for o in range(0, c1 - c0, nb):
+            for kind, _ in panel_launches(n - c0, o, min(nb, c1 - c0 - o)):
+                counts[kind] += 1
+    return counts
+
+
+def column_plan(m: int, nb: int, sms: int, max_shared: int,
+                resident: Callable[[int], int]) -> ColumnPlan:
+    """The column step's launch at bucket width m and panel width nb on a
+    card of ``sms`` SMs whose blocks may hold ``max_shared`` bytes of shared
+    memory (``resident(smem)``: the blocks an SM holds, from the occupancy
+    API on the card).  Blocks an SM: as many as one entry a thread needs,
+    fewer where they would not be co-resident, at least one (every SM takes
+    part); each block caches as many panel rows of its slice as its share of
+    the SM's shared memory holds (up to nb - 1, the rest read from L2).
+    Raises when not one block an SM fits."""
+    want = max(1, -(-(-(-m // _THREADS)) // sms))
+    for per_sm in range(want, 0, -1):
+        grid = sms * per_sm
+        width = -(-m // grid)
+        fixed = 8 * (4 * nb + _SCALARS + _WARPS + 3 * width)
+        room = max_shared // per_sm - _RESERVED - fixed
+        if room < 0:
+            continue
+        cached = min(nb - 1, room // (16 * width))
+        smem = fixed + 16 * cached * width
+        if resident(smem) >= per_sm:
+            return ColumnPlan(grid, width, cached, smem)
+    raise ValueError(f"column step: no cooperative launch fits m={m}, "
+                     f"nb={nb}")
+
+
+def _occupancy(index: int, smem: int) -> Tuple[int, int, int]:
+    """(blocks an SM holds, SMs, shared bytes a block may opt into) of the
+    column step's kernel on CUDA device ``index`` at ``smem`` (cached)."""
+    key = (index, smem)
+    got = _OCCUPANCY.get(key)
+    if got is None:
+        out = (ctypes.c_int * 3)()
+        fn = _build.function("householder_panel", "column_step_occupancy",
+                             _OCCUPANCY_ARGTYPES)
+        with torch.cuda.device(index):
+            rc = fn(smem, ctypes.addressof(out))
+        _build.check_launch(rc, "column_step_occupancy")
+        got = _OCCUPANCY[key] = tuple(out)
+    return got
+
+
 class _PlainSteps:
     """The column step on CPU tensors: the plain versions and the plain
-    matvec."""
+    matvec, a column at a time."""
 
     def __init__(self, As, Vtb, Wbuf, te):
         self.As, self.Vtb, self.Wbuf, self.te = As, Vtb, Wbuf, te
 
     def context(self):
         return contextlib.nullcontext()
+
+    def panel(self, o: int, cnt: int) -> None:
+        for j in range(o, o + cnt):
+            self(j, o)
 
     def __call__(self, j: int, o: int) -> None:
         jj = j - o
@@ -154,28 +262,24 @@ class _PlainSteps:
         column_w_plain(Vp, self.Wbuf, self.te, y, j, jj)
 
 
-def _scratch(index: int, stream: int, m: int, nb: int):
-    """Partials' workspace, arrival counter and the (p, q) buffer of one
-    device and stream, grown as needed; the counter is zeroed once, when
-    made, and every launch leaves it zeroed."""
-    ws, counter, pq = _SCRATCH.get((index, stream), (None, None, None))
-    blocks = -(-m // _THREADS)
+def _scratch(index: int, stream: int, grid: int, nb: int):
+    """The partials' workspace and the (p, q) buffer of one device and
+    stream, grown as needed."""
+    ws, pq = _SCRATCH.get((index, stream), (None, None))
     dev = torch.device("cuda", index)
-    if ws is None or ws.numel() < blocks * (2 * nb + 1):
-        ws = torch.empty(blocks * (2 * nb + 1), dtype=torch.float64,
+    if ws is None or ws.numel() < grid * (2 * nb + 2) + 2:
+        ws = torch.empty(grid * (2 * nb + 2) + 2, dtype=torch.float64,
                          device=dev)
-    if counter is None:
-        counter = torch.zeros(1, dtype=torch.int32, device=dev)
     if pq is None or pq.numel() < 2 * nb:
         pq = torch.empty(2 * nb, dtype=torch.float64, device=dev)
-    _SCRATCH[(index, stream)] = (ws, counter, pq)
-    return ws, counter, pq
+    _SCRATCH[(index, stream)] = (ws, pq)
+    return ws, pq
 
 
 class _CudaSteps:
-    """The column step on a CUDA bucket: handles, stream, pointers and the
-    constant arguments resolved once; each column then makes three launches
-    (one at the identity column) and reads nothing back."""
+    """The column step on a CUDA bucket: plan, handles, stream, pointers and
+    the constant arguments resolved once; each panel then makes the launches
+    of :func:`panel_launches` (two a column) and reads nothing back."""
 
     def __init__(self, As, Vtb, Wbuf, te, nb: int):
         m = As.shape[0]
@@ -197,67 +301,74 @@ class _CudaSteps:
         self.m = m
         self.As, self.Vtb, self.Wbuf, self.te = As, Vtb, Wbuf, te
         self.stream = torch.cuda.current_stream(self.index).cuda_stream
-        ws, counter, pq = _scratch(self.index, self.stream, m, nb)
+        _, sms, optin = _occupancy(self.index, 0)
+        self.plan = column_plan(m, nb, sms, optin,
+                                lambda smem: _occupancy(self.index, smem)[0])
+        ws, pq = _scratch(self.index, self.stream, self.plan.grid, nb)
         self.y = torch.empty(m, dtype=torch.float64, device=dev)
-        self.k1 = _build.function("householder_panel",
-                                  "column_reflector_launch",
-                                  _REFLECTOR_ARGTYPES)
-        self.k3 = _build.function("householder_panel", "column_w_launch",
-                                  _W_ARGTYPES)
-        self.as_ptr, self.lda = As.data_ptr(), As.stride(0)
-        self.v_ptr, self.w_ptr = Vtb.data_ptr(), Wbuf.data_ptr()
-        self.te_ptr, self.y_ptr = te.data_ptr(), self.y.data_ptr()
-        self.scratch = (pq.data_ptr(), ws.data_ptr(), counter.data_ptr())
-        self.keep = (ws, counter, pq)
+        self.fns = {kind: _build.function("householder_panel",
+                                          f"{kind}_launch", _STEP_ARGTYPES)
+                    for kind in ("column_reflector", "column_w",
+                                 "column_w_reflector")}
+        self.v_ptr = Vtb.data_ptr()
+        self.head = (As.data_ptr(), As.stride(0))
+        self.mid = (Wbuf.data_ptr(), m, self.y.data_ptr(), te.data_ptr(),
+                    pq.data_ptr(), ws.data_ptr(), m)
+        self.tail = (*self.plan, self.stream)
+        self.ws, self.pq = ws, pq
 
     def context(self):
         return torch.cuda.device(self.index)
 
-    def reflector(self, j: int, o: int) -> None:
-        """K1 at column j of the panel at o (the current device must be the
-        bucket's)."""
+    def _step(self, kind: str, j: int, o: int) -> None:
+        rc = self.fns[kind](*self.head, self.v_ptr + 8 * o * self.m,
+                            *self.mid, j, j - o, *self.tail)
+        _build.check_launch(rc, kind)
+
+    # one method a kernel of panel_launches, by its name (no table of bound
+    # methods: that would keep the bucket alive in a reference cycle)
+
+    def column_reflector(self, j: int, o: int) -> None:
+        """The reflector of column j of the panel at o, alone (the current
+        device must be the bucket's)."""
         global reflector_launches
-        m = self.m
-        rc = self.k1(self.as_ptr, self.lda, self.v_ptr + 8 * o * m,
-                     self.w_ptr, m, self.te_ptr + 16 * j, *self.scratch,
-                     m, j, j - o, int(j == m - 2), self.stream)
-        _build.check_launch(rc, "column_reflector")
+        self._step("column_reflector", j, o)
         reflector_launches += 1
 
-    def matvec(self, j: int, o: int) -> None:
-        """K2: y = v[j+1:] @ As[j+1:] by dword_vecmat."""
+    def dword_vecmat(self, j: int, o: int) -> None:
+        """y = v[j+1:] @ As[j+1:] by dword_vecmat."""
         m = self.m
         dv.launch_raw(self.v_ptr + 8 * (j * m + j + 1),
-                      self.as_ptr + 8 * (j + 1) * self.lda, self.y_ptr,
-                      m - j - 1, m, self.lda, self.index, self.stream)
+                      self.head[0] + 8 * (j + 1) * self.head[1],
+                      self.mid[2], m - j - 1, m, self.head[1], self.index,
+                      self.stream)
 
-    def w(self, j: int, o: int) -> None:
-        """K3: the W row of column j."""
+    def column_w(self, j: int, o: int) -> None:
+        """The W row of column j, alone."""
         global w_launches
-        m = self.m
-        pq, ws, counter = self.scratch
-        rc = self.k3(self.y_ptr, self.v_ptr + 8 * o * m, self.w_ptr, m,
-                     self.te_ptr + 16 * j, pq, ws, counter, m, j, j - o,
-                     self.stream)
-        _build.check_launch(rc, "column_w")
+        self._step("column_w", j, o)
         w_launches += 1
 
-    def __call__(self, j: int, o: int) -> None:
-        self.reflector(j, o)
-        if j == self.m - 2:
-            return
-        self.matvec(j, o)
-        self.w(j, o)
+    def column_w_reflector(self, j: int, o: int) -> None:
+        """The W row of column j, then the reflector of column j + 1."""
+        global w_reflector_launches
+        self._step("column_w_reflector", j, o)
+        w_reflector_launches += 1
+
+    def panel(self, o: int, cnt: int) -> None:
+        for kind, j in panel_launches(self.m, o, cnt):
+            getattr(self, kind)(j, o)
 
 
 def column_steps(As, Vtb, Wbuf, te, nb: int):
-    """The column step of one bucket of ``_tridiagonalize_block``: a callable
-    ``step(j, o)`` that reduces local column j of the panel at offset o,
-    writing Vtb[j] (v), te[j] (tau, alpha) and Wbuf[j - o] (the W row), and
-    ``step.context()`` to run the loop under.  As (m, m) f64 with unit
-    column stride (any row stride), Vtb (ncols, m), Wbuf (>= nb, m) and
-    te (ncols, 2) contiguous, on one device.  CPU tensors take the plain
-    loop; CUDA tensors the kernels (or raise); other devices raise."""
+    """The column step of one bucket of ``_tridiagonalize_block``: an object
+    whose ``panel(o, cnt)`` reduces the cnt columns of the panel at local
+    column o, writing Vtb[j] (v), te[j] (tau, alpha) and Wbuf[j - o] (the W
+    row) for each, and whose ``context()`` the loop runs under.  As (m, m)
+    f64 with unit column stride (any row stride), Vtb (ncols, m), Wbuf
+    (>= nb, m) and te (ncols, 2) contiguous, on one device.  CPU tensors
+    take the plain loop; CUDA tensors the kernels (or raise); other devices
+    raise."""
     tensors = (As, Vtb, Wbuf, te)
     if any(t.dtype != torch.float64 for t in tensors):
         raise TypeError("column step: As, Vtb, Wbuf, te must be float64")
@@ -268,6 +379,16 @@ def column_steps(As, Vtb, Wbuf, te, nb: int):
     if As.device.type != "cuda":
         raise ValueError(f"column step: unsupported device {As.device}")
     return _CudaSteps(As, Vtb, Wbuf, te, nb)
+
+
+def grid_sync_probe(grid: int, syncs: int) -> None:
+    """A cooperative launch of ``grid`` blocks that makes ``syncs`` grid
+    syncs and nothing else, on the current CUDA device and stream: the
+    yardstick of a grid sync's cost (never on the reduction's path)."""
+    fn = _build.function("householder_panel", "grid_sync_probe_launch",
+                         _PROBE_ARGTYPES)
+    rc = fn(grid, syncs, torch.cuda.current_stream().cuda_stream)
+    _build.check_launch(rc, "grid_sync_probe")
 
 
 # --------------------------------------------------------------------------

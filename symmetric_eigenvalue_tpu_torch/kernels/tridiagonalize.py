@@ -4,9 +4,9 @@ Port of ``symmetric_eigenvalue_tpu/kernels/tridiagonalize.py`` (its TPU
 route): a LAPACK ``sytrd``/``latrd``-style panel algorithm.  The inner panel
 loop reduces one column at a time against the panel's delayed-update
 accumulators Vp/Wp, with one full matvec ``v @ As`` per Householder column
-(:func:`dword_vecmat`); on CUDA the column step is three kernel launches
-(``kernels/householder_panel.py``: the reflector, the matvec, the W row), on
-the CPU the plain torch loop.  Each panel ends with one symmetric rank-2k
+(:func:`dword_vecmat`); on CUDA the column step is two kernel launches
+(``kernels/householder_panel.py``: the matvec, then the column's W row fused
+with the next column's reflector), on the CPU the plain torch loop.  Each panel ends with one symmetric rank-2k
 trailing update (:func:`dword_matmul_sub_`).  Eigenvectors are transformed
 back in compact-WY form (``larft``/``larfb`` equivalents; the T factor is
 the ``larft`` kernel on CUDA).
@@ -50,8 +50,7 @@ def _tridiagonalize_block(As, ncols: int, nb: int):
     with step.context():
         for o in range(0, ncols, nb):
             cnt = min(nb, ncols - o)
-            for j in range(o, o + cnt):
-                step(j, o)
+            step.panel(o, cnt)
             Vp = Vtb[o:o + cnt]
             Wp = Wbuf[:cnt]
             # trailing symmetric rank-2k update, fused: As -= [V;W]^T [W;V],

@@ -109,7 +109,8 @@ def _counts():
             cm.matmul_launches, cm.materialize_launches, sp.pass_a_launches,
             sp.pass_b_launches, dv.launches, rr.launches,
             shs.interface_launches, shs.block_lu_launches,
-            hp.reflector_launches, hp.w_launches, hp.larft_launches)
+            hp.reflector_launches, hp.w_launches, hp.w_reflector_launches,
+            hp.larft_launches)
 
 
 def test_cpu_tensors_count_no_launches(rng):
@@ -135,7 +136,7 @@ def test_cpu_tensors_count_no_launches(rng):
     assert V.device.type == "cpu"
     st.eigh(A + A.T, band=4, device="cpu")
     st.eigh_banded(np.ones((4, 40)), device="cpu")
-    assert _counts() == before == (0,) * 15
+    assert _counts() == before == (0,) * 16
 
 
 def test_non_cpu_tensors_never_take_the_plain_version():

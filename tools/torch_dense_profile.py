@@ -5,11 +5,14 @@
 standard normal from a seeded generator on the card, n=16384, seed 0),
 default config, all eigenpairs: one cold solve with its residual,
 orthogonality and eigenvalue error against ``torch.linalg.eigvalsh``, then
-two warm solves, each with its wall and phases (``dense.tridiagonalize``,
-``dense.apply_q``, ...) and the kernels' launch counters; then
-``tridiagonalize`` alone at n=4096 under torch.profiler (device events a
-column, busy time, idle share of its wall) and ``eigh(band=128)`` at
-n=4096 (its phases).  Prints one JSON line per measurement.
+two warm solves, each with its wall, phases (``dense.tridiagonalize``,
+``dense.apply_q``, ...), peak device memory and the kernels' launch
+counters; then
+``tridiagonalize`` alone under torch.profiler, at n and at n=4096 (device
+events a column, busy time, idle share of its wall, and device time by
+kernel: the column step's kernels and the matvec each a column), and
+``eigh(band=128)`` at n=4096 (its phases).  Prints one JSON line per
+measurement.
 
 It imports the package from the tree it sits in, so a copy placed in
 another checkout's ``tools/`` (an older commit unpacked by ``git archive``)
@@ -47,7 +50,13 @@ except ImportError:          # a tree from before the column step's kernels
 
 COUNTERS = (("dword_vecmat", dv, "launches"), ("dword_matmul", dm, "launches"),
             ("column_reflector", hp, "reflector_launches"),
-            ("column_w", hp, "w_launches"), ("larft", hp, "larft_launches"))
+            ("column_w", hp, "w_launches"),
+            ("column_w_reflector", hp, "w_reflector_launches"),
+            ("larft", hp, "larft_launches"))
+# the column step's kernels in any tree: one cooperative kernel, or the
+# arrival-counter pair of the tree before it
+COLUMN_KERNELS = ("column_step_kernel", "column_reflector_kernel",
+                  "column_w_kernel")
 
 
 def dense_matrix(n: int, seed: int):
@@ -57,13 +66,12 @@ def dense_matrix(n: int, seed: int):
 
 
 def counts():
-    return {name: (getattr(mod, attr) if mod is not None else None)
-            for name, mod, attr in COUNTERS}
+    return {name: getattr(mod, attr, None) for name, mod, attr in COUNTERS}
 
 
 def reset():
     for _, mod, attr in COUNTERS:
-        if mod is not None:
+        if mod is not None and hasattr(mod, attr):
             setattr(mod, attr, 0)
 
 
@@ -71,11 +79,13 @@ def timed_eigh(A, **kw):
     timer = PhaseTimer()
     reset()
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     out = st.eigh(A, timer=timer, **kw)
     torch.cuda.synchronize()
     return out, {"wall_s": time.perf_counter() - t0,
-                 "phases_s": dict(timer.times), "launches": counts()}
+                 "phases_s": dict(timer.times), "launches": counts(),
+                 "peak_mem_bytes": torch.cuda.max_memory_allocated()}
 
 
 def checks(A, lam, V, ref, chunk: int = 2048):
@@ -98,15 +108,26 @@ def profiled(fn, n: int):
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    busy, events = 0.0, 0
+    busy, events, by_kernel = 0.0, 0, {}
     for ev in prof.key_averages():
         if ev.device_type == DeviceType.CUDA and ev.self_device_time_total > 0:
             busy += ev.self_device_time_total * 1e-6
             events += ev.count
+            by_kernel[ev.key[:90]] = {"device_s":
+                                      ev.self_device_time_total * 1e-6,
+                                      "calls": ev.count}
+    column = sum(v["device_s"] for k, v in by_kernel.items()
+                 if any(name in k for name in COLUMN_KERNELS))
+    vecmat = sum(v["device_s"] for k, v in by_kernel.items()
+                 if "vecmat" in k)
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1]["device_s"])[:8]
     return {"wall_s": wall, "device_busy_s": busy,
             "idle_share": max(0.0, 1.0 - busy / wall),
             "device_events": events, "device_events_per_column":
-                events / (n - 1)}
+                events / (n - 1),
+            "column_step_device_ms_per_column": 1e3 * column / (n - 1),
+            "vecmat_device_ms_per_column": 1e3 * vecmat / (n - 1),
+            "top_kernels": dict(top)}
 
 
 def main() -> int:
@@ -132,6 +153,11 @@ def main() -> int:
         print(json.dumps({**dev, "what": f"eigh n={args.n} warm {rep}",
                           **warm}), flush=True)
         torch.cuda.empty_cache()
+    reset()
+    buckets = 4 if args.n >= 8192 else 1       # driver._bucket_count
+    prof = profiled(lambda: tri.tridiagonalize(A, buckets=buckets), args.n)
+    print(json.dumps({**dev, "what": f"tridiagonalize n={args.n} profiled",
+                      **prof, "launches": counts()}), flush=True)
     del A, ref
     torch.cuda.empty_cache()
     A2 = dense_matrix(4096, args.seed + 1)
