@@ -2,7 +2,7 @@
 """Drive the PyTorch/CUDA port once on one GPU and check it.
 
 Run from the repository root:  python3 chip_smoke.py
-With ``--only dword_matmul,cauchy_matmul`` (any of the sixteen kernels' names)
+With ``--only dword_matmul,cauchy_matmul`` (any of the eighteen kernels' names)
 it builds those kernels' sources, runs phase 3 for them alone, held to the
 same limits, and stops: half a minute for work on one kernel.
 
@@ -59,7 +59,18 @@ exits non-zero:
                against the plain loop (device time a column by kernel,
                launches, the cost of a grid sync); a whole tridiagonalize
                at n=1024 against the plain column step (2e-12 n max|A|);
-               larft at nb=32 and 128 against its plain loop
+               larft at nb=32 and 128 against its plain loop; the
+               wavefront chase (band_chase, the whole chase one
+               cooperative launch) at (n, b) = (4096, 128), (4096, 16),
+               (1024, 128), (1024, 16), (1024, 256) against the plain wave loop on the
+               card (d, e, Vw, tw within 2e-12 n max|B|, eigvalsh of T
+               against eigvalsh(B) within 1e-12 ||B||, the log off: d and e
+               bit for bit, no host sync, one launch), with a grid sync's
+               cost and the bound (window bytes, FP64 operations, a grid
+               sync a wave); the panel QR (panel_qr, one launch a panel) at
+               m=4096 and 16384, b=128, a middle panel, one with 5 live
+               columns and a 1024-column one, against the plain column loop (Yp, tp within
+               2e-12 m), and a whole reduce_to_band at n=1024
   4. solve     the main path: solve_tridiagonal_staged with the default
                (mixed-precision) SolverConfig, n=16384 random (bench.py's
                input, seed 0), all eigenpairs, cold then three times
@@ -92,15 +103,22 @@ exits non-zero:
                eigenpairs, cold with every check (residual, orthogonality,
                eigenvalues against torch.linalg.eigvalsh on the card), once
                warm, and once with the pure-f64 config (same checks);
-               phases, peak memory, launches of all sixteen kernels (the
+               phases, peak memory, launches of all eighteen kernels (the
                column step's three and dword_vecmat exactly
                householder_panel.column_launches(n, 32, 4): about two a
                column; larft once an apply_q panel);
                dense.tridiagonalize beside its bound (the matvecs' bytes at
-               3.35 TB/s) and torch.linalg.eigh's time on the same matrix
+               3.35 TB/s) and torch.linalg.eigh's time on the same matrix;
+               then (dense_two_stage_full) the same matrix through
+               eigh(band=128) and its band u=16 through eigh_banded, all
+               eigenpairs, the three limits, phases, peak memory and
+               launches, beside the one-stage walls
   9. dense_two_stage  eigh(band=128) and eigh_banded (u=16) at n=4096, the
                same three limits (larft once a panel of reduce_to_band and
-               of apply_q); eigvals_only through both front ends; then
+               of apply_q, band_chase once a chase, panel_qr once a panel:
+               band_reduce.chase_launch_count and panel_qr_count); the
+               chase's host syncs on what each front end hands it (none);
+               eigvals_only through both front ends; then
                dense_f32: eigh in float32 mode at n=4096, the JAX package's
                f32 grades (eigenvalues 1e-4, residual and orthogonality
                1e-3)
@@ -206,6 +224,7 @@ from symmetric_eigenvalue_tpu_torch import _build, driver
 from symmetric_eigenvalue_tpu_torch.dist import mesh as tmesh
 from symmetric_eigenvalue_tpu_torch.driver import _prescale
 from symmetric_eigenvalue_tpu_torch.kernels import assemble
+from symmetric_eigenvalue_tpu_torch.kernels import band_reduce as br
 from symmetric_eigenvalue_tpu_torch.kernels import cauchy_matmul as cm
 from symmetric_eigenvalue_tpu_torch.kernels import cauchy_rowsum as cr
 from symmetric_eigenvalue_tpu_torch.kernels import dword_matmul as dm
@@ -277,6 +296,12 @@ REPLACES = {
         "symmetric_eigenvalue_tpu/kernels/tridiagonalize.py:114",
     "larft":
         "symmetric_eigenvalue_tpu/kernels/tridiagonalize.py:213",
+    # the two-stage front end's wave loop and panel column loop, lax
+    # fori_loops with no pallas_call
+    "band_chase":
+        "symmetric_eigenvalue_tpu/kernels/band_reduce.py:254",
+    "panel_qr":
+        "symmetric_eigenvalue_tpu/kernels/band_reduce.py:71",
 }
 REPLACES_LOOP = {"secular_solve":
                  "symmetric_eigenvalue_tpu/kernels/secular.py:299-361",
@@ -291,7 +316,11 @@ REPLACES_LOOP = {"secular_solve":
                  "column_w_reflector":
                  "symmetric_eigenvalue_tpu/kernels/tridiagonalize.py:139,146",
                  "larft":
-                 "symmetric_eigenvalue_tpu/kernels/tridiagonalize.py:227"}
+                 "symmetric_eigenvalue_tpu/kernels/tridiagonalize.py:227",
+                 "band_chase":
+                 "symmetric_eigenvalue_tpu/kernels/band_reduce.py:294",
+                 "panel_qr":
+                 "symmetric_eigenvalue_tpu/kernels/band_reduce.py:86"}
 SOURCES = {"spike_pass_a": "spike_solve", "spike_pass_b": "spike_solve",
            "cauchy_materialize": "cauchy_matmul",
            "dword_vecmat": "dword_matvec", "secular_solve": "secular_sums",
@@ -299,12 +328,16 @@ SOURCES = {"spike_pass_a": "spike_solve", "spike_pass_b": "spike_solve",
            "column_reflector": "householder_panel",
            "column_w": "householder_panel",
            "column_w_reflector": "householder_panel",
-           "larft": "householder_panel"}
+           "larft": "householder_panel",
+           "band_chase": "band_reduce", "panel_qr": "band_reduce"}
 # the column step's matvec: the dword_vecmat source builds beside it
 EXTRA_SOURCES = {"column_reflector": ("dword_matvec", "dword_matmul"),
                  "column_w": ("dword_matvec", "dword_matmul"),
                  "column_w_reflector": ("dword_matvec", "dword_matmul"),
-                 "larft": ("dword_matmul",)}
+                 "larft": ("dword_matmul",),
+                 # the grid-sync yardstick; the whole reduce_to_band row
+                 "band_chase": ("householder_panel", "dword_matmul"),
+                 "panel_qr": ("householder_panel", "dword_matmul")}
 KERNEL_NAMES = tuple(REPLACES)
 
 
@@ -389,7 +422,9 @@ def launch_counts():
             "column_reflector": hp.reflector_launches,
             "column_w": hp.w_launches,
             "column_w_reflector": hp.w_reflector_launches,
-            "larft": hp.larft_launches}
+            "larft": hp.larft_launches,
+            "band_chase": br.chase_launches,
+            "panel_qr": br.panel_qr_launches}
 
 
 def reset_counts() -> None:
@@ -401,6 +436,7 @@ def reset_counts() -> None:
     shs.interface_launches = shs.block_lu_launches = 0
     hp.reflector_launches = hp.w_launches = hp.w_reflector_launches = 0
     hp.larft_launches = 0
+    br.chase_launches = br.panel_qr_launches = 0
 
 
 def random_matrix(n: int, seed: int):
@@ -1087,6 +1123,248 @@ def check_larft(nb: int, width: int, reps: int):
                 bound_ms=b_ms, bound_by=b_by,
                 latency_note=f"{nb - 1} dependent triangular matvecs "
                 f"({nb * (nb - 1) // 2} dependent FMA steps on row 0)")
+
+# --------------------------------------------------------------------------
+# the two-stage front end's kernels: the wavefront chase and the panel QR
+
+
+def band_matrix(n: int, b: int, seed: int):
+    """The band b of dense_matrix(n, seed), made on the card."""
+    A = dense_matrix(n, seed)
+    idx = torch.arange(n, device="cuda")
+    return torch.where((idx[:, None] - idx[None, :]).abs() <= b, A, 0.0)
+
+
+def grid_sync_us(grid: int) -> float:
+    """A grid sync's cost at ``grid`` blocks (grid_sync_probe: 0 and 100
+    syncs in one cooperative launch)."""
+    sync0 = time_ms(lambda: hp.grid_sync_probe(grid, 0), 50)
+    sync100 = time_ms(lambda: hp.grid_sync_probe(grid, 100), 20)
+    return (sync100 - sync0) * 10.0
+
+
+def chase_grid(n: int, b: int) -> int:
+    index = torch.cuda.current_device()
+    _, sms, optin = br._occupancy("band_chase", index, 0)
+    return br.chase_plan(n, b, sms, optin, lambda smem: br._occupancy(
+        "band_chase", index, smem)[0])
+
+
+def panel_grid(m: int, b: int):
+    index = torch.cuda.current_device()
+    _, sms, optin = br._occupancy("panel_qr", index, 0)
+    return br.panel_qr_plan(m, b, sms, optin, lambda smem: br._occupancy(
+        "panel_qr", index, smem)[0])
+
+
+def chase_bound(n: int, b: int, sync_us: float):
+    """The chase's bound at (n, b): the windows the tasks read, write and
+    mirror (3 b (5b - 2) doubles a task) at 3.35 TB/s against their FP64
+    operations (4 b (5b - 2) + 4 b^2 a task) at 34 TFLOP/s; beside it the
+    latency floor, one grid sync a wave with a live slot."""
+    tasks, waves = br.chase_tasks(n, b), br.chase_waves(n, b)
+    w5 = 5 * b - 2
+    nbytes = 8.0 * 3 * b * w5 * tasks
+    ops = float(4 * b * w5 + 4 * b * b) * tasks
+    b_ms, b_by = bound(ops, PEAK_FP64, nbytes)
+    return dict(tasks=tasks, waves=waves, window_bytes=nbytes,
+                fp64_ops=ops, bound_ms=b_ms, bound_by=b_by,
+                latency_floor_ms=waves * sync_us * 1e-3,
+                bound_is="max(window bytes / 3.35 TB/s, FP64 ops / 34 "
+                "TFLOP/s); latency_floor_ms: a grid sync a wave")
+
+
+def log_similarity(B, b, d, e, vlog):
+    """max|B Q2 - Q2 T| / ||B|| and max|Q2^T Q2 - I| of the orthogonal
+    similarity a reflector log defines (Q2 = apply_q2_wave_blocked(I))."""
+    n = B.shape[0]
+    Q2 = br.apply_q2_wave_blocked(
+        n, b, vlog, torch.eye(n, dtype=torch.float64, device="cuda"))
+    T = torch.diag(d) + torch.diag(e, 1) + torch.diag(e, -1)
+    resid = float((B @ Q2 - Q2 @ T).abs().max())
+    norm = float(torch.linalg.eigvalsh(B).abs().max())
+    return resid / norm, max_ortho_error(Q2)
+
+
+def check_band_chase(n: int, b: int, reps: int):
+    """The chase of a band-b matrix at n (the band of dense_matrix, scaled to
+    max|B| = 1 as eigh_banded hands it to the chase) against the plain wave
+    loop on the card: d and e within 2e-12 n max|B|; eigvalsh of the
+    tridiagonal against torch.linalg.eigvalsh(B) within 1e-12 ||B||; the
+    reflector log held by the similarity it defines (B Q2 = Q2 T within
+    1e-12 ||B||, Q2 orthogonal within 1e-12), its elementwise distance to
+    the plain loop's log reported beside how far the kernel's own log moves
+    when B moves by one ulp (the log's entries are ill-conditioned where a
+    column to zero is short: on the CPU the plain loop's tw moves 8.4e-9 at
+    n=4096, u=16 under that perturbation); one launch, no host sync,
+    run-to-run identical; the log switched off gives the same d and e bit
+    for bit and 1-row placeholders; times with and without the log, the
+    plain loop's, a grid sync's at the launch's grid and the bound."""
+    B = band_matrix(n, b, SEED + 20 + b)
+    B /= B.abs().max()              # max|B| = 1, as eigh_banded prescales
+    before = br.chase_launches
+    d, e, (Vw, tw) = br.band_to_tridiag_wave(B, b)
+    one = br.chase_launches - before == 1
+    torch.cuda.synchronize()
+    ref = br.band_to_tridiag_wave_plain(B, b)
+    got = (d, e, Vw, tw)
+    want = (ref[0], ref[1], *ref[2])
+    scale = n * float(B.abs().max())
+    errs = {name: float((g - r).abs().max()) for name, g, r in
+            zip(("d", "e", "Vw", "tw"), got, want)}
+    again = br.band_to_tridiag_wave(B, b)
+    same = all(torch.equal(x, y) for x, y in
+               zip(got, (again[0], again[1], *again[2])))
+    nudged = br.band_to_tridiag_wave(B * (1.0 + 2.0 ** -52), b)
+    ulp_move = {name: float((g - r).abs().max()) for name, g, r in
+                zip(("d", "e", "Vw", "tw"), got,
+                    (nudged[0], nudged[1], *nudged[2]))}
+    log_row_zero = bool((Vw[n - 2] == 0).all() and (tw[n - 2] == 0).all())
+    d0, e0, (V0, t0) = br.band_to_tridiag_wave(B, b, want_log=False)
+    nolog = (torch.equal(d0, d) and torch.equal(e0, e)
+             and V0.shape == (1, Vw.shape[1], b) and t0.shape[0] == 1)
+    lam_b = torch.linalg.eigvalsh(B).cpu().numpy()
+    lam_t = scipy.linalg.eigvalsh_tridiagonal(d.cpu().numpy(),
+                                              e.cpu().numpy())
+    eig_err = float(np.abs(lam_t - lam_b).max()) / float(np.abs(lam_b).max())
+    sim, ortho = log_similarity(B, b, d, e, (Vw, tw))
+    sim_plain, ortho_plain = log_similarity(B, b, want[0], want[1], ref[2])
+    syncs, sync_sites = host_sync_sites(
+        lambda: br.band_to_tridiag_wave(B, b))
+    del again, nudged, d0, e0, V0, t0, ref
+    ms = time_ms(lambda: br.band_to_tridiag_wave(B, b), reps)
+    ms_nolog = time_ms(lambda: br.band_to_tridiag_wave(B, b, want_log=False),
+                       reps)
+    dms = device_ms(lambda: br.band_to_tridiag_wave(B, b), 1,
+                    only="band_chase")
+    plain_ms = 1e3 * timed(lambda: br.band_to_tridiag_wave_plain(B, b))
+    plan = chase_grid(n, b)
+    sync = grid_sync_us(plan.grid)
+    row = dict(n=n, b=b, what=f"chase of a band-{b} matrix, n={n}",
+               max_rel_err=max(errs["d"], errs["e"]) / scale, tol=2e-12,
+               tol_of="n max|B|, d and e (the CPU test's bound)",
+               errors=errs, max_abs_err=max(errs.values()),
+               log_move_under_one_ulp_of_B=ulp_move,
+               log_similarity_over_normB=sim, log_q2_ortho=ortho,
+               plain_log_similarity_over_normB=sim_plain,
+               plain_log_q2_ortho=ortho_plain,
+               eig_err_vs_eigvalsh_over_normB=eig_err, one_launch=one,
+               run_to_run_identical=same, log_row_n_minus_2_zero=log_row_zero,
+               no_log_same_d_e=nolog, host_syncs=syncs,
+               host_sync_sites=sync_sites,
+               ms=ms, ms_without_log=ms_nolog, device_ms=dms,
+               plain_ms=plain_ms, plain_is="the torch wave loop on the card, "
+               "one call", library_ms=None, plan=plan._asdict(),
+               grid_sync_us=sync, **chase_bound(n, b, sync))
+    require(eig_err <= 1e-12, f"band_chase: eigenvalues of T off by "
+            f"{eig_err} ||B||: {row}")
+    require(sim <= 1e-12 and ortho <= 1e-12,
+            f"band_chase: the log's Q2 is not B's similarity: {row}")
+    require(nolog and log_row_zero and syncs == 0,
+            f"band_chase: log switch, log row n-2 or a host sync: {row}")
+    return row
+
+
+def check_panel_qr(m: int, o: int, b: int, reps: int):
+    """The QR of the panel at column o of a bucket of width m (b = 128; a
+    dense_matrix) against panel_qr_plain on the card: Yp within 2e-12 m
+    max|Yp| and tp within 2e-12 m; As untouched; one launch, run-to-run
+    identical; the bound (the panel read and the reflectors written once
+    against the FP64 operations) and a latency form (the live panel's
+    bytes a column plus two grid syncs a column); the library's time, one
+    torch.geqrf of the same (m - o - b) x b panel (LAPACK's reflectors and
+    taus, the kernel's convention in another layout: their distance to the
+    kernel's is reported, not held; an identity reflector, tau = 0, has
+    v0 = 0 in the port and 1 in LAPACK, so the distance skips those)."""
+    A = dense_matrix(m, SEED + 30)
+    A0 = A.clone()
+    cnt = min(b, m - o - b)
+    Yp, tp = A.new_zeros((b, m)), A.new_zeros(b)
+    before = br.panel_qr_launches
+    br.panel_qr(A, o, b, Yp, tp)
+    one = br.panel_qr_launches - before == 1
+    Yr, tr = A.new_zeros((b, m)), A.new_zeros(b)
+    br.panel_qr_plain(A, o, b, Yr, tr)
+    err_y = float((Yp - Yr).abs().max())
+    err_t = float((tp - tr).abs().max())
+    rel = max(err_y / float(Yr.abs().max()), err_t) / m
+    Y2, t2 = A.new_zeros((b, m)), A.new_zeros(b)
+    br.panel_qr(A, o, b, Y2, t2)
+    same = torch.equal(Y2, Yp) and torch.equal(t2, tp)
+    untouched = torch.equal(A, A0)
+    del A0, Y2, t2
+    ms = time_ms(lambda: br.panel_qr(A, o, b, Yp, tp), reps)
+    dms = device_ms(lambda: br.panel_qr(A, o, b, Yp, tp), reps,
+                    only="panel_qr")
+    plain_ms = time_ms(lambda: br.panel_qr_plain(A, o, b, Yr, tr), 2)
+    panel = A[o + b:, o:o + b]
+    qr, tau_l = torch.geqrf(panel)
+    V = torch.tril(qr[:, :cnt], -1) + torch.eye(
+        m - o - b, cnt, dtype=A.dtype, device=A.device)
+    live = tau_l[:cnt] != 0
+    lib_errs = {"Yp": float((V - Yp[:cnt, o + b:].T)[:, live].abs().max()),
+                "tp": float((tau_l[:cnt] - tp[:cnt]).abs().max())}
+    del qr, tau_l, V
+    lib_ms = time_ms(lambda: torch.geqrf(panel), reps)
+    lib_dms = device_ms(lambda: torch.geqrf(panel), reps)
+    plan = panel_grid(m, b)
+    sync = grid_sync_us(plan.grid)
+    us = [o + b + j for j in range(cnt)]
+    nbytes = 8.0 * (b * m + sum(m - u for u in us) + cnt)
+    ops = float(sum(4 * (cnt - j) * (m - u) for j, u in enumerate(us)))
+    b_ms, b_by = bound(ops, PEAK_FP64, nbytes)
+    col_bytes = sum(8.0 * (cnt - j) * (m - u) for j, u in enumerate(us))
+    return dict(m=m, o=o, b=b, live_columns=cnt,
+                what=f"panel QR, m={m}, o={o}, b={b}",
+                max_rel_err=rel, tol=2e-12,
+                tol_of="m max|Yp| (Yp), m (tp)", max_abs_err=max(err_y, err_t),
+                errors={"Yp": err_y, "tp": err_t}, one_launch=one,
+                run_to_run_identical=same, outside_view_untouched=untouched,
+                ms=ms, device_ms=dms, plain_ms=plain_ms,
+                plain_is="the torch column loop on the card",
+                library_ms=lib_ms, library_device_ms=lib_dms,
+                library_is="torch.geqrf of the panel As[o+b:, o:o+b]",
+                library_distance=lib_errs, plan=plan._asdict(),
+                grid_sync_us=sync,
+                bound_ms=b_ms, bound_by=b_by,
+                bound_is="max(panel read + reflectors written once / 3.35 "
+                "TB/s, FP64 ops / 34 TFLOP/s)",
+                per_column_bound_ms=1e3 * col_bytes / PEAK_BYTES
+                + 2e-3 * cnt * sync,
+                per_column_bound_is="the live panel's bytes a column at "
+                "3.35 TB/s plus two grid syncs a column")
+
+
+def whole_band_reduction_row(n: int = 1024, b: int = 128, reps: int = 3):
+    """A whole reduce_to_band at n, the panel_qr kernel against the plain
+    column loop (the rest the same kernels) on the card: B, Yt and taus
+    within 2e-12 n max|A| (the CPU test's bound)."""
+    A = dense_matrix(n, SEED + 31)
+    got = br.reduce_to_band(A, b)
+    saved = br.panel_qr
+    br.panel_qr = br.panel_qr_plain
+    try:
+        ref = br.reduce_to_band(A, b)
+        plain = 1e3 * min(timed(lambda: br.reduce_to_band(A, b))
+                          for _ in range(reps))
+    finally:
+        br.panel_qr = saved
+    scale = n * float(A.abs().max())
+    errs = {name: float((g - r).abs().max()) for name, g, r in
+            zip(("B", "Yt", "taus"), got, ref)}
+    ms = 1e3 * min(timed(lambda: br.reduce_to_band(A, b))
+                   for _ in range(reps))
+    panels = br.panel_qr_count(n, b)
+    nbytes = 8.0 * (n * n * 3)
+    return dict(m=n, b=b, what=f"whole reduce_to_band, n={n}, band {b}",
+                max_rel_err=max(errs.values()) / scale, tol=2e-12,
+                tol_of="n max|A| (the CPU test's bound)", errors=errs,
+                max_abs_err=max(errs.values()), panels=panels,
+                ms=ms, ms_is=f"host wall of the whole reduction (min of "
+                f"{reps})", plain_ms=plain, library_ms=None,
+                bound_ms=1e3 * nbytes / PEAK_BYTES, bound_by="bytes",
+                bound_is="A read, B and Yt written once")
+
 
 def split_level(d, e, k: int, m: int):
     """The inputs of one merge level of a tear of T = (d, e): T's first k*m
@@ -3358,6 +3636,47 @@ def upper_band_storage(A, u: int):
     return ab
 
 
+def two_stage_solves(A, ref, band: int, u: int):
+    """eigh(A, band=band) and eigh_banded of A's band u on the card, all
+    eigenpairs, each with the three limits (dense_checks), wall, phases,
+    peak memory and launches; the launch counts held to the schedule's
+    formulas: one band_chase a chase, band_reduce.panel_qr_count(n, band)
+    panel_qr, one larft a panel of reduce_to_band and of apply_q."""
+    n = A.shape[0]
+    reset_counts()
+    lam, V, run = timed_dense(lambda tm: st.eigh(A, band=band, timer=tm))
+    two = {**run, **dense_checks(A, lam, V, ref),
+           "launches": launch_counts()}
+    del lam, V
+    torch.cuda.empty_cache()
+    idx = torch.arange(n, device="cuda")
+    Ab = torch.where((idx[:, None] - idx[None, :]).abs() <= u, A, 0.0)
+    refb = torch.linalg.eigvalsh(Ab)
+    ab = upper_band_storage(Ab, u)
+    reset_counts()
+    lamb, Vb, runb = timed_dense(lambda tm: st.eigh_banded(ab, timer=tm))
+    banded = {**runb, **dense_checks(Ab, lamb, Vb, refb),
+              "launches": launch_counts()}
+    del lamb, Vb, Ab, refb
+    torch.cuda.empty_cache()
+    lt, lb = two["launches"], banded["launches"]
+    require(lt["dword_matmul"] > 0 and lb["dword_matmul"] > 0,
+            "dword_matmul was not launched on the two-stage paths")
+    # reduce_to_band's panels (n-2)//b and apply_q's (n-1)/b take larft
+    larft = (n - 2) // band + -(-(n - 1) // band)
+    require(lt["larft"] == larft, f"larft launched {lt['larft']} times on "
+            f"the two-stage path, not {larft}")
+    expect = {"band_chase": br.chase_launch_count(n, band),
+              "panel_qr": br.panel_qr_count(n, band)}
+    require(all(lt[k] == v for k, v in expect.items()),
+            f"eigh(band={band}) launched {lt} against {expect}")
+    require(lb["band_chase"] == br.chase_launch_count(n, u)
+            and lb["panel_qr"] == 0,
+            f"eigh_banded launched {lb} against one band_chase")
+    two["launches_expected"] = expect
+    return two, banded
+
+
 def kernel_table(d, e, ref):
     """For every kernel, a function that runs its checks and returns their
     rows, each kernel against its plain version at the shapes its path
@@ -3492,6 +3811,25 @@ def kernel_table(d, e, ref):
         # apply_q's panel (nb=32 over n=16384) and the two-stage path's
         # (nb = band = 128 over n=4096)
         "larft": lambda: [check_larft(32, N, 50), check_larft(128, 4096, 20)],
+        # the chase at the two-stage path's shape first (n=4096, band 128),
+        # then eigh_banded's (u=16), then both at n=1024, and band 256 (its
+        # b x b block past shared memory: the global work tile)
+        "band_chase": lambda: [check_band_chase(4096, 128, 3),
+                               check_band_chase(4096, 16, 3),
+                               check_band_chase(1024, 128, 5),
+                               check_band_chase(1024, 16, 5),
+                               check_band_chase(1024, 256, 3)],
+        # the panel QR of the n=4096 two-stage path's first panel, the
+        # dense n=16384 matrix's first and a middle panel, a last panel
+        # with 5 live columns, a 1024-column panel (rows past what shared
+        # memory holds in the global copy), then a whole reduce_to_band at
+        # n=1024
+        "panel_qr": lambda: [check_panel_qr(4096, 0, 128, 10),
+                             check_panel_qr(N, 0, 128, 5),
+                             check_panel_qr(N, 8192, 128, 5),
+                             check_panel_qr(4096, 4096 - 128 - 5, 128, 10),
+                             check_panel_qr(4096, 0, 1024, 3),
+                             whole_band_reduction_row()],
     }
 
 
@@ -3604,6 +3942,12 @@ def main(argv=None) -> int:
               name: [ln.strip() for ln in rep.splitlines()
                      if "Used" in ln or "spill" in ln]
               for name, rep in reports.items()}})
+    # the process's first window of torch.cuda's sync debug mode reports a
+    # synchronizing call inside torch.cuda itself (seen on the card: one,
+    # in torch/cuda/__init__.py, whatever runs in it); open it here, so
+    # the windows that count a path's host syncs see only the path's
+    emit({"phase": "sync_debug_first_window",
+          "host_syncs": host_sync_sites(lambda: None)})
     frames = re.findall(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
                         r"(\d+) bytes spill loads",
                         reports.get("cauchy_rowsum", ""))
@@ -3771,17 +4115,23 @@ def main(argv=None) -> int:
             "the column step made more than 2.1 launches a column")
     check_scan_launches(dense_launches, cold["counts"],
                         dranges["spike.interface_solve"]["calls"], "dense")
+
+    # 8b. the same matrix through the two-stage front end (band 128) and
+    # its band u=16 through eigh_banded, beside the one-stage walls above
+    two_full, banded_full = two_stage_solves(A, ref_a, 128, 16)
+    emit({"phase": "dense_two_stage_full", "n": N, "matrix": "the dense "
+          "phase's", "eigh_band_128": two_full, "eigh_banded_u_16":
+          banded_full, "one_stage_wall_s": {"cold": cold["wall_s"],
+                                            "warm": warm["wall_s"]}})
     del A, ref_a
     torch.cuda.empty_cache()
 
-    # 9. the two-stage and the banded front ends (no new kernel on them)
+    # 9. the two-stage and the banded front ends (the panel QR and the chase
+    # as kernels): both solves with their checks and launch counts, the
+    # chase's host syncs, eigenvalues only through both front ends
     A2 = dense_matrix(N_TWO_STAGE, SEED + 1)
     ref2 = torch.linalg.eigvalsh(A2)
-    reset_counts()
-    lam2, V2, run2 = timed_dense(lambda tm: st.eigh(A2, band=128, timer=tm))
-    two = {**run2, **dense_checks(A2, lam2, V2, ref2),
-           "launches": launch_counts()}
-    del lam2, V2
+    two, banded = two_stage_solves(A2, ref2, 128, 16)
     # eigenvalues only, both front ends (no reflector store, no wave log)
     norm2 = float(ref2.abs().max())
     vals = {}
@@ -3793,27 +4143,22 @@ def main(argv=None) -> int:
         vals[name] = {"wall_s": time.perf_counter() - t0,
                       "eig_err_vs_eigvalsh_over_normA": err}
         require(err <= 1e-12, f"eigvals_only ({name}) off by {err} ||A||")
-    u = 16
-    idx = torch.arange(N_TWO_STAGE, device="cuda")
-    Ab = torch.where((idx[:, None] - idx[None, :]).abs() <= u, A2, 0.0)
-    refb = torch.linalg.eigvalsh(Ab)
-    ab = upper_band_storage(Ab, u)
-    reset_counts()
-    lamb, Vb, runb = timed_dense(lambda tm: st.eigh_banded(ab, timer=tm))
-    banded = {**runb, **dense_checks(Ab, lamb, Vb, refb),
-              "launches": launch_counts()}
-    del lamb, Vb, Ab
+    # the chase alone on what each front end hands it: no host sync inside
+    B2, _, _ = br.reduce_to_band(A2, 128)
+    syncs = {"reduce_to_band": host_syncs(lambda: br.reduce_to_band(A2, 128)),
+             "band_to_tridiag_band_128": host_syncs(
+                 lambda: br.band_to_tridiag_wave(B2, 128)),
+             "band_to_tridiag_u_16": host_syncs(
+                 lambda: br.band_to_tridiag_wave(band_matrix(
+                     N_TWO_STAGE, 16, SEED + 1), 16))}
+    del B2
     emit({"phase": "dense_two_stage", "n": N_TWO_STAGE,
           "eigh_band_128": two, "eigvals_only": vals,
-          "eigh_banded_u_16": banded})
-    require(two["launches"]["dword_matmul"] > 0
-            and banded["launches"]["dword_matmul"] > 0,
-            "dword_matmul was not launched on the two-stage paths")
-    # reduce_to_band's panels (n-2)//b and apply_q's (n-1)/b take larft
-    two_stage_larft = (N_TWO_STAGE - 2) // 128 + -(-(N_TWO_STAGE - 1) // 128)
-    require(two["launches"]["larft"] == two_stage_larft,
-            f"larft launched {two['launches']['larft']} times on the "
-            f"two-stage path, not {two_stage_larft}")
+          "eigh_banded_u_16": banded, "host_syncs": syncs})
+    require(all(count == 0 for count in syncs.values()),
+            f"a host sync inside dense.reduce_to_band or "
+            f"dense.band_to_tridiag: {syncs}")
+    two_launches = two["launches"]
     dense_f32(A2, ref2)
 
     # 10. where the device time goes (one more warm run of each, profiled)
@@ -3861,7 +4206,9 @@ def main(argv=None) -> int:
              "column_reflector": ("dense", dense_launches),
              "column_w": ("dense", dense_launches),
              "column_w_reflector": ("dense", dense_launches),
-             "larft": ("dense", dense_launches)}
+             "larft": ("dense", dense_launches),
+             "band_chase": ("dense_two_stage", two_launches),
+             "panel_qr": ("dense_two_stage", two_launches)}
     kernels = []
     for name, rows in checks.items():
         row = rows[0]

@@ -35,8 +35,10 @@ device.  Every Pallas kernel of the JAX
 package has its CUDA counterpart, and so do five of its device loops:
 the downsweep's Givens replay, the refinement's two scans (the Spike
 interface solve and the blocked solver's block LU), the dense
-reduction's column step (one cooperative kernel launched three ways)
-and the compact-WY T factor (nine sources, sixteen kernels); the dense and banded front ends take float32 mode as
+reduction's column step (one cooperative kernel launched three ways),
+the compact-WY T factor, and the two-stage front end's wavefront bulge
+chase (one cooperative launch a chase) and panel QR (one a panel) (ten
+sources, eighteen kernels); the dense and banded front ends take float32 mode as
 well (their reductions on an f64 copy).  Entry
 points run on the device ``"cuda"`` unless the caller passes
 ``device="cpu"`` (or a mesh, which runs on its devices).

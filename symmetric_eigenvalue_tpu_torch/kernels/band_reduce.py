@@ -5,30 +5,203 @@ Port of ``symmetric_eigenvalue_tpu/kernels/band_reduce.py``.
   stage 1 (:func:`reduce_to_band`):  A -> B banded with bandwidth b, via QR
       panels: for each block column k (offset o = k*b) a Householder QR of
       the panel A[o+b:, o:o+b] (the only column-sequential part; each step
-      touches a b x m strip), then the two-sided block update
-      A <- H^T A H, H = I - Y T Y^T, as three GEMMs (A@Y, small Gram, fused
-      symmetric rank-2b update) through :func:`dword_matmul`.
+      touches a b x m strip: :func:`panel_qr`), then the two-sided block
+      update A <- H^T A H, H = I - Y T Y^T, as three GEMMs (A@Y, small Gram,
+      fused symmetric rank-2b update) through :func:`dword_matmul`.
   stage 2 (:func:`band_to_tridiag_wave`): B -> tridiagonal by wavefront bulge
-      chasing: O(n^2 b) work on small windows, Theta(n) batched steps.
+      chasing: O(n^2 b) work on small windows, Theta(n) dependent waves.
 
 Reflectors of stage 1 are ROWS of Yt (row c = reflector annihilating column c
 below the band; unit at c+b) with scalar taus, the convention of
 ``tridiagonalize.Vt`` shifted by b, so ``tridiagonalize.apply_q`` applies Q1
 to eigenvector blocks unchanged (panel=b).
 
-The wave schedules depend only on (n, b).  PyTorch runs eagerly, so each
-wave works on exactly its live slots (taken from the schedule on the host):
-there is no parking window, one indexed write per wave, and no environment
-variable selects a variant.  No step reads a value back to the host.
+The two device loops of the JAX package that hold no ``pallas_call``, the
+chase's wave loop (JAX ``:294``) and the panel QR's column loop (JAX
+``:86``), are CUDA kernels on CUDA tensors (``csrc/band_reduce.cu``): the
+whole chase is ONE cooperative launch (``band_chase``, two grid syncs a wave,
+its schedule computed on the device from the closed form of
+:func:`wave_slots`), and each panel's QR one launch (``panel_qr``).  CPU
+tensors run the plain versions (:func:`band_to_tridiag_wave_plain`, the
+torch wave loop; :func:`panel_qr_plain`, the torch column loop); any other
+device raises.  No step reads a value back to the host.
 """
 
 from __future__ import annotations
 
+import ctypes
+from typing import Callable, NamedTuple, Tuple
+
 import numpy as np
 import torch
 
+from .. import _build
 from .dword_matmul import dword_matmul, dword_matmul_sub_
 from .tridiagonalize import _householder, _larft
+
+chase_launches = 0
+"""``band_chase`` kernel launches so far (the CPU path never counts)."""
+panel_qr_launches = 0
+"""``panel_qr`` kernel launches so far."""
+
+_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_OCCUPANCY_ARGTYPES = [_I, _P]
+_CHASE_ARGTYPES = [_P, _LL, _P, _P, _P, _P, _P, _P, _P, _LL, _I, _I, _I, _I,
+                   _I, _I, _P]
+_PANEL_ARGTYPES = [_P, _LL, _P, _LL, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                   _I, _P]
+_CHASE_THREADS = 512        # kThreads of band_chase
+_CHASE_CHUNK = 64           # window columns an item of band_chase updates
+_QR_THREADS = 256           # kQrThreads of panel_qr
+_QR_WARPS = _QR_THREADS // 32
+_OCCUPANCY = {}             # (kernel, device index, smem) -> occupancy
+
+
+class ChasePlan(NamedTuple):
+    """``band_chase``'s cooperative launch: ``grid`` blocks of ``smem``
+    dynamic shared bytes; each block's work tile of ``work`` doubles (the
+    b x b diagonal block or a b x ``chunk`` strip) in shared memory when
+    ``work_shared``, else in a global scratch."""
+    grid: int
+    smem: int
+    work: int
+    work_shared: bool
+    chunk: int
+
+
+class PanelPlan(NamedTuple):
+    """``panel_qr``'s cooperative launch over a bucket: ``grid`` blocks, each
+    owning ``slice`` entries of every panel row and caching ``cached`` rows
+    of its slice in ``smem`` bytes of shared memory (the rest in a global
+    copy)."""
+    grid: int
+    slice: int
+    cached: int
+    smem: int
+
+
+def _occupancy(kernel: str, index: int, smem: int) -> Tuple[int, int, int]:
+    """(blocks an SM holds, SMs, shared bytes a block may opt into) of
+    ``kernel`` (band_chase, panel_qr) on CUDA device ``index`` at ``smem``
+    dynamic shared bytes (cached)."""
+    key = (kernel, index, smem)
+    got = _OCCUPANCY.get(key)
+    if got is None:
+        out = (ctypes.c_int * 3)()
+        fn = _build.function("band_reduce", f"{kernel}_occupancy",
+                             _OCCUPANCY_ARGTYPES)
+        with torch.cuda.device(index):
+            rc = fn(smem, ctypes.addressof(out))
+        _build.check_launch(rc, f"{kernel}_occupancy")
+        got = _OCCUPANCY[key] = tuple(out)
+    return got
+
+
+def _device_index(dev) -> int:
+    return dev.index if dev.index is not None else torch.cuda.current_device()
+
+
+# --------------------------------------------------------------------------
+# the panel QR
+
+
+def panel_qr_plain(As, o: int, b: int, Yp, tp) -> None:
+    """Plain version of ``panel_qr``: the Householder QR of the panel
+    As[:, o:o+b] (rows below o + b), one column at a time.  For j with
+    u = o + b + j < m, the reflector of (the updated) column o + j at pivot
+    u (``_householder``'s LAPACK convention) into Yp[j] and tp[j], then
+    Pt -= tau (Pt v) v^T on the panel's rows Pt = As[:, o:o+b]^T (a copy;
+    As is not modified).  Columns with u >= m keep Yp[j], tp[j] as given
+    (zeros: identity reflectors)."""
+    m = As.shape[0]
+    Pt = As[:, o:o + b].T.contiguous()        # rows: panel columns
+    for j in range(b):
+        u = o + b + j                          # unit position
+        if u >= m:
+            break                              # identity reflectors
+        v, tau, _ = _householder(Pt[j], u - 1, out=Yp[j])
+        # apply (I - tau v v^T) to the remaining panel columns
+        w = Pt @ v                             # (b,)
+        Pt.addr_(w.mul_(tau), v, alpha=-1.0)
+        tp[j] = tau
+
+
+def panel_qr(As, o: int, b: int, Yp, tp) -> None:
+    """The panel QR of :func:`_reduce_block` (see :func:`panel_qr_plain`):
+    As (m, m) f64 with unit column stride, Yp (b, m) and tp (b,) zero-filled
+    and contiguous, on one device.  CPU tensors run the plain loop; CUDA
+    tensors launch ``panel_qr`` once (or raise); other devices raise."""
+    if As.device.type == "cpu":
+        panel_qr_plain(As, o, b, Yp, tp)
+        return
+    if As.device.type != "cuda":
+        raise ValueError(f"panel_qr: unsupported device {As.device}")
+    _launch_panel_qr(As, o, b, Yp, tp)
+
+
+def panel_qr_plan(m: int, b: int, sms: int, max_shared: int,
+                  resident: Callable[[int], int]) -> PanelPlan:
+    """``panel_qr``'s launch for a bucket of width m and panel width b on a
+    card of ``sms`` SMs whose blocks may hold ``max_shared`` bytes of shared
+    memory (``resident(smem)``: the blocks an SM holds at ``smem``, from the
+    occupancy API on the card): a block an SM (fewer where the slices
+    would be under 32 entries), each caching as many panel rows of its
+    slice as fit.  Raises when a block does not fit."""
+    grid = max(1, min(sms, -(-m // 32)))
+    width = -(-m // grid)
+    fixed = 8 * (_QR_WARPS + 4 + b)
+    cached = min(b, max(0, (max_shared - fixed) // (8 * width)))
+    smem = fixed + 8 * cached * width
+    if fixed > max_shared or resident(smem) < 1:
+        raise ValueError(f"panel_qr: no cooperative launch fits m={m}, b={b}")
+    return PanelPlan(grid, width, cached, smem)
+
+
+def _launch_panel_qr(As, o: int, b: int, Yp, tp) -> None:
+    global panel_qr_launches
+    m = As.shape[0]
+    for name, t in (("As", As), ("Yp", Yp), ("tp", tp)):
+        if t.dtype != torch.float64:
+            raise TypeError(f"panel_qr: {name} must be float64")
+        if t.device != As.device:
+            raise ValueError("panel_qr: tensors must be on one device")
+    if As.stride(1) != 1 or not Yp.is_contiguous() or not tp.is_contiguous():
+        raise ValueError("panel_qr: As needs a unit column stride, Yp and tp "
+                         "must be contiguous")
+    if Yp.shape != (b, m) or tp.shape != (b,) or o + b > m:
+        raise ValueError(f"panel_qr: Yp {tuple(Yp.shape)}, tp "
+                         f"{tuple(tp.shape)} for b={b}, m={m}, o={o}")
+    cnt = min(b, m - o - b)
+    if cnt <= 0:
+        return                                 # identity reflectors only
+    index = _device_index(As.device)
+    with torch.cuda.device(index):
+        stream = torch.cuda.current_stream(index).cuda_stream
+        _, sms, optin = _occupancy("panel_qr", index, 0)
+        plan = panel_qr_plan(m, b, sms, optin,
+                             lambda smem: _occupancy("panel_qr", index,
+                                                     smem)[0])
+        ws = torch.empty(plan.grid * (b + 1) + 1 + b, dtype=torch.float64,
+                         device=As.device)
+        Pg = None
+        if plan.cached < b:
+            Pg = torch.empty((b, m), dtype=torch.float64, device=As.device)
+        fn = _build.function("band_reduce", "panel_qr_launch",
+                             _PANEL_ARGTYPES)
+        rc = fn(As.data_ptr(), As.stride(0), Yp.data_ptr(), Yp.stride(0),
+                tp.data_ptr(), None if Pg is None else Pg.data_ptr(),
+                ws.data_ptr(), m, o, b, cnt, plan.slice, plan.cached,
+                plan.grid, plan.smem, stream)
+    _build.check_launch(rc, "panel_qr")
+    panel_qr_launches += 1
+
+
+def panel_qr_count(n: int, band: int) -> int:
+    """``panel_qr`` launches of ``reduce_to_band(A, band)`` at n, any
+    buckets: one a panel, (n - 2) // band panels (every panel has a live
+    column)."""
+    b = int(band)
+    return 0 if n <= b + 1 else max((n - 2) // b, 0)
 
 
 def _reduce_block(As, ncols: int, b: int, want_reflectors: bool = True):
@@ -44,20 +217,9 @@ def _reduce_block(As, ncols: int, b: int, want_reflectors: bool = True):
     taus = As.new_zeros((ncols,))
     for o in range(0, ncols, b):
         # --- panel QR: Householder columns of As[o+b:, o:o+b] -----------
-        # Pt[j] = (current) column o+j of As, reflectors applied immediately
-        # to the remaining panel columns (one-sided)
-        Pt = As[:, o:o + b].T.contiguous()        # rows: panel columns
         Yp = Ytb[o:o + b] if want_reflectors else As.new_zeros((b, m))
         tp = taus[o:o + b]
-        for j in range(b):
-            u = o + b + j                          # unit position
-            if u >= m:
-                break                              # identity reflectors
-            v, tau, _ = _householder(Pt[j], u - 1, out=Yp[j])
-            # apply (I - tau v v^T) to the remaining panel columns
-            w = Pt @ v                             # (b,)
-            Pt.addr_(w.mul_(tau), v, alpha=-1.0)
-            tp[j] = tau
+        panel_qr(As, o, b, Yp, tp)
 
         # --- two-sided block update  As <- (I - Y T Y^T)^T As (I - Y T Y^T)
         T = _larft(Yp, tp)                         # (b, b) upper
@@ -206,6 +368,63 @@ def _wave_geometry(n: int, b: int):
     return Kmax, Wmax, Twaves
 
 
+def wave_width(n: int, b: int, t):
+    """Live slots of wave t of the chase (they are s = 0 .. W - 1), in
+    closed form as ``band_chase`` computes it on the device: slot s is live
+    when jj = t//3 - s >= 0 and jj + kk b + 2 <= n - 1 (kk = t%3 + 3s),
+    i.e. s <= t//3 and s <= (n - 3 - t//3 - (t%3) b) // (3b - 1).  ``t`` an
+    int or an integer numpy array; n >= 3, b >= 2."""
+    _, Wmax, _ = _wave_geometry(n, b)
+    q, rm = np.divmod(np.asarray(t, dtype=np.int64), 3)
+    room = n - 3 - q - rm * b
+    w = np.where(room < 0, 0,
+                 np.minimum(q, np.maximum(room, 0) // (3 * b - 1)) + 1)
+    w = np.minimum(w, Wmax)
+    return int(w) if np.ndim(w) == 0 else w
+
+
+def wave_slots(n: int, b: int, t, s):
+    """The chase's task at wave t, slot s (integer numpy arrays broadcast
+    together), as ``band_chase`` computes it on the device: (jj, kk, r, off,
+    live), with jj = t//3 - s the sweep, kk = t%3 + 3s the hop, rows
+    r .. r + b - 1 (r = jj + kk b + 1), the pivot at window column off
+    (2b - 2 when kk = 0, else b - 1; the window's columns start at
+    r - 2b + 1) and ``live`` the slot's membership of the wave
+    (s < wave_width)."""
+    t = np.asarray(t, dtype=np.int64)
+    s = np.asarray(s, dtype=np.int64)
+    jj = t // 3 - s
+    kk = t % 3 + 3 * s
+    r = jj + kk * b + 1
+    off = np.where(kk == 0, 2 * b - 2, b - 1)
+    live = s < wave_width(n, b, t)
+    return jj, kk, r, off, live
+
+
+def chase_waves(n: int, b: int) -> int:
+    """Waves of the chase at (n, b) with a live slot: ``band_chase`` makes
+    two grid syncs for each (and one after packing the band)."""
+    if n < 3 or b < 2:
+        return 0
+    _, _, Twaves = _wave_geometry(n, b)
+    return int((wave_width(n, b, np.arange(Twaves)) > 0).sum())
+
+
+def chase_tasks(n: int, b: int) -> int:
+    """Tasks (sweep j, hop k) of the chase at (n, b): sum over the sweeps
+    j = 0 .. n-3 of their (n - 3 - j) // b + 1 hops."""
+    if n < 3 or b < 2:
+        return 0
+    j = np.arange(n - 2)
+    return int(((n - 3 - j) // b + 1).sum())
+
+
+def chase_launch_count(n: int, band: int) -> int:
+    """``band_chase`` launches of ``band_to_tridiag_wave(B, band)`` at n:
+    one (the whole chase), none where n < 3 or band < 2."""
+    return 1 if n >= 3 and int(band) >= 2 else 0
+
+
 def band_to_tridiag_wave(B, band: int, want_log: bool = True):
     """Banded symmetric B (n, n) -> (d, e, (Vw, tw)) by WAVEFRONT bulge
     chasing.
@@ -216,25 +435,49 @@ def band_to_tridiag_wave(B, band: int, want_log: bool = True):
     the SUCCEEDING sweeps' same-hop tasks, so no task needs a triangular QR.
     Wave schedule t = 3j + k: concurrent tasks sit 3b-1 apart on the
     diagonal, with two-sided footprints (window cols [r-2b+1, r+3b-2])
-    exactly disjoint, so each wave is one batched gather / batched reflector
-    / one indexed write of the windows and their mirrors.  The live slots of
-    wave t are s = 0..W_t-1 (jj = t//3 - s, kk = t%3 + 3s; the first slot
-    that leaves the matrix ends the wave), known on the host.
+    exactly disjoint; a wave's live slots are :func:`wave_slots`.
 
     Returns ``d (n,)``, ``e (n-1,)`` and the reflector log
     ``Vw (n-1, Kmax, b)`` / ``tw (n-1, Kmax)`` (row n-2 stays zero: the
     blocked backtransform reads it for sweeps past the last) consumed by
     :func:`apply_q2_wave`.  ``want_log=False`` skips the ~n^2 reflector
     store for eigenvalues-only callers (returns 1-row placeholders).
+
+    CPU tensors run :func:`band_to_tridiag_wave_plain`; a CUDA tensor (f64)
+    the ``band_chase`` kernel, one launch for the whole chase (or raises);
+    other devices raise.
     """
+    n = B.shape[0]
+    b = int(band)
+    if B.device.type == "cpu":
+        return band_to_tridiag_wave_plain(B, b, want_log)
+    if B.device.type != "cuda":
+        raise ValueError(f"band_chase: unsupported device {B.device}")
+    if n < 3 or b < 2:
+        return _passthrough(B, n, b)
+    return _launch_chase(B, b, want_log)
+
+
+def _passthrough(B, n: int, b: int):
+    """(d, e, log) where nothing is chased (n < 3 or b < 2)."""
+    Kmax, _, _ = _wave_geometry(n, b)
+    Vw = B.new_zeros((max(n - 1, 1), Kmax, max(b, 1)))
+    tw = B.new_zeros((max(n - 1, 1), Kmax))
+    return B.diagonal().clone(), B.diagonal(offset=1).clone(), (Vw, tw)
+
+
+def band_to_tridiag_wave_plain(B, band: int, want_log: bool = True):
+    """Plain version of ``band_chase``: the chase as a torch loop over the
+    waves on a zero-padded copy of B (padded by 2b before and 3b after, so
+    every window stays inside), one batched gather / reflector / indexed
+    write of the windows and their mirrors per wave.  The same function as
+    :func:`band_to_tridiag_wave`."""
     n = B.shape[0]
     b = int(band)
     dev = B.device
     Kmax, Wmax, Twaves = _wave_geometry(n, b)
     if n < 3 or b < 2:
-        Vw = B.new_zeros((max(n - 1, 1), Kmax, max(b, 1)))
-        tw = B.new_zeros((max(n - 1, 1), Kmax))
-        return B.diagonal().clone(), B.diagonal(offset=1).clone(), (Vw, tw)
+        return _passthrough(B, n, b)
 
     OFF = 2 * b                       # live region offset in the padded array
     NP = n + 5 * b                    # every window stays inside
@@ -245,22 +488,16 @@ def band_to_tridiag_wave(B, band: int, want_log: bool = True):
     Vw = B.new_zeros((nlog, Kmax, b))
     tw = B.new_zeros((nlog, Kmax))
 
-    # the whole schedule, once, on the host: (Twaves, Wmax) task indices
-    t_ar = np.arange(Twaves)[:, None]
-    s_ar = np.arange(Wmax)[None, :]
-    jj_np = t_ar // 3 - s_ar
-    kk_np = (t_ar % 3) + 3 * s_ar
-    valid = (jj_np >= 0) & (jj_np + kk_np * b + 2 <= n - 1)
-    live = valid.sum(axis=1)          # valid slots form a prefix of each wave
-    jj_all = torch.as_tensor(jj_np, device=dev)
-    kk_all = torch.as_tensor(kk_np, device=dev)
-    rp_all = jj_all + kk_all * b + (1 + OFF)
-    off_all = torch.where(kk_all == 0, 2 * b - 2, b - 1)
+    # the schedule's slots (Twaves, Wmax); wave t's live ones are a prefix
+    jj_all, kk_all, r_all, off_all, _ = (
+        torch.as_tensor(x, device=dev) for x in wave_slots(
+            n, b, np.arange(Twaves)[:, None], np.arange(Wmax)[None, :]))
+    rp_all = r_all + OFF
     rowr = torch.arange(b, device=dev)
     colr = torch.arange(W5, device=dev) - (2 * b - 1)
 
     for t in range(Twaves):
-        W = int(live[t])
+        W = wave_width(n, b, t)
         if W == 0:
             continue
         rp = rp_all[t, :W]
@@ -304,6 +541,77 @@ def band_to_tridiag_wave(B, band: int, want_log: bool = True):
             tw[jj_all[t, :W], kk_all[t, :W]] = tau
     d = P.diagonal()[OFF:OFF + n].clone()
     e = P.diagonal(offset=1)[OFF:OFF + n - 1].clone()
+    return d, e, (Vw, tw)
+
+
+def chase_plan(n: int, b: int, sms: int, max_shared: int,
+               resident: Callable[[int], int]) -> ChasePlan:
+    """``band_chase``'s launch at (n, b) on a card of ``sms`` SMs whose
+    blocks may hold ``max_shared`` bytes of shared memory (``resident(smem)``:
+    the blocks an SM holds at ``smem``): the work tile in shared memory where
+    it fits (b <= 167 on an H100), the blocks an SM holds on every SM, and no
+    more blocks than the widest wave has items (a slot is 1 + ceil((4b - 2)
+    / chunk) items).
+    Raises when not one block an SM fits."""
+    chunk = _CHASE_CHUNK
+    _, Wmax, _ = _wave_geometry(n, b)
+    items = Wmax * (1 + -(-(4 * b - 2) // chunk))
+    work = max(b * (b + 1), b * (chunk + 1))
+    small = 8 * (34 + 2 * b + max(b, chunk) + _CHASE_THREADS)
+    shared = small + 8 * work <= max_shared
+    smem = small + 8 * work if shared else small
+    per_sm = resident(smem)
+    if small > max_shared or per_sm < 1:
+        raise ValueError(f"band_chase: no cooperative launch fits n={n}, "
+                         f"b={b}")
+    return ChasePlan(max(1, min(sms * per_sm, items)), smem, work, shared,
+                     chunk)
+
+
+def _launch_chase(B, b: int, want_log: bool):
+    global chase_launches
+    n = B.shape[0]
+    if B.dtype != torch.float64:
+        raise TypeError(f"band_chase: B must be float64, got {B.dtype}")
+    if B.ndim != 2 or B.shape[1] != n:
+        raise ValueError(f"band_chase: B must be square, got "
+                         f"{tuple(B.shape)}")
+    if n > 2 ** 31 // (6 * b) or b > 2 ** 14:
+        raise ValueError(f"band_chase: n={n}, b={b} past the kernel's "
+                         "index range")
+    if B.stride(1) != 1:
+        B = B.contiguous()
+    dev = B.device
+    index = _device_index(dev)
+    Kmax, Wmax, _ = _wave_geometry(n, b)
+    f64 = dict(dtype=torch.float64, device=dev)
+    with torch.cuda.device(index):
+        stream = torch.cuda.current_stream(index).cuda_stream
+        _, sms, optin = _occupancy("band_chase", index, 0)
+        plan = chase_plan(n, b, sms, optin,
+                          lambda smem: _occupancy("band_chase", index,
+                                                  smem)[0])
+        P = torch.zeros((n + 5 * b, 6 * b - 3), **f64)
+        nlog = n - 1 if want_log else 1
+        Vw = torch.zeros((nlog, Kmax, b), **f64)
+        tw = torch.zeros((nlog, Kmax), **f64)
+        d = torch.empty(n, **f64)
+        e = torch.empty(n - 1, **f64)
+        rs = torch.empty(Wmax * (b + 2), **f64)
+        gwork = None
+        if not plan.work_shared:
+            gwork = torch.empty(plan.grid * plan.work, **f64)
+        fn = _build.function("band_reduce", "band_chase_launch",
+                             _CHASE_ARGTYPES)
+        rc = fn(B.data_ptr(), B.stride(0), P.data_ptr(),
+                Vw.data_ptr() if want_log else None,
+                tw.data_ptr() if want_log else None, d.data_ptr(),
+                e.data_ptr(), rs.data_ptr(),
+                None if gwork is None else gwork.data_ptr(), plan.work,
+                int(plan.work_shared), n, b, plan.chunk, plan.grid,
+                plan.smem, stream)
+    _build.check_launch(rc, "band_chase")
+    chase_launches += 1
     return d, e, (Vw, tw)
 
 

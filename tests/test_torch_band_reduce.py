@@ -6,13 +6,16 @@ packages' different roundings of one step feed all later ones (5e-11 was
 seen at n=64 on a draw with one short column; a wrong sign or index gives
 O(1))."""
 
+import ctypes
+import re
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from symmetric_eigenvalue_tpu.kernels import band_reduce as jband
-from symmetric_eigenvalue_tpu_torch import interop
+from symmetric_eigenvalue_tpu_torch import _build, interop
 from symmetric_eigenvalue_tpu_torch.kernels import band_reduce as tband
 from symmetric_eigenvalue_tpu_torch.kernels.tridiagonalize import apply_q
 
@@ -201,3 +204,424 @@ def test_degenerate_sizes_pass_through(rng, n, b):
     X = torch.as_tensor(rng.standard_normal((n, 3)))
     assert torch.equal(tband.apply_q2_wave(n, b, vlog, X), X)
     assert torch.equal(tband.apply_q2_wave_blocked(n, b, vlog, X), X)
+
+
+# --------------------------------------------------------------------------
+# the chase's device-side schedule, the launch counts, the panel QR, and CPU
+# models of the two kernels (csrc/band_reduce.cu) held against the plain
+# versions
+
+
+def _givens_tasks(n, b):
+    """(sweep j, hop k) -> (rows, pivot columns) of ``_chase_schedule``'s
+    rotations: a chain starts where (pi, pj) does not follow
+    (pi + b, pi - 1) from the element before it; its sweep is its first
+    pj."""
+    tasks = {}
+    prev = None
+    for pi, pj in tband._chase_schedule(n, b).tolist():
+        if prev is not None and pi == prev[0] + b and pj == prev[0] - 1:
+            k += 1
+        else:
+            j, k = pj, 0
+        rows, cols = tasks.setdefault((j, k), (set(), set()))
+        rows.update((pi - 1, pi))
+        cols.add(pj)
+        prev = (pi, pj)
+    return tasks
+
+
+def _jax_geometry(n, b):
+    """The JAX wave body's slot geometry (band_reduce.py:335-340) for every
+    wave: (jj, kk, r, off, valid), each (Twaves, Wmax)."""
+    _, Wmax, Twaves = jband._wave_geometry(n, b)
+    slots = jnp.arange(Wmax)
+    t = jnp.arange(Twaves)[:, None]
+    jj = t // 3 - slots
+    kk = (t % 3) + 3 * slots
+    valid = (jj >= 0) & (jj + kk * b + 2 <= n - 1)
+    r = jj + kk * b + 1
+    off = jnp.where(kk == 0, 2 * b - 2, b - 1)
+    return tuple(np.asarray(x) for x in (jj, kk, r, off, valid))
+
+
+@pytest.mark.parametrize("n,b", [(24, 5), (10, 2), (7, 9), (64, 70), (97, 8),
+                                 (130, 16), (2, 3), (1, 4), (3, 2), (9, 1),
+                                 (12, 0)])
+def test_device_schedule_matches_jax_and_givens(n, b):
+    """wave_slots / wave_width (band_chase's closed form) against the JAX
+    wave body's geometry and against the Givens schedule: each live slot is
+    one (sweep, hop) task of _chase_schedule, with its rows and the pivot
+    column the hop's first rotation zeroes, at wave 3 jj + kk, and every
+    task is in exactly one wave."""
+    if b < 1:
+        # no schedule: the chase passes B through and launches nothing
+        assert tband.chase_waves(n, b) == 0
+        assert tband.chase_launch_count(n, b) == 0
+        return
+    _, Wmax, Twaves = tband._wave_geometry(n, b)
+    t = np.arange(Twaves)[:, None]
+    s = np.arange(Wmax)[None, :]
+    jj, kk, r, off, live = tband.wave_slots(n, b, t, s)
+    ref = _jax_geometry(n, b)
+    for name, got, want in zip(("jj", "kk", "r", "off", "live"),
+                               (jj, kk, r, off, live), ref):
+        assert np.array_equal(got, want), name
+    # the live slots are a prefix of their wave, of width wave_width
+    assert np.array_equal(live.sum(axis=1), tband.wave_width(n, b, t[:, 0]))
+    assert np.array_equal(live, s < live.sum(axis=1, keepdims=True))
+    tasks = {(int(a), int(c)): (int(rr), int(o)) for a, c, rr, o in
+             zip(jj[live], kk[live], r[live], off[live])}
+    assert len(tasks) == int(live.sum())
+    assert np.array_equal(3 * jj[live] + kk[live],
+                          np.broadcast_to(t, live.shape)[live])
+    if n < 3 or b < 2:
+        # the chase passes B through: no task runs, nothing is launched
+        assert tband.chase_waves(n, b) == tband.chase_tasks(n, b) == 0
+        assert tband.chase_launch_count(n, b) == 0
+        assert not live.any() or b < 2
+        return
+    assert len(tasks) == tband.chase_tasks(n, b)
+    givens = _givens_tasks(n, b)
+    assert set(tasks) == set(givens)
+    for (j, k), (rr, o) in tasks.items():
+        rows, cols = givens[(j, k)]
+        assert rows == set(range(rr, min(rr + b, n))), (j, k)
+        assert rr - (2 * b - 1) + o == min(cols) == (j if k == 0 else
+                                                     j + (k - 1) * b + 1)
+    assert tband.chase_waves(n, b) == int(ref[4].any(axis=1).sum())
+    assert tband.chase_launch_count(n, b) == 1
+
+
+def test_launch_count_formulas(monkeypatch):
+    """The counts chip_smoke.py requires of a two-stage solve: one
+    band_chase launch a chase, panel_qr_count(n, b) panel QRs (each with a
+    live column) across every bucket split; and the chase sizes the
+    bounds are computed from."""
+    calls = []
+
+    def counting(As, o, b, Yp, tp):
+        calls.append(min(b, As.shape[0] - o - b))
+        tband.panel_qr_plain(As, o, b, Yp, tp)
+
+    monkeypatch.setattr(tband, "panel_qr", counting)
+    rng = np.random.default_rng(5)
+    for n, b, buckets in [(40, 4, 1), (41, 4, 3), (37, 8, 2), (10, 8, 1),
+                          (9, 8, 1), (30, 3, 4)]:
+        calls.clear()
+        tband.reduce_to_band(torch.as_tensor(_sym(rng, n)), b,
+                             buckets=buckets)
+        assert len(calls) == tband.panel_qr_count(n, b), (n, b, buckets)
+        assert all(c > 0 for c in calls)
+    assert (tband.chase_tasks(4096, 128), tband.chase_tasks(4096, 16)) == (
+        67520, 525824)
+    assert tband.chase_waves(4096, 128) <= 3 * (4096 - 3) + 1 == 12280
+    assert tband.chase_launch_count(4096, 128) == 1
+    assert tband.panel_qr_count(4096, 128) == 31
+
+
+@pytest.mark.parametrize("m,b,ncols", [(40, 4, 8), (50, 8, 16), (21, 8, 16),
+                                       (64, 16, 32)])
+def test_panel_qr_plain_matches_jax_col_body(rng, m, b, ncols):
+    """panel_qr_plain, as _reduce_block drives it panel by panel, against
+    the JAX col_body loop's Yp and tp (its _reduce_block's reflector rows
+    and taus), including a last panel with fewer live columns than b
+    (m=21, b=8: its second panel has 5)."""
+    A = _sym(rng, m)
+    _, Yj, tj = jband._reduce_block(jnp.asarray(A), ncols, b, False)
+    As = torch.as_tensor(A.copy())
+    Ytb, taus = tband._reduce_block(As, ncols, b)
+    assert _err(Ytb.numpy(), Yj) <= _tol(m)
+    assert _err(taus.numpy(), tj) <= _tol(m)
+    # one panel alone: the plain QR leaves As as it was
+    As0 = torch.as_tensor(A.copy())
+    Yp, tp = As0.new_zeros((b, m)), As0.new_zeros(b)
+    tband.panel_qr_plain(As0, 0, b, Yp, tp)
+    assert np.array_equal(As0.numpy(), A)
+    assert np.array_equal(Yp.numpy(), Ytb[:b].numpy())
+    assert np.array_equal(tp.numpy(), taus[:b].numpy())
+
+
+def _chase_model(B, b, want_log=True, chunk=64):
+    """numpy model of band_chase: B's band in the kernel's band storage
+    (entry (i, j) at [i + 2b, j - i + 3b - 2]), then each wave as the kernel
+    runs it: each slot's reflector from its pivot column, then its items
+    (the diagonal block, chunks of the other window columns), all reading
+    the state the wave started from, every write bounds-checked and made at
+    most once a wave."""
+    n = B.shape[0]
+    H, ldp = 3 * b - 2, 6 * b - 3
+    Kmax, Wmax, Twaves = tband._wave_geometry(n, b)
+    P = np.zeros((n + 5 * b, ldp))
+    i = np.arange(n)[:, None]
+    j = i + np.arange(ldp)[None, :] - H
+    ok = (j >= 0) & (j < n)
+    P[2 * b:2 * b + n][ok] = B[np.broadcast_to(i, j.shape)[ok], j[ok]]
+
+    def at(rows, cols):
+        rr = np.asarray(rows) + 2 * b
+        cc = np.asarray(cols) - np.asarray(rows) + H
+        assert (rr >= 0).all() and (rr < P.shape[0]).all()
+        assert (cc >= 0).all() and (cc < ldp).all()
+        return rr, cc
+
+    Vw = np.zeros((n - 1 if want_log else 1, Kmax, b))
+    tw = np.zeros(Vw.shape[:2])
+    rb = np.arange(b)
+    nchunks = -(-(4 * b - 2) // chunk)
+    for t in range(Twaves):
+        W = tband.wave_width(n, b, t)
+        if W == 0:
+            continue
+        refl = []
+        for s in range(W):                          # the slots' reflectors
+            jj, kk, r, off, live = (int(x) for x in
+                                    tband.wave_slots(n, b, t, s))
+            assert live
+            x = P[at(r + rb, r - (2 * b - 1) + off)]
+            sigma2 = float(np.dot(x[1:], x[1:]))
+            x0 = x[0]
+            nrm = np.sqrt(x0 * x0 + sigma2)
+            beta = -nrm if x0 >= 0 else nrm
+            no_op = sigma2 == 0.0
+            v = x / (1.0 if no_op else x0 - beta)
+            v[0] = 0.0 if no_op else 1.0
+            tau = 0.0 if no_op else (beta - x0) / beta
+            refl.append((r, off, v, tau, x0 if no_op else beta))
+            if want_log:
+                Vw[jj, kk], tw[jj, kk] = v, tau
+        writes = []
+        for it in range(W * (1 + nchunks)):                 # the items
+            s, q = divmod(it, 1 + nchunks)
+            r, off, v, tau, beta = refl[s]
+            if q == 0:
+                D = P[at((r + rb)[:, None], (r + rb)[None, :])]
+                D = D - np.outer(v, tau * (v @ D))
+                D = D - np.outer(tau * (D @ v), v)
+                writes.append((at((r + rb)[:, None], (r + rb)[None, :]),
+                               D.T))
+                continue
+            p = np.arange((q - 1) * chunk, min(q * chunk, 4 * b - 2))
+            lc = np.where(p < 2 * b - 1, p, p + b)
+            cols = r - (2 * b - 1) + lc
+            T = P[at((r + rb)[:, None], cols[None, :])]
+            T = T - np.outer(v, tau * (v @ T))
+            T[:, lc == off] = 0.0
+            T[0, lc == off] = beta
+            writes.append((at((r + rb)[:, None], cols[None, :]), T))
+            writes.append((at(cols[:, None], (r + rb)[None, :]), T.T))
+        hit = np.zeros(P.shape, dtype=int)
+        for idx, val in writes:
+            np.add.at(hit, idx, 1)
+            P[idx] = val
+        assert hit.max() <= 1, f"wave {t} writes an entry twice"
+    d = P[at(np.arange(n), np.arange(n))]
+    e = P[at(np.arange(n - 1), np.arange(1, n))]
+    return d, e, Vw, tw
+
+
+@pytest.mark.parametrize("n,b,chunk", [(40, 4, 64), (64, 8, 5), (97, 8, 64),
+                                       (50, 16, 16), (30, 2, 3), (20, 12, 7)])
+def test_chase_kernel_model_matches_plain(rng, n, b, chunk):
+    """The band storage, the items' split of the window and the transposed
+    diagonal block of band_chase, modelled in numpy, against the plain
+    chase (2e-12 n max|B|); an off-band B entry within the storage band (a
+    reduce_to_band output's rounding) is carried as the plain chase
+    carries it."""
+    A = _sym(rng, n, band=b)
+    A[0, min(n - 1, b + 2)] = A[min(n - 1, b + 2), 0] = 1e-15
+    d, e, (Vw, tw) = tband.band_to_tridiag_wave_plain(torch.as_tensor(A), b)
+    md, me, mV, mt = _chase_model(A, b, chunk=chunk)
+    tol = _tol(n) * np.abs(A).max()
+    for name, g, r in (("d", md, d), ("e", me, e), ("Vw", mV, Vw),
+                       ("tw", mt, tw)):
+        assert _err(g, r.numpy()) <= tol, name
+    assert not mV[n - 2].any() and not mt[n - 2].any()
+    md0, me0, mV0, _ = _chase_model(A, b, want_log=False, chunk=chunk)
+    assert mV0.shape[0] == 1 and np.array_equal(md0, md)
+
+
+def test_chase_reflector_underflow_keeps_v(rng):
+    """sigma2 underflowing to 0 while x is not zero: tau = 0, v0 = 0 and the
+    rest of x in the log, in the plain chase and the kernel's model."""
+    n, b = 24, 4
+    A = _sym(rng, n, band=b)
+    A[2:5, 0] = A[0, 2:5] = 1e-170          # x = column 0 below the band edge
+    A[1, 0] = A[0, 1] = 0.5
+    d, e, (Vw, tw) = tband.band_to_tridiag_wave_plain(torch.as_tensor(A), b)
+    assert tw[0, 0] == 0.0 and Vw[0, 0, 0] == 0.0 and Vw[0, 0, 1:].any()
+    md, me, mV, mt = _chase_model(A, b)
+    assert np.array_equal(mV[0, 0], Vw[0, 0].numpy()) and mt[0, 0] == 0.0
+
+
+def _panel_qr_model(As, o, b, grid):
+    """numpy model of panel_qr's schedule: ``grid`` slices of the m entries,
+    column j - 1's update of row j made before sigma2 of column j and its
+    update of the rows past j after it, v stored in row j's place (entries
+    below the pivot stale), the dead rows above j never updated."""
+    m = As.shape[0]
+    Pt = As[:, o:o + b].T.copy()
+    Yp, tp = np.zeros((b, m)), np.zeros(b)
+    cnt = min(b, m - o - b)
+    S = -(-m // grid)
+    wpart = np.zeros((grid, b))
+    tau_prev = 0.0
+    for j in range(cnt):
+        u = o + b + j
+        if j > 0:
+            tw_j = tau_prev * wpart[:, j].sum()
+            Pt[j, u - 1:] -= tw_j * Pt[j - 1, u - 1:]
+            wtot = wpart.sum(axis=0)
+        sig = [float(np.dot(Pt[j, max(u + 1, g * S):(g + 1) * S],
+                            Pt[j, max(u + 1, g * S):(g + 1) * S]))
+               for g in range(grid)]
+        sigma2, pivot = sum(sig), Pt[j, u]
+        norm = np.sqrt(sigma2 + pivot * pivot)
+        alpha = -norm if pivot >= 0 else norm
+        no_op = sigma2 == 0.0
+        denom = 1.0 if no_op else pivot - alpha
+        tau = 0.0 if no_op else (alpha - pivot) / alpha
+        if j > 0:
+            Pt[j + 1:cnt, u - 1:] -= np.outer(tau_prev * wtot[j + 1:cnt],
+                                              Pt[j - 1, u - 1:])
+        Pt[j, u + 1:] /= denom
+        Pt[j, u] = 0.0 if no_op else 1.0
+        Yp[j, u:] = Pt[j, u:]
+        tp[j] = tau
+        for g in range(grid):
+            lo = max(u, g * S)
+            wpart[g, j + 1:cnt] = Pt[j + 1:cnt, lo:(g + 1) * S] @ Pt[j, lo:(g + 1) * S]
+        tau_prev = tau
+    return Yp, tp
+
+
+@pytest.mark.parametrize("m,o,b,grid", [(64, 0, 8, 5), (64, 24, 8, 7),
+                                        (45, 32, 8, 3), (100, 16, 16, 1),
+                                        (33, 0, 4, 33)])
+def test_panel_qr_model_matches_plain(rng, m, o, b, grid):
+    """panel_qr's deferred-update schedule, modelled in numpy over ``grid``
+    slices, against panel_qr_plain (1e-13 of the largest entry; m=45, o=32
+    leaves 5 live columns)."""
+    A = _sym(rng, m)
+    Yp, tp = torch.zeros((b, m), dtype=torch.float64), torch.zeros(
+        b, dtype=torch.float64)
+    tband.panel_qr_plain(torch.as_tensor(A), o, b, Yp, tp)
+    mY, mt = _panel_qr_model(A, o, b, grid)
+    assert _err(mY, Yp.numpy()) <= 1e-13 * np.abs(Yp.numpy()).max()
+    assert _err(mt, tp.numpy()) <= 1e-13
+
+
+def test_kernel_plans():
+    """chase_plan and panel_qr_plan with a card's figures (132 SMs, 227 KB a
+    block; occupancy: the blocks an SM's 228 KB and 2048 threads hold)."""
+    sms, optin = 132, 232448
+
+    def resident(threads):
+        return lambda smem: min(2048 // threads, 233472 // max(smem + 1024,
+                                                               1))
+
+    plan = tband.chase_plan(4096, 128, sms, optin, resident(512))
+    assert plan.work_shared and plan.work == 128 * 129
+    assert plan.grid == 11 * 9 and plan.smem <= optin   # items of a wave
+    plan = tband.chase_plan(16384, 16, sms, optin, lambda smem: 1)
+    assert plan.work_shared and plan.grid == sms    # 101 registers a thread
+    plan = tband.chase_plan(16384, 16, sms, optin, resident(512))
+    assert plan.grid == 4 * sms                     # what the card says
+    plan = tband.chase_plan(4096, 256, sms, optin, resident(512))
+    assert not plan.work_shared and plan.smem < 32 * 1024
+    qr = tband.panel_qr_plan(16384, 128, sms, optin, resident(256))
+    assert qr.grid == sms and qr.grid * qr.slice >= 16384
+    assert qr.cached == 128 and qr.smem <= optin
+    qr = tband.panel_qr_plan(4096, 128, sms, optin, resident(256))
+    assert qr.grid == 128 and qr.slice == 32 and qr.cached == 128
+    qr = tband.panel_qr_plan(65536, 128, sms, optin, resident(256))
+    assert 0 < qr.cached < 128 and qr.smem <= optin
+    with pytest.raises(ValueError):
+        tband.panel_qr_plan(4096, 128, sms, optin, lambda smem: 0)
+
+
+_C_TYPES = {"const void*": ctypes.c_void_p, "void*": ctypes.c_void_p,
+            "int": ctypes.c_int, "long long": ctypes.c_longlong}
+
+
+def _c_signature(symbol):
+    text = (_build.CSRC / "band_reduce.cu").read_text()
+    m = re.search(r'extern "C" int ' + symbol + r"\(([^)]*)\)", text)
+    assert m, symbol
+    types = []
+    for param in m.group(1).split(","):
+        words = " ".join(param.split()).rsplit(" ", 1)[0]
+        types.append(_C_TYPES[words.replace(" *", "*")])
+    return types
+
+
+@pytest.mark.parametrize("symbol,argtypes", [
+    ("band_chase_launch", tband._CHASE_ARGTYPES),
+    ("band_chase_occupancy", tband._OCCUPANCY_ARGTYPES),
+    ("panel_qr_launch", tband._PANEL_ARGTYPES),
+    ("panel_qr_occupancy", tband._OCCUPANCY_ARGTYPES)])
+def test_bindings_match_the_source(symbol, argtypes):
+    """Every ctypes argument list is its C function's (a pointer passed as
+    an int would be cut to 32 bits on the card), and _build builds the
+    source."""
+    assert _c_signature(symbol) == list(argtypes)
+    assert "band_reduce" in _build.KERNELS
+
+
+def test_cuda_wrappers_launch_with_faked_card(monkeypatch):
+    """The CUDA wrappers on 'meta' tensors with the card's calls faked: one
+    band_chase launch a chase with the plan's grid, shared bytes and work
+    tile on the current stream, null log pointers without the log; one
+    panel_qr launch a panel with its live columns and plan, none for a
+    panel with no live column; each counter counts its launches."""
+    import contextlib
+    import types
+    calls = []
+
+    def function(name, symbol, argtypes):
+        assert name == "band_reduce"
+        return lambda *args: calls.append((symbol, args)) or 0
+
+    meta = dict(dtype=torch.float64, device="meta")
+    monkeypatch.setattr(tband._build, "function", function)
+    monkeypatch.setattr(tband, "_occupancy",
+                        lambda kernel, index, smem: (1, 132, 232448))
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda index: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda index=None:
+                        types.SimpleNamespace(cuda_stream=7))
+    monkeypatch.setattr(tband, "chase_launches", 0)
+    monkeypatch.setattr(tband, "panel_qr_launches", 0)
+    n, b = 300, 16
+    d, e, (Vw, tw) = tband._launch_chase(torch.empty((n, n), **meta), b,
+                                         True)
+    plan = tband.chase_plan(n, b, 132, 232448, lambda smem: 1)
+    Kmax, _, _ = tband._wave_geometry(n, b)
+    assert d.shape == (n,) and e.shape == (n - 1,)
+    assert Vw.shape == (n - 1, Kmax, b) and tw.shape == (n - 1, Kmax)
+    symbol, args = calls[-1]
+    assert symbol == "band_chase_launch"
+    assert args[9:] == (plan.work, int(plan.work_shared), n, b, plan.chunk,
+                       plan.grid, plan.smem, 7)
+    tband._launch_chase(torch.empty((n, n), **meta), b, False)
+    assert calls[-1][1][3] is None and calls[-1][1][4] is None
+    assert tband.chase_launches == 2
+    m, b = 200, 8
+    As = torch.empty((m, m), **meta)
+    for o, cnt in ((0, 8), (m - b - 3, 3), (m - b, 0)):
+        before = len(calls)
+        tband._launch_panel_qr(As, o, b, torch.empty((b, m), **meta),
+                               torch.empty(b, **meta))
+        if cnt == 0:
+            assert len(calls) == before
+            continue
+        qr = tband.panel_qr_plan(m, b, 132, 232448, lambda smem: 1)
+        symbol, args = calls[-1]
+        assert symbol == "panel_qr_launch"
+        assert args[7:] == (m, o, b, cnt, qr.slice, qr.cached, qr.grid,
+                            qr.smem, 7)
+    assert tband.panel_qr_launches == 2
+    with pytest.raises(TypeError):
+        tband._launch_chase(torch.empty((n, n), dtype=torch.float32,
+                                        device="meta"), 16, True)

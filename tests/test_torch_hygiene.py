@@ -13,6 +13,7 @@ import pytest
 import torch
 
 import symmetric_eigenvalue_tpu_torch as st
+from symmetric_eigenvalue_tpu_torch.kernels import band_reduce as br
 from symmetric_eigenvalue_tpu_torch.kernels import cauchy_matmul as cm
 from symmetric_eigenvalue_tpu_torch.kernels import cauchy_rowsum as cr
 from symmetric_eigenvalue_tpu_torch.kernels import dword_matmul as dm
@@ -110,7 +111,7 @@ def _counts():
             sp.pass_b_launches, dv.launches, rr.launches,
             shs.interface_launches, shs.block_lu_launches,
             hp.reflector_launches, hp.w_launches, hp.w_reflector_launches,
-            hp.larft_launches)
+            hp.larft_launches, br.chase_launches, br.panel_qr_launches)
 
 
 def test_cpu_tensors_count_no_launches(rng):
@@ -136,7 +137,7 @@ def test_cpu_tensors_count_no_launches(rng):
     assert V.device.type == "cpu"
     st.eigh(A + A.T, band=4, device="cpu")
     st.eigh_banded(np.ones((4, 40)), device="cpu")
-    assert _counts() == before == (0,) * 16
+    assert _counts() == before == (0,) * 18
 
 
 def test_non_cpu_tensors_never_take_the_plain_version():
@@ -190,6 +191,11 @@ def test_non_cpu_tensors_never_take_the_plain_version():
             torch.empty((nb, n), **f64), torch.empty((n - 1, 2), **f64), nb),
         "larft": lambda: hp.larft(torch.empty((nb, nb), **f64),
                                   torch.empty(nb, **f64)),
+        "band_chase": lambda: br.band_to_tridiag_wave(
+            torch.empty((n, n), **f64), 4),
+        "panel_qr": lambda: br.panel_qr(
+            torch.empty((n, n), **f64), 0, 4, torch.empty((4, n), **f64),
+            torch.empty(4, **f64)),
     }
     before = _counts()
     for name, call in calls.items():

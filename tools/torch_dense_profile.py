@@ -14,6 +14,13 @@ kernel: the column step's kernels and the matvec each a column), and
 ``eigh(band=128)`` at n=4096 (its phases).  Prints one JSON line per
 measurement.
 
+With ``--two-stage`` it runs the two-stage and banded front ends alone, at
+``--n`` (default 4096 there) on chip_smoke.py's two-stage input (seed + 1):
+``eigh(A, band=128)`` and ``eigh_banded`` of A's band u=16, each cold with
+its checks, then twice warm, each line with its wall, phases
+(``dense.reduce_to_band``, ``dense.band_to_tridiag``, ``dense.apply_q2``,
+...), peak memory and launches.
+
 It imports the package from the tree it sits in, so a copy placed in
 another checkout's ``tools/`` (an older commit unpacked by ``git archive``)
 measures that checkout (counters that tree lacks read null):
@@ -36,7 +43,8 @@ from torch.profiler import ProfilerActivity, profile
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 import symmetric_eigenvalue_tpu_torch as st  # noqa: E402
 from symmetric_eigenvalue_tpu_torch.kernels import (  # noqa: E402
-    dword_matmul as dm, dword_matvec as dv, tridiagonalize as tri)
+    band_reduce as br, dword_matmul as dm, dword_matvec as dv,
+    tridiagonalize as tri)
 from symmetric_eigenvalue_tpu_torch.utils.checks import (  # noqa: E402
     max_ortho_error)
 from symmetric_eigenvalue_tpu_torch.utils.timing import (  # noqa: E402
@@ -52,7 +60,9 @@ COUNTERS = (("dword_vecmat", dv, "launches"), ("dword_matmul", dm, "launches"),
             ("column_reflector", hp, "reflector_launches"),
             ("column_w", hp, "w_launches"),
             ("column_w_reflector", hp, "w_reflector_launches"),
-            ("larft", hp, "larft_launches"))
+            ("larft", hp, "larft_launches"),
+            ("band_chase", br, "chase_launches"),
+            ("panel_qr", br, "panel_qr_launches"))
 # the column step's kernels in any tree: one cooperative kernel, or the
 # arrival-counter pair of the tree before it
 COLUMN_KERNELS = ("column_step_kernel", "column_reflector_kernel",
@@ -75,13 +85,13 @@ def reset():
             setattr(mod, attr, 0)
 
 
-def timed_eigh(A, **kw):
+def timed_eigh(A, solver=None, **kw):
     timer = PhaseTimer()
     reset()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    out = st.eigh(A, timer=timer, **kw)
+    out = (solver or st.eigh)(A, timer=timer, **kw)
     torch.cuda.synchronize()
     return out, {"wall_s": time.perf_counter() - t0,
                  "phases_s": dict(timer.times), "launches": counts(),
@@ -133,14 +143,20 @@ def profiled(fn, n: int):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--tag", default="", help="a label for the output lines")
-    ap.add_argument("--n", type=int, default=16384)
+    ap.add_argument("--n", type=int, default=None,
+                    help="16384 (4096 with --two-stage)")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--two-stage", action="store_true",
+                    help="the two-stage and banded front ends alone")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("torch_dense_profile: needs a CUDA card", file=sys.stderr)
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = {"card": torch.cuda.get_device_name(0), "tag": args.tag}
+    if args.two_stage:
+        return two_stage(args.n or 4096, args.seed + 1, dev)
+    args.n = args.n or 16384
     A = dense_matrix(args.n, args.seed)
     ref = torch.linalg.eigvalsh(A)
     (lam, V), cold = timed_eigh(A)
@@ -169,6 +185,32 @@ def main() -> int:
     _, two = timed_eigh(A2, band=128)
     print(json.dumps({**dev, "what": "eigh(band=128) n=4096", **two}),
           flush=True)
+    return 0
+
+
+def two_stage(n: int, seed: int, dev) -> int:
+    """eigh(band=128) and eigh_banded (u=16) at n: cold with checks, then
+    twice warm."""
+    A = dense_matrix(n, seed)
+    idx = torch.arange(n, device="cuda")
+    Ab = torch.where((idx[:, None] - idx[None, :]).abs() <= 16, A, 0.0)
+    ab = torch.zeros((17, n), dtype=torch.float64)
+    for k in range(17):                         # scipy's upper band storage
+        ab[16 - k, k:] = torch.diagonal(Ab, offset=k).cpu()
+    for what, M, run in (
+            ("eigh(band=128)", A, lambda tm: st.eigh(A, band=128, timer=tm)),
+            ("eigh_banded(u=16)", Ab,
+             lambda tm: st.eigh_banded(ab.numpy(), timer=tm))):
+        ref = torch.linalg.eigvalsh(M)
+        for rep in ("cold", "warm 0", "warm 1"):
+            (lam, V), line = timed_eigh(None, solver=lambda _, timer: run(
+                timer))
+            if rep == "cold":
+                line.update(checks(M, lam, V, ref))
+            print(json.dumps({**dev, "what": f"{what} n={n} {rep}", **line}),
+                  flush=True)
+            del lam, V
+            torch.cuda.empty_cache()
     return 0
 
 
