@@ -2,7 +2,7 @@
 """Drive the PyTorch/CUDA port once on one GPU and check it.
 
 Run from the repository root:  python3 chip_smoke.py
-With ``--only dword_matmul,cauchy_matmul`` (any of the eighteen kernels' names)
+With ``--only dword_matmul,cauchy_matmul`` (any of the twenty kernels' names)
 it builds those kernels' sources, runs phase 3 for them alone, held to the
 same limits, and stops: half a minute for work on one kernel.
 
@@ -70,7 +70,20 @@ exits non-zero:
                sync a wave); the panel QR (panel_qr, one launch a panel) at
                m=4096 and 16384, b=128, a middle panel, one with 5 live
                columns and a 1024-column one, against the plain column loop (Yp, tp within
-               2e-12 m), and a whole reduce_to_band at n=1024
+               2e-12 m), and a whole reduce_to_band at n=1024; the
+               backtransform through Q2: every block's T (q2_blocks_t, one
+               launch a chunk of waves) of the chase's log at (n, b) =
+               (4096, 128), (4096, 16), (16384, 128) against its plain
+               recurrence (1e-12 max|T|), and q2_apply's widest wave at
+               (4096, 128), (4096, 16), (16384, 128), (1024, 256) against
+               the plain wave (1e-12 max|X|; rows outside the wave bit for
+               bit) and torch.ormqr of the same blocks, then the whole
+               backtransform (a q2_blocks_t a chunk, a q2_apply a wave)
+               against the plain waves (1e-11 max|X|, no host sync),
+               beside the replaced host loop at n=4096; at n=16384, u=2
+               and u=4 the whole backtransform's memory beyond X within
+               q2_store_budget (n^2/2 doubles), 1025 columns of Q2 held
+               by the similarity its log defines
   4. solve     the main path: solve_tridiagonal_staged with the default
                (mixed-precision) SolverConfig, n=16384 random (bench.py's
                input, seed 0), all eigenpairs, cold then three times
@@ -103,7 +116,7 @@ exits non-zero:
                eigenpairs, cold with every check (residual, orthogonality,
                eigenvalues against torch.linalg.eigvalsh on the card), once
                warm, and once with the pure-f64 config (same checks);
-               phases, peak memory, launches of all eighteen kernels (the
+               phases, peak memory, launches of all twenty kernels (the
                column step's three and dword_vecmat exactly
                householder_panel.column_launches(n, 32, 4): about two a
                column; larft once an apply_q panel);
@@ -115,9 +128,13 @@ exits non-zero:
                launches, beside the one-stage walls
   9. dense_two_stage  eigh(band=128) and eigh_banded (u=16) at n=4096, the
                same three limits (larft once a panel of reduce_to_band and
-               of apply_q, band_chase once a chase, panel_qr once a panel:
-               band_reduce.chase_launch_count and panel_qr_count); the
-               chase's host syncs on what each front end hands it (none);
+               of apply_q, band_chase once a chase, panel_qr once a panel,
+               q2_blocks_t once a chunk of waves and q2_apply once a wave
+               with a live block
+               on both front ends: band_reduce.chase_launch_count,
+               panel_qr_count and q2_wave_count); the host syncs of the
+               chase and of the backtransform through Q2 on what each front
+               end hands them (none);
                eigvals_only through both front ends; then
                dense_f32: eigh in float32 mode at n=4096, the JAX package's
                f32 grades (eigenvalues 1e-4, residual and orthogonality
@@ -302,6 +319,12 @@ REPLACES = {
         "symmetric_eigenvalue_tpu/kernels/band_reduce.py:254",
     "panel_qr":
         "symmetric_eigenvalue_tpu/kernels/band_reduce.py:71",
+    # the two-stage backtransform's wave loop, a lax.fori_loop with no
+    # pallas_call: every block's T before the first wave, then the waves
+    "q2_blocks_t":
+        "symmetric_eigenvalue_tpu/kernels/band_reduce.py:509",
+    "q2_apply":
+        "symmetric_eigenvalue_tpu/kernels/band_reduce.py:509",
 }
 REPLACES_LOOP = {"secular_solve":
                  "symmetric_eigenvalue_tpu/kernels/secular.py:299-361",
@@ -320,7 +343,11 @@ REPLACES_LOOP = {"secular_solve":
                  "band_chase":
                  "symmetric_eigenvalue_tpu/kernels/band_reduce.py:294",
                  "panel_qr":
-                 "symmetric_eigenvalue_tpu/kernels/band_reduce.py:86"}
+                 "symmetric_eigenvalue_tpu/kernels/band_reduce.py:86",
+                 "q2_blocks_t":
+                 "symmetric_eigenvalue_tpu/kernels/band_reduce.py:606",
+                 "q2_apply":
+                 "symmetric_eigenvalue_tpu/kernels/band_reduce.py:606"}
 SOURCES = {"spike_pass_a": "spike_solve", "spike_pass_b": "spike_solve",
            "cauchy_materialize": "cauchy_matmul",
            "dword_vecmat": "dword_matvec", "secular_solve": "secular_sums",
@@ -329,7 +356,8 @@ SOURCES = {"spike_pass_a": "spike_solve", "spike_pass_b": "spike_solve",
            "column_w": "householder_panel",
            "column_w_reflector": "householder_panel",
            "larft": "householder_panel",
-           "band_chase": "band_reduce", "panel_qr": "band_reduce"}
+           "band_chase": "band_reduce", "panel_qr": "band_reduce",
+           "q2_blocks_t": "householder_panel"}
 # the column step's matvec: the dword_vecmat source builds beside it
 EXTRA_SOURCES = {"column_reflector": ("dword_matvec", "dword_matmul"),
                  "column_w": ("dword_matvec", "dword_matmul"),
@@ -337,11 +365,22 @@ EXTRA_SOURCES = {"column_reflector": ("dword_matvec", "dword_matmul"),
                  "larft": ("dword_matmul",),
                  # the grid-sync yardstick; the whole reduce_to_band row
                  "band_chase": ("householder_panel", "dword_matmul"),
-                 "panel_qr": ("householder_panel", "dword_matmul")}
+                 "panel_qr": ("householder_panel", "dword_matmul"),
+                 # the chase makes their logs; the replaced loop's GEMMs
+                 "q2_blocks_t": ("band_reduce", "q2_apply", "dword_matmul"),
+                 "q2_apply": ("band_reduce", "householder_panel",
+                              "dword_matmul")}
 KERNEL_NAMES = tuple(REPLACES)
 
 
+T_START = time.perf_counter()
+
+
 def emit(obj) -> None:
+    """One JSON line; a phase's line carries the seconds since the script
+    started (``elapsed_s``), so the lines show where the run's time goes."""
+    if "phase" in obj:
+        obj = {**obj, "elapsed_s": time.perf_counter() - T_START}
     print(json.dumps(obj), flush=True)
 
 
@@ -424,7 +463,9 @@ def launch_counts():
             "column_w_reflector": hp.w_reflector_launches,
             "larft": hp.larft_launches,
             "band_chase": br.chase_launches,
-            "panel_qr": br.panel_qr_launches}
+            "panel_qr": br.panel_qr_launches,
+            "q2_blocks_t": br.q2_blocks_t_launches,
+            "q2_apply": br.q2_apply_launches}
 
 
 def reset_counts() -> None:
@@ -437,6 +478,7 @@ def reset_counts() -> None:
     hp.reflector_launches = hp.w_launches = hp.w_reflector_launches = 0
     hp.larft_launches = 0
     br.chase_launches = br.panel_qr_launches = 0
+    br.q2_blocks_t_launches = br.q2_apply_launches = 0
 
 
 def random_matrix(n: int, seed: int):
@@ -1364,6 +1406,301 @@ def whole_band_reduction_row(n: int = 1024, b: int = 128, reps: int = 3):
                 f"{reps})", plain_ms=plain, library_ms=None,
                 bound_ms=1e3 * nbytes / PEAK_BYTES, bound_by="bytes",
                 bound_is="A read, B and Yt written once")
+
+# --------------------------------------------------------------------------
+# the two-stage backtransform's kernels: every block's T, then the waves
+
+
+def q2_log(n: int, b: int):
+    """The chase's reflector log of the band b of dense_matrix (max|B| = 1,
+    as eigh_banded hands it to the chase), made by the band_chase kernel."""
+    B = band_matrix(n, b, SEED + 40 + b)
+    B /= B.abs().max()
+    _, _, vlog = br.band_to_tridiag_wave(B, b)
+    return vlog
+
+
+def q2_t_ops(b: int) -> float:
+    """FP64 operations of one block's T: the Gram's entries above the
+    diagonal (b - d pairs at distance d, 2 (b - d) operations each) and the
+    recurrence's triangular matvecs (c (c + 1) operations at column c)."""
+    return float(sum(2 * (b - d) ** 2 for d in range(1, b))
+                 + sum(c * (c + 1) + 1 for c in range(1, b)))
+
+
+def q2_blocks_t_all(n: int, b: int, Vw, tw, chunks):
+    """Every chunk's stores in turn, as apply_q2_wave_blocked makes them
+    (each freed before the next)."""
+    for chunk in chunks:
+        br.q2_blocks_t(n, b, Vw, tw, chunk)
+
+
+def check_q2_blocks_t(n: int, b: int, reps: int):
+    """Every block's T and Y^T (the two stores, 16 x 4 tiles) of the
+    chase's log at (n, b), chunk by chunk as apply_q2_wave_blocked cuts the
+    waves (q2_device_chunks: each chunk's stores within q2_store_budget),
+    against q2_blocks_t_plain on the card (the same recurrence in torch,
+    the Gram by one bmm) at every live slot: T within 1e-12 max|T|, Y^T bit
+    for bit (a copy of the log); T zero below the diagonal; one launch a
+    chunk, run-to-run identical; the times of all chunks (one
+    backtransform's T), and the bound (the blocks' reflectors and taus
+    read, both stores' live slots written once, against the FP64
+    operations of the Gram and the recurrence at the CUDA cores' rate).
+    No PyTorch call forms a compact-WY T (torch.linalg.householder_product
+    forms Q): library_ms is null."""
+    Vw, tw = q2_log(n, b)
+    chunks = br.q2_device_chunks(n, b, torch.cuda.current_device())
+    err = scale = 0.0
+    y_exact = same = lower_zero = one = True
+    store_bytes = 0.0
+    for chunk in chunks:
+        before = br.q2_blocks_t_launches
+        got = br.q2_blocks_t(n, b, Vw, tw, chunk)
+        one &= br.q2_blocks_t_launches - before == 1
+        slot = br.q2_chunk_blocks(n, b, chunk, "cuda")[0]
+        ref = br.q2_blocks_t_plain(n, b, Vw, tw, chunk)
+        err = max(err, float((got.T[slot] - ref.T[slot]).abs().max()))
+        scale = max(scale, float(ref.T[slot].abs().max()))
+        y_exact &= bool(torch.equal(got.Y[slot], ref.Y[slot]))
+        del ref
+        again = br.q2_blocks_t(n, b, Vw, tw, chunk)
+        same &= bool(torch.equal(got.T[slot], again.T[slot])
+                     and torch.equal(got.Y[slot], again.Y[slot]))
+        del again
+        lower_zero &= bool((torch.tril(br._untile(got.T[slot]), -1) == 0)
+                           .all())
+        store_bytes += 8.0 * slot.numel() * (got.T[0].numel()
+                                             + got.Y[0].numel())
+        del got
+    ms = time_ms(lambda: q2_blocks_t_all(n, b, Vw, tw, chunks), reps)
+    dms = device_ms(lambda: q2_blocks_t_all(n, b, Vw, tw, chunks), reps,
+                    only="q2_blocks_t")
+    plain_ms = time_ms(lambda: [br.q2_blocks_t_plain(n, b, Vw, tw, c)
+                                for c in chunks], 1)
+    blocks = br.q2_block_count(n, b)
+    nbytes = 8.0 * blocks * (b * b + b) + store_bytes
+    b_ms, b_by = bound(blocks * q2_t_ops(b), PEAK_FP64, nbytes)
+    return dict(n=n, b=b, blocks=blocks, chunks=len(chunks),
+                what=f"every block's T and Y^T, n={n}, b={b}, "
+                f"{len(chunks)} chunks", max_rel_err=err / scale, tol=1e-12,
+                tol_of="max|T|", max_abs_err=err, bit_exact=y_exact,
+                bit_exact_of="the Y^T store", store_bytes=store_bytes,
+                store_budget_bytes=br.q2_store_budget(n),
+                one_launch=one, run_to_run_identical=same,
+                lower_triangle_zero=lower_zero,
+                ms=ms, device_ms=dms, plain_ms=plain_ms,
+                plain_is="q2_blocks_t_plain on the card (torch), every "
+                "chunk", library_ms=None, library_is="none: no PyTorch call "
+                "forms a compact-WY T factor", bound_ms=b_ms, bound_by=b_by,
+                bound_is="max(reflectors + taus read, T and Y^T stores "
+                "written / 3.35 TB/s, Gram + recurrence FP64 ops / 34 "
+                "TFLOP/s)")
+
+
+def q2_wave_bound(n: int, b: int, C: int, waves):
+    """The bound of q2_apply over ``waves`` at (n, b) on C columns: X's
+    window rows inside the matrix read and written once, each block's
+    reflectors (b^2) and T's upper triangle read once, against the FP64 operations of the banded
+    and triangular forms (4 b^2 + b (b + 1) a column a block) at the tensor
+    cores' 67 TFLOP/s; with the blocks and the bytes."""
+    Kmax, _, _ = br._wave_geometry(n, b)
+    blocks, xrows = 0, 0
+    for w in waves:
+        s_lo, s_hi = br.q2_wave_range(n, b, w)
+        for s in range(s_lo, s_hi + 1):
+            base = (Kmax - 1 - s) * b + (w - 2 * s) * b + 1
+            blocks += 1
+            xrows += min(2 * b - 1, n - base)
+    nbytes = 16.0 * xrows * C + 8.0 * blocks * (b * b + b * (b + 1) // 2)
+    ops = float(blocks) * C * (4 * b * b + b * (b + 1))
+    b_ms, b_by = bound(ops, PEAK_FP64_TENSOR, nbytes)
+    return blocks, nbytes, ops, b_ms, b_by
+
+
+def check_q2_apply(n: int, b: int, reps: int, whole: bool = True,
+                   replaced: bool = True):
+    """q2_apply on the chase's log at (n, b) and an n x n X (seeded), with
+    q2_blocks_t's T of a chunk holding the widest wave: that wave against
+    q2_apply_plain (the same wave in torch: gather, three bmm, scatter)
+    within 1e-12 max|X|, one launch, run-to-run identical, every row
+    outside the wave's windows bit for bit; its time, the plain wave's, the
+    library's (torch.ormqr of the wave's gathered blocks in geqrf form,
+    batched: LAPACK's reflector application, the same function on the
+    gathered rows; its distance to the kernel's reported) and the wave's
+    bound.  ``whole``: every wave through apply_q2_wave_blocked (a
+    q2_blocks_t a chunk, q2_wave_count q2_apply launches) against the plain
+    waves in torch (q2_blocks_t_plain a chunk, then q2_apply_plain a wave)
+    within 1e-11 max|X| (the error of ~3n/b waves of orthogonal blocks),
+    no host sync, its time and the whole bound; ``replaced``: beside the
+    replaced host loop's time (apply_q2_wave_blocked_plain on the card, its
+    GEMMs through dword_matmul)."""
+    Vw, tw = q2_log(n, b)
+    Kmax, _, _ = br._wave_geometry(n, b)
+    sizes = br.q2_wave_sizes(n, b)
+    w = int(np.argmax(sizes))
+    S = int(sizes[w])
+    g = torch.Generator(device="cuda").manual_seed(SEED + 50 + b)
+    X0 = torch.randn((n, n), dtype=torch.float64, device="cuda", generator=g)
+    xmax = float(X0.abs().max())
+    blocks = br.q2_blocks_t(n, b, Vw, tw, br.Q2Chunk(w, w + 1, S))
+    X = X0.clone()
+    before = br.q2_apply_launches
+    br.q2_apply(X, blocks, n, b, w)
+    one = br.q2_apply_launches - before == 1
+    Xr = X0.clone()
+    br.q2_apply_plain(Xr, blocks, n, b, w)
+    err = float((X - Xr).abs().max())
+    X2 = X0.clone()
+    br.q2_apply(X2, blocks, n, b, w)
+    same = bool(torch.equal(X, X2))
+    s_lo, _ = br.q2_wave_range(n, b, w)
+    s = torch.arange(s_lo, s_lo + S, device="cuda")
+    J, k = Kmax - 1 - s, w - 2 * s
+    rows = (J * b + k * b + 1)[:, None] + torch.arange(2 * b - 1,
+                                                        device="cuda")
+    inside = rows < n
+    untouched = torch.ones(n, dtype=torch.bool, device="cuda")
+    untouched[rows[inside]] = False
+    outside_same = bool(torch.equal(X[untouched], X0[untouched]))
+    # LAPACK's application of the same blocks to the gathered rows
+    Y, sw = br._q2_y(n, b, Vw, J, k)
+    tau = tw[sw, k[:, None]]
+    G = torch.where(inside[..., None], X0[rows.clamp(max=n - 1)], 0.0)
+    lib = torch.ormqr(Y, tau, G, left=True, transpose=False)
+    lib_dist = float((lib[inside] - X[rows[inside]]).abs().max())
+    del X2, Xr, lib
+    ms = time_ms(lambda: br.q2_apply(X, blocks, n, b, w), reps)
+    dms = device_ms(lambda: br.q2_apply(X, blocks, n, b, w), reps,
+                    only="q2_apply")
+    plain_ms = time_ms(lambda: br.q2_apply_plain(X, blocks, n, b, w), 2)
+    lib_ms = time_ms(lambda: torch.ormqr(Y, tau, G, left=True,
+                                         transpose=False), 2)
+    del G, Y
+    _, nbytes, ops, b_ms, b_by = q2_wave_bound(n, b, n, (w,))
+    plan = br._q2_device_plan(torch.cuda.current_device(), b)
+    row = dict(n=n, b=b, C=n, wave=w, wave_blocks=S,
+               what=f"the widest wave (w={w}, {S} blocks), n={n}, b={b}",
+               wave_bytes=nbytes, wave_fp64_ops=ops,
+               max_rel_err=err / xmax, tol=1e-12, tol_of="max|X|",
+               max_abs_err=err, one_launch=one, run_to_run_identical=same,
+               outside_view_untouched=outside_same, ms=ms, device_ms=dms,
+               plain_ms=plain_ms, plain_is="q2_apply_plain on the card "
+               "(torch: gather, three bmm, scatter)", library_ms=lib_ms,
+               library_is="torch.ormqr of the wave's gathered blocks "
+               "(geqrf form, batched), the gather not timed",
+               library_distance=lib_dist, bound_ms=b_ms, bound_by=b_by,
+               bound_is="max(X's window rows read and written + Y and T "
+               "read / 3.35 TB/s, banded/triangular FP64 ops / 67 TFLOP/s)",
+               plan=plan._asdict())
+    del X, blocks
+    torch.cuda.empty_cache()
+    if whole:
+        chunks = br.q2_device_chunks(n, b, torch.cuda.current_device())
+        before = (br.q2_blocks_t_launches, br.q2_apply_launches)
+        Xk = br.apply_q2_wave_blocked(n, b, (Vw, tw), X0)
+        launches = (br.q2_blocks_t_launches - before[0],
+                    br.q2_apply_launches - before[1])
+        Xp = X0.clone()
+        for chunk in chunks:
+            plain_blocks = br.q2_blocks_t_plain(n, b, Vw, tw, chunk)
+            for v in range(chunk.w0, chunk.w1):
+                br.q2_apply_plain(Xp, plain_blocks, n, b, v)
+            del plain_blocks
+        whole_err = float((Xk - Xp).abs().max())
+        del Xp
+        torch.cuda.empty_cache()
+        Xt = X0.clone()
+        all_ms = time_ms(lambda: br.apply_q2_wave_blocked(
+            n, b, (Vw, tw), Xt, overwrite=True), 2)
+        syncs = host_syncs(lambda: br.apply_q2_wave_blocked(
+            n, b, (Vw, tw), Xt, overwrite=True))
+        all_dms = device_ms(lambda: br.apply_q2_wave_blocked(
+            n, b, (Vw, tw), Xt, overwrite=True), 1)
+        _, wbytes, wops, wb_ms, wb_by = q2_wave_bound(
+            n, b, n, range(3 * Kmax - 2))
+        expected = (len(chunks), br.q2_wave_count(n, b))
+        row.update(whole=dict(
+            launches={"q2_blocks_t": launches[0], "q2_apply": launches[1]},
+            launches_expected={"q2_blocks_t": expected[0],
+                               "q2_apply": expected[1]},
+            max_rel_err=whole_err / xmax, tol=1e-11, host_syncs=syncs,
+            ms=all_ms, device_ms=all_dms, bytes=wbytes, fp64_ops=wops,
+            bound_ms=wb_ms, bound_by=wb_by, blocks=br.q2_block_count(n, b)))
+        if replaced:
+            row["whole"].update(
+                replaced_loop_ms=1e3 * timed(
+                    lambda: br.apply_q2_wave_blocked_plain(
+                        n, b, (Vw, tw), X0)),
+                replaced_is="apply_q2_wave_blocked_plain on the card, one "
+                "call (the host wave loop the kernels replace)")
+        del Xt, Xk
+        require(whole_err <= 1e-11 * xmax and syncs == 0
+                and launches == expected,
+                f"q2_apply: the whole backtransform: {row}")
+    torch.cuda.empty_cache()
+    return row
+
+
+def check_q2_small_band(n: int, b: int, C: int = 1024):
+    """The backtransform of a small band at n, as eigh_banded runs it (the
+    chase's log of the band b of dense_matrix), on the first C + 1 columns
+    of I, so X becomes Q2's first C + 1 columns (the time grows with C, the
+    stores do not): the memory it takes beyond X and the log (the peak of
+    torch's allocator) held within q2_store_budget (n^2 / 2 doubles) and 5%
+    for the allocator's rounding, where every block's stores at once take
+    (16/b)^2 n^2 / 2 doubles; the result held by the similarity the log
+    defines on those columns (B Q2[:, :C] = Q2[:, :C+1] T[:C+1, :C], T
+    tridiagonal, within 1e-12 ||B||, ||B|| from T's extreme eigenvalues)
+    and the columns orthonormal within 1e-12; the launch counts (a
+    q2_blocks_t a chunk, a q2_apply a wave) and the time of the call."""
+    B = band_matrix(n, b, SEED + 40 + b)
+    B /= B.abs().max()
+    d, e, vlog = br.band_to_tridiag_wave(B, b)
+    chunks = br.q2_device_chunks(n, b, torch.cuda.current_device())
+    Q2 = torch.eye(n, C + 1, dtype=torch.float64, device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    before = (br.q2_blocks_t_launches, br.q2_apply_launches)
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    br.apply_q2_wave_blocked(n, b, vlog, Q2, overwrite=True)
+    t1.record()
+    torch.cuda.synchronize()
+    extra = torch.cuda.max_memory_allocated() - base
+    launches = (br.q2_blocks_t_launches - before[0],
+                br.q2_apply_launches - before[1])
+    expected = (len(chunks), br.q2_wave_count(n, b))
+    budget = br.q2_store_budget(n)
+    dn, en = d.cpu().numpy(), e.cpu().numpy()
+    norm = max(abs(float(scipy.linalg.eigvalsh_tridiagonal(
+        dn, en, select="i", select_range=(i, i))[0])) for i in (0, n - 1))
+    T = (torch.diag(d[:C + 1]) + torch.diag(e[:C], 1)
+         + torch.diag(e[:C], -1))[:, :C]
+    resid = float((B @ Q2[:, :C] - Q2 @ T).abs().max())
+    del T, B
+    ortho = max_ortho_error(Q2)
+    del Q2
+    torch.cuda.empty_cache()
+    every = br.q2_block_count(n, b) * br._q2_slot_bytes(b, False)
+    row = dict(n=n, b=b, C=C + 1, what=f"the whole backtransform at a "
+               f"small band, n={n}, b={b}, {C + 1} columns (memory)",
+               chunks=len(chunks),
+               launches={"q2_blocks_t": launches[0], "q2_apply": launches[1]},
+               launches_expected={"q2_blocks_t": expected[0],
+                                  "q2_apply": expected[1]},
+               peak_extra_bytes=extra, store_budget_bytes=budget,
+               every_block_store_bytes=every, x_bytes=8.0 * n * (C + 1),
+               max_rel_err=resid / norm, tol=1e-12,
+               tol_of="||B|| (B Q2 - Q2 T)", max_abs_err=resid,
+               q2_ortho=ortho, ms=t0.elapsed_time(t1))
+    require(extra <= 1.05 * budget and ortho <= 1e-12
+            and launches == expected,
+            f"q2_apply: the small-band backtransform's memory, launches or "
+            f"orthogonality: {row}")
+    return row
 
 
 def split_level(d, e, k: int, m: int):
@@ -3660,14 +3997,25 @@ def two_stage_solves(A, ref, band: int, u: int):
     del lamb, Vb, Ab, refb
     torch.cuda.empty_cache()
     lt, lb = two["launches"], banded["launches"]
-    require(lt["dword_matmul"] > 0 and lb["dword_matmul"] > 0,
-            "dword_matmul was not launched on the two-stage paths")
+    require(lt["dword_matmul"] > 0,
+            "dword_matmul was not launched on the two-stage path")
+    # the backtransform through Q2: a q2_blocks_t a chunk of waves and a
+    # q2_apply a wave with a live block on both front ends (eigh_banded's
+    # only GEMM user was the host wave loop these replaced)
+    index = torch.cuda.current_device()
+    for name, got, bb in (("eigh(band)", lt, band), ("eigh_banded", lb, u)):
+        want = {"q2_blocks_t": len(br.q2_device_chunks(n, bb, index)),
+                "q2_apply": br.q2_wave_count(n, bb)}
+        require(all(got[k] == v for k, v in want.items()),
+                f"{name} launched {got} against {want}")
     # reduce_to_band's panels (n-2)//b and apply_q's (n-1)/b take larft
     larft = (n - 2) // band + -(-(n - 1) // band)
     require(lt["larft"] == larft, f"larft launched {lt['larft']} times on "
             f"the two-stage path, not {larft}")
     expect = {"band_chase": br.chase_launch_count(n, band),
-              "panel_qr": br.panel_qr_count(n, band)}
+              "panel_qr": br.panel_qr_count(n, band),
+              "q2_blocks_t": len(br.q2_device_chunks(n, band, index)),
+              "q2_apply": br.q2_wave_count(n, band)}
     require(all(lt[k] == v for k, v in expect.items()),
             f"eigh(band={band}) launched {lt} against {expect}")
     require(lb["band_chase"] == br.chase_launch_count(n, u)
@@ -3752,9 +4100,10 @@ def kernel_table(d, e, ref):
         # after the f64 downsweep's GEMM, the dense front end's skinny
         # shapes: a 32-row panel's Gram over K=16384, and the rank-2k
         # trailing update of the first bucket;
-        # then a ragged shape (odd everywhere, split-K), a wave of
-        # apply_q2_wave_blocked's batched reflector blocks (n=4096, band
-        # 128), and the fused trailing update on a strided bucket view
+        # then a ragged shape (odd everywhere, split-K), a batch of 16
+        # reflector blocks' products at n=4096, band 128 (the shape of a
+        # wave of the host loop that q2_apply replaced: no path makes it
+        # now), and the fused trailing update on a strided bucket view
         "dword_matmul": lambda: [
             check_dword_matmul(2, 2048, 8192, 8192, 5),
             check_dword_matmul(1, 32, 16384, 32, 50),
@@ -3830,6 +4179,23 @@ def kernel_table(d, e, ref):
                              check_panel_qr(4096, 4096 - 128 - 5, 128, 10),
                              check_panel_qr(4096, 0, 1024, 3),
                              whole_band_reduction_row()],
+        # every block's T of the chase's log, chunk by chunk, at the
+        # two-stage path's shapes (n=4096, band 128 and u=16), then
+        # n=16384, band 128 (dense_two_stage_full drives u=16 there)
+        "q2_blocks_t": lambda: [check_q2_blocks_t(4096, 128, 10),
+                                check_q2_blocks_t(4096, 16, 10),
+                                check_q2_blocks_t(N, 128, 3)],
+        # the widest wave and the whole backtransform at n=4096 (band 128
+        # and u=16, beside the replaced host loop) and at n=16384, band
+        # 128; band 256 at n=1024 (the 8-column tile); then the memory of
+        # the whole backtransform at n=16384 and the small bands u=2 and
+        # u=4 (the most chunks)
+        "q2_apply": lambda: [check_q2_apply(4096, 128, 10),
+                             check_q2_apply(4096, 16, 10),
+                             check_q2_apply(N, 128, 3, replaced=False),
+                             check_q2_apply(1024, 256, 10),
+                             check_q2_small_band(N, 2),
+                             check_q2_small_band(N, 4)],
     }
 
 
@@ -4143,21 +4509,32 @@ def main(argv=None) -> int:
         vals[name] = {"wall_s": time.perf_counter() - t0,
                       "eig_err_vs_eigvalsh_over_normA": err}
         require(err <= 1e-12, f"eigvals_only ({name}) off by {err} ||A||")
-    # the chase alone on what each front end hands it: no host sync inside
+    # the chase and the backtransform through Q2 alone on what each front
+    # end hands them: no host sync inside
     B2, _, _ = br.reduce_to_band(A2, 128)
+    B16 = band_matrix(N_TWO_STAGE, 16, SEED + 1)
+    X2 = torch.randn((N_TWO_STAGE, N_TWO_STAGE), dtype=torch.float64,
+                     device="cuda")
+    log128 = br.band_to_tridiag_wave(B2, 128)[2]
+    log16 = br.band_to_tridiag_wave(B16, 16)[2]
     syncs = {"reduce_to_band": host_syncs(lambda: br.reduce_to_band(A2, 128)),
              "band_to_tridiag_band_128": host_syncs(
                  lambda: br.band_to_tridiag_wave(B2, 128)),
              "band_to_tridiag_u_16": host_syncs(
-                 lambda: br.band_to_tridiag_wave(band_matrix(
-                     N_TWO_STAGE, 16, SEED + 1), 16))}
-    del B2
+                 lambda: br.band_to_tridiag_wave(B16, 16)),
+             "apply_q2_band_128": host_syncs(
+                 lambda: br.apply_q2_wave_blocked(N_TWO_STAGE, 128, log128,
+                                                  X2, overwrite=True)),
+             "apply_q2_u_16": host_syncs(
+                 lambda: br.apply_q2_wave_blocked(N_TWO_STAGE, 16, log16, X2,
+                                                  overwrite=True))}
+    del B2, B16, X2, log128, log16
     emit({"phase": "dense_two_stage", "n": N_TWO_STAGE,
           "eigh_band_128": two, "eigvals_only": vals,
           "eigh_banded_u_16": banded, "host_syncs": syncs})
     require(all(count == 0 for count in syncs.values()),
-            f"a host sync inside dense.reduce_to_band or "
-            f"dense.band_to_tridiag: {syncs}")
+            f"a host sync inside dense.reduce_to_band, dense.band_to_tridiag "
+            f"or dense.apply_q2: {syncs}")
     two_launches = two["launches"]
     dense_f32(A2, ref2)
 
@@ -4208,7 +4585,9 @@ def main(argv=None) -> int:
              "column_w_reflector": ("dense", dense_launches),
              "larft": ("dense", dense_launches),
              "band_chase": ("dense_two_stage", two_launches),
-             "panel_qr": ("dense_two_stage", two_launches)}
+             "panel_qr": ("dense_two_stage", two_launches),
+             "q2_blocks_t": ("dense_two_stage", two_launches),
+             "q2_apply": ("dense_two_stage", two_launches)}
     kernels = []
     for name, rows in checks.items():
         row = rows[0]

@@ -10,6 +10,11 @@
 //    column's W row and then makes the next column's reflector.
 //  - _larft (:213), its lax.fori_loop at :227 (two launches a reflector in the
 //    port's torch loop): larft, one launch a panel.
+//  - symmetric_eigenvalue_tpu/kernels/band_reduce.py::apply_q2_wave_blocked
+//    (:509), the T factors its wave body (:551-604) forms a wave at a time:
+//    q2_blocks_t, the T (and the Y^T, laid out for the waves) of every
+//    block of a chunk of waves in one launch before the chunk's first wave
+//    (the waves themselves are csrc/q2_apply.cu).
 //
 // The column step at local column j of a bucket of width m, panel offset o,
 // jj = j - o, with Vp / Wp the panel's reflector and W accumulator rows
@@ -51,7 +56,8 @@
 // when R reads them, and the one W entry every block needs, Wp[jj][j+1], each
 // block recomputes in the order its owner does.
 //
-// larft: T (nb x nb, upper) with T[k,k] = tau_k and
+// larft (and q2_blocks_t, a batched form of the same recurrence over a Gram
+// it builds itself): T (nb x nb, upper) with T[k,k] = tau_k and
 // T[:k,k] = -tau_k T[:k,:k] G[:k,k] for k = 0..nb-1, from the panel's Gram G.
 // It is latency-bound: nb-1 dependent triangular matvecs.  One block, one
 // thread a row of T; T's columns packed in shared memory (nb (nb+1)/2
@@ -383,37 +389,180 @@ __global__ void __launch_bounds__(kThreads) grid_sync_probe_kernel(int syncs) {
   for (int s = 0; s < syncs; ++s) grid.sync();
 }
 
+// T's columns from the Gram of nb reflectors: T[k,k] = tau_k and
+// T[:k,k] = -tau_k T[:k,:k] G[:k,k] for k = 0..nb-1, with T(r, c) at
+// tc(r, c) (shared or global, written by this block only) and column k of G
+// staged into gk by stage(k, gk) (every thread calls it; it fills gk[l],
+// l < k).  Every thread of the block calls it; one thread a row of T: at
+// step k the threads walk l = 0..k-1 together, so they read neighbouring
+// entries of column l of T and one broadcast G[l,k].
+template <class Stage, class Store>
+__device__ __forceinline__ void larft_columns(Stage stage, const double* __restrict__ tau,
+                                              double* gk, Store tc, int nb) {
+  const int tid = threadIdx.x;
+  if (tid == 0) tc(0, 0) = tau[0];
+  for (int k = 1; k < nb; ++k) {
+    stage(k, gk);
+    __syncthreads();                         // gk and T's columns < k
+    const double ntau = -tau[k];
+    for (int r0 = 0; r0 < k; r0 += blockDim.x) {
+      const int r = r0 + tid;
+      double acc = 0.0;
+      // rows r < k, summed over l = r..k-1 (T is upper triangular)
+#pragma unroll 8
+      for (int l = r0; l < k; ++l) {
+        if (r <= l) acc = __fma_rn(tc(r, l), gk[l], acc);
+      }
+      if (r < k) tc(r, k) = __dmul_rn(acc, ntau);
+    }
+    if (tid == 0) tc(k, k) = tau[k];
+    __syncthreads();                         // before gk is overwritten
+  }
+}
+
+// T's columns packed, column l at l (l + 1) / 2.
+struct PackedT {
+  double* p;
+  __device__ __forceinline__ double& operator()(int r, int c) const {
+    return p[(size_t)c * (c + 1) / 2 + r];
+  }
+};
+
+// T row-major with row stride ld.
+struct DenseT {
+  double* p;
+  int ld;
+  __device__ __forceinline__ double& operator()(int r, int c) const {
+    return p[(size_t)r * ld + c];
+  }
+};
+
 __global__ void larft_kernel(const double* __restrict__ G, const double* __restrict__ tau,
                              double* __restrict__ T, double* gscratch, int nb,
                              int use_shared) {
   extern __shared__ double sh[];
   double* gk = use_shared ? sh : gscratch;   // column k of G, staged
-  double* tc = gk + nb;                      // T's column l at l (l + 1) / 2
+  const PackedT tc{gk + nb};
   const int tid = threadIdx.x;
-  if (tid == 0) tc[0] = tau[0];
-  for (int k = 1; k < nb; ++k) {
-    for (int l = tid; l < k; l += blockDim.x) gk[l] = G[(size_t)l * nb + k];
-    __syncthreads();                         // gk and T's columns < k
-    const double ntau = -tau[k];
-    const size_t colk = (size_t)k * (k + 1) / 2;
-    for (int r0 = 0; r0 < k; r0 += blockDim.x) {
-      const int r = r0 + tid;
-      double acc = 0.0;
-      // rows r < k, summed over l = r..k-1 (T is upper triangular): the
-      // threads walk l together, reading neighbouring entries of column l
-#pragma unroll 8
-      for (int l = r0; l < k; ++l) {
-        if (r <= l) acc = __fma_rn(tc[(size_t)l * (l + 1) / 2 + r], gk[l], acc);
-      }
-      if (r < k) tc[colk + r] = __dmul_rn(acc, ntau);
-    }
-    if (tid == 0) tc[colk + k] = tau[k];
-    __syncthreads();                         // before gk is overwritten
-  }
+  larft_columns(
+      [&](int k, double* col) {
+        for (int l = tid; l < k; l += blockDim.x) col[l] = G[(size_t)l * nb + k];
+      },
+      tau, gk, tc, nb);
   __syncthreads();
   for (int idx = tid; idx < nb * nb; idx += blockDim.x) {
     const int r = idx / nb, c = idx - r * nb;
-    T[idx] = r <= c ? tc[(size_t)c * (c + 1) / 2 + r] : 0.0;
+    T[idx] = r <= c ? tc(r, c) : 0.0;
+  }
+}
+
+// The live blocks s = slo .. shi of wave w of the two-stage backtransform
+// (J = Kmax - 1 - s, k = w - 2 s; g = b, so nJ = Kmax), in the closed form
+// of kernels/band_reduce.py::q2_wave_range:
+//   shi = min(w / 2, Kmax - 1),
+//   slo = max(0, ceil((w - Kmax + 1) / 2),
+//             ceil(((Kmax - 1) b + w b - (n - 3)) / (3 b))).
+__device__ __forceinline__ long long q2_ceil_div(long long a, long long d) {
+  return a <= 0 ? -((-a) / d) : (a + d - 1) / d;
+}
+__device__ __forceinline__ void q2_wave_range(int n, int b, int Kmax, int w, int& slo,
+                                              int& shi) {
+  shi = min(w / 2, Kmax - 1);
+  long long lo = max(0LL, q2_ceil_div((long long)w - Kmax + 1, 2));
+  lo = max(lo, q2_ceil_div((long long)(Kmax - 1 + w) * b - (n - 3), 3LL * b));
+  slo = static_cast<int>(lo);
+}
+
+// q2_blocks_t: the T factor of every compact-WY block of a chunk of waves
+// w0 .. w0 + nw - 1 of the two-stage backtransform
+// (kernels/band_reduce.py::apply_q2_wave_blocked), and its Y^T laid out for
+// csrc/q2_apply.cu, one block of threads a reflector block: blockIdx.y the
+// wave w = w0 + blockIdx.y, blockIdx.x its block s = slo + blockIdx.x
+// (past shi: nothing to make, it returns), at slot blockIdx.y S +
+// blockIdx.x of the chunk's stores.  The chunk bounds the stores: every
+// block at once would take (b rounded up to 16)^2 (Kmax (Kmax + 1) / 2)
+// doubles for T alone, 137 GB at n = 16384, b = 2.
+// Block (J, k) holds the hop-k reflectors of the g = b sweeps J g .. J g + g - 1:
+// reflector i is v_i = Vw[min(J g + i, n - 2), k, :] at window rows i ..
+// i + b - 1 (Y's column i; row n - 2 of the log is zero, so sweeps past the
+// last are identities), tau_i likewise from tw.  The Gram is made from that
+// band structure as the recurrence asks for its columns, G[l, c] = sum_q
+// v_c[q] v_l[q + c - l] (l < c).  Each matrix is zero-padded to wr = b
+// rounded up to 16 rows and kept in csrc/q2_apply.cu's 16 x 4 tiles (tile
+// (i / 16, c / 4) of a matrix of `cols` columns at ((i / 16) (cols / 4) +
+// c / 4) 64, row-major inside): T (wr x wr, zero below the diagonal and
+// past g) in Ts, and Y^T (wr x ys) in Ys, Y^T(i, r) = v_i[r - i] for 0 <=
+// r - i < b and zero elsewhere.  An identity reflector (tau = 0, v = 0)
+// gets T[i, i] = 0 here, where the JAX package's inverse form gives 1: its
+// column of Y is zero, so I - Y T Y^T is the same.  staged: the block's
+// v's and T's packed columns in shared memory (else v read through the
+// read-only cache and T built in a global scratch, read back through L1).
+__global__ void q2_blocks_t_kernel(const double* __restrict__ Vw, const double* __restrict__ tw,
+                                   double* Ts, double* Ys, double* scratch, int n, int b,
+                                   int Kmax, int ys, int w0, int S, int staged) {
+  extern __shared__ double sh[];
+  const int w = w0 + static_cast<int>(blockIdx.y);
+  int slo, shi;
+  q2_wave_range(n, b, Kmax, w, slo, shi);
+  const int s = slo + static_cast<int>(blockIdx.x);
+  if (s > shi) return;                       // past the wave's blocks
+  const int J = Kmax - 1 - s, k = w - 2 * s;
+  const int g = b, wr = (g + 15) & ~15;
+  const size_t blk = (size_t)blockIdx.y * S + blockIdx.x;
+  double* T = Ts + blk * wr * wr;
+  double* Y = Ys + blk * wr * ys;
+  // (i, c) of entry e of a tiled matrix of `cols` columns
+  auto untile = [](int e, int cols, int& i, int& c) {
+    const int tile = e >> 6, in = e & 63, tc = cols >> 2;
+    i = (tile / tc) * 16 + (in >> 2);
+    c = (tile % tc) * 4 + (in & 3);
+  };
+  double* taus = sh;
+  double* gk = taus + g;
+  double* vs = gk + g;                       // v_i at i b (staged)
+  const int tid = threadIdx.x;
+  auto vrow = [&](int i) {
+    return Vw + ((size_t)min(J * g + i, n - 2) * Kmax + k) * b;
+  };
+  for (int i = tid; i < g; i += blockDim.x) {
+    taus[i] = __ldg(tw + (size_t)min(J * g + i, n - 2) * Kmax + k);
+  }
+  if (staged) {
+    for (int idx = tid; idx < g * b; idx += blockDim.x) {
+      vs[idx] = __ldg(vrow(idx / b) + idx % b);
+    }
+  }
+  __syncthreads();
+  auto v = [&](int i, int q) { return staged ? vs[i * b + q] : __ldg(vrow(i) + q); };
+  for (int e = tid; e < wr * ys; e += blockDim.x) {
+    int i, r;
+    untile(e, ys, i, r);
+    const int q = r - i;
+    Y[e] = i < g && q >= 0 && q < b ? v(i, q) : 0.0;
+  }
+  auto stage = [&](int c, double* col) {
+    for (int l = tid; l < c; l += blockDim.x) {
+      double s = 0.0;
+      for (int q = 0; q < b - (c - l); ++q) s = __fma_rn(v(c, q), v(l, q + c - l), s);
+      col[l] = s;
+    }
+  };
+  auto store = [&](auto tc) {
+    __syncthreads();
+    for (int e = tid; e < wr * wr; e += blockDim.x) {
+      int r, c;
+      untile(e, wr, r, c);
+      T[e] = r <= c && c < g ? tc(r, c) : 0.0;
+    }
+  };
+  if (staged) {
+    const PackedT tc{vs + g * b};
+    larft_columns(stage, taus, gk, tc, g);
+    store(tc);
+  } else {
+    const DenseT tc{scratch + blk * g * g, g};
+    larft_columns(stage, taus, gk, tc, g);
+    store(tc);
   }
 }
 
@@ -562,5 +711,60 @@ extern "C" int larft_launch(const void* G, const void* tau, void* T, void* gscra
   larft_kernel<<<1, threads, static_cast<size_t>(smem), static_cast<cudaStream_t>(stream)>>>(
       static_cast<const double*>(G), static_cast<const double*>(tau),
       static_cast<double*>(T), static_cast<double*>(gscratch), nb, smem > 0 ? 1 : 0);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Shared bytes of a q2_blocks_t launch at g = b: its taus and G's staged
+// column, with the block's v's and T's packed columns when `staged`.
+static long long q2_blocks_t_bytes(int g, int staged) {
+  return 8LL * (2LL * g + (staged ? (long long)g * g + (long long)g * (g + 1) / 2 : 0));
+}
+
+// Whether q2_blocks_t stages a block in shared memory at band b on the
+// current device (1: it fits in what a block may opt into; 0: it needs
+// the scratch), into *out.
+extern "C" int q2_blocks_t_staged(int b, void* out) {
+  int dev = 0, optin = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) {
+    err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  }
+  if (err != cudaSuccess) return static_cast<int>(err);
+  *static_cast<int*>(out) = q2_blocks_t_bytes(b, 1) <= optin ? 1 : 0;
+  return 0;
+}
+
+// Vw: (n - 1, Kmax, b) f64 and tw: (n - 1, Kmax), the chase's reflector
+// log (kernels/band_reduce.py::band_to_tridiag_wave), contiguous; the
+// chunk: waves w0 .. w0 + nw - 1, S slots a wave; Ts: nw S blocks of wr x
+// wr f64 out (wr = (b + 15) & ~15); Ys: as many blocks of wr x ys f64 out,
+// ys the columns csrc/q2_apply.cu reads (y_stride,
+// kernels/band_reduce.py::_q2_y_stride); both in 16 x 4 tiles, a slot past
+// its wave's blocks left unwritten.  scratch: nw S b^2 doubles where
+// q2_blocks_t_staged(b) is 0, else unused (may be null).  One kernel on
+// `stream`: a grid of S x nw blocks of threads.
+extern "C" int q2_blocks_t_launch(const void* Vw, const void* tw, void* Ts, void* Ys,
+                                  void* scratch, int n, int b, int Kmax, int ys, int w0, int nw,
+                                  int S, void* stream) {
+  if (n < 3 || b < 2 || b > 1024 || Kmax != (n - 3) / b + 1 || Kmax > 65535
+      || ys < 2 * b + 2 || ys % 4 != 0 || w0 < 0 || nw < 1 || nw > 65535 || S < 1
+      || w0 + nw > 3 * Kmax - 2) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  int staged = 0;
+  cudaError_t err = static_cast<cudaError_t>(q2_blocks_t_staged(b, &staged));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (!staged && scratch == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  const int smem = static_cast<int>(q2_blocks_t_bytes(b, staged));
+  if (smem > 48 * 1024) {
+    err = cudaFuncSetAttribute(q2_blocks_t_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const int threads = ((b + 31) / 32) * 32;
+  q2_blocks_t_kernel<<<dim3(S, nw), threads, static_cast<size_t>(smem),
+                       static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const double*>(Vw), static_cast<const double*>(tw), static_cast<double*>(Ts),
+      static_cast<double*>(Ys), static_cast<double*>(scratch), n, b, Kmax, ys, w0, S, staged);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1103,7 +1103,7 @@ def eigh(A, *, config: SolverConfig = DEFAULT_CONFIG,
     W = res.eigenvectors.to(torch.float64)
     if band > 0:
         with timer.phase("dense.apply_q2"):
-            W = apply_q2_wave_blocked(n, band, vlog, W)
+            W = apply_q2_wave_blocked(n, band, vlog, W, overwrite=True)
         panel = band
     with timer.phase("dense.apply_q"):
         X = apply_q(Yt, taus, W, panel=panel)
@@ -1192,7 +1192,8 @@ def eigh_banded(a_band, *, lower: bool = False,
         return res.eigenvalues * s
     with timer.phase("dense.apply_q2"):
         V = apply_q2_wave_blocked(n, u, vlog,
-                                  res.eigenvectors.to(torch.float64))
+                                  res.eigenvectors.to(torch.float64),
+                                  overwrite=True)
     return res.eigenvalues * s, V.to(config.dtype)
 
 

@@ -16,15 +16,21 @@ below the band; unit at c+b) with scalar taus, the convention of
 ``tridiagonalize.Vt`` shifted by b, so ``tridiagonalize.apply_q`` applies Q1
 to eigenvector blocks unchanged (panel=b).
 
-The two device loops of the JAX package that hold no ``pallas_call``, the
-chase's wave loop (JAX ``:294``) and the panel QR's column loop (JAX
-``:86``), are CUDA kernels on CUDA tensors (``csrc/band_reduce.cu``): the
-whole chase is ONE cooperative launch (``band_chase``, two grid syncs a wave,
-its schedule computed on the device from the closed form of
-:func:`wave_slots`), and each panel's QR one launch (``panel_qr``).  CPU
-tensors run the plain versions (:func:`band_to_tridiag_wave_plain`, the
-torch wave loop; :func:`panel_qr_plain`, the torch column loop); any other
-device raises.  No step reads a value back to the host.
+The three device loops of the JAX package that hold no ``pallas_call``,
+the chase's wave loop (JAX ``:294``), the panel QR's column loop (JAX
+``:86``) and the blocked backtransform's wave loop (JAX ``:606``), are CUDA
+kernels on CUDA tensors: the whole chase is ONE cooperative launch
+(``band_chase``, ``csrc/band_reduce.cu``; two grid syncs a wave, its
+schedule computed on the device from the closed form of :func:`wave_slots`),
+each panel's QR one launch (``panel_qr``, the same source), and the
+backtransform, for each chunk of waves, one ``q2_blocks_t`` launch (the
+chunk's blocks' T and Y^T, ``csrc/householder_panel.cu``; their wave slots
+from the closed form of :func:`q2_wave_range`) then one ``q2_apply`` launch
+a wave (``csrc/q2_apply.cu``).  CPU tensors run the plain versions
+(:func:`band_to_tridiag_wave_plain`, the torch wave loop;
+:func:`panel_qr_plain`, the torch column loop;
+:func:`apply_q2_wave_blocked_plain`, the host wave loop); any other device
+raises.  No step reads a value back to the host.
 """
 
 from __future__ import annotations
@@ -43,6 +49,10 @@ chase_launches = 0
 """``band_chase`` kernel launches so far (the CPU path never counts)."""
 panel_qr_launches = 0
 """``panel_qr`` kernel launches so far."""
+q2_blocks_t_launches = 0
+"""``q2_blocks_t`` kernel launches so far."""
+q2_apply_launches = 0
+"""``q2_apply`` kernel launches so far."""
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _OCCUPANCY_ARGTYPES = [_I, _P]
@@ -50,6 +60,10 @@ _CHASE_ARGTYPES = [_P, _LL, _P, _P, _P, _P, _P, _P, _P, _LL, _I, _I, _I, _I,
                    _I, _I, _P]
 _PANEL_ARGTYPES = [_P, _LL, _P, _LL, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                    _I, _P]
+_Q2T_ARGTYPES = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]
+_Q2T_STAGED_ARGTYPES = [_I, _P]
+_Q2_OCCUPANCY_ARGTYPES = [_I, _I, _P]
+_Q2_ARGTYPES = [_P, _LL, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P]
 _CHASE_THREADS = 512        # kThreads of band_chase
 _CHASE_CHUNK = 64           # window columns an item of band_chase updates
 _QR_THREADS = 256           # kQrThreads of panel_qr
@@ -644,24 +658,13 @@ def apply_q2_wave(n: int, band: int, vlog, X):
     return Xp[:n].clone()
 
 
-def apply_q2_wave_blocked(n: int, band: int, vlog, X):
-    """X <- Q2 @ X at GEMM rate: compact-WY blocks over the wavefront log.
-
-    g = b consecutive sweeps' SAME-HOP reflectors, which live in a
-    (2b-1)-row window shifted one row per sweep, form one compact-WY block
-    B(J, k) = I - Y T Y^T (Y: (2b-1, b), T upper triangular via the LAPACK
-    identity T^{-1} = diag(1/tau) + striu(Y^T Y)).
-
-    Valid reordering: blocks commute unless |window offset| < 2b-1; ordering
-    Q2 = prod_{J asc} prod_{k desc} B(J, k) only swaps disjoint-window
-    factors of the sweep-major product.  Application is the reverse (J desc,
-    k asc) scheduled as a wavefront wave(J, k) = k + 2*(nJ-1-J): concurrent
-    blocks sit exactly 3b rows apart (disjoint), and every conflicting pair
-    lands on earlier waves.  Theta(n/b) steps; each wave's three products
-    are batched :func:`dword_matmul` launches over its blocks.  Blocks whose
-    first reflector already lies outside the matrix are identities and are
-    left out on the host.
-    """
+def apply_q2_wave_blocked_plain(n: int, band: int, vlog, X):
+    """Plain version of :func:`apply_q2_wave_blocked`: the waves as a torch
+    loop on a zero-padded copy of X, each wave planned on the host (numpy),
+    its blocks' Y and T formed (T by the LAPACK identity T^{-1} = diag(1/tau)
+    + striu(Y^T Y), 1/tau read as 1 where tau = 0, as in the JAX package),
+    X's window rows gathered, three batched :func:`dword_matmul` products
+    and a scatter back.  Returns a new tensor."""
     b = int(band)
     Vw, tw = vlog
     if n < 3 or b < 2:
@@ -714,3 +717,474 @@ def apply_q2_wave_blocked(n: int, band: int, vlog, X):
         W2 = dword_matmul(Tm, dword_matmul(Z, G))          # (S, g, C)
         Xp[rows_idx] = dword_matmul_sub_(G, Y, W2)
     return Xp[:n].clone()
+
+
+# --------------------------------------------------------------------------
+# the blocked backtransform on the card: every block's T (q2_blocks_t), then
+# one q2_apply launch a wave
+
+
+
+
+class Q2Plan(NamedTuple):
+    """``q2_apply``'s launch: tiles of ``tile`` columns a block of threads,
+    ``smem`` dynamic shared bytes."""
+    tile: int
+    smem: int
+
+
+class Q2Chunk(NamedTuple):
+    """Waves ``w0`` .. ``w1`` - 1 of the blocked backtransform, whose blocks
+    one ``q2_blocks_t`` launch makes: ``S`` slots a wave, wave w's live block
+    s (:func:`q2_wave_range`) at slot (w - w0) S + s - s_lo."""
+    w0: int
+    w1: int
+    S: int
+
+
+_Q2_TILES = (256, 64, 32, 16, 8)   # the tile widths csrc/q2_apply.cu takes
+_Q2_STORE_MIN = 1 << 26            # bytes a chunk's stores may always take
+
+
+def q2_block_count(n: int, band: int) -> int:
+    """Reflector blocks of the backtransform at (n, b): Kmax (Kmax + 1) / 2,
+    block (J, k) live for k <= Kmax - 1 - J (g = b makes nJ = Kmax)."""
+    b = int(band)
+    if n < 3 or b < 2:
+        return 0
+    Kmax, _, _ = _wave_geometry(n, b)
+    return Kmax * (Kmax + 1) // 2
+
+
+def q2_wave_range(n: int, band: int, w):
+    """(s_lo, s_hi) of wave w of the blocked backtransform in closed form, as
+    ``q2_blocks_t`` computes them on the device: the live blocks are s = s_lo
+    .. s_hi (none when s_lo > s_hi), J = nJ - 1 - s, k = w - 2s, where s_hi =
+    min(w // 2, nJ - 1) and s_lo = max(0, ceil((w - Kmax + 1) / 2),
+    ceil(((nJ - 1) g + w b - (n - 3)) / (g + 2b))) (J >= 0, 0 <= k <= Kmax -
+    1 and J g + k b + 2 <= n - 1).  ``w`` an int or an integer numpy array;
+    n >= 3, b >= 2."""
+    b = int(band)
+    g = b
+    Kmax, _, _ = _wave_geometry(n, b)
+    nJ = -(-(n - 2) // g)
+    lo_k = -((Kmax - 1 - w) // 2)
+    lo_row = -(((n - 3) - (nJ - 1) * g - w * b) // (g + 2 * b))
+    if isinstance(w, int):            # the launch loop's: no numpy a wave
+        return max(0, lo_k, lo_row), min(w // 2, nJ - 1)
+    return (np.maximum(np.maximum(0, lo_k), lo_row),
+            np.minimum(w // 2, nJ - 1))
+
+
+def q2_wave_sizes(n: int, band: int):
+    """Live blocks of every wave 0 .. 3 Kmax - 3 of the blocked
+    backtransform (an int64 numpy array; empty where n < 3 or b < 2)."""
+    b = int(band)
+    if n < 3 or b < 2:
+        return np.zeros(0, dtype=np.int64)
+    Kmax, _, _ = _wave_geometry(n, b)
+    s_lo, s_hi = q2_wave_range(n, b, np.arange(3 * Kmax - 2))
+    return np.maximum(s_hi - s_lo + 1, 0)
+
+
+def q2_wave_count(n: int, band: int) -> int:
+    """Waves of the blocked backtransform with a live block: ``q2_apply``
+    launches of one ``apply_q2_wave_blocked`` (none where n < 3 or b < 2)."""
+    return int((q2_wave_sizes(n, band) > 0).sum())
+
+
+def q2_store_budget(n: int) -> int:
+    """Bytes one chunk's stores may take at order n: n^2 / 2 doubles (half
+    of an n x n X), at least 64 MiB, whatever the band."""
+    return max(4 * n * n, _Q2_STORE_MIN)
+
+
+def _q2_slot_bytes(b: int, scratch: bool) -> int:
+    """Bytes a slot of the stores takes at band b: T and Y^T zero-padded to
+    rows of 16, and the b x b scratch when ``q2_blocks_t`` builds T in
+    global memory (``scratch``)."""
+    wr = (b + 15) & ~15
+    return 8 * (wr * wr + wr * _q2_y_stride(b) + (b * b if scratch else 0))
+
+
+def q2_chunks(n: int, band: int, slot_bytes: int, budget: int):
+    """The backtransform's waves cut into :class:`Q2Chunk` s in order, each
+    as many waves as keep (waves) x (its widest wave's blocks) x
+    ``slot_bytes`` within ``budget`` (at least one wave, at most 65535),
+    chunks without a live block left out.  The stores' peak is then the
+    budget's, not the Kmax (Kmax + 1) / 2 blocks' (which grow as (16/b)^2
+    n^2 / 2 doubles below b = 16)."""
+    sizes = q2_wave_sizes(n, band).tolist()
+    chunks, w0, S = [], 0, 0
+    for w, size in enumerate(sizes):
+        wide = max(S, size)
+        if w > w0 and ((w + 1 - w0) * wide * slot_bytes > budget
+                       or w - w0 == 65535):
+            chunks.append(Q2Chunk(w0, w, S))
+            w0, wide = w, size
+        S = wide
+    if sizes:
+        chunks.append(Q2Chunk(w0, len(sizes), S))
+    return [c for c in chunks if c.S > 0]
+
+
+def q2_chunk_blocks(n: int, band: int, chunk: Q2Chunk, dev):
+    """(slot, J, k) of the live blocks of ``chunk``, in slot order, as int64
+    tensors on ``dev`` (numpy on the host: the plain versions' plan)."""
+    b = int(band)
+    Kmax, _, _ = _wave_geometry(n, b)
+    w = np.arange(chunk.w0, chunk.w1)
+    s_lo, s_hi = q2_wave_range(n, b, w)
+    y, x = np.nonzero(np.arange(chunk.S)[None, :] <= (s_hi - s_lo)[:, None])
+    s = s_lo[y] + x
+    return tuple(torch.as_tensor(a, device=dev) for a in
+                 (y * chunk.S + x, Kmax - 1 - s, w[y] - 2 * s))
+
+
+def _q2_y(n: int, b: int, Vw, J, k):
+    """Y (S, 2b - 1, b) of blocks (J, k): column i is Vw[min(J b + i, n - 2),
+    k] at rows i .. i + b - 1; and the rows' sweeps (S, b)."""
+    dev = Vw.device
+    g = b
+    gr = torch.arange(g, device=dev)
+    sw = torch.clamp(J[:, None] * g + gr[None, :], max=n - 2)
+    V = Vw[sw, k[:, None]]                                 # (S, g, b)
+    Y = Vw.new_zeros((J.shape[0], 2 * b - 1, g))
+    rows = gr[:, None] + torch.arange(b, device=dev)[None, :]      # (g, b)
+    Y[:, rows, gr[:, None].expand(g, b)] = V
+    return Y, sw
+
+
+def _q2_y_stride(b: int) -> int:
+    """Columns of a block's Y^T in the Y store (csrc/q2_apply.cu's
+    y_stride): at least h + 3 (W1's contraction reads in steps of four rows
+    past h = 2b - 1) and h rounded up to 16 (the update's row tiles), a
+    multiple of 4."""
+    h = 2 * b - 1
+    return max((h + 6) & ~3, (h + 15) & ~15)
+
+
+def _tile(M):
+    """(S, R, C) -> the stores' layout (S, R/16, C/4, 16, 4): 16 x 4 tiles
+    (the MMA A fragment's rows and one k-step), row-major inside and across
+    (csrc/q2_apply.cu's ``tiled``); R a multiple of 16, C of 4."""
+    S, R, C = M.shape
+    return M.reshape(S, R // 16, 16, C // 4, 4).transpose(2, 3).contiguous()
+
+
+def _untile(Mt):
+    """The inverse of :func:`_tile`: (S, R/16, C/4, 16, 4) -> (S, R, C)."""
+    S, P, Q, _, _ = Mt.shape
+    return Mt.transpose(2, 3).reshape(S, 16 * P, 4 * Q)
+
+
+class Q2Blocks(NamedTuple):
+    """The reflector blocks of a :class:`Q2Chunk` of waves, slot by slot
+    (:func:`q2_chunk_blocks`), each matrix zero-padded to rows of 16 and
+    kept in 16 x 4 tiles (:func:`_tile`; :func:`_untile` gives the
+    matrices): ``T`` its T factor (b rounded up to 16 square, zero past b);
+    ``Y`` its Y^T (b rounded up to 16 x :func:`_q2_y_stride`), Y^T[i, r] =
+    v_i[r - i] inside the band and zero elsewhere.  A slot past its wave's
+    blocks is zero in the plain version and unwritten by the kernel."""
+    T: torch.Tensor
+    Y: torch.Tensor
+    chunk: Q2Chunk
+
+
+def q2_blocks_t_plain(n: int, band: int, Vw, tw, chunk: Q2Chunk) -> Q2Blocks:
+    """Plain version of ``q2_blocks_t``: the T of every block of ``chunk`` by
+    ``larft``'s recurrence T[c, c] = tau_c, T[:c, c] = -tau_c T[:c, :c]
+    G[:c, c] over the blocks' Gram G = Y^T Y, batched over the blocks, and
+    Y^T skewed.  An identity reflector (tau = 0, v = 0) gets T[i, i] = 0 (the
+    inverse form of :func:`apply_q2_wave_blocked_plain` gives 1; I - Y T Y^T
+    is the same)."""
+    b = int(band)
+    slot, J, k = q2_chunk_blocks(n, b, chunk, Vw.device)
+    Y, sw = _q2_y(n, b, Vw, J, k)
+    G = torch.bmm(Y.transpose(1, 2), Y)
+    tau = tw[sw, k[:, None]]                               # (S, g)
+    T = torch.diag_embed(tau)
+    for c in range(1, b):
+        T[:, :c, c] = -tau[:, c, None] * torch.bmm(
+            T[:, :c, :c], G[:, :c, c, None])[..., 0]
+    wr = (b + 15) & ~15
+    slots = (chunk.w1 - chunk.w0) * chunk.S
+    Ts = Vw.new_zeros((slots, wr, wr))
+    Ts[slot, :b, :b] = T
+    Ys = Vw.new_zeros((slots, wr, _q2_y_stride(b)))
+    Ys[slot, :b, :2 * b - 1] = Y.transpose(1, 2)
+    return Q2Blocks(_tile(Ts), _tile(Ys), chunk)
+
+
+def q2_blocks_t(n: int, band: int, Vw, tw, chunk: Q2Chunk) -> Q2Blocks:
+    """The T factor and skewed Y^T of every block of ``chunk`` (see
+    :func:`q2_blocks_t_plain`) from the chase's log: CPU tensors run the
+    plain version; CUDA tensors (f64, contiguous) launch ``q2_blocks_t``
+    once (or raise); other devices raise."""
+    b = int(band)
+    if Vw.device.type == "cpu":
+        return q2_blocks_t_plain(n, b, Vw, tw, chunk)
+    if Vw.device.type != "cuda":
+        raise ValueError(f"q2_blocks_t: unsupported device {Vw.device}")
+    return _launch_q2_blocks_t(n, b, Vw, tw, chunk)
+
+
+def _check_log(n: int, b: int, Vw, tw, what: str):
+    Kmax, _, _ = _wave_geometry(n, b)
+    if Vw.shape != (n - 1, Kmax, b) or tw.shape != (n - 1, Kmax):
+        raise ValueError(f"{what}: log {tuple(Vw.shape)}, {tuple(tw.shape)} "
+                         f"is not the chase's at n={n}, b={b}")
+    if Vw.dtype != torch.float64 or tw.dtype != torch.float64:
+        raise TypeError(f"{what}: the log must be float64")
+    if not (Vw.is_contiguous() and tw.is_contiguous()):
+        raise ValueError(f"{what}: the log must be contiguous")
+    if b > 1024 or Kmax > 65535:
+        raise ValueError(f"{what}: n={n}, b={b} past the kernel's range")
+
+
+def _q2_t_staged(index: int, b: int) -> bool:
+    """Whether ``q2_blocks_t`` keeps a block in shared memory at band b on
+    CUDA device ``index`` (else it needs a global scratch; cached)."""
+    key = ("q2_blocks_t", index, b)
+    got = _OCCUPANCY.get(key)
+    if got is None:
+        out = ctypes.c_int(0)
+        fn = _build.function("householder_panel", "q2_blocks_t_staged",
+                             _Q2T_STAGED_ARGTYPES)
+        with torch.cuda.device(index):
+            rc = fn(b, ctypes.addressof(out))
+        _build.check_launch(rc, "q2_blocks_t_staged")
+        got = _OCCUPANCY[key] = bool(out.value)
+    return got
+
+
+def q2_device_chunks(n: int, band: int, index: int):
+    """:func:`q2_chunks` as ``apply_q2_wave_blocked`` cuts them on CUDA
+    device ``index`` (one ``q2_blocks_t`` launch each)."""
+    b = int(band)
+    return q2_chunks(n, b, _q2_slot_bytes(b, not _q2_t_staged(index, b)),
+                     q2_store_budget(n))
+
+
+def _launch_q2_blocks_t(n: int, b: int, Vw, tw, chunk: Q2Chunk):
+    global q2_blocks_t_launches
+    _check_log(n, b, Vw, tw, "q2_blocks_t")
+    Kmax, _, _ = _wave_geometry(n, b)
+    nw = chunk.w1 - chunk.w0
+    if not (0 <= chunk.w0 and 1 <= nw <= 65535 and chunk.S >= 1
+            and chunk.w1 <= 3 * Kmax - 2):
+        raise ValueError(f"q2_blocks_t: chunk {chunk} outside the "
+                         f"backtransform's waves at n={n}, b={b}")
+    index = _device_index(Vw.device)
+    slots = nw * chunk.S
+    ys, wr = _q2_y_stride(b), (b + 15) & ~15
+    f64 = dict(dtype=torch.float64, device=Vw.device)
+    with torch.cuda.device(index):
+        Ts = torch.empty((slots, wr // 16, wr // 4, 16, 4), **f64)
+        Ys = torch.empty((slots, wr // 16, ys // 4, 16, 4), **f64)
+        scratch = None
+        if not _q2_t_staged(index, b):
+            scratch = torch.empty((slots, b, b), **f64)
+        stream = torch.cuda.current_stream(index).cuda_stream
+        fn = _build.function("householder_panel", "q2_blocks_t_launch",
+                             _Q2T_ARGTYPES)
+        rc = fn(Vw.data_ptr(), tw.data_ptr(), Ts.data_ptr(), Ys.data_ptr(),
+                None if scratch is None else scratch.data_ptr(), n, b, Kmax,
+                ys, chunk.w0, nw, chunk.S, stream)
+    _build.check_launch(rc, "q2_blocks_t")
+    q2_blocks_t_launches += 1
+    return Q2Blocks(Ts, Ys, chunk)
+
+
+def _wave_slots(blocks: Q2Blocks, n: int, b: int, w: int):
+    """(s_lo, live blocks, first slot) of wave w in ``blocks``."""
+    chunk = blocks.chunk
+    if not chunk.w0 <= w < chunk.w1:
+        raise ValueError(f"q2_apply: wave {w} is not in {chunk}")
+    s_lo, s_hi = q2_wave_range(n, b, w)
+    return s_lo, s_hi - s_lo + 1, (w - chunk.w0) * chunk.S
+
+
+def q2_apply_plain(X, blocks: Q2Blocks, n: int, band: int, w: int) -> None:
+    """Plain version of ``q2_apply``: wave w of the blocked backtransform on
+    X (n, C) in place, each live block (:func:`q2_wave_range`) G <- G - Y T
+    Y^T G on its window rows base .. base + 2b - 2 (base = J b + k b + 1),
+    rows past n read as zero and not written, T and Y from ``blocks``
+    (:func:`q2_blocks_t` of a chunk holding wave w)."""
+    b = int(band)
+    s_lo, count, slot0 = _wave_slots(blocks, n, b, w)
+    if count < 1:
+        return
+    dev = X.device
+    Kmax, _, _ = _wave_geometry(n, b)
+    s = torch.arange(s_lo, s_lo + count, device=dev)
+    J, k = Kmax - 1 - s, w - 2 * s
+    idx = slot0 + torch.arange(count, device=dev)
+    T = _untile(blocks.T[idx])[:, :b, :b]
+    Y = _untile(blocks.Y[idx])[:, :b, :2 * b - 1].transpose(1, 2)
+    rows = (J * b + k * b + 1)[:, None] + torch.arange(2 * b - 1, device=dev)
+    inside = rows < n
+    G = torch.where(inside[..., None], X[rows.clamp(max=n - 1)], 0.0)
+    G -= torch.bmm(Y, torch.bmm(T, torch.bmm(Y.transpose(1, 2), G)))
+    X[rows[inside]] = G[inside]
+
+
+def q2_apply_plan(band: int, optin: int,
+                  resident: Callable[[int], int]) -> Q2Plan:
+    """``q2_apply``'s tile at band b on a card whose blocks may opt into
+    ``optin`` shared bytes (``resident(tile)``: the blocks of threads an SM
+    holds at that tile, from the occupancy API): the widest tile of which
+    an SM holds two (one block's copies then overlap the other's products),
+    else the widest that fits.  Raises when none fits."""
+    b = int(band)
+    fits = [t for t in _Q2_TILES
+            if _q2_tile_bytes(b, t) <= optin and resident(t) >= 1]
+    if not fits:
+        raise ValueError(f"q2_apply: no tile fits b={b}")
+    two = [t for t in fits if resident(t) >= 2]
+    t = (two or fits)[0]
+    return Q2Plan(t, _q2_tile_bytes(b, t))
+
+
+def _q2_tile_bytes(b: int, tile: int) -> int:
+    """Shared bytes of a ``q2_apply`` block of threads (csrc/q2_apply.cu's
+    tile_bytes): the window tile's 2b + 2 rows (2b - 1, padded for the
+    contraction's steps of four) and W's b rows rounded up to 16, each of
+    tile + 4 doubles."""
+    rows = ((2 * b - 1 + 3) + 1) & ~1
+    return 8 * (rows + ((b + 15) & ~15)) * (tile + 4)
+
+
+def _q2_occupancy(index: int, b: int, tile: int):
+    key = ("q2_apply", index, b, tile)
+    got = _OCCUPANCY.get(key)
+    if got is None:
+        out = (ctypes.c_int * 3)()
+        fn = _build.function("q2_apply", "q2_apply_occupancy",
+                             _Q2_OCCUPANCY_ARGTYPES)
+        with torch.cuda.device(index):
+            rc = fn(b, tile, ctypes.addressof(out))
+        _build.check_launch(rc, "q2_apply_occupancy")
+        got = _OCCUPANCY[key] = tuple(out)
+    return got
+
+
+def _q2_device_plan(index: int, b: int) -> Q2Plan:
+    _, _, optin = _q2_occupancy(index, b, _Q2_TILES[-1])
+    return q2_apply_plan(b, optin, lambda t: _q2_occupancy(index, b, t)[0])
+
+
+def _launch_q2_apply(X, blocks: Q2Blocks, n: int, b: int, w: int,
+                     plan: Q2Plan, stream) -> None:
+    """One ``q2_apply`` launch for wave w, none when it has no live block."""
+    global q2_apply_launches
+    s_lo, count, slot0 = _wave_slots(blocks, n, b, w)
+    if count < 1:
+        return
+    fn = _build.function("q2_apply", "q2_apply_launch", _Q2_ARGTYPES)
+    rc = fn(X.data_ptr(), X.stride(0), blocks.Y.data_ptr(),
+            blocks.T.data_ptr(), n, X.shape[1], b, w, s_lo, count, slot0,
+            plan.tile, stream)
+    _build.check_launch(rc, "q2_apply")
+    q2_apply_launches += 1
+
+
+def q2_apply(X, blocks: Q2Blocks, n: int, band: int, w: int) -> None:
+    """Wave w of the blocked backtransform on X (n, C) in place (see
+    :func:`q2_apply_plain`): CPU tensors run the plain version; CUDA
+    tensors (f64, X with a unit column stride) launch ``q2_apply`` once
+    when the wave has a live block (or raise); other devices raise."""
+    b = int(band)
+    if X.device.type == "cpu":
+        q2_apply_plain(X, blocks, n, b, w)
+        return
+    if X.device.type != "cuda":
+        raise ValueError(f"q2_apply: unsupported device {X.device}")
+    _launch_q2_wave(X, blocks, n, b, w)
+
+
+def _launch_q2_wave(X, blocks: Q2Blocks, n: int, b: int, w: int) -> None:
+    _check_apply(X, blocks, n, b)
+    index = _device_index(X.device)
+    with torch.cuda.device(index):
+        _launch_q2_apply(X, blocks, n, b, w, _q2_device_plan(index, b),
+                         torch.cuda.current_stream(index).cuda_stream)
+
+
+def _check_x(X, n: int) -> None:
+    if X.dtype != torch.float64:
+        raise TypeError(f"q2_apply: X must be float64, got {X.dtype}")
+    if X.ndim != 2 or X.shape[0] != n or X.stride(1) != 1:
+        raise ValueError(f"q2_apply: X {tuple(X.shape)} must be (n={n}, C) "
+                         "with a unit column stride")
+
+
+def _check_apply(X, blocks: Q2Blocks, n: int, b: int) -> None:
+    _check_x(X, n)
+    Ts, Ys, chunk = blocks
+    slots, wr = (chunk.w1 - chunk.w0) * chunk.S, (b + 15) & ~15
+    if Ts.dtype != torch.float64 or Ys.dtype != torch.float64:
+        raise TypeError("q2_apply: the block stores must be float64")
+    if Ts.shape != (slots, wr // 16, wr // 4, 16, 4) or Ys.shape != (
+            slots, wr // 16, _q2_y_stride(b) // 4, 16, 4) \
+            or not (Ts.is_contiguous() and Ys.is_contiguous()):
+        raise ValueError(f"q2_apply: block stores {tuple(Ts.shape)}, "
+                         f"{tuple(Ys.shape)} are not q2_blocks_t's of "
+                         f"{chunk} at n={n}, b={b}")
+    if not (X.device == Ts.device == Ys.device):
+        raise ValueError("q2_apply: tensors must be on one device")
+
+
+def apply_q2_wave_blocked(n: int, band: int, vlog, X, overwrite: bool = False):
+    """X <- Q2 @ X at GEMM rate: compact-WY blocks over the wavefront log.
+
+    g = b consecutive sweeps' SAME-HOP reflectors, which live in a
+    (2b-1)-row window shifted one row per sweep, form one compact-WY block
+    B(J, k) = I - Y T Y^T (Y: (2b-1, b), T upper triangular).
+
+    Valid reordering: blocks commute unless |window offset| < 2b-1; ordering
+    Q2 = prod_{J asc} prod_{k desc} B(J, k) only swaps disjoint-window
+    factors of the sweep-major product.  Application is the reverse (J desc,
+    k asc) scheduled as a wavefront wave(J, k) = k + 2*(nJ-1-J): concurrent
+    blocks sit exactly 3b rows apart (disjoint), and every conflicting pair
+    lands on earlier waves.  Blocks whose first reflector already lies
+    outside the matrix are identities and are left out.
+
+    CPU tensors run :func:`apply_q2_wave_blocked_plain`.  A CUDA tensor
+    (f64, unit column stride) makes, for each chunk of waves
+    (:func:`q2_device_chunks`: the stores stay within
+    :func:`q2_store_budget`), one ``q2_blocks_t`` launch (the chunk's T and
+    Y^T) and one ``q2_apply`` launch a wave with a live block, X's rows
+    read and written where they lie, no host sync (or raises).  Other
+    devices raise.  Returns Q2 @ X: a new tensor, or X itself, updated in
+    place, with ``overwrite=True``.
+    """
+    b = int(band)
+    if n < 3 or b < 2:
+        return X
+    if X.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"q2_apply: unsupported device {X.device}")
+    if not overwrite:
+        X = X.clone(memory_format=torch.contiguous_format)
+    if X.device.type == "cpu":
+        return X.copy_(apply_q2_wave_blocked_plain(n, b, vlog, X))
+    _launch_q2_wave_blocked(n, b, vlog, X)
+    return X
+
+
+def _launch_q2_wave_blocked(n: int, b: int, vlog, X) -> None:
+    Vw, tw = vlog
+    _check_x(X, n)
+    _check_log(n, b, Vw, tw, "q2_apply")
+    if X.shape[1] == 0:
+        return
+    index = _device_index(X.device)
+    with torch.cuda.device(index):
+        plan = _q2_device_plan(index, b)
+        stream = torch.cuda.current_stream(index).cuda_stream
+        for chunk in q2_device_chunks(n, b, index):
+            blocks = _launch_q2_blocks_t(n, b, Vw, tw, chunk)
+            _check_apply(X, blocks, n, b)
+            for w in range(chunk.w0, chunk.w1):
+                _launch_q2_apply(X, blocks, n, b, w, plan, stream)
+            del blocks        # the next chunk's stores reuse its memory

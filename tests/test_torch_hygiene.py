@@ -111,7 +111,8 @@ def _counts():
             sp.pass_b_launches, dv.launches, rr.launches,
             shs.interface_launches, shs.block_lu_launches,
             hp.reflector_launches, hp.w_launches, hp.w_reflector_launches,
-            hp.larft_launches, br.chase_launches, br.panel_qr_launches)
+            hp.larft_launches, br.chase_launches, br.panel_qr_launches,
+            br.q2_blocks_t_launches, br.q2_apply_launches)
 
 
 def test_cpu_tensors_count_no_launches(rng):
@@ -137,7 +138,7 @@ def test_cpu_tensors_count_no_launches(rng):
     assert V.device.type == "cpu"
     st.eigh(A + A.T, band=4, device="cpu")
     st.eigh_banded(np.ones((4, 40)), device="cpu")
-    assert _counts() == before == (0,) * 18
+    assert _counts() == before == (0,) * 20
 
 
 def test_non_cpu_tensors_never_take_the_plain_version():
@@ -196,6 +197,18 @@ def test_non_cpu_tensors_never_take_the_plain_version():
         "panel_qr": lambda: br.panel_qr(
             torch.empty((n, n), **f64), 0, 4, torch.empty((4, n), **f64),
             torch.empty(4, **f64)),
+        "q2_blocks_t": lambda: br.q2_blocks_t(
+            n, 4, torch.empty((n - 1, 4, 4), **f64),
+            torch.empty((n - 1, 4), **f64), br.Q2Chunk(0, 1, 1)),
+        "q2_apply": lambda: br.q2_apply(
+            torch.empty((n, C), **f64), br.Q2Blocks(
+                torch.empty((10, 4, 4), **f64),
+                torch.empty((10, 16, 16), **f64), br.Q2Chunk(0, 1, 1)),
+            n, 4, 0),
+        "apply_q2_wave_blocked": lambda: br.apply_q2_wave_blocked(
+            n, 4, (torch.empty((n - 1, 4, 4), **f64),
+                   torch.empty((n - 1, 4), **f64)),
+            torch.empty((n, C), **f64)),
     }
     before = _counts()
     for name, call in calls.items():

@@ -19,7 +19,8 @@ With ``--two-stage`` it runs the two-stage and banded front ends alone, at
 ``eigh(A, band=128)`` and ``eigh_banded`` of A's band u=16, each cold with
 its checks, then twice warm, each line with its wall, phases
 (``dense.reduce_to_band``, ``dense.band_to_tridiag``, ``dense.apply_q2``,
-...), peak memory and launches.
+...), peak memory and launches.  Every line carries the card's name and
+its power limit (nvidia-smi).
 
 It imports the package from the tree it sits in, so a copy placed in
 another checkout's ``tools/`` (an older commit unpacked by ``git archive``)
@@ -32,6 +33,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import subprocess
 import sys
 import time
 from pathlib import Path
@@ -62,7 +64,9 @@ COUNTERS = (("dword_vecmat", dv, "launches"), ("dword_matmul", dm, "launches"),
             ("column_w_reflector", hp, "w_reflector_launches"),
             ("larft", hp, "larft_launches"),
             ("band_chase", br, "chase_launches"),
-            ("panel_qr", br, "panel_qr_launches"))
+            ("panel_qr", br, "panel_qr_launches"),
+            ("q2_blocks_t", br, "q2_blocks_t_launches"),
+            ("q2_apply", br, "q2_apply_launches"))
 # the column step's kernels in any tree: one cooperative kernel, or the
 # arrival-counter pair of the tree before it
 COLUMN_KERNELS = ("column_step_kernel", "column_reflector_kernel",
@@ -153,7 +157,12 @@ def main() -> int:
         print("torch_dense_profile: needs a CUDA card", file=sys.stderr)
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
-    dev = {"card": torch.cuda.get_device_name(0), "tag": args.tag}
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60).stdout.strip()
+    dev = {"card": torch.cuda.get_device_name(0),
+           "nvidia_smi": smi.splitlines()[0] if smi else None,
+           "tag": args.tag}
     if args.two_stage:
         return two_stage(args.n or 4096, args.seed + 1, dev)
     args.n = args.n or 16384
