@@ -63,11 +63,12 @@ exits non-zero:
                wavefront chase (band_chase, the whole chase one
                cooperative launch) at (n, b) = (4096, 128), (4096, 16),
                (1024, 128), (1024, 16), (1024, 256) against the plain wave loop on the
-               card (d, e, Vw, tw within 2e-12 n max|B|, eigvalsh of T
-               against eigvalsh(B) within 1e-12 ||B||, the log off: d and e
-               bit for bit, no host sync, one launch), with a grid sync's
-               cost and the bound (window bytes, FP64 operations, a grid
-               sync a wave); the panel QR (panel_qr, one launch a panel) at
+               card (d and e within 2e-12 n max|B|, eigvalsh of T against
+               eigvalsh(B) within 1e-12 ||B||, the log by the similarity it
+               defines within 1e-12, two runs bit for bit, the log off: d
+               and e bit for bit, no host sync, one launch), with a grid
+               sync's cost and the bound (window bytes, FP64 operations, a
+               grid sync a wave); the panel QR (panel_qr, one launch a panel) at
                m=4096 and 16384, b=128, a middle panel, one with 5 live
                columns and a 1024-column one, against the plain column loop (Yp, tp within
                2e-12 m), and a whole reduce_to_band at n=1024; the
@@ -1185,11 +1186,30 @@ def grid_sync_us(grid: int) -> float:
     return (sync100 - sync0) * 10.0
 
 
-def chase_grid(n: int, b: int) -> int:
-    index = torch.cuda.current_device()
-    _, sms, optin = br._occupancy("band_chase", index, 0)
-    return br.chase_plan(n, b, sms, optin, lambda smem: br._occupancy(
-        "band_chase", index, smem)[0])
+_L2_COPY_US = {}
+
+
+def l2_copy_rate():
+    """(bytes a second, the copy times) of the card's L2, measured once a
+    run: the slope of a torch copy's device time from 2 to 8 MB (source and
+    destination, 16 MB at most, stay in the 50 MB L2; each byte read and
+    each written counted), 50 copies a CUDA graph so that no host launch and
+    no copy's fixed cost enters the slope; the time of a 16 MB copy beside
+    (32 MB together: how far a copy's two ends stay in L2)."""
+    if not _L2_COPY_US:
+        for mb in (2, 8, 16):
+            x = torch.ones(mb << 17, dtype=torch.float64, device="cuda")
+            y = torch.empty_like(x)
+            y.copy_(x)
+            torch.cuda.synchronize()
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                for _ in range(50):
+                    y.copy_(x)
+            _L2_COPY_US[mb] = 1e3 * time_ms(graph.replay, 10) / 50
+            del graph, x, y
+    rate = 2 * 6 * 2 ** 20 / ((_L2_COPY_US[8] - _L2_COPY_US[2]) * 1e-6)
+    return rate, dict(_L2_COPY_US)
 
 
 def panel_grid(m: int, b: int):
@@ -1200,20 +1220,35 @@ def panel_grid(m: int, b: int):
 
 
 def chase_bound(n: int, b: int, sync_us: float):
-    """The chase's bound at (n, b): the windows the tasks read, write and
-    mirror (3 b (5b - 2) doubles a task) at 3.35 TB/s against their FP64
-    operations (4 b (5b - 2) + 4 b^2 a task) at 34 TFLOP/s; beside it the
-    latency floor, one grid sync a wave with a live slot."""
+    """The chase's bound at (n, b): the windows the tasks read and write once
+    (each task its strip, b (4b - 2) doubles, and its diagonal block's lower
+    half, b (b + 1) / 2, read and written: 9 b^2 - 3 b doubles) at 3.35 TB/s
+    against their FP64 operations (a task: the strip's dots and rank-1
+    update, 4 b (4b - 2); the block's matvec and rank-2 update, 2 b^2 +
+    2 b (b + 1)) at 34 TFLOP/s; beside it the same bytes at the L2 rate
+    measured in this run (l2_copy_rate: the stored band, (n + 3b)(3b - 1)
+    doubles, 13.7 MB at n=4096, b=128, stays in the 50 MB L2, so its
+    windows need not come from HBM; at n=16384 it is 51 MB, about L2's
+    size, and that bound is the looser), the latency floor, one grid sync a wave (band_reduce.chase_grid_syncs: a
+    wave with an item, the packing and sweep 0's first reflector), and the
+    syncs a wave."""
     tasks, waves = br.chase_tasks(n, b), br.chase_waves(n, b)
-    w5 = 5 * b - 2
-    nbytes = 8.0 * 3 * b * w5 * tasks
-    ops = float(4 * b * w5 + 4 * b * b) * tasks
+    syncs = br.chase_grid_syncs(n, b)
+    nbytes = 8.0 * 2 * (b * (4 * b - 2) + b * (b + 1) // 2) * tasks
+    ops = float(4 * b * (4 * b - 2) + 2 * b * b + 2 * b * (b + 1)) * tasks
     b_ms, b_by = bound(ops, PEAK_FP64, nbytes)
+    rate, copy_us = l2_copy_rate()
     return dict(tasks=tasks, waves=waves, window_bytes=nbytes,
+                band_bytes=8.0 * (n + 3 * b) * (3 * b - 1),
                 fp64_ops=ops, bound_ms=b_ms, bound_by=b_by,
-                latency_floor_ms=waves * sync_us * 1e-3,
+                l2_rate_bytes_per_s=rate, l2_copy_us_by_mb=copy_us,
+                l2_bound_ms=max(1e3 * nbytes / rate, 1e3 * ops / PEAK_FP64),
+                grid_syncs=syncs, grid_syncs_per_wave=syncs / waves,
+                latency_floor_ms=syncs * sync_us * 1e-3,
                 bound_is="max(window bytes / 3.35 TB/s, FP64 ops / 34 "
-                "TFLOP/s); latency_floor_ms: a grid sync a wave")
+                "TFLOP/s); l2_bound_ms: the bytes at the measured L2 rate "
+                "(l2_rate_bytes_per_s) against the same ops; "
+                "latency_floor_ms: its grid syncs")
 
 
 def log_similarity(B, b, d, e, vlog):
@@ -1241,14 +1276,18 @@ def check_band_chase(n: int, b: int, reps: int):
     n=4096, u=16 under that perturbation); one launch, no host sync,
     run-to-run identical; the log switched off gives the same d and e bit
     for bit and 1-row placeholders; times with and without the log, the
-    plain loop's, a grid sync's at the launch's grid and the bound."""
+    plain loop's (its one run, the reference), a grid sync's at the
+    launch's grid, the bound and the grid syncs a wave."""
     B = band_matrix(n, b, SEED + 20 + b)
     B /= B.abs().max()              # max|B| = 1, as eigh_banded prescales
     before = br.chase_launches
     d, e, (Vw, tw) = br.band_to_tridiag_wave(B, b)
     one = br.chase_launches - before == 1
     torch.cuda.synchronize()
-    ref = br.band_to_tridiag_wave_plain(B, b)
+    box = []
+    plain_ms = 1e3 * timed(lambda: box.append(
+        br.band_to_tridiag_wave_plain(B, b)))
+    ref = box.pop()
     got = (d, e, Vw, tw)
     want = (ref[0], ref[1], *ref[2])
     scale = n * float(B.abs().max())
@@ -1279,8 +1318,7 @@ def check_band_chase(n: int, b: int, reps: int):
                        reps)
     dms = device_ms(lambda: br.band_to_tridiag_wave(B, b), 1,
                     only="band_chase")
-    plain_ms = 1e3 * timed(lambda: br.band_to_tridiag_wave_plain(B, b))
-    plan = chase_grid(n, b)
+    plan = br.chase_device_plan(n, b, torch.cuda.current_device())
     sync = grid_sync_us(plan.grid)
     row = dict(n=n, b=b, what=f"chase of a band-{b} matrix, n={n}",
                max_rel_err=max(errs["d"], errs["e"]) / scale, tol=2e-12,
@@ -1298,12 +1336,15 @@ def check_band_chase(n: int, b: int, reps: int):
                plain_ms=plain_ms, plain_is="the torch wave loop on the card, "
                "one call", library_ms=None, plan=plan._asdict(),
                grid_sync_us=sync, **chase_bound(n, b, sync))
+    row["ms_over_l2_bound"] = ms / row["l2_bound_ms"]
     require(eig_err <= 1e-12, f"band_chase: eigenvalues of T off by "
             f"{eig_err} ||B||: {row}")
     require(sim <= 1e-12 and ortho <= 1e-12,
             f"band_chase: the log's Q2 is not B's similarity: {row}")
     require(nolog and log_row_zero and syncs == 0,
             f"band_chase: log switch, log row n-2 or a host sync: {row}")
+    require(one and same and row["max_rel_err"] <= 2e-12,
+            f"band_chase: launches, run-to-run bits or d and e: {row}")
     return row
 
 
@@ -4485,10 +4526,23 @@ def main(argv=None) -> int:
     # 8b. the same matrix through the two-stage front end (band 128) and
     # its band u=16 through eigh_banded, beside the one-stage walls above
     two_full, banded_full = two_stage_solves(A, ref_a, 128, 16)
+    # the chase's bound and latency floor beside its phase, both bands
+    chase_full = {}
+    for name, bb, run in (("band_128", 128, two_full),
+                          ("u_16", 16, banded_full)):
+        plan = br.chase_device_plan(N, bb, torch.cuda.current_device())
+        sync = grid_sync_us(plan.grid)
+        chase_full[name] = dict(
+            band_to_tridiag_s=run["phases_s"]["dense.band_to_tridiag"],
+            plan=plan._asdict(), grid_sync_us=sync, **chase_bound(N, bb, sync))
+        chase_full[name]["phase_over_l2_bound"] = (
+            1e3 * chase_full[name]["band_to_tridiag_s"]
+            / chase_full[name]["l2_bound_ms"])
     emit({"phase": "dense_two_stage_full", "n": N, "matrix": "the dense "
           "phase's", "eigh_band_128": two_full, "eigh_banded_u_16":
-          banded_full, "one_stage_wall_s": {"cold": cold["wall_s"],
-                                            "warm": warm["wall_s"]}})
+          banded_full, "chase": chase_full,
+          "one_stage_wall_s": {"cold": cold["wall_s"],
+                               "warm": warm["wall_s"]}})
     del A, ref_a
     torch.cuda.empty_cache()
 
@@ -4607,6 +4661,8 @@ def main(argv=None) -> int:
             "ms": row["ms"], "device_ms": row.get("device_ms"),
             "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+            **({"l2_bound_ms": row["l2_bound_ms"]}
+               if "l2_bound_ms" in row else {}),
             "library_ms": row.get("library_ms")})
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     emit({"kernels": kernels})

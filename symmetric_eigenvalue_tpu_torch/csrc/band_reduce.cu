@@ -4,53 +4,71 @@
 // Replaces two device loops of the JAX package that hold no pallas_call:
 //  - symmetric_eigenvalue_tpu/kernels/band_reduce.py::band_to_tridiag_wave
 //    (:254; its lax.fori_loop over the waves at :294, the wave body at
-//    :322-408).  JAX compiles the loop into one program; the port drove it
-//    from Python, a wave at a time (~20 launches and two 2-D index writes a
-//    wave, 12,280 waves at n=4096).  Here: band_chase, ONE cooperative
-//    launch for the whole chase.
+//    :322-408).  band_chase is ONE cooperative launch for the whole chase.
 //  - _reduce_block's column loop (:67-86, col_body :71): the Householder QR
 //    of a b-column panel, one launch a panel (panel_qr).
 //
-// band_chase.  The state is the symmetric matrix in band storage: entry
-// (i, j), |i - j| <= H = 3b - 2, at P[(i + 2b) * (6b - 3) + j - i + H],
-// rows -2b .. n + 3b - 1 (the windows and their mirrors never leave that
-// band or those rows; the padding stays zero).  That is 104 MB at
-// n = 16384, b = 128, where the padded square would be 2.3 GB, and the
-// same function: the chase reads and writes nothing outside the band.  The
-// launch packs B's band into P, runs every wave, then reads d and e off P.
-// Wave t (t = 0 .. 3(n-3)) has the live slots s = 0 .. W_t - 1 of the
-// closed-form schedule (wave_width): jj = t/3 - s, kk = t%3 + 3s, rows
-// r .. r + b - 1 with r = jj + kk b + 1, window columns r - 2b + 1 ..
-// r + 3b - 2, the pivot at window column off = 2b - 2 (kk = 0) or b - 1.
-// The slots' windows and mirrors are disjoint within a wave, and a wave
-// depends on the one before it, so a wave is two grid-wide steps.  Step A,
-// a block a slot: the reflector from x = the pivot column (sigma2, beta,
-// tau, v: v0 = 1, or 0 with tau = 0 when sigma2 == 0; v = x / denom
-// elsewhere, so an underflowed sigma2 leaves a nonzero v beside tau = 0)
-// into the slot's record, the log Vw[jj, kk], tw[jj, kk], then the pivot
-// column and its mirror set to (beta, 0, ..).  A grid sync.  Step B, a
-// block an item, each slot 1 + nchunks items: the diagonal block D (window
-// columns 2b-1 .. 3b-2: the left update, then the right update on the
-// left-updated block, both made in the pass that writes it back
-// transposed, as the mirror write comes second in the JAX package and the
-// plain version; w2 = tau (D v - v (w1 . v)) from D as read, so the block
-// is read from shared memory, not rewritten there), and chunks of `chunk`
-// of the other 4b - 2 window columns (the left update, separable by
-// column: w1[c] = tau v.S[:, c]; the strip and its mirror both written
-// from the tile as read, the pivot column left as step A wrote it).  A
-// grid sync.  A wave with no live slot (every block computes the same
-// W_t) makes no sync.  Every sum runs in a fixed order: two runs give the
-// same bits.
-// What bounds it on an H100: at n = 4096, b = 128 the windows' bytes
-// (3 b (5b - 2) 8 B a task, 39.5 ms at 3.35 TB/s; the band storage keeps P
-// in the 50 MB L2 there) and at every size the two grid syncs a wave (~1 us
-// each, 12,280 waves at n = 4096, 49,144 at n = 16384).  The items
-// keep every block's work to one tile in shared memory (the b x b block,
-// 132 KB at b = 128, or a b x chunk strip; past b = 167 a global scratch
-// a block), read from P once and written back once.  Measured (PERF.md
-// section 6): a wave is latency, the diagonal item's chain of L2 round
-// trips and block barriers (13.9 us a wave at n = 4096, b = 128), not
-// bytes.
+// band_chase.  The state is the band's lower triangle, stored once, by
+// column as LAPACK's dsbtrd keeps it: entry (i, c), c <= i <= c + H,
+// H = 3b - 2, at Q[(c + 2b)(3b - 1) + i - c], columns -2b .. n + b - 1 (the
+// windows never leave that band or those columns; the padding stays zero):
+// 51 MB at n = 16384, b = 128.  The launch packs B's lower band into Q, runs
+// every wave, then reads d and e off Q.  Wave t (t = 0 .. 3(n-3)) has the
+// live slots s = 0 .. W_t - 1 of the closed-form schedule (wave_width):
+// task (jj, kk) = (t/3 - s, t%3 + 3s) on rows r .. r + b - 1,
+// r = jj + kk b + 1.  Its window without the diagonal block is the strip S
+// (b x (4b - 2)): columns c < 2b - 1 the left strip (matrix column
+// r - 2b + 1 + c, rows r .. r + b - 1: a run down a stored column), the
+// rest the right strip as its transpose (matrix row r - b + 1 + c, columns
+// r .. r + b - 1: a run across stored columns); the pivot is S's column
+// 2b - 2 (kk = 0) or b - 1.  A task is H S and H D H on its diagonal block
+// D, H = I - tau v v^T: S -= v w1^T with w1 = tau v^T S (column by column),
+// and D as LAPACK's dlarfy (w = tau D v, w += -tau/2 (w . v) v,
+// D -= v w^T + w v^T), one matvec and one dot on the packed lower half.
+// Reflectors are formed a wave ahead, so a wave is one grid-wide step and
+// one grid sync: the pivot column of task (jj, kk + 1), the stored column r
+// at rows r + b .. r + 2b - 1, is S's columns 2b - 1 .. 3b - 2 at row 0 of
+// task (jj, kk), which only its left update writes, in wave t; the items
+// that update those b columns form the next hop's reflector from them, write
+// its record (v, tau; records double-buffered by the wave's parity), its log
+// entry, and set the column to (beta, 0, ..) before the sync.  Sweep j's
+// first pivot column (column j, rows j + 1 .. j + b) is final after wave
+// 3j - 2: one more item of wave 3j - 1 forms its reflector (sweep 0's before
+// wave 0).  Items, a block each, every tile copied in by 8-byte
+// cp.async (all of a thread's copies in flight at once) and written back
+// once; a global scratch a block where not even the diagonal block fits in
+// shared memory (b > ~239):
+//  - b <= 32: a block of 256 threads a whole task, its window in one round
+//    of copies; the last warp updates the diagonal block while the other
+//    seven update the strips (a named barrier), then warp 0 forms the
+//    reflector.
+//  - past it, blocks of 512 threads: the diagonal block, chunks of the left
+//    strip, of the next hop's b columns and of the right strip, each wave's
+//    chunk the narrowest from 16 columns that keeps the wave's items to one
+//    round of the grid.  The next hop's columns are split like the rest;
+//    each of their items leaves its row-0 values in xs, and the last to
+//    finish (a per-slot arrival count, no wait) forms the reflector.  One
+//    block holding all b columns was the wave's longest item (128 KB in and
+//    128 KB out of one SM).
+// Every sum runs in a fixed order: two runs give the same bits.
+// What bounds it on an H100: the windows' bytes (each task reads and writes
+// its strip and its diagonal block's lower half once: 0.37 s at n = 16384,
+// b = 128, at HBM's 3.35 TB/s; but Q, 13.7 MB at n = 4096 and 51 MB at
+// n = 16384, stays in or about the 50 MB L2, so chip_smoke.py also prices
+// the bytes at the L2 rate it measures) and the latency of a wave's longest
+// item plus one grid sync (~1 us) a wave (49,019 syncs at n = 16384).  An
+// item's time is the bytes its SM moves: with every SM copying, one SM
+// loads 128 KB in ~2.1 us by 8-byte copies (~1.7 us by 16-byte ones) and
+// stores it in ~2.4 us, so the items are cut small and spread over every
+// SM.  The copies are 8-byte: the left strip's runs (down stored columns)
+// land across the tile's rows, never 16 contiguous bytes in shared memory;
+// the right strip's and the diagonal block's runs are contiguous at both
+// ends, but the tile's rows (nc + 1 doubles) and the packed block's
+// columns (tri(q)) change their 16-byte alignment from run to run.  The
+// previous design (the whole symmetric band, 104 MB, and its mirror
+// written; a block a slot forming the wave's reflectors between two grid
+// syncs; 512-thread blocks and a 132 KB diagonal tile, one an SM) took
+// 1.35 s at n = 16384, band 128, and 0.79 s at u = 16 (PERF.md section 6).
 //
 // panel_qr.  For j = 0 .. cnt - 1 (u = o + b + j < m): the Householder
 // reflector of panel row j (Pt[j] = column o + j of As, updated) at pivot u
@@ -78,9 +96,10 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kThreads = 512;     // band_chase block
 constexpr int kQrThreads = 256;   // panel_qr block
 constexpr int kQrWarps = kQrThreads / 32;
+constexpr int kAhead = 8;         // loads of a thread in flight
+constexpr int kChunkMin = 16;     // band_chase: the narrowest chunk of a wave
 
 __device__ __forceinline__ double warp_sum(double x) {
 #pragma unroll
@@ -105,7 +124,6 @@ __device__ __forceinline__ double block_sum_all(double x, double* red) {
 // calls; the total in lane 0): each lane adds its blocks g = lane,
 // lane + 32, ... in order, then a fixed tree.  Every warp gets the same bits.
 __device__ __forceinline__ double grid_total(const double* ws, int stride, int blocks, int t) {
-  constexpr int kAhead = 8;
   const int lane = threadIdx.x & 31;
   double s = 0.0;
   for (int g0 = 0; g0 < blocks; g0 += 32 * kAhead) {
@@ -121,55 +139,9 @@ __device__ __forceinline__ double grid_total(const double* ws, int stride, int b
   return warp_sum(s);
 }
 
-// ---------------------------------------------------------------------------
-// band_chase
-
-struct Chase {
-  const double* B;   // (n, n), row stride ldb
-  long long ldb;
-  double* P;         // band storage, (n + 5b) x (6b - 3), zero on entry
-  double* Vw;        // (n - 1, kmax, b) log, or null
-  double* tw;        // (n - 1, kmax), or null
-  double* d;         // (n,)
-  double* e;         // (n - 1,)
-  double* rs;        // wmax (b + 2): each slot's record, v then tau, beta
-  double* gwork;     // grid * work doubles when the work tile is not shared
-  long long work;    // doubles of a block's work tile
-  int work_shared;
-  int n, b, kmax, wmax, twaves, chunk, nchunks;
-};
-
-// The live slots of wave t: s = 0 .. W - 1 (a prefix), from
-// s <= t/3 (jj >= 0) and jj + kk b + 2 <= n - 1.
-__host__ __device__ __forceinline__ int wave_width(int n, int b, int t, int wmax) {
-  const int q = t / 3, rm = t - 3 * (t / 3);
-  const long long room = (long long)n - 3 - q - (long long)rm * b;
-  if (room < 0) return 0;
-  const long long w = (q < room / (3 * b - 1) ? q : room / (3 * b - 1)) + 1;
-  return static_cast<int>(w < wmax ? w : wmax);
-}
-
-__device__ __forceinline__ size_t pidx(const Chase& a, int i, int j) {
-  return (size_t)(i + 2 * a.b) * (size_t)(6 * a.b - 3) + (size_t)(j - i + 3 * a.b - 2);
-}
-
-struct Slot {
-  int jj, kk, r, off;
-};
-
-__device__ __forceinline__ Slot slot_of(int b, int t, int s) {
-  Slot q;
-  q.jj = t / 3 - s;
-  q.kk = t % 3 + 3 * s;
-  q.r = q.jj + q.kk * b + 1;
-  q.off = q.kk == 0 ? 2 * b - 2 : b - 1;
-  return q;
-}
-
 // f(i, c) for i < rows, c < cols: with cols <= blockDim each thread keeps
 // one column c and walks the rows (neighbouring threads on neighbouring
-// columns), else each thread walks whole columns; no division per entry
-// (a division an entry made the items instruction-bound on their SM).
+// columns), else each thread walks whole columns; no division per entry.
 template <typename F>
 __device__ __forceinline__ void for_tile(int rows, int cols, F f) {
   if (cols <= (int)blockDim.x) {
@@ -184,85 +156,242 @@ __device__ __forceinline__ void for_tile(int rows, int cols, F f) {
   }
 }
 
-// T[i * ld + c] = *addr(i, c) for i < rows, c < cols, as for_tile walks
-// them, kAhead loads of each thread in flight before their stores (each
-// load is an L2 round trip).
-template <typename A>
-__device__ __forceinline__ void load_tile(int rows, int cols, A addr, double* T, int ld) {
-  constexpr int kAhead = 8;
-  int per, c, i0, cstep;
-  if (cols <= (int)blockDim.x) {
-    per = blockDim.x / cols;
-    c = threadIdx.x % cols;
-    i0 = threadIdx.x / cols;
-    cstep = cols;                        // one column a thread
-    if (i0 >= per) return;
-  } else {
-    per = 1;
-    c = threadIdx.x;
-    i0 = 0;
-    cstep = blockDim.x;
+// ---------------------------------------------------------------------------
+// band_chase
+
+struct Chase {
+  const double* B;   // (n, n), row stride ldb
+  long long ldb;
+  double* Q;         // the lower band, (n + 3b) x (3b - 1), zero on entry
+  double* Vw;        // (n - 1, kmax, b) log, or null
+  double* tw;        // (n - 1, kmax), or null
+  double* d;         // (n,)
+  double* e;         // (n - 1,)
+  double* rs;        // 2 wmax (b + 1): the records of a wave's slots, v then
+                     // tau, by the wave's parity
+  double* xs;        // wmax b: each slot's next pivot column, as its parts
+                     // leave it
+  int* arrived;      // wmax: the slot's next items done, zero between waves
+  double* gwork;     // grid * work doubles when the work tile is not shared
+  long long work;    // doubles of a block's work tile
+  int work_shared;
+  int n, b, kmax, wmax, twaves, chunk, whole;
+};
+
+// The live slots of wave t: s = 0 .. W - 1 (a prefix), from
+// s <= t/3 (jj >= 0) and jj + kk b + 2 <= n - 1; none before wave 0.
+__host__ __device__ __forceinline__ int wave_width(int n, int b, int t, int wmax) {
+  if (t < 0) return 0;
+  const int q = t / 3, rm = t - 3 * (t / 3);
+  const long long room = (long long)n - 3 - q - (long long)rm * b;
+  if (room < 0) return 0;
+  const long long w = (q < room / (3 * b - 1) ? q : room / (3 * b - 1)) + 1;
+  return static_cast<int>(w < wmax ? w : wmax);
+}
+
+// Q's entry (i, c) of the lower band, c <= i <= c + 3b - 2.
+__device__ __forceinline__ double* qat(const Chase& a, int i, int c) {
+  return a.Q + (size_t)(c + 2 * a.b) * (size_t)(3 * a.b - 1) + (size_t)(i - c);
+}
+
+struct Slot {
+  int jj, kk, r, pivot;   // pivot: the strip's column of the pivot
+};
+
+__device__ __forceinline__ Slot slot_of(int b, int t, int s) {
+  Slot q;
+  q.jj = t / 3 - s;
+  q.kk = t % 3 + 3 * s;
+  q.r = q.jj + q.kk * b + 1;
+  q.pivot = q.kk == 0 ? 2 * b - 2 : b - 1;
+  return q;
+}
+
+// A walk over s < slow, q < fast with consecutive threads on consecutive q:
+// the global offset g = s gS + q and the tile index t = s ts + q tq kept
+// by additions (no multiplication or division per entry).
+// The block's threads: band_chase runs 256 (a whole task a block) or 512
+// (the items of a slot).
+__device__ __forceinline__ int nthr() { return static_cast<int>(blockDim.x); }
+
+// A team of the block's threads, tid < count, synced by barrier `bar`: 0
+// the whole block (__syncthreads), else a named barrier of count threads.
+struct Team {
+  int tid, count, bar;
+  __device__ __forceinline__ void sync() const {
+    if (bar == 0) {
+      __syncthreads();
+    } else {
+      asm volatile("bar.sync %0, %1;\n" ::"r"(bar), "r"(count) : "memory");
+    }
   }
-  for (; c < cols; c += cstep) {
-    for (int i = i0; i < rows; i += kAhead * per) {
+};
+
+__device__ __forceinline__ Team whole_block() {
+  return Team{static_cast<int>(threadIdx.x), nthr(), 0};
+}
+
+struct Walk {
+  int s, q, fast, ds, dq, t, tstep, twrap;
+  long long g, gstep, gwrap;
+  __device__ __forceinline__ Walk(int fast_, long long gS, int ts, int tq, Team team)
+      : fast(fast_) {
+    ds = team.count / fast;
+    dq = team.count - ds * fast;
+    s = team.tid / fast;
+    q = team.tid - s * fast;
+    g = s * gS + q;
+    t = s * ts + q * tq;
+    gstep = ds * gS + dq;
+    gwrap = gS - fast;
+    tstep = ds * ts + dq * tq;
+    twrap = ts - fast * tq;
+  }
+  __device__ __forceinline__ void next() {
+    g += gstep;
+    t += tstep;
+    s += ds;
+    q += dq;
+    if (q >= fast) {
+      q -= fast;
+      ++s;
+      g += gwrap;
+      t += twrap;
+    }
+  }
+};
+
+// A strip run's walk: S[i][c0 + c] (i < b, c < nc, all left or all right)
+// at Q + base + s (3b - 2) + q, tile index i ld + c; the left strip walked
+// down its stored columns (s = c, q = i), the right along its rows (s = i,
+// q = c).
+struct StripRun {
+  long long base;
+  int slow, fast, ts, tq;
+  bool left;
+  __device__ __forceinline__ StripRun(const Chase& a, int r, int c0, int nc, int ld) {
+    const int b = a.b;
+    const long long ldq = 3LL * b - 1;
+    left = c0 < 2 * b - 1;
+    if (left) {   // S[i][c] = Q(r + i, r - 2b + 1 + c)
+      base = (r + 1 + c0) * ldq + 2 * b - 1 - c0;
+      slow = nc;
+      fast = b;
+      ts = 1;
+      tq = ld;
+    } else {      // S[i][c] = Q(r - b + 1 + c, r + i)
+      base = (r + 2 * b) * ldq + c0 - b + 1;
+      slow = b;
+      fast = nc;
+      ts = ld;
+      tq = 1;
+    }
+  }
+  __device__ __forceinline__ Walk walk(const Chase& a, Team team = whole_block()) const {
+    return Walk(fast, 3LL * a.b - 2, ts, tq, team);
+  }
+};
+
+// Up to K loads of a thread's entries of a walk issued into x (their tile
+// indices into at); commit stores them.  k0: the thread's first entry's
+// flat index, advanced by K nthr().
+template <int K>
+__device__ __forceinline__ void issue(const double* G, int total, int k0, Walk& w, double* x,
+                                      int* at) {
+#pragma unroll
+  for (int u = 0; u < K; ++u) {
+    if (k0 + u * nthr() < total) {
+      x[u] = __ldcg(G + w.g);
+      at[u] = w.t;
+    }
+    w.next();
+  }
+}
+
+template <int K>
+__device__ __forceinline__ void commit(int total, int k0, const double* x, const int* at,
+                                       double* T) {
+#pragma unroll
+  for (int u = 0; u < K; ++u) {
+    if (k0 + u * nthr() < total) T[at[u]] = x[u];
+  }
+}
+
+// An 8-byte asynchronous copy from global to shared memory (through L1:
+// after a grid sync a load sees every write made before it) and the wait
+// for a thread's copies.
+__device__ __forceinline__ void copy8(double* dst, const double* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(d), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void copy_wait() {
+  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");
+}
+
+// T's tile of a strip run: asynchronous copies, every one of a thread in
+// flight at once, where T is shared memory (kShared); else kAhead loads at
+// a time.
+template <bool kShared>
+__device__ __forceinline__ void load_strip(const Chase& a, int r, int c0, int nc, double* T,
+                                           int ld) {
+  const StripRun run(a, r, c0, nc, ld);
+  const int total = run.slow * run.fast;
+  Walk w = run.walk(a);
+  const double* G = a.Q + run.base;
+  if (kShared) {
+    for (int k = threadIdx.x; k < total; k += nthr()) {
+      copy8(T + w.t, G + w.g);
+      w.next();
+    }
+  } else {
+    for (int k0 = threadIdx.x; k0 < total; k0 += kAhead * nthr()) {
       double x[kAhead];
-#pragma unroll
-      for (int u = 0; u < kAhead; ++u) {
-        const int ii = i + u * per;
-        if (ii < rows) x[u] = __ldcg(addr(ii, c));
-      }
-#pragma unroll
-      for (int u = 0; u < kAhead; ++u) {
-        const int ii = i + u * per;
-        if (ii < rows) T[(size_t)ii * ld + c] = x[u];
-      }
+      int at[kAhead];
+      issue<kAhead>(G, total, k0, w, x, at);
+      commit<kAhead>(total, k0, x, at, T);
     }
   }
 }
 
-// The reflector of a slot from its pivot column x (b entries), by warp 0:
-// v into v[], tau and beta into scal[0..1] (all in shared memory, read by
-// the block after the barrier), the log written when `log`.
-__device__ void slot_reflector(const Chase& a, const Slot& q, const double* x, double* v,
-                               double* scal, bool log) {
+// S[i][c0 + c] = T[i * ld + c] - v[i] w1[c] (i < b, c < nc) back into Q, as
+// load_strip walks it, but the slot's pivot column and, where x is given,
+// row 0 of the strip's columns 2b - 1 .. 3b - 2, which go to x[c - (2b - 1)]
+// (the next hop's pivot column).
+__device__ __forceinline__ void store_strip(const Chase& a, int r, int c0, int nc,
+                                            const double* T, int ld, const double* v,
+                                            const double* w1, int pivot, double* x,
+                                            Team team = whole_block()) {
   const int b = a.b;
-  if (threadIdx.x < 32) {
-    const int lane = threadIdx.x;
-    double part = 0.0;
-    for (int i = lane; i < b; i += 32) {
-      const double xi = x[i];
-      v[i] = xi;
-      if (i >= 1) part = __fma_rn(xi, xi, part);
+  const StripRun run(a, r, c0, nc, ld);
+  const int total = run.slow * run.fast;
+  Walk w = run.walk(a, team);
+  double* G = a.Q + run.base;
+  const int skip = pivot - c0;                     // the pivot's run column, left
+  const int xend = 3 * b - 1 - c0;                 // x's columns end, right
+  for (int k = team.tid; k < total; k += team.count) {
+    const int i = run.left ? w.q : w.s, c = run.left ? w.s : w.q;
+    const double y = __fma_rn(-v[i], w1[c], T[w.t]);
+    if (run.left) {
+      if (c != skip) G[w.g] = y;
+    } else if (x != nullptr && i == 0 && c < xend) {
+      x[c0 + c - (2 * b - 1)] = y;
+    } else {
+      G[w.g] = y;
     }
-    const double sigma2 = __shfl_sync(0xffffffffu, warp_sum(part), 0);
-    const double x0 = __shfl_sync(0xffffffffu, v[0], 0);
-    const double nrm = __dsqrt_rn(__dadd_rn(__dmul_rn(x0, x0), sigma2));
-    const double beta = x0 >= 0.0 ? -nrm : nrm;   // the sign avoids cancellation
-    const bool no_op = sigma2 == 0.0;
-    const double denom = no_op ? 1.0 : __dsub_rn(x0, beta);
-    const double tau = no_op ? 0.0 : __ddiv_rn(__dsub_rn(beta, x0), beta);
-    for (int i = lane; i < b; i += 32) {
-      const double vi = i == 0 ? (no_op ? 0.0 : 1.0) : __ddiv_rn(v[i], denom);
-      v[i] = vi;
-      if (log) a.Vw[((size_t)q.jj * a.kmax + q.kk) * b + i] = vi;
-    }
-    if (lane == 0) {
-      scal[0] = tau;
-      scal[1] = no_op ? x0 : beta;
-      if (log) a.tw[(size_t)q.jj * a.kmax + q.kk] = tau;
-    }
+    w.next();
   }
-  __syncthreads();
 }
 
 // out[c] = tau * sum_{i < rows} v[i] T[i * ld + c] for c < nc, in order of
 // i within each of the block's row groups, the groups' partials in order.
-__device__ void column_dots(const double* T, int ld, int rows, int nc, const double* v, double tau,
-                            double* out, double* part) {
-  const int groups = nc >= (int)blockDim.x ? 1 : blockDim.x / nc;
+__device__ __forceinline__ void column_dots(const double* T, int ld, int rows, int nc,
+                                            const double* v, double tau, double* out,
+                                            double* part, Team team = whole_block()) {
+  const int groups = nc >= team.count ? 1 : team.count / nc;
   const int per = (rows + groups - 1) / groups;
-  for (int c0 = 0; c0 < nc; c0 += blockDim.x) {
-    const int idx = threadIdx.x;
+  for (int c0 = 0; c0 < nc; c0 += team.count) {
+    const int idx = team.tid;
     const int g = groups == 1 ? 0 : idx / nc;
     const int c = groups == 1 ? c0 + idx : idx - g * nc;
     double x = 0.0;
@@ -271,7 +400,7 @@ __device__ void column_dots(const double* T, int ld, int rows, int nc, const dou
       for (int i = g * per; i < i1; ++i) x = __fma_rn(v[i], T[(size_t)i * ld + c], x);
       part[idx] = x;
     }
-    __syncthreads();
+    team.sync();
     if (idx < nc && c0 + idx < nc) {
       const int cc = groups == 1 ? c0 + idx : idx;
       double s = groups == 1 ? part[idx] : 0.0;
@@ -280,165 +409,313 @@ __device__ void column_dots(const double* T, int ld, int rows, int nc, const dou
       }
       out[cc] = __dmul_rn(tau, s);
     }
-    __syncthreads();
+    team.sync();
   }
 }
 
-// out[i] = tau * sum_{k < cols} T[i * ld + k] v[k] for i < rows.
-__device__ void row_dots(const double* T, int ld, int rows, int cols, const double* v, double tau,
-                         double* out, double* part) {
-  const int groups = rows >= (int)blockDim.x ? 1 : blockDim.x / rows;
-  const int per = (cols + groups - 1) / groups;
-  for (int r0 = 0; r0 < rows; r0 += blockDim.x) {
-    const int idx = threadIdx.x;
-    const int g = groups == 1 ? 0 : idx / rows;
-    const int i = groups == 1 ? r0 + idx : idx - g * rows;
-    if (g < groups && i < rows) {
+// The packed lower diagonal block: D(i, q), q <= i < b, at tri(q) + i - q.
+__device__ __forceinline__ int tri(int b, int q) { return q * b - (q * (q - 1)) / 2; }
+
+// f(q, o, k) for the packed block's entries (q + o, q), k = tri(q) + o: a
+// warp a column (q = warp, warp + warps, ..), its lanes down the column.
+template <typename F>
+__device__ __forceinline__ void for_diag(int b, F f) {
+  const int lane = threadIdx.x & 31, warps = nthr() >> 5;
+  for (int q = threadIdx.x >> 5; q < b; q += warps) {
+    const int k0 = tri(b, q);
+    for (int o = lane; o < b - q; o += 32) f(q, o, k0 + o);
+  }
+}
+
+template <bool kShared>
+__device__ __forceinline__ void load_diag(const Chase& a, int r, double* Dt) {
+  const double* G = qat(a, r, r);
+  const long long ldq = 3LL * a.b - 1;
+  if (kShared) {
+    for_diag(a.b, [&](int q, int o, int k) { copy8(Dt + k, G + q * ldq + o); });
+  } else {
+    for_diag(a.b, [&](int q, int o, int k) { Dt[k] = __ldcg(G + q * ldq + o); });
+  }
+}
+
+// The diagonal block after its load: H D H as LAPACK's dlarfy,
+// u = D v, w = tau u, w += (-tau / 2 (w . v)) v, D -= v w^T + w v^T,
+// written back to Q; u's sums each in order of q within the block's row
+// groups, the groups in order; u and then w in w[0 .. b - 1].
+__device__ __forceinline__ void update_diag(const Chase& a, int r, double tau, const double* Dt, const double* v,
+                            double* w, double* part, double* red) {
+  const int b = a.b;
+  const int groups = b >= nthr() ? 1 : nthr() / b;
+  const int per = (b + groups - 1) / groups;
+  for (int i0 = 0; i0 < b; i0 += nthr()) {
+    const int g = groups == 1 ? 0 : threadIdx.x / b;
+    const int i = groups == 1 ? i0 + threadIdx.x : threadIdx.x - g * b;
+    if (g < groups && i < b) {
+      const int q0 = g * per, q1 = min(b, q0 + per), ti = tri(b, i);
       double x = 0.0;
-      const int k1 = min(cols, (g + 1) * per);
-      for (int k = g * per; k < k1; ++k) x = __fma_rn(T[(size_t)i * ld + k], v[k], x);
-      part[idx] = x;
-    }
-    __syncthreads();
-    if (idx < rows && r0 + idx < rows) {
-      const int ii = groups == 1 ? r0 + idx : idx;
-      double s = groups == 1 ? part[idx] : 0.0;
-      if (groups > 1) {
-        for (int h = 0; h < groups; ++h) s = __dadd_rn(s, part[h * rows + idx]);
+      int tq = tri(b, q0);
+      for (int q = q0; q < q1; ++q) {    // D(i, q) down column q, or D(q, i) down column i
+        x = __fma_rn(Dt[q <= i ? tq + i - q : ti + q - i], v[q], x);
+        tq += b - q;
       }
-      out[ii] = __dmul_rn(tau, s);
+      if (groups == 1) w[i] = x;
+      else part[threadIdx.x] = x;
     }
-    __syncthreads();
+  }
+  __syncthreads();
+  double dot = 0.0;
+  for (int i = threadIdx.x; i < b; i += nthr()) {
+    double x = w[i];
+    if (groups > 1) {
+      x = 0.0;
+      for (int g = 0; g < groups; ++g) x = __dadd_rn(x, part[g * b + i]);
+    }
+    const double wi = __dmul_rn(tau, x);
+    w[i] = wi;
+    dot = __fma_rn(wi, v[i], dot);
+  }
+  dot = block_sum_all(dot, red);
+  const double alpha = __dmul_rn(__dmul_rn(-0.5, tau), dot);
+  for (int i = threadIdx.x; i < b; i += nthr()) w[i] = __fma_rn(alpha, v[i], w[i]);
+  __syncthreads();
+  double* G = qat(a, r, r);
+  const long long ldq = 3LL * b - 1;
+  for_diag(b, [&](int q, int o, int k) {
+    const int i = q + o;
+    G[q * ldq + o] = __fma_rn(-v[i], w[q], __fma_rn(-w[i], v[q], Dt[k]));
+  });
+}
+
+// The diagonal block of a whole task (b <= 32) by one warp beside the
+// strips' team: lane i sums row i of D v over q in order, the dot by a
+// fixed tree, then update_diag's rank-2 update a column at a time.
+__device__ __forceinline__ void update_diag_warp(const Chase& a, int r, double tau,
+                                                 const double* Dt, const double* v, double* w) {
+  const int b = a.b, lane = threadIdx.x & 31;
+  double wi = 0.0, p = 0.0;
+  if (lane < b) {
+    const int ti = tri(b, lane);
+    int tq = 0;
+    double x = 0.0;
+    for (int q = 0; q < b; ++q) {      // D(i, q) down column q, or D(q, i) down column i
+      x = __fma_rn(Dt[q <= lane ? tq + lane - q : ti + q - lane], v[q], x);
+      tq += b - q;
+    }
+    wi = __dmul_rn(tau, x);
+    p = __dmul_rn(wi, v[lane]);
+  }
+  const double dot = __shfl_sync(0xffffffffu, warp_sum(p), 0);
+  const double alpha = __dmul_rn(__dmul_rn(-0.5, tau), dot);
+  if (lane < b) w[lane] = __fma_rn(alpha, v[lane], wi);
+  __syncwarp();
+  double* G = qat(a, r, r);
+  const long long ldq = 3LL * b - 1;
+  for (int q = 0; q < b; ++q) {
+    const int k0 = tri(b, q);
+    for (int o = lane; o < b - q; o += 32) {
+      const int i = q + o;
+      G[q * ldq + o] = __fma_rn(-v[i], w[q], __fma_rn(-w[i], v[q], Dt[k0 + o]));
+    }
   }
 }
 
-// Item 0 of a slot: the b x b diagonal block D (window columns 2b - 1 ..
-// 3b - 2), both updates in the pass that writes it back transposed:
-// D'' = D - v w1^T - w2 v^T with w1 = tau v^T D and w2 = tau D' v =
-// tau (D v - v (w1 . v)), both from the block as it was read.
-__device__ void chase_diag(const Chase& a, const Slot& q, double tau, double* T,
-                           const double* v, double* w, double* u, double* part,
-                           double* red) {
-  const int b = a.b, ld = b + 1;
-  const int r = q.r;
-  load_tile(b, b, [&](int i, int k) { return a.P + pidx(a, r + i, r + k); }, T, ld);
-  __syncthreads();
-  column_dots(T, ld, b, b, v, tau, w, part);           // w1 = tau v^T D
-  row_dots(T, ld, b, b, v, 1.0, u, part);              // u = D v
-  double wv = 0.0;
-  for (int i = threadIdx.x; i < b; i += blockDim.x) wv = __fma_rn(w[i], v[i], wv);
-  wv = block_sum_all(wv, red);                         // w1 . v
-  for (int i = threadIdx.x; i < b; i += blockDim.x) {
-    u[i] = __dmul_rn(tau, __fma_rn(-v[i], wv, u[i]));  // w2
+// The reflector of x (b entries, shared) by warp 0, as the plain chase forms
+// it: v and tau into the record rec (v then tau) and the log (vlog, tlog;
+// null without a log), and the pivot column col[0 .. b - 1] (stride 1 in Q)
+// set to (beta, 0, ..): beta = -sign(x0) |x|, tau = (beta - x0) / beta,
+// v = x / (x0 - beta) with v0 = 1; where sigma2 = |x[1:]|^2 == 0, tau = 0,
+// v0 = 0, the rest x, and the pivot keeps x0.
+__device__ __forceinline__ void form_reflector(const Chase& a, const double* x, double* rec, double* vlog,
+                               double* tlog, double* col) {
+  const int b = a.b;
+  if (threadIdx.x < 32) {
+    const int lane = threadIdx.x;
+    double part = 0.0;
+    for (int i = lane; i < b; i += 32) {
+      if (i >= 1) part = __fma_rn(x[i], x[i], part);
+    }
+    const double sigma2 = __shfl_sync(0xffffffffu, warp_sum(part), 0);
+    const double x0 = x[0];
+    const double nrm = __dsqrt_rn(__dadd_rn(__dmul_rn(x0, x0), sigma2));
+    const double beta = x0 >= 0.0 ? -nrm : nrm;   // the sign avoids cancellation
+    const bool no_op = sigma2 == 0.0;
+    const double denom = no_op ? 1.0 : __dsub_rn(x0, beta);
+    const double tau = no_op ? 0.0 : __ddiv_rn(__dsub_rn(beta, x0), beta);
+    for (int i = lane; i < b; i += 32) {
+      const double vi = i == 0 ? (no_op ? 0.0 : 1.0) : __ddiv_rn(x[i], denom);
+      rec[i] = vi;
+      if (vlog != nullptr) vlog[i] = vi;
+      col[i] = i == 0 ? (no_op ? x0 : beta) : 0.0;
+    }
+    if (lane == 0) {
+      rec[b] = tau;
+      if (tlog != nullptr) *tlog = tau;
+    }
   }
-  __syncthreads();
-  // the mirror write comes second: P[r + x, r + y] = D''[y, x]
-  for_tile(b, b, [&](int x, int y) {
-    const double d1 = __fma_rn(-v[y], w[x], T[(size_t)y * ld + x]);
-    a.P[pidx(a, r + x, r + y)] = __fma_rn(-u[y], v[x], d1);
-  });
-  __syncthreads();
 }
 
-// Item 1 + ch of a slot: chunk ch of the window's other columns (local
-// columns 0 .. 2b - 2 and 3b - 1 .. 5b - 3, in that order), all but the
-// pivot column, which step A wrote.
-__device__ void chase_chunk(const Chase& a, const Slot& q, int ch, double tau, double* T,
-                            const double* v, double* w, double* part) {
-  // the strip and its mirror are written from the same fused multiply-add
-  // of the tile as read: the same bits, no pass through shared memory
-  const int b = a.b, cw = a.chunk, ld = cw + 1;
-  const int r = q.r;
-  const int p0 = ch * cw;
-  const int nc = min(cw, 4 * b - 2 - p0);
-  const int c0 = r - (2 * b - 1);       // the window's first column
-  auto col = [&](int c) {
-    const int p = p0 + c;
-    return c0 + (p < 2 * b - 1 ? p : p + b);
-  };
-  const int pivot = c0 + q.off;
-  load_tile(b, nc, [&](int i, int c) { return a.P + pidx(a, r + i, col(c)); }, T, ld);
-  __syncthreads();
-  column_dots(T, ld, b, nc, v, tau, w, part);          // w1 = tau v^T S
-  for_tile(b, nc, [&](int i, int c) {
-    const int j = col(c);
-    if (j != pivot) a.P[pidx(a, r + i, j)] = __fma_rn(-v[i], w[c], T[(size_t)i * ld + c]);
-  });
-  // the mirror: row col(c), columns r .. r + b - 1
-  for_tile(nc, b, [&](int c, int i) {
-    const int j = col(c);
-    if (j != pivot) a.P[pidx(a, j, r + i)] = __fma_rn(-v[i], w[c], T[(size_t)i * ld + c]);
-  });
-  __syncthreads();
+// The reflector of task (jj, kk) formed in wave t: its record for wave t + 1
+// (slot (t + 1)/3 - jj), its log entry, the pivot column (stored column c0
+// at rows c0 + i0 ..).
+__device__ __forceinline__ void form_task(const Chase& a, int t, int jj, int kk, const double* x, int c0, int i0) {
+  const int b = a.b, s = (t + 1) / 3 - jj;
+  double* rec = a.rs + ((size_t)((t + 1) & 1) * a.wmax + s) * (b + 1);
+  const bool log = a.Vw != nullptr;
+  form_reflector(a, x, rec, log ? a.Vw + ((size_t)jj * a.kmax + kk) * b : nullptr,
+                 log ? a.tw + (size_t)jj * a.kmax + kk : nullptr, qat(a, c0 + i0, c0));
 }
 
-__global__ void __launch_bounds__(kThreads) band_chase_kernel(const Chase a) {
+template <int kT, bool kShared>
+__global__ void __launch_bounds__(kT, kT == 256 ? 2 : 1) band_chase_kernel(const Chase a) {
   extern __shared__ double sh[];
   cg::grid_group grid = cg::this_grid();
-  const int b = a.b, G = gridDim.x;
+  const int b = a.b, G = gridDim.x, ldq = 3 * b - 1;
   const long long nthreads = (long long)G * blockDim.x;
   const long long gtid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  // pack B's band
-  const long long ldp = 6LL * b - 3, H = 3LL * b - 2;
-  for (long long idx = gtid; idx < (long long)a.n * ldp; idx += nthreads) {
-    const long long i = idx / ldp, c = idx - i * ldp;
-    const long long j = i + c - H;
-    if (j >= 0 && j < a.n) a.P[(i + 2LL * b) * ldp + c] = __ldg(a.B + i * a.ldb + j);
+  // pack B's lower band, each row's run read in order
+  for (long long idx = gtid; idx < (long long)a.n * ldq; idx += nthreads) {
+    const long long i = idx / ldq, c = i - (idx - i * ldq);
+    if (c >= 0) a.Q[(c + 2LL * b) * ldq + i - c] = __ldg(a.B + i * a.ldb + c);
   }
   grid.sync();
 
-  double* red = sh;                              // 32
-  double* scal = red + 32;                       // 2: tau, beta
-  double* v = scal + 2;                          // b: x, then v
-  double* w = v + b;                             // max(b, chunk): w1
-  double* u = w + (b > a.chunk ? b : a.chunk);   // b: D v, then w2
-  double* part = u + b;                          // kThreads
-  double* T = a.work_shared ? part + kThreads : a.gwork + (size_t)blockIdx.x * a.work;
-  const int items = 1 + a.nchunks;
+  double* red = sh;                                  // 32
+  double* v = red + 36;                              // b: the slot's v
+  double* x = v + b;                                 // b: the next pivot column
+  double* y = x + b;                                 // b: the diagonal block's D v, w
+  double* w = y + b;                                 // w1 of the tile's columns
+  double* part = w + (a.whole ? 4 * b - 2 : max(a.chunk, b));   // nthr()
+  double* T = kShared ? part + nthr() : a.gwork + (size_t)blockIdx.x * a.work;
   const bool log = a.Vw != nullptr;
-  for (int t = 0; t < a.twaves; ++t) {
+  for (int t = -1; t < a.twaves; ++t) {
     const int W = wave_width(a.n, b, t, a.wmax);
-    if (W == 0) continue;                        // the same for every block
-    // step A: a block a slot, the reflector and the pivot column
-    for (int s = blockIdx.x; s < W; s += G) {
-      const Slot q = slot_of(b, t, s);
-      const int pivot = q.r - (2 * b - 1) + q.off;
-      for (int i = threadIdx.x; i < b; i += blockDim.x) {
-        w[i] = __ldcg(a.P + pidx(a, q.r + i, pivot));
+    const int j1 = (t + 1) / 3;                      // sweep of a hop-0 reflector
+    const int hop0 = (t + 1) % 3 == 0 && j1 <= a.n - 3 ? 1 : 0;
+    // the wave's chunk: the narrowest from kChunkMin up that keeps its
+    // items to one round of the grid, else chunk (the same in every block)
+    int chunk = a.chunk, nleft = 0, nnext = 0, items = 1;
+    if (!a.whole) {
+      for (int c = kChunkMin;; c *= 2) {
+        chunk = min(c, a.chunk);
+        nleft = (2 * b - 1 + chunk - 1) / chunk;
+        nnext = (b + chunk - 1) / chunk;
+        items = 1 + nleft + nnext + (b - 1 + chunk - 1) / chunk;
+        if (chunk == a.chunk || W * items + hop0 <= G) break;
       }
-      __syncthreads();
-      slot_reflector(a, q, w, v, scal, log);
-      double* rec = a.rs + (size_t)s * (b + 2);
-      for (int i = threadIdx.x; i < b; i += blockDim.x) {
-        rec[i] = v[i];
-        const double x = i == 0 ? scal[1] : 0.0;
-        a.P[pidx(a, q.r + i, pivot)] = x;
-        a.P[pidx(a, pivot, q.r + i)] = x;
-      }
-      if (threadIdx.x == 0) {
-        rec[b] = scal[0];
-        rec[b + 1] = scal[1];
-      }
-      __syncthreads();
     }
-    grid.sync();
-    // step B: a block an item
-    for (int it = blockIdx.x; it < W * items; it += G) {
+    const int nitems = W * items + hop0;
+    if (nitems == 0) continue;                       // the same for every block
+    for (int it = blockIdx.x; it < nitems; it += G) {
+      if (it == W * items) {
+        // sweep j1's first reflector, from column j1 (rows j1 + 1 .. j1 + b)
+        for (int i = threadIdx.x; i < b; i += nthr()) x[i] = __ldcg(qat(a, j1 + 1 + i, j1));
+        __syncthreads();
+        double* rec = a.rs + (size_t)((t + 1) & 1) * a.wmax * (b + 1);
+        form_reflector(a, x, rec, log ? a.Vw + (size_t)j1 * a.kmax * b : nullptr,
+                       log ? a.tw + (size_t)j1 * a.kmax : nullptr, qat(a, j1 + 1, j1));
+        __syncthreads();
+        continue;
+      }
       const int s = it / items, qi = it - s * items;
       const Slot q = slot_of(b, t, s);
-      const double* rec = a.rs + (size_t)s * (b + 2);
-      for (int i = threadIdx.x; i < b; i += blockDim.x) v[i] = __ldcg(rec + i);
-      if (threadIdx.x == 0) scal[0] = __ldcg(rec + b);
+      const double* rec = a.rs + ((size_t)(t & 1) * a.wmax + s) * (b + 1);
+      const bool ahead = q.jj + (q.kk + 1) * b + 2 <= a.n - 1;   // the next hop is live
+      // the item's kind: 0 the diagonal block, 1 .. nleft left chunks, then
+      // nnext chunks of the next hop's columns, then right chunks; or the
+      // whole task
+      int kind, c0 = 0, c1 = 0;
+      if (a.whole) {
+        kind = 4;
+      } else if (qi == 0) {
+        kind = 0;
+      } else if (qi <= nleft) {
+        kind = 1;
+        c0 = (qi - 1) * chunk;
+        c1 = min(c0 + chunk, 2 * b - 1);
+      } else if (qi <= nleft + nnext) {
+        kind = 2;
+        c0 = 2 * b - 1 + (qi - nleft - 1) * chunk;
+        c1 = min(c0 + chunk, 3 * b - 1);
+      } else {
+        kind = 3;
+        c0 = 3 * b - 1 + (qi - nleft - nnext - 1) * chunk;
+        c1 = min(c0 + chunk, 4 * b - 2);
+      }
+      // v and tau from the record, in flight beside the tiles' loads
+      double vr = 0.0;
+      if (threadIdx.x < b) vr = __ldcg(rec + threadIdx.x);
+      for (int i = threadIdx.x + nthr(); i < b; i += nthr()) v[i] = __ldcg(rec + i);
+      const double tau = __ldcg(rec + b);
+      if (kind == 0) {
+        load_diag<kShared>(a, q.r, T);
+      } else if (kind != 4) {
+        load_strip<kShared>(a, q.r, c0, c1 - c0, T, c1 - c0 + 1);
+      } else {
+        // a whole task (b <= 32, T in shared memory): both strips and the
+        // packed block in one round of copies
+        const int ld = 4 * b - 1;
+        load_strip<kShared>(a, q.r, 0, 2 * b - 1, T, ld);
+        load_strip<kShared>(a, q.r, 2 * b - 1, 2 * b - 1, T + 2 * b - 1, ld);
+        load_diag<kShared>(a, q.r, T + (size_t)b * ld);
+      }
+      if (kShared) copy_wait();
+      if (threadIdx.x < b) v[threadIdx.x] = vr;
       __syncthreads();
-      const double tau = scal[0];
-      if (qi == 0) chase_diag(a, q, tau, T, v, w, u, part, red);
-      else chase_chunk(a, q, qi - 1, tau, T, v, w, part);
+      if (kind == 0) {
+        update_diag(a, q.r, tau, T, v, y, part, red);
+      } else if (kind != 4) {
+        const int nc = c1 - c0;
+        column_dots(T, nc + 1, b, nc, v, tau, w, part);
+        store_strip(a, q.r, c0, nc, T, nc + 1, v, w, q.pivot, kind == 2 && ahead ? x : nullptr);
+      } else {
+        // a whole task: the last warp updates the diagonal block while the
+        // others (a team on a named barrier) update the strips
+        const int ld = 4 * b - 1;
+        if ((int)threadIdx.x >= nthr() - 32) {
+          update_diag_warp(a, q.r, tau, T + (size_t)b * ld, v, y);
+        } else {
+          const Team team{static_cast<int>(threadIdx.x), nthr() - 32, 1};
+          column_dots(T, ld, b, 4 * b - 2, v, tau, w, part, team);
+          store_strip(a, q.r, 0, 2 * b - 1, T, ld, v, w, q.pivot, nullptr, team);
+          store_strip(a, q.r, 2 * b - 1, 2 * b - 1, T + 2 * b - 1, ld, v, w + 2 * b - 1,
+                      q.pivot, ahead ? x : nullptr, team);
+          if (ahead) {    // warp 0 forms the next reflector, the block's warp D aside
+            team.sync();
+            form_task(a, t, q.jj, q.kk + 1, x, q.r, b);
+          }
+        }
+      }
+      // the next hop's reflector (a whole task's formed above): by the last
+      // of the slot's next items to finish (its parts through xs; an arrival
+      // count, no wait)
+      bool form = ahead && kind == 2 && nnext == 1;
+      if (ahead && kind == 2 && nnext > 1) {
+        int* last = reinterpret_cast<int*>(red + 32);
+        double* xs = a.xs + (size_t)s * b;
+        __syncthreads();
+        for (int m = c0 - (2 * b - 1) + threadIdx.x; m < c1 - (2 * b - 1); m += nthr()) xs[m] = x[m];
+        __threadfence();
+        __syncthreads();
+        if (threadIdx.x == 0) *last = atomicAdd(a.arrived + s, 1) == nnext - 1;
+        __syncthreads();
+        form = *last != 0;
+        if (form) {
+          __threadfence();
+          for (int m = threadIdx.x; m < b; m += nthr()) x[m] = __ldcg(xs + m);
+          if (threadIdx.x == 0) a.arrived[s] = 0;
+        }
+      }
+      if (form) {
+        __syncthreads();
+        form_task(a, t, q.jj, q.kk + 1, x, q.r, b);
+      }
+      __syncthreads();
     }
     grid.sync();
   }
   for (long long i = gtid; i < a.n; i += nthreads) {
-    a.d[i] = __ldcg(a.P + pidx(a, (int)i, (int)i));
-    if (i < a.n - 1) a.e[i] = __ldcg(a.P + pidx(a, (int)i, (int)i + 1));
+    a.d[i] = __ldcg(qat(a, (int)i, (int)i));
+    if (i < a.n - 1) a.e[i] = __ldcg(qat(a, (int)i + 1, (int)i));
   }
 }
 
@@ -632,42 +909,67 @@ int coop_launch(const void* fn, int grid, int threads, void** args, int smem, vo
   return static_cast<int>(cudaGetLastError());
 }
 
-}  // namespace
+// band_chase's block: 256 threads a whole task, else 512 an item.
+int chase_threads(bool whole) { return whole ? 256 : 512; }
 
-// (blocks of band_chase one SM holds at `smem` dynamic shared bytes, the SM
-// count, the shared bytes a block may opt into) of the current device, into
-// out[0..2]; opts the kernel into that much shared memory first.
-extern "C" int band_chase_occupancy(int smem, void* out) {
-  return coop_occupancy((const void*)band_chase_kernel, kThreads, smem, out);
+// Its instances: a whole task a block (b <= 32, the tile always in shared
+// memory), else items with the tile in shared memory or a global scratch.
+const void* chase_kernel(bool whole, bool shared) {
+  if (whole) return (const void*)band_chase_kernel<256, true>;
+  return shared ? (const void*)band_chase_kernel<512, true>
+                : (const void*)band_chase_kernel<512, false>;
 }
 
-// The whole chase of B (n, n) f64, row stride ldb, band b (n >= 3, b >= 2):
-// P zero-filled (n + 5b) x (6b - 3); Vw (n - 1, kmax, b) and tw
-// (n - 1, kmax) zero-filled, or both null (no log); d (n,), e (n - 1,);
-// rs wmax (b + 2) doubles; gwork grid * work doubles unless work_shared.
-// grid, smem from kernels/band_reduce.py::chase_plan after
-// band_chase_occupancy on this device.  One cooperative kernel on
-// `stream`; allocates nothing; returns the launch's cudaError_t.
-extern "C" int band_chase_launch(const void* B, long long ldb, void* P, void* Vw, void* tw,
-                                 void* d, void* e, void* rs, void* gwork,
+}  // namespace
+
+// (blocks of band_chase (a whole task a block when `whole`) one SM holds at
+// `smem` dynamic shared bytes, the SM
+// count, the shared bytes a block may opt into) of the current device, into
+// out[0..2]; opts the kernel into that much shared memory first.
+extern "C" int band_chase_occupancy(int whole, int smem, void* out) {
+  const int threads = chase_threads(whole != 0);
+  const int err = whole ? 0 : coop_occupancy(chase_kernel(false, false), threads, smem, out);
+  return err != 0 ? err : coop_occupancy(chase_kernel(whole != 0, true), threads, smem, out);
+}
+
+// The whole chase of B (n, n) f64, row stride ldb, band b (n >= 3, b >= 2;
+// B symmetric, its lower band read): Q zero-filled (n + 3b) x (3b - 1);
+// Vw (n - 1, kmax, b) and tw (n - 1, kmax) zero-filled, or both null (no
+// log); d (n,), e (n - 1,); rs 2 wmax (b + 1) and xs wmax b doubles, arrived
+// wmax ints zero-filled; gwork grid * work
+// doubles unless work_shared; a block a whole task when `whole`, else items
+// of up to `chunk` strip columns (each wave the narrowest of kChunkMin,
+// 2 kChunkMin, .. chunk that keeps the wave's items to one round of the
+// grid).  grid, smem from
+// kernels/band_reduce.py::chase_plan after band_chase_occupancy on this
+// device.  One cooperative kernel on `stream`; allocates nothing; returns
+// the launch's cudaError_t.
+extern "C" int band_chase_launch(const void* B, long long ldb, void* Q, void* Vw, void* tw,
+                                 void* d, void* e, void* rs, void* xs, void* arrived, void* gwork,
                                  long long work, int work_shared, int n, int b, int chunk,
-                                 int grid, int smem, void* stream) {
+                                 int whole, int grid, int smem, void* stream) {
+  const long long tri = (long long)b * (b + 1) / 2;
+  const long long strip = whole ? (long long)b * (4 * b - 1) : (long long)b * (chunk + 1);
   if (n < 3 || b < 2 || chunk < 1 || grid < 1 || ldb < n || (Vw == nullptr) != (tw == nullptr)
-      || work < (long long)b * (b + 1) || work < (long long)b * (chunk + 1)
-      || (!work_shared && gwork == nullptr) || rs == nullptr) {
+      || (whole && (b > 32 || !work_shared))
+      || work < (whole ? tri + strip : (tri > strip ? tri : strip))
+      || (!work_shared && gwork == nullptr) || rs == nullptr || xs == nullptr
+      || arrived == nullptr) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const int kmax = (n - 3) / b;
-  Chase a{static_cast<const double*>(B), ldb, static_cast<double*>(P),
+  Chase a{static_cast<const double*>(B), ldb, static_cast<double*>(Q),
           static_cast<double*>(Vw), static_cast<double*>(tw), static_cast<double*>(d),
-          static_cast<double*>(e), static_cast<double*>(rs), static_cast<double*>(gwork),
-          work, work_shared, n, b, kmax + 1, kmax / 3 + 1, 3 * (n - 3) + 1, chunk,
-          (4 * b - 2 + chunk - 1) / chunk};
-  const long long need = 8LL * (34 + 2LL * b + (b > chunk ? b : chunk) + kThreads
-                                + (work_shared ? work : 0));
+          static_cast<double*>(e), static_cast<double*>(rs), static_cast<double*>(xs),
+          static_cast<int*>(arrived), static_cast<double*>(gwork), work, work_shared, n, b,
+          kmax + 1, kmax / 3 + 1, 3 * (n - 3) + 1, chunk, whole};
+  const long long cols = whole ? 4LL * b - 2 : (chunk > b ? chunk : b);
+  const int threads = chase_threads(whole != 0);
+  const long long need = 8LL * (36 + 3LL * b + cols + threads + (work_shared ? work : 0));
   if (smem < need) return static_cast<int>(cudaErrorInvalidValue);
   void* args[] = {&a};
-  return coop_launch((const void*)band_chase_kernel, grid, kThreads, args, smem, stream);
+  return coop_launch(chase_kernel(whole != 0, work_shared != 0), grid, threads, args, smem,
+                     stream);
 }
 
 extern "C" int panel_qr_occupancy(int smem, void* out) {

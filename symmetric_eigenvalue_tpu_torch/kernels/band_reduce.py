@@ -20,8 +20,10 @@ The three device loops of the JAX package that hold no ``pallas_call``,
 the chase's wave loop (JAX ``:294``), the panel QR's column loop (JAX
 ``:86``) and the blocked backtransform's wave loop (JAX ``:606``), are CUDA
 kernels on CUDA tensors: the whole chase is ONE cooperative launch
-(``band_chase``, ``csrc/band_reduce.cu``; two grid syncs a wave, its
-schedule computed on the device from the closed form of :func:`wave_slots`),
+(``band_chase``, ``csrc/band_reduce.cu``: the band's lower triangle stored
+once, each reflector formed a wave ahead of its task, one grid sync a wave,
+the schedule computed on the device from the closed form of
+:func:`wave_slots` and the items of :func:`chase_slot_items`),
 each panel's QR one launch (``panel_qr``, the same source), and the
 backtransform, for each chunk of waves, one ``q2_blocks_t`` launch (the
 chunk's blocks' T and Y^T, ``csrc/householder_panel.cu``; their wave slots
@@ -56,31 +58,37 @@ q2_apply_launches = 0
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _OCCUPANCY_ARGTYPES = [_I, _P]
-_CHASE_ARGTYPES = [_P, _LL, _P, _P, _P, _P, _P, _P, _P, _LL, _I, _I, _I, _I,
-                   _I, _I, _P]
+_CHASE_ARGTYPES = [_P, _LL, _P, _P, _P, _P, _P, _P, _P, _P, _P, _LL, _I, _I,
+                   _I, _I, _I, _I, _I, _P]
+_CHASE_OCCUPANCY_ARGTYPES = [_I, _I, _P]
 _PANEL_ARGTYPES = [_P, _LL, _P, _LL, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                    _I, _P]
 _Q2T_ARGTYPES = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]
 _Q2T_STAGED_ARGTYPES = [_I, _P]
 _Q2_OCCUPANCY_ARGTYPES = [_I, _I, _P]
 _Q2_ARGTYPES = [_P, _LL, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P]
-_CHASE_THREADS = 512        # kThreads of band_chase
-_CHASE_CHUNK = 64           # window columns an item of band_chase updates
+_CHASE_WHOLE_B = 32         # band_chase gives a block a whole task to b <= 32
+_CHASE_THREADS = (256, 512)   # its blocks: a whole task, a slot's items
+_CHASE_CHUNK_MIN = 16       # the narrowest a wave's chunk gets (kChunkMin)
 _QR_THREADS = 256           # kQrThreads of panel_qr
 _QR_WARPS = _QR_THREADS // 32
 _OCCUPANCY = {}             # (kernel, device index, smem) -> occupancy
 
 
 class ChasePlan(NamedTuple):
-    """``band_chase``'s cooperative launch: ``grid`` blocks of ``smem``
-    dynamic shared bytes; each block's work tile of ``work`` doubles (the
-    b x b diagonal block or a b x ``chunk`` strip) in shared memory when
-    ``work_shared``, else in a global scratch."""
+    """``band_chase``'s cooperative launch: ``grid`` blocks (of 256 threads
+    when ``whole``, else 512) of ``smem`` dynamic shared bytes; each block's
+    work tile of ``work`` doubles in shared memory when ``work_shared``,
+    else in a global scratch; the items of a slot (:func:`chase_slot_items`):
+    the whole task when ``whole``, else the diagonal block and strips of
+    each wave's chunk (:func:`chase_wave_chunk`, at most ``chunk``
+    columns)."""
     grid: int
     smem: int
     work: int
     work_shared: bool
     chunk: int
+    whole: bool
 
 
 class PanelPlan(NamedTuple):
@@ -96,8 +104,8 @@ class PanelPlan(NamedTuple):
 
 def _occupancy(kernel: str, index: int, smem: int) -> Tuple[int, int, int]:
     """(blocks an SM holds, SMs, shared bytes a block may opt into) of
-    ``kernel`` (band_chase, panel_qr) on CUDA device ``index`` at ``smem``
-    dynamic shared bytes (cached)."""
+    ``kernel`` (panel_qr) on CUDA device ``index`` at ``smem`` dynamic
+    shared bytes (cached)."""
     key = (kernel, index, smem)
     got = _OCCUPANCY.get(key)
     if got is None:
@@ -417,11 +425,25 @@ def wave_slots(n: int, b: int, t, s):
 
 def chase_waves(n: int, b: int) -> int:
     """Waves of the chase at (n, b) with a live slot: ``band_chase`` makes
-    two grid syncs for each (and one after packing the band)."""
+    one grid sync after each (and one after packing the band)."""
     if n < 3 or b < 2:
         return 0
     _, _, Twaves = _wave_geometry(n, b)
     return int((wave_width(n, b, np.arange(Twaves)) > 0).sum())
+
+
+def chase_grid_syncs(n: int, b: int) -> int:
+    """Grid syncs of one ``band_chase`` launch at (n, b): one after packing
+    the band and one after each wave with an item (a live slot, or the
+    hop-0 reflector of sweep j = (t + 1) / 3 in a wave t = 3j - 1, sweep 0's
+    in a wave before wave 0)."""
+    if n < 3 or b < 2:
+        return 0
+    _, _, Twaves = _wave_geometry(n, b)
+    t = np.arange(-1, Twaves)
+    hop0 = ((t + 1) % 3 == 0) & ((t + 1) // 3 <= n - 3)
+    live = np.concatenate(([0], wave_width(n, b, t[1:]))) > 0
+    return 1 + int((live | hop0).sum())
 
 
 def chase_tasks(n: int, b: int) -> int:
@@ -558,28 +580,112 @@ def band_to_tridiag_wave_plain(B, band: int, want_log: bool = True):
     return d, e, (Vw, tw)
 
 
+def chase_slot_items(b: int, chunk: int, whole: bool):
+    """The items of one slot of ``band_chase``, a block each, in their
+    order within the slot: (kind, c0, c1) over the columns c of the slot's
+    strip S (b x (4b - 2): the window without its diagonal block; c < 2b - 1
+    the left strip, matrix column r - 2b + 1 + c, kept as column runs of
+    the lower band; c >= 2b - 1 the right strip, matrix row r - b + 1 + c,
+    kept as row runs): ``diag`` the diagonal block, ``left``, ``next`` and
+    ``right`` chunks of ``chunk`` columns, the ``next`` ones over the right
+    strip's first b columns (the next hop's pivot column: the last of them
+    to finish forms its reflector), and ``task`` all of it in one item
+    (``whole``)."""
+    if whole:
+        return [("task", 0, 4 * b - 2)]
+    runs = (("left", 0, 2 * b - 1), ("next", 2 * b - 1, 3 * b - 1),
+            ("right", 3 * b - 1, 4 * b - 2))
+    return [("diag", 0, 0)] + [(kind, c, min(c + chunk, end))
+                               for kind, start, end in runs
+                               for c in range(start, end, chunk)]
+
+
+def _chase_shared(b: int, chunk: int, whole: bool) -> Tuple[int, int]:
+    """(bytes of a block's small vectors, doubles of its work tile) of
+    ``band_chase`` (csrc/band_reduce.cu's layout): the block sums, the
+    slot's v, the next pivot column x, the diagonal block's w, w1 over the
+    tile's columns and the column-dot partials (a double a thread); the
+    tile is the packed lower diagonal block beside the strip (b x (4b - 1))
+    of a whole task, else the larger of the packed block and a b x
+    (chunk + 1) strip."""
+    cols = 4 * b - 2 if whole else max(chunk, b)
+    small = 8 * (32 + 4 + 3 * b + cols + _CHASE_THREADS[0 if whole else 1])
+    tri = b * (b + 1) // 2
+    work = tri + b * (4 * b - 1) if whole else max(tri, b * (chunk + 1))
+    return small, work
+
+
 def chase_plan(n: int, b: int, sms: int, max_shared: int,
-               resident: Callable[[int], int]) -> ChasePlan:
+               resident: Callable[[bool, int], int]) -> ChasePlan:
     """``band_chase``'s launch at (n, b) on a card of ``sms`` SMs whose
-    blocks may hold ``max_shared`` bytes of shared memory (``resident(smem)``:
-    the blocks an SM holds at ``smem``): the work tile in shared memory where
-    it fits (b <= 167 on an H100), the blocks an SM holds on every SM, and no
-    more blocks than the widest wave has items (a slot is 1 + ceil((4b - 2)
-    / chunk) items).
-    Raises when not one block an SM fits."""
-    chunk = _CHASE_CHUNK
+    blocks may hold ``max_shared`` bytes of shared memory (``resident(whole,
+    smem)``: the blocks an SM holds at ``smem``, from the occupancy API): to
+    b = 32 a block of 256 threads a whole task (``whole``), its tile in
+    shared memory; past it blocks of 512 threads a slot's items
+    (:func:`chase_slot_items`), chunks of at most the widest power of two
+    to min(64, b / 2) columns (each wave takes :func:`chase_wave_chunk`'s;
+    a narrower chunk's tile is the packed diagonal block to within b / 2
+    doubles, so it fits no better), the tile in a global scratch where not
+    even the diagonal block fits (b > ~239 on an H100); the blocks an SM
+    holds on every SM, and no more blocks than the widest wave has items at
+    its narrowest chunk (one more: a wave's hop-0 reflector).  Raises when
+    not one block an SM fits."""
     _, Wmax, _ = _wave_geometry(n, b)
-    items = Wmax * (1 + -(-(4 * b - 2) // chunk))
-    work = max(b * (b + 1), b * (chunk + 1))
-    small = 8 * (34 + 2 * b + max(b, chunk) + _CHASE_THREADS)
-    shared = small + 8 * work <= max_shared
-    smem = small + 8 * work if shared else small
-    per_sm = resident(smem)
-    if small > max_shared or per_sm < 1:
+    whole = b <= _CHASE_WHOLE_B
+    chunk = b if whole else 1 << (min(64, b // 2).bit_length() - 1)
+    small, work = _chase_shared(b, chunk, whole)
+    smem, shared = small + 8 * work, True
+    if not whole and (smem > max_shared or resident(whole, smem) < 1):
+        smem, shared = small, False
+    per_sm = resident(whole, smem)
+    if smem > max_shared or per_sm < 1:
         raise ValueError(f"band_chase: no cooperative launch fits n={n}, "
                          f"b={b}")
+    items = Wmax * len(chase_slot_items(b, min(_CHASE_CHUNK_MIN, chunk),
+                                        whole)) + 1
     return ChasePlan(max(1, min(sms * per_sm, items)), smem, work, shared,
-                     chunk)
+                     chunk, whole)
+
+
+def chase_wave_chunk(b: int, plan: ChasePlan, width: int, hop0: bool) -> int:
+    """The chunk ``band_chase`` takes in a wave of ``width`` slots (and a
+    hop-0 reflector item when ``hop0``) under ``plan``, as it picks it on
+    the device: the narrowest of 16, 32, .. (at most ``plan.chunk``) whose
+    items fit in one round of the grid, else ``plan.chunk``;
+    ``plan.chunk`` for a whole task a block."""
+    if plan.whole:
+        return plan.chunk
+    c = _CHASE_CHUNK_MIN
+    while True:
+        chunk = min(c, plan.chunk)
+        items = len(chase_slot_items(b, chunk, False))
+        if chunk == plan.chunk or width * items + int(hop0) <= plan.grid:
+            return chunk
+        c *= 2
+
+
+def _chase_occupancy(index: int, whole: bool, smem: int):
+    """(blocks an SM holds, SMs, shared bytes a block may opt into) of
+    ``band_chase``'s blocks (a whole task a block when ``whole``) on CUDA
+    device ``index`` at ``smem`` dynamic shared bytes (cached)."""
+    key = ("band_chase", index, whole, smem)
+    got = _OCCUPANCY.get(key)
+    if got is None:
+        out = (ctypes.c_int * 3)()
+        fn = _build.function("band_reduce", "band_chase_occupancy",
+                             _CHASE_OCCUPANCY_ARGTYPES)
+        with torch.cuda.device(index):
+            rc = fn(int(whole), smem, ctypes.addressof(out))
+        _build.check_launch(rc, "band_chase_occupancy")
+        got = _OCCUPANCY[key] = tuple(out)
+    return got
+
+
+def chase_device_plan(n: int, b: int, index: int) -> ChasePlan:
+    """:func:`chase_plan` on CUDA device ``index``."""
+    _, sms, optin = _chase_occupancy(index, True, 0)
+    return chase_plan(n, b, sms, optin, lambda whole, smem:
+                      _chase_occupancy(index, whole, smem)[0])
 
 
 def _launch_chase(B, b: int, want_log: bool):
@@ -590,7 +696,7 @@ def _launch_chase(B, b: int, want_log: bool):
     if B.ndim != 2 or B.shape[1] != n:
         raise ValueError(f"band_chase: B must be square, got "
                          f"{tuple(B.shape)}")
-    if n > 2 ** 31 // (6 * b) or b > 2 ** 14:
+    if n > 2 ** 31 // (3 * b) or b > 2 ** 14:
         raise ValueError(f"band_chase: n={n}, b={b} past the kernel's "
                          "index range")
     if B.stride(1) != 1:
@@ -601,29 +707,28 @@ def _launch_chase(B, b: int, want_log: bool):
     f64 = dict(dtype=torch.float64, device=dev)
     with torch.cuda.device(index):
         stream = torch.cuda.current_stream(index).cuda_stream
-        _, sms, optin = _occupancy("band_chase", index, 0)
-        plan = chase_plan(n, b, sms, optin,
-                          lambda smem: _occupancy("band_chase", index,
-                                                  smem)[0])
-        P = torch.zeros((n + 5 * b, 6 * b - 3), **f64)
+        plan = chase_device_plan(n, b, index)
+        Q = torch.zeros((n + 3 * b, 3 * b - 1), **f64)
         nlog = n - 1 if want_log else 1
         Vw = torch.zeros((nlog, Kmax, b), **f64)
         tw = torch.zeros((nlog, Kmax), **f64)
         d = torch.empty(n, **f64)
         e = torch.empty(n - 1, **f64)
-        rs = torch.empty(Wmax * (b + 2), **f64)
+        rs = torch.empty(2 * Wmax * (b + 1), **f64)
+        xs = torch.empty(Wmax * b, **f64)
+        arrived = torch.zeros(Wmax, dtype=torch.int32, device=dev)
         gwork = None
         if not plan.work_shared:
             gwork = torch.empty(plan.grid * plan.work, **f64)
         fn = _build.function("band_reduce", "band_chase_launch",
                              _CHASE_ARGTYPES)
-        rc = fn(B.data_ptr(), B.stride(0), P.data_ptr(),
+        rc = fn(B.data_ptr(), B.stride(0), Q.data_ptr(),
                 Vw.data_ptr() if want_log else None,
                 tw.data_ptr() if want_log else None, d.data_ptr(),
-                e.data_ptr(), rs.data_ptr(),
+                e.data_ptr(), rs.data_ptr(), xs.data_ptr(), arrived.data_ptr(),
                 None if gwork is None else gwork.data_ptr(), plan.work,
-                int(plan.work_shared), n, b, plan.chunk, plan.grid,
-                plan.smem, stream)
+                int(plan.work_shared), n, b, plan.chunk, int(plan.whole),
+                plan.grid, plan.smem, stream)
     _build.check_launch(rc, "band_chase")
     chase_launches += 1
     return d, e, (Vw, tw)

@@ -318,6 +318,9 @@ def test_launch_count_formulas(monkeypatch):
     assert tband.chase_waves(4096, 128) <= 3 * (4096 - 3) + 1 == 12280
     assert tband.chase_launch_count(4096, 128) == 1
     assert tband.panel_qr_count(4096, 128) == 31
+    # one grid sync a wave (and sweep 0's first reflector, the packing)
+    assert tband.chase_grid_syncs(4096, 128) == 12155
+    assert tband.chase_grid_syncs(3, 2) == 3 and tband.chase_grid_syncs(2, 2) == 0
 
 
 @pytest.mark.parametrize("m,b,ncols", [(40, 4, 8), (50, 8, 16), (21, 8, 16),
@@ -342,103 +345,247 @@ def test_panel_qr_plain_matches_jax_col_body(rng, m, b, ncols):
     assert np.array_equal(tp.numpy(), taus[:b].numpy())
 
 
-def _chase_model(B, b, want_log=True, chunk=64):
-    """numpy model of band_chase: B's band in the kernel's band storage
-    (entry (i, j) at [i + 2b, j - i + 3b - 2]), then each wave as the kernel
-    runs it: each slot's reflector from its pivot column, then its items
-    (the diagonal block, chunks of the other window columns), all reading
-    the state the wave started from, every write bounds-checked and made at
-    most once a wave."""
+def _reflector(x):
+    """The chase's reflector of x (b entries): (v, tau, the pivot's new
+    value), as the plain chase and band_chase form it."""
+    sigma2 = float(np.dot(x[1:], x[1:]))
+    x0 = x[0]
+    nrm = np.sqrt(x0 * x0 + sigma2)
+    beta = -nrm if x0 >= 0 else nrm
+    no_op = sigma2 == 0.0
+    v = x / (1.0 if no_op else x0 - beta)
+    v[0] = 0.0 if no_op else 1.0
+    tau = 0.0 if no_op else (beta - x0) / beta
+    return v, tau, x0 if no_op else beta
+
+
+def _chase_model(B, b, want_log=True, chunk=64, whole=False, events=None,
+                 grid=None, waves=None):
+    """numpy model of band_chase: B's lower band stored once, by column
+    (entry (i, c), c <= i <= c + 3b - 2, at [c + 2b, i - c]); sweep 0's
+    first reflector formed before wave 0, then each wave as the kernel runs
+    it, one grid sync a wave: each slot's items (chase_slot_items) read the
+    state the wave started from and the slot's reflector from its record;
+    the diagonal block updated as one symmetric rank-2 update (LAPACK's
+    dlarfy); the ``next`` item forms the next hop's reflector from the
+    pivot column it has just updated, writes its record and log entry and
+    sets the column to (beta, 0, ..); a wave t = 3j' - 1 has one more item,
+    sweep j''s first reflector from column j' (final since wave 3j' - 2).
+    Asserted every wave: each write inside the storage, each entry written
+    at most once, no entry an item reads written by another item; and of
+    every reflector, that no item writes the entries it was formed from
+    between the wave that forms it and the wave that uses it (the zeroing
+    of its pivot column by the item that forms it aside).  ``events``, a
+    list, receives (task, wave formed, wave used); ``waves``, a list, the
+    waves that ran an item (each ends in a grid sync).  With ``grid`` each wave
+    takes the chunk band_chase picks for that many blocks
+    (chase_wave_chunk, ``chunk`` the widest), else ``chunk`` throughout."""
     n = B.shape[0]
-    H, ldp = 3 * b - 2, 6 * b - 3
+    plan = tband.ChasePlan(grid or 0, 0, 0, True, chunk, whole)
+    H, ldq = 3 * b - 2, 3 * b - 1
     Kmax, Wmax, Twaves = tband._wave_geometry(n, b)
-    P = np.zeros((n + 5 * b, ldp))
+    Q = np.zeros((n + 3 * b, ldq))
     i = np.arange(n)[:, None]
-    j = i + np.arange(ldp)[None, :] - H
-    ok = (j >= 0) & (j < n)
-    P[2 * b:2 * b + n][ok] = B[np.broadcast_to(i, j.shape)[ok], j[ok]]
+    c = i - np.arange(ldq)[None, :]
+    ok = c >= 0
+    Q[c[ok] + 2 * b, (i - c)[ok]] = B[np.broadcast_to(i, c.shape)[ok], c[ok]]
 
     def at(rows, cols):
-        rr = np.asarray(rows) + 2 * b
-        cc = np.asarray(cols) - np.asarray(rows) + H
-        assert (rr >= 0).all() and (rr < P.shape[0]).all()
-        assert (cc >= 0).all() and (cc < ldp).all()
-        return rr, cc
+        """Flat indices into Q of the lower entries (rows, cols)."""
+        rows, cols = np.broadcast_arrays(np.asarray(rows), np.asarray(cols))
+        qc, o = cols + 2 * b, rows - cols
+        assert (qc >= 0).all() and (qc < Q.shape[0]).all()
+        assert (o >= 0).all() and (o < ldq).all()
+        return qc * ldq + o
 
     Vw = np.zeros((n - 1 if want_log else 1, Kmax, b))
     tw = np.zeros(Vw.shape[:2])
     rb = np.arange(b)
-    nchunks = -(-(4 * b - 2) // chunk)
-    for t in range(Twaves):
-        W = tband.wave_width(n, b, t)
-        if W == 0:
-            continue
-        refl = []
-        for s in range(W):                          # the slots' reflectors
-            jj, kk, r, off, live = (int(x) for x in
-                                    tband.wave_slots(n, b, t, s))
-            assert live
-            x = P[at(r + rb, r - (2 * b - 1) + off)]
-            sigma2 = float(np.dot(x[1:], x[1:]))
-            x0 = x[0]
-            nrm = np.sqrt(x0 * x0 + sigma2)
-            beta = -nrm if x0 >= 0 else nrm
-            no_op = sigma2 == 0.0
-            v = x / (1.0 if no_op else x0 - beta)
-            v[0] = 0.0 if no_op else 1.0
-            tau = 0.0 if no_op else (beta - x0) / beta
-            refl.append((r, off, v, tau, x0 if no_op else beta))
-            if want_log:
-                Vw[jj, kk], tw[jj, kk] = v, tau
-        writes = []
-        for it in range(W * (1 + nchunks)):                 # the items
-            s, q = divmod(it, 1 + nchunks)
-            r, off, v, tau, beta = refl[s]
-            if q == 0:
-                D = P[at((r + rb)[:, None], (r + rb)[None, :])]
-                D = D - np.outer(v, tau * (v @ D))
-                D = D - np.outer(tau * (D @ v), v)
-                writes.append((at((r + rb)[:, None], (r + rb)[None, :]),
-                               D.T))
-                continue
-            p = np.arange((q - 1) * chunk, min(q * chunk, 4 * b - 2))
-            lc = np.where(p < 2 * b - 1, p, p + b)
-            cols = r - (2 * b - 1) + lc
-            T = P[at((r + rb)[:, None], cols[None, :])]
-            T = T - np.outer(v, tau * (v @ T))
-            T[:, lc == off] = 0.0
-            T[0, lc == off] = beta
-            writes.append((at((r + rb)[:, None], cols[None, :]), T))
-            writes.append((at(cols[:, None], (r + rb)[None, :]), T.T))
-        hit = np.zeros(P.shape, dtype=int)
-        for idx, val in writes:
-            np.add.at(hit, idx, 1)
-            P[idx] = val
-        assert hit.max() <= 1, f"wave {t} writes an entry twice"
-    d = P[at(np.arange(n), np.arange(n))]
-    e = P[at(np.arange(n - 1), np.arange(1, n))]
+    records = {}              # task -> (v, tau, wave formed, pivot entries)
+    used = {}
+    last = {}                 # entry -> (wave, item) of its last write
+
+    def form(task, x, piv, t, item, reads, writes):
+        v, tau, beta = _reflector(x.copy())
+        assert task not in records, task
+        records[task] = (v, tau, t, piv)
+        if want_log:
+            Vw[task], tw[task] = v, tau
+        reads.append(piv)
+        newcol = np.zeros(b)
+        newcol[0] = beta
+        writes.append((piv, newcol))
+
+    def strip(r, c0, c1):
+        """Flat indices (b, c1 - c0) of the strip's columns c0 .. c1 - 1."""
+        c = np.arange(c0, c1)[None, :]
+        rows = r + rb[:, None]
+        left = at(rows, np.minimum(r - 2 * b + 1 + c, rows))
+        right = at(np.maximum(r - b + 1 + c, rows), rows)
+        return np.where(c < 2 * b - 1, left, right)
+
+    for t in range(-1, Twaves):
+        Q0 = Q.ravel().copy()
+        W = tband.wave_width(n, b, t) if t >= 0 else 0
+        j1 = (t + 1) // 3
+        hop0 = (t + 1) % 3 == 0 and j1 <= n - 3
+        wave_chunk = tband.chase_wave_chunk(b, plan, W, hop0)
+        items = []
+        for s in range(W):
+            jj, kk, r, off, _ = (int(x) for x in tband.wave_slots(n, b, t, s))
+            v, tau, tf, _ = records[(jj, kk)]
+            assert tf < t
+            used[(jj, kk)] = t
+            for kind, c0, c1 in tband.chase_slot_items(b, wave_chunk, whole):
+                items.append((kind, c0, c1, s, jj, kk, r, v, tau))
+        if hop0:
+            items.append(("hop0", 0, 0, -1, j1, 0, 0, None, 0.0))
+        if items and waves is not None:
+            waves.append(t)
+        # the next items of a slot are one group: the last of them to finish
+        # forms the reflector from the parts the others left (ordered by
+        # their arrival count); every other item is a group of its own
+        group = [len(items) + it[3] if it[0] == "next" else g
+                 for g, it in enumerate(items)]
+        parts = {}
+        reads_all, writes_all = [], []
+        for it, (kind, c0, c1, s, jj, kk, r, v, tau) in enumerate(items):
+            reads, writes = [], []
+            if kind == "hop0":
+                piv = at(jj + 1 + rb, jj)
+                form((jj, 0), Q0[piv], piv, t, it, reads, writes)
+            if kind in ("diag", "task"):
+                idx = at(r + np.maximum(rb[:, None], rb[None, :]),
+                         r + np.minimum(rb[:, None], rb[None, :]))
+                D = Q0[idx]                       # the symmetric block
+                w = tau * (D @ v)
+                w += (-0.5 * tau * np.dot(w, v)) * v
+                D = D - np.outer(v, w) - np.outer(w, v)
+                low = rb[:, None] >= rb[None, :]
+                reads.append(idx[low])
+                writes.append((idx[low], D[low]))
+            if kind in ("left", "next", "right", "task"):
+                if kind == "task":
+                    c0, c1 = 0, 4 * b - 2
+                idx = strip(r, c0, c1)
+                S = Q0[idx]
+                reads.append(idx.ravel())
+                S = S - np.outer(v, tau * (v @ S))
+                keep = np.ones(S.shape, dtype=bool)
+                pc = (2 * b - 2 if kk == 0 else b - 1) - c0
+                if 0 <= pc < c1 - c0:
+                    keep[:, pc] = False           # the pivot column: as formed
+                lo, hi = max(c0, 2 * b - 1), min(c1, 3 * b - 1)
+                if lo < hi and jj + (kk + 1) * b + 2 <= n - 1:
+                    cs = slice(lo - c0, hi - c0)
+                    keep[0, cs] = False
+                    x, piv, left = parts.setdefault(s, (np.zeros(b),
+                                                        np.zeros(b, int), [b]))
+                    x[lo - 2 * b + 1:hi - 2 * b + 1] = S[0, cs]
+                    piv[lo - 2 * b + 1:hi - 2 * b + 1] = idx[0, cs]
+                    left[0] -= hi - lo
+                    if left[0] == 0:              # the last part
+                        form((jj, kk + 1), x, piv, t, it, reads, writes)
+                writes.append((idx[keep], S[keep]))
+            reads_all.append(np.concatenate(reads))
+            writes_all.append(writes)
+        writer = np.full(Q.size, -1)
+        for it, writes in enumerate(writes_all):
+            for idx, _ in writes:
+                assert (writer[idx] == -1).all(), f"wave {t} writes twice"
+                assert len(np.unique(idx)) == len(idx)
+                writer[idx] = group[it]
+        for it, reads in enumerate(reads_all):
+            w = writer[reads]
+            assert ((w == -1) | (w == group[it])).all(), \
+                f"wave {t}: item {it} reads what another item writes"
+        for it, writes in enumerate(writes_all):
+            for idx, val in writes:
+                Q.ravel()[idx] = val
+                for x in idx.tolist():
+                    last[x] = (t, it)
+        # a reflector's entries are not written between its forming and use
+        for task, (_, _, tf, piv) in records.items():
+            if task not in used or used[task] >= t:
+                assert all(last[x][0] == tf for x in piv.tolist()), task
+    assert set(used) == set(records)
+    if events is not None:
+        events.extend((task, rec[2], used[task])
+                      for task, rec in records.items())
+    d = Q.ravel()[at(np.arange(n), np.arange(n))]
+    e = Q.ravel()[at(np.arange(1, n), np.arange(n - 1))]
     return d, e, Vw, tw
 
 
-@pytest.mark.parametrize("n,b,chunk", [(40, 4, 64), (64, 8, 5), (97, 8, 64),
-                                       (50, 16, 16), (30, 2, 3), (20, 12, 7)])
-def test_chase_kernel_model_matches_plain(rng, n, b, chunk):
-    """The band storage, the items' split of the window and the transposed
-    diagonal block of band_chase, modelled in numpy, against the plain
-    chase (2e-12 n max|B|); an off-band B entry within the storage band (a
-    reduce_to_band output's rounding) is carried as the plain chase
-    carries it."""
+@pytest.mark.parametrize("n,b,chunk,whole,grid", [
+    (40, 4, 64, False, None), (64, 8, 5, False, None),
+    (97, 8, 64, False, None), (50, 16, 16, False, None),
+    (30, 2, 3, False, None), (20, 12, 7, False, None),
+    # the next pivot's b columns at a chunk edge: the chunk b, b - 1, b + 1
+    (60, 8, 8, False, None), (60, 8, 7, False, None),
+    (45, 6, 7, False, None), (33, 2, 1, False, None),
+    (35, 3, 2, False, None),
+    # each wave's chunk picked for a grid of 20 blocks, as the kernel does
+    (90, 8, 32, False, 20), (70, 16, 64, False, 20),
+    # a whole task a block
+    (64, 8, 64, True, None), (30, 2, 64, True, None),
+    (41, 3, 64, True, None)])
+def test_chase_kernel_model_matches_plain(rng, n, b, chunk, whole, grid):
+    """The lower band storage, the items' split of the window, the dlarfy
+    diagonal update and the reflectors formed a wave ahead of band_chase,
+    modelled in numpy, against the plain chase: d, e and the log within
+    2e-12 n max|B| (the diagonal block's two-sided update rounds otherwise
+    than the plain loop's one-sided pair), the eigenvalues of T against B's
+    within 1e-12 ||B||, and the log by the similarity it defines (B Q2 =
+    Q2 T and Q2 orthogonal within 1e-12), which is what holds on the card,
+    where a short column to zero makes the log's entries ill-conditioned;
+    an off-band B entry within the storage band (a reduce_to_band output's
+    rounding) is carried as the plain chase carries it."""
     A = _sym(rng, n, band=b)
-    A[0, min(n - 1, b + 2)] = A[min(n - 1, b + 2), 0] = 1e-15
+    A[min(n - 1, b + 2), 0] = A[0, min(n - 1, b + 2)] = 1e-15
     d, e, (Vw, tw) = tband.band_to_tridiag_wave_plain(torch.as_tensor(A), b)
-    md, me, mV, mt = _chase_model(A, b, chunk=chunk)
+    md, me, mV, mt = _chase_model(A, b, chunk=chunk, whole=whole, grid=grid)
     tol = _tol(n) * np.abs(A).max()
     for name, g, r in (("d", md, d), ("e", me, e), ("Vw", mV, Vw),
                        ("tw", mt, tw)):
         assert _err(g, r.numpy()) <= tol, name
+    T = _tridiag(md, me)
+    w0 = np.linalg.eigvalsh(A)
+    assert np.abs(w0 - np.linalg.eigvalsh(T)).max() <= 1e-12 * max(
+        np.abs(w0).max(), 1.0)
+    vlog = (torch.as_tensor(mV), torch.as_tensor(mt))
+    Q2 = tband.apply_q2_wave(n, b, vlog,
+                             torch.eye(n, dtype=torch.float64)).numpy()
+    assert np.abs(Q2.T @ Q2 - np.eye(n)).max() <= 1e-12
+    assert np.abs(A @ Q2 - Q2 @ T).max() <= 1e-12 * max(np.abs(w0).max(), 1)
     assert not mV[n - 2].any() and not mt[n - 2].any()
-    md0, me0, mV0, _ = _chase_model(A, b, want_log=False, chunk=chunk)
+    md0, me0, mV0, _ = _chase_model(A, b, want_log=False, chunk=chunk,
+                                    whole=whole, grid=grid)
     assert mV0.shape[0] == 1 and np.array_equal(md0, md)
+    assert np.array_equal(me0, me)
+
+
+@pytest.mark.parametrize("n,b", [(10, 4), (8, 3), (20, 8), (25, 9), (12, 5),
+                                 (30, 2), (47, 6), (9, 2), (16, 16)])
+def test_chase_reflectors_formed_a_wave_ahead(rng, n, b):
+    """band_chase's schedule, n < 3b and b > n/3 included: every task's
+    reflector is formed once, before the wave that uses it: the next hop's
+    (j, k + 1) in the wave of (j, k) (t = 3j + k), sweep j's first in wave
+    3j - 1; and no item writes the entries a reflector was formed from
+    between the two waves (asserted inside the model, as is each wave's
+    read / write disjointness)."""
+    A = _sym(rng, n, band=b)
+    events, waves = [], []
+    _chase_model(A, b, chunk=max(1, b // 2), events=events, waves=waves)
+    assert len(events) == tband.chase_tasks(n, b)
+    # one grid sync after packing and one after each wave that ran an item
+    assert tband.chase_grid_syncs(n, b) == 1 + len(waves)
+    for (j, k), tf, tu in events:
+        assert tu == 3 * j + k
+        assert tf == tu - 1, ((j, k), tf, tu)
+    events.clear()
+    _chase_model(A, b, whole=True, events=events)
+    assert len(events) == tband.chase_tasks(n, b)
 
 
 def test_chase_reflector_underflow_keeps_v(rng):
@@ -450,8 +597,9 @@ def test_chase_reflector_underflow_keeps_v(rng):
     A[1, 0] = A[0, 1] = 0.5
     d, e, (Vw, tw) = tband.band_to_tridiag_wave_plain(torch.as_tensor(A), b)
     assert tw[0, 0] == 0.0 and Vw[0, 0, 0] == 0.0 and Vw[0, 0, 1:].any()
-    md, me, mV, mt = _chase_model(A, b)
-    assert np.array_equal(mV[0, 0], Vw[0, 0].numpy()) and mt[0, 0] == 0.0
+    for whole in (False, True):
+        md, me, mV, mt = _chase_model(A, b, chunk=3, whole=whole)
+        assert np.array_equal(mV[0, 0], Vw[0, 0].numpy()) and mt[0, 0] == 0.0
 
 
 def _panel_qr_model(As, o, b, grid):
@@ -512,23 +660,44 @@ def test_panel_qr_model_matches_plain(rng, m, o, b, grid):
 
 
 def test_kernel_plans():
-    """chase_plan and panel_qr_plan with a card's figures (132 SMs, 227 KB a
-    block; occupancy: the blocks an SM's 228 KB and 2048 threads hold)."""
+    """chase_plan, chase_wave_chunk and panel_qr_plan with a card's figures
+    (132 SMs, 227 KB a block; occupancy: the blocks an SM's 228 KB and 2048
+    threads hold)."""
     sms, optin = 132, 232448
 
     def resident(threads):
         return lambda smem: min(2048 // threads, 233472 // max(smem + 1024,
                                                                1))
 
-    plan = tband.chase_plan(4096, 128, sms, optin, resident(512))
-    assert plan.work_shared and plan.work == 128 * 129
-    assert plan.grid == 11 * 9 and plan.smem <= optin   # items of a wave
-    plan = tband.chase_plan(16384, 16, sms, optin, lambda smem: 1)
-    assert plan.work_shared and plan.grid == sms    # 101 registers a thread
-    plan = tband.chase_plan(16384, 16, sms, optin, resident(512))
-    assert plan.grid == 4 * sms                     # what the card says
-    plan = tband.chase_plan(4096, 256, sms, optin, resident(512))
+    def chase_resident(whole, smem):
+        return resident(256 if whole else 512)(smem)
+
+    # band 128: 512-thread items, the widest chunk to b / 2 that leaves two
+    # blocks an SM, the tile and the packed block in shared memory
+    plan = tband.chase_plan(4096, 128, sms, optin, chase_resident)
+    assert not plan.whole and plan.work_shared and plan.chunk == 64
+    assert plan.work == max(128 * 129 // 2, 128 * 65) and plan.smem <= optin
+    assert plan.grid == 11 * 33 + 1               # the widest wave at chunk 16
+    # each wave the narrowest chunk whose items fit one round of the grid
+    plan = plan._replace(grid=264)
+    assert [tband.chase_wave_chunk(128, plan, w, False)
+            for w in (1, 8, 11, 16, 43)] == [16, 16, 32, 64, 64]
+    assert tband.chase_wave_chunk(128, plan, 8, True) == 32
+    # u=16: a block of 256 threads a whole task
+    plan = tband.chase_plan(16384, 16, sms, optin, chase_resident)
+    assert plan.whole and plan.work_shared
+    assert plan.work == 16 * 17 // 2 + 16 * 63
+    assert plan.grid == 342 + 1
+    assert tband.chase_wave_chunk(16, plan, 342, True) == plan.chunk
+    plan = tband.chase_plan(16384, 16, sms, optin, lambda t, smem: 1)
+    assert plan.grid == sms
+    assert tband.chase_plan(4096, 32, sms, optin, chase_resident).whole
+    assert not tband.chase_plan(4096, 33, sms, optin, chase_resident).whole
+    # band 256: the packed block does not fit, the tile goes to global memory
+    plan = tband.chase_plan(4096, 256, sms, optin, chase_resident)
     assert not plan.work_shared and plan.smem < 32 * 1024
+    with pytest.raises(ValueError):
+        tband.chase_plan(4096, 128, sms, optin, lambda t, smem: 0)
     qr = tband.panel_qr_plan(16384, 128, sms, optin, resident(256))
     assert qr.grid == sms and qr.grid * qr.slice >= 16384
     assert qr.cached == 128 and qr.smem <= optin
@@ -557,7 +726,7 @@ def _c_signature(symbol):
 
 @pytest.mark.parametrize("symbol,argtypes", [
     ("band_chase_launch", tband._CHASE_ARGTYPES),
-    ("band_chase_occupancy", tband._OCCUPANCY_ARGTYPES),
+    ("band_chase_occupancy", tband._CHASE_OCCUPANCY_ARGTYPES),
     ("panel_qr_launch", tband._PANEL_ARGTYPES),
     ("panel_qr_occupancy", tband._OCCUPANCY_ARGTYPES)])
 def test_bindings_match_the_source(symbol, argtypes):
@@ -586,6 +755,8 @@ def test_cuda_wrappers_launch_with_faked_card(monkeypatch):
     monkeypatch.setattr(tband._build, "function", function)
     monkeypatch.setattr(tband, "_occupancy",
                         lambda kernel, index, smem: (1, 132, 232448))
+    monkeypatch.setattr(tband, "_chase_occupancy",
+                        lambda index, whole, smem: (1, 132, 232448))
     monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
     monkeypatch.setattr(torch.cuda, "device",
                         lambda index: contextlib.nullcontext())
@@ -596,14 +767,15 @@ def test_cuda_wrappers_launch_with_faked_card(monkeypatch):
     n, b = 300, 16
     d, e, (Vw, tw) = tband._launch_chase(torch.empty((n, n), **meta), b,
                                          True)
-    plan = tband.chase_plan(n, b, 132, 232448, lambda smem: 1)
+    plan = tband.chase_plan(n, b, 132, 232448, lambda whole, smem: 1)
     Kmax, _, _ = tband._wave_geometry(n, b)
     assert d.shape == (n,) and e.shape == (n - 1,)
     assert Vw.shape == (n - 1, Kmax, b) and tw.shape == (n - 1, Kmax)
     symbol, args = calls[-1]
     assert symbol == "band_chase_launch"
-    assert args[9:] == (plan.work, int(plan.work_shared), n, b, plan.chunk,
-                       plan.grid, plan.smem, 7)
+    assert args[11:] == (plan.work, int(plan.work_shared), n, b, plan.chunk,
+                         int(plan.whole), plan.grid, plan.smem, 7)
+    assert all(isinstance(x, int) for x in args[2:11] if x is not None)
     tband._launch_chase(torch.empty((n, n), **meta), b, False)
     assert calls[-1][1][3] is None and calls[-1][1][4] is None
     assert tband.chase_launches == 2
