@@ -80,8 +80,12 @@ exits non-zero:
                the plain wave (1e-12 max|X|; rows outside the wave bit for
                bit) and torch.ormqr of the same blocks, then the whole
                backtransform (a q2_blocks_t a chunk, a q2_apply a wave)
-               against the plain waves (1e-11 max|X|, no host sync),
-               beside the replaced host loop at n=4096; at n=16384, u=2
+               against the plain waves (1e-11 max|X|, no host sync; the
+               two kernels' device time apart), beside the replaced host
+               loop at n=4096, each row with its plan (tile, instance,
+               blocks of threads an SM) and the A operands' bytes its
+               launches fetch from L2, timed at the L2 rate the run
+               measures; at n=16384, u=2
                and u=4 the whole backtransform's memory beyond X within
                q2_store_budget (n^2/2 doubles), 1025 columns of Q2 held
                by the similarity its log defines
@@ -126,7 +130,8 @@ exits non-zero:
                then (dense_two_stage_full) the same matrix through
                eigh(band=128) and its band u=16 through eigh_banded, all
                eigenpairs, the three limits, phases, peak memory and
-               launches, beside the one-stage walls
+               launches, beside the one-stage walls; dense.apply_q2 of
+               both beside its bound and its A operands' L2 traffic
   9. dense_two_stage  eigh(band=128) and eigh_banded (u=16) at n=4096, the
                same three limits (larft once a panel of reduce_to_band and
                of apply_q, band_chase once a chase, panel_qr once a panel,
@@ -1558,6 +1563,20 @@ def q2_wave_bound(n: int, b: int, C: int, waves):
     return blocks, nbytes, ops, b_ms, b_by
 
 
+def q2_a_traffic(n: int, b: int, C: int, waves, plan):
+    """The A operands' L2 traffic of ``waves`` at (n, b) on C columns under
+    ``plan``: each block of threads fetches plan.a_bytes of Y^T and T
+    (band_reduce.q2_a_bytes) for its tile, ceil(C / tile) of them a live
+    block; with that traffic's time at the L2 rate this run measures
+    (l2_copy_rate), and the plan."""
+    blocks = sum(max(0, hi - lo + 1)
+                 for lo, hi in (br.q2_wave_range(n, b, w) for w in waves))
+    nbytes = float(blocks) * -(-C // plan.tile) * plan.a_bytes
+    rate, _ = l2_copy_rate()
+    return dict(plan=plan._asdict(), a_bytes_from_l2=nbytes,
+                a_l2_ms=1e3 * nbytes / rate, l2_rate_bytes_per_s=rate)
+
+
 def check_q2_apply(n: int, b: int, reps: int, whole: bool = True,
                    replaced: bool = True):
     """q2_apply on the chase's log at (n, b) and an n x n X (seeded), with
@@ -1572,7 +1591,12 @@ def check_q2_apply(n: int, b: int, reps: int, whole: bool = True,
     q2_blocks_t a chunk, q2_wave_count q2_apply launches) against the plain
     waves in torch (q2_blocks_t_plain a chunk, then q2_apply_plain a wave)
     within 1e-11 max|X| (the error of ~3n/b waves of orthogonal blocks),
-    no host sync, its time and the whole bound; ``replaced``: beside the
+    no host sync, its time and the whole bound, and the device time of
+    its q2_apply and of its q2_blocks_t kernels apart.  Each row states the
+    plan (band_reduce.q2_apply_plan: tile, instance, cluster, blocks of
+    threads an SM, shared bytes) and the A operands' bytes its launches
+    fetch from L2, with their time at the L2 rate this run measures, beside
+    bound_ms.  ``replaced``: beside the
     replaced host loop's time (apply_q2_wave_blocked_plain on the card, its
     GEMMs through dword_matmul)."""
     Vw, tw = q2_log(n, b)
@@ -1632,7 +1656,7 @@ def check_q2_apply(n: int, b: int, reps: int, whole: bool = True,
                library_distance=lib_dist, bound_ms=b_ms, bound_by=b_by,
                bound_is="max(X's window rows read and written + Y and T "
                "read / 3.35 TB/s, banded/triangular FP64 ops / 67 TFLOP/s)",
-               plan=plan._asdict())
+               **q2_a_traffic(n, b, n, (w,), plan))
     del X, blocks
     torch.cuda.empty_cache()
     if whole:
@@ -1655,8 +1679,11 @@ def check_q2_apply(n: int, b: int, reps: int, whole: bool = True,
             n, b, (Vw, tw), Xt, overwrite=True), 2)
         syncs = host_syncs(lambda: br.apply_q2_wave_blocked(
             n, b, (Vw, tw), Xt, overwrite=True))
-        all_dms = device_ms(lambda: br.apply_q2_wave_blocked(
+        by_kernel, _ = device_ms_by_kernel(lambda: br.apply_q2_wave_blocked(
             n, b, (Vw, tw), Xt, overwrite=True), 1)
+        all_dms = sum(by_kernel.values())
+        split = {k: sum(t for name, t in by_kernel.items() if k in name)
+                 for k in ("q2_apply", "q2_blocks_t")}
         _, wbytes, wops, wb_ms, wb_by = q2_wave_bound(
             n, b, n, range(3 * Kmax - 2))
         expected = (len(chunks), br.q2_wave_count(n, b))
@@ -1665,8 +1692,11 @@ def check_q2_apply(n: int, b: int, reps: int, whole: bool = True,
             launches_expected={"q2_blocks_t": expected[0],
                                "q2_apply": expected[1]},
             max_rel_err=whole_err / xmax, tol=1e-11, host_syncs=syncs,
-            ms=all_ms, device_ms=all_dms, bytes=wbytes, fp64_ops=wops,
-            bound_ms=wb_ms, bound_by=wb_by, blocks=br.q2_block_count(n, b)))
+            ms=all_ms, device_ms=all_dms, q2_apply_device_ms=split[
+                "q2_apply"], q2_blocks_t_device_ms=split["q2_blocks_t"],
+            bytes=wbytes, fp64_ops=wops, bound_ms=wb_ms, bound_by=wb_by,
+            blocks=br.q2_block_count(n, b),
+            **q2_a_traffic(n, b, n, range(3 * Kmax - 2), plan)))
         if replaced:
             row["whole"].update(
                 replaced_loop_ms=1e3 * timed(
@@ -4538,9 +4568,21 @@ def main(argv=None) -> int:
         chase_full[name]["phase_over_l2_bound"] = (
             1e3 * chase_full[name]["band_to_tridiag_s"]
             / chase_full[name]["l2_bound_ms"])
+    # the backtransform through Q2 beside its bound, both bands
+    q2_full = {}
+    for name, bb, run in (("band_128", 128, two_full),
+                          ("u_16", 16, banded_full)):
+        Kmax, _, _ = br._wave_geometry(N, bb)
+        waves = range(3 * Kmax - 2)
+        _, _, _, b_ms, b_by = q2_wave_bound(N, bb, N, waves)
+        plan = br._q2_device_plan(torch.cuda.current_device(), bb)
+        phase_s = run["phases_s"]["dense.apply_q2"]
+        q2_full[name] = dict(apply_q2_s=phase_s, bound_ms=b_ms, bound_by=b_by,
+                             phase_over_bound=1e3 * phase_s / b_ms,
+                             **q2_a_traffic(N, bb, N, waves, plan))
     emit({"phase": "dense_two_stage_full", "n": N, "matrix": "the dense "
           "phase's", "eigh_band_128": two_full, "eigh_banded_u_16":
-          banded_full, "chase": chase_full,
+          banded_full, "chase": chase_full, "apply_q2": q2_full,
           "one_stage_wall_s": {"cold": cold["wall_s"],
                                "warm": warm["wall_s"]}})
     del A, ref_a

@@ -65,14 +65,14 @@ _PANEL_ARGTYPES = [_P, _LL, _P, _LL, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                    _I, _P]
 _Q2T_ARGTYPES = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]
 _Q2T_STAGED_ARGTYPES = [_I, _P]
-_Q2_OCCUPANCY_ARGTYPES = [_I, _I, _P]
-_Q2_ARGTYPES = [_P, _LL, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P]
+_Q2_OCCUPANCY_ARGTYPES = [_I, _I, _I, _P]
+_Q2_ARGTYPES = [_P, _LL, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P]
 _CHASE_WHOLE_B = 32         # band_chase gives a block a whole task to b <= 32
 _CHASE_THREADS = (256, 512)   # its blocks: a whole task, a slot's items
 _CHASE_CHUNK_MIN = 16       # the narrowest a wave's chunk gets (kChunkMin)
 _QR_THREADS = 256           # kQrThreads of panel_qr
 _QR_WARPS = _QR_THREADS // 32
-_OCCUPANCY = {}             # (kernel, device index, smem) -> occupancy
+_OCCUPANCY = {}             # (kernel, device index, ...) -> occupancy, plan
 
 
 class ChasePlan(NamedTuple):
@@ -832,10 +832,17 @@ def apply_q2_wave_blocked_plain(n: int, band: int, vlog, X):
 
 
 class Q2Plan(NamedTuple):
-    """``q2_apply``'s launch: tiles of ``tile`` columns a block of threads,
-    ``smem`` dynamic shared bytes."""
+    """``q2_apply``'s launch at a band: tiles of ``tile`` columns a block of
+    threads, ``smem`` dynamic shared bytes, ``resident`` blocks of threads
+    an SM holds, ``a_bytes`` the bytes of Y^T and T a block of threads
+    fetches from L2 for its tile (:func:`q2_a_bytes`; no cluster shares
+    them), and ``evict_x``: X's window rows copied and stored with L2's
+    evict-first policy (:func:`_q2_evicts`)."""
     tile: int
     smem: int
+    resident: int
+    a_bytes: int
+    evict_x: bool
 
 
 class Q2Chunk(NamedTuple):
@@ -848,6 +855,12 @@ class Q2Chunk(NamedTuple):
 
 
 _Q2_TILES = (256, 64, 32, 16, 8)   # the tile widths csrc/q2_apply.cu takes
+# the bands whose launches copy and store X's rows evict-first: there a
+# block's Y^T and T are read by every tile of X's columns and L2 keeps them
+# ahead of X (n = 16384, band 128: 6% off the backtransform); at u = 16 and
+# below the evict-first rows lose the reuse L2 gives X from wave to wave
+# (n = 4096, u = 16 and n = 16384, u = 2 and 4 ran slower with it; PERF.md)
+_Q2_EVICT_BAND = 32
 _Q2_STORE_MIN = 1 << 26            # bytes a chunk's stores may always take
 
 
@@ -1136,11 +1149,12 @@ def q2_apply_plain(X, blocks: Q2Blocks, n: int, band: int, w: int) -> None:
 
 def q2_apply_plan(band: int, optin: int,
                   resident: Callable[[int], int]) -> Q2Plan:
-    """``q2_apply``'s tile at band b on a card whose blocks may opt into
+    """``q2_apply``'s launch at band b on a card whose blocks may opt into
     ``optin`` shared bytes (``resident(tile)``: the blocks of threads an SM
     holds at that tile, from the occupancy API): the widest tile of which
     an SM holds two (one block's copies then overlap the other's products),
-    else the widest that fits.  Raises when none fits."""
+    else the widest that fits; X's rows evict-first from b = 32.  Raises
+    when none fits."""
     b = int(band)
     fits = [t for t in _Q2_TILES
             if _q2_tile_bytes(b, t) <= optin and resident(t) >= 1]
@@ -1148,7 +1162,14 @@ def q2_apply_plan(band: int, optin: int,
         raise ValueError(f"q2_apply: no tile fits b={b}")
     two = [t for t in fits if resident(t) >= 2]
     t = (two or fits)[0]
-    return Q2Plan(t, _q2_tile_bytes(b, t))
+    return Q2Plan(t, _q2_tile_bytes(b, t), resident(t), q2_a_bytes(b),
+                  _q2_evicts(b))
+
+
+def _q2_evicts(b: int) -> bool:
+    """Whether ``q2_apply`` copies and stores X's rows evict-first at band
+    b (the kernel's instance: csrc/q2_apply.cu's EVICT)."""
+    return b >= _Q2_EVICT_BAND
 
 
 def _q2_tile_bytes(b: int, tile: int) -> int:
@@ -1160,6 +1181,22 @@ def _q2_tile_bytes(b: int, tile: int) -> int:
     return 8 * (rows + ((b + 15) & ~15)) * (tile + 4)
 
 
+def q2_a_bytes(band: int) -> int:
+    """Bytes of Y^T and T a ``q2_apply`` block of threads fetches at band b,
+    each MMA A fragment (16 rows x one k-step of 4, 512 bytes) once: W1's
+    row tiles i0 over k-steps i0 .. min(h, i0 + b + 15) - 1, W2's over i0
+    .. b - 1, the update's row tiles r0 over the reflectors (max(0, r0 - b +
+    1) & ~3) .. min(b, r0 + 16) - 1 (Y^T read twice).  368,640 at b = 128.
+    A tile's column groups of warps fetch the same fragments, through L1."""
+    b = int(band)
+    h = 2 * b - 1
+    steps = sum(len(range(i0, min(h, i0 + 15 + b), 4)) + len(range(i0, b, 4))
+                for i0 in range(0, (b + 15) & ~15, 16))
+    steps += sum(len(range(max(0, r0 - b + 1) & ~3, min(b, r0 + 16), 4))
+                 for r0 in range(0, (h + 15) & ~15, 16))
+    return 512 * steps
+
+
 def _q2_occupancy(index: int, b: int, tile: int):
     key = ("q2_apply", index, b, tile)
     got = _OCCUPANCY.get(key)
@@ -1168,15 +1205,20 @@ def _q2_occupancy(index: int, b: int, tile: int):
         fn = _build.function("q2_apply", "q2_apply_occupancy",
                              _Q2_OCCUPANCY_ARGTYPES)
         with torch.cuda.device(index):
-            rc = fn(b, tile, ctypes.addressof(out))
+            rc = fn(b, tile, int(_q2_evicts(b)), ctypes.addressof(out))
         _build.check_launch(rc, "q2_apply_occupancy")
         got = _OCCUPANCY[key] = tuple(out)
     return got
 
 
 def _q2_device_plan(index: int, b: int) -> Q2Plan:
-    _, _, optin = _q2_occupancy(index, b, _Q2_TILES[-1])
-    return q2_apply_plan(b, optin, lambda t: _q2_occupancy(index, b, t)[0])
+    key = ("q2_plan", index, b)
+    got = _OCCUPANCY.get(key)
+    if got is None:
+        _, _, optin = _q2_occupancy(index, b, _Q2_TILES[-1])
+        got = _OCCUPANCY[key] = q2_apply_plan(
+            b, optin, lambda t: _q2_occupancy(index, b, t)[0])
+    return got
 
 
 def _launch_q2_apply(X, blocks: Q2Blocks, n: int, b: int, w: int,
@@ -1189,7 +1231,7 @@ def _launch_q2_apply(X, blocks: Q2Blocks, n: int, b: int, w: int,
     fn = _build.function("q2_apply", "q2_apply_launch", _Q2_ARGTYPES)
     rc = fn(X.data_ptr(), X.stride(0), blocks.Y.data_ptr(),
             blocks.T.data_ptr(), n, X.shape[1], b, w, s_lo, count, slot0,
-            plan.tile, stream)
+            plan.tile, int(plan.evict_x), stream)
     _build.check_launch(rc, "q2_apply")
     q2_apply_launches += 1
 

@@ -306,8 +306,12 @@ def test_one_wave_against_ormqr(rng, n, b, C, zero):
 # --------------------------------------------------------------------------
 # a numpy model of the kernel's tile (csrc/q2_apply.cu::apply_block)
 
+# warps across a tile's columns (CG of q2_apply_kernel<NI, CG>), each
+# fetching the tile's A fragments
+_COLUMN_GROUPS = {256: 8, 64: 2, 32: 1, 16: 1, 8: 1}
 
-def _tile_model(X, Ts, Ys, n, b, w, slot0, ct, writes):
+
+def _tile_model(X, Ts, Ys, n, b, w, slot0, ct, writes, fetched):
     """q2_apply's launch of wave w modelled in numpy, with the kernel's own
     index arithmetic: a grid of (column tiles, count) blocks of threads, s =
     s_lo + blockIdx.y at slot slot0 + blockIdx.y of the stores; the tile
@@ -316,13 +320,17 @@ def _tile_model(X, Ts, Ys, n, b, w, slot0, ct, writes):
     steps of 4, W2 over j = i0 .. g - 1, the update's row tile r0 over i =
     (max(0, r0 - b + 1) & ~3) .. min(g, r0 + 16); rows r < min(h, n - base)
     and columns < C written; Y^T and T read from their stores (Ys, Ts)
-    over exactly those ranges.  ``writes`` counts each (row, column)
-    written."""
+    over exactly those ranges, each A fragment (16 rows x 4 columns)
+    counted where a warp fetches it: each phase fetches an entry once for
+    each column group of the tile.  ``writes`` counts each (row, column)
+    written; ``fetched`` gets each block of threads' A bytes (an entry once
+    a phase)."""
     g, h = b, 2 * b - 1
     Kmax, _, _ = tband._wave_geometry(n, b)
     HS, GP = 2 * b + 2, (b + 15) & ~15
     HP = (h + 15) & ~15
     C = X.shape[1]
+    cg = _COLUMN_GROUPS[ct]
     s_lo, s_hi = tband.q2_wave_range(n, b, w)
     for y in range(s_hi - s_lo + 1):
         s = s_lo + y
@@ -335,6 +343,9 @@ def _tile_model(X, Ts, Ys, n, b, w, slot0, ct, writes):
         for tile in range(-(-C // ct)):
             c0 = tile * ct
             cols = min(ct, C - c0)
+            reads = [np.zeros(Yt.shape, dtype=np.int64),
+                     np.zeros(T.shape, dtype=np.int64),
+                     np.zeros(Yt.shape, dtype=np.int64)]
             Gs = np.zeros((HS, ct))
             Gs[:rows, :cols] = X[base:base + rows, c0:c0 + cols]
             W = np.zeros((GP, ct))
@@ -342,35 +353,45 @@ def _tile_model(X, Ts, Ys, n, b, w, slot0, ct, writes):
                 r = np.arange(i0, min(h, i0 + 15 + b), 4)[:, None] \
                     + np.arange(4)
                 r = r.ravel()
+                reads[0][i0:i0 + 16, r] += cg
                 W[i0:i0 + 16] = Yt[i0:i0 + 16, r] @ Gs[r]
             W2 = np.zeros_like(W)
             for i0 in range(0, GP, 16):
                 j = (np.arange(i0, g, 4)[:, None] + np.arange(4)).ravel()
+                reads[1][i0:i0 + 16, j] += cg
                 W2[i0:i0 + 16] = T[i0:i0 + 16, j] @ W[j]
             for r0 in range(0, HP, 16):
                 lo, hi = max(0, r0 - b + 1) & ~3, min(g, r0 + 16)
                 i = (np.arange(lo, hi, 4)[:, None] + np.arange(4)).ravel()
+                reads[2][i, r0:r0 + 16] += cg
                 upd = Yt[i, r0:r0 + 16].T @ W2[i]
                 for rr in range(r0, min(r0 + 16, rows)):
                     X[base + rr, c0:c0 + cols] = Gs[rr, :cols] \
                         - upd[rr - r0, :cols]
                     writes[base + rr, c0:c0 + cols] += 1
+            # each phase fetches an entry once a column group
+            assert all(set(np.unique(m)) <= {0, cg} for m in reads)
+            fetched.append(8 * sum(int((m > 0).sum()) for m in reads))
 
 
 @pytest.mark.parametrize("n,b,C,ct,zero", [(61, 8, 40, 32, None),
                                            (90, 16, 9, 256, None),
                                            (60, 6, 21, 8, (20, 35)),
                                            (35, 16, 17, 16, None),
-                                           (23, 2, 5, 64, None)])
+                                           (23, 2, 5, 64, None),
+                                           (90, 40, 150, 64, None),
+                                           (77, 33, 70, 32, (30, 45))])
 def test_tile_model_matches_the_plain_wave(rng, n, b, C, ct, zero):
     """The numpy model of the kernel's tile over every wave, each chunk's
     stores made before its first wave (chunks of a few slots), against the
     plain loop (1e-13 of max|X|): its contraction ranges hold every nonzero
     of Y, T and W; every write lies in rows [0, n) and columns [0, C),
-    each (row, column) at most once a wave; and a block whose reflectors
-    are all identities leaves its rows bit for bit."""
+    each (row, column) at most once a wave; each block of threads fetches
+    each entry of Y^T and T once a phase and column group, q2_a_bytes(b)
+    in all (wide bands too: b = 40 and 33 over several tiles, a ragged
+    last one); and a block whose reflectors are all identities leaves its
+    rows bit for bit."""
     _, Vw, tw = _log(rng, n, b, zero)
-    Kmax, _, _ = tband._wave_geometry(n, b)
     X0 = rng.standard_normal((n, C))
     ref = tband.apply_q2_wave_blocked_plain(n, b, (Vw, tw),
                                             torch.as_tensor(X0)).numpy()
@@ -380,9 +401,13 @@ def test_tile_model_matches_the_plain_wave(rng, n, b, C, ct, zero):
                   for x in tband.q2_blocks_t(n, b, Vw, tw, chunk)[:2])
         for w in range(chunk.w0, chunk.w1):
             writes = np.zeros((n + 4 * b, C + 256), dtype=np.int64)
+            fetched = []
             _tile_model(X, Ts, Ys, n, b, w, (w - chunk.w0) * chunk.S, ct,
-                        writes)
+                        writes, fetched)
             assert writes.max(initial=0) <= 1
+            s_lo, s_hi = tband.q2_wave_range(n, b, w)
+            assert fetched == [tband.q2_a_bytes(b)] * (
+                max(0, s_hi - s_lo + 1) * -(-C // ct))
         assert writes[n:].sum() == 0 and writes[:, C:].sum() == 0
     assert np.abs(X - ref).max() <= 1e-13 * np.abs(X0).max()
     # an all-identity block: zero its reflectors in a copy of the log
@@ -396,7 +421,7 @@ def test_tile_model_matches_the_plain_wave(rng, n, b, C, ct, zero):
         n, b, Vz, tz, tband.Q2Chunk(0, 1, 1))[:2])
     X = X0.copy()
     _tile_model(X, Tz, Yz, n, b, 0, 0, ct,
-                np.zeros((n + 4 * b, C + 256), dtype=np.int64))
+                np.zeros((n + 4 * b, C + 256), dtype=np.int64), [])
     assert np.array_equal(X, X0)
 
 
@@ -414,14 +439,23 @@ def test_apply_plan():
     """q2_apply_plan with a card's figures: the widest tile of which an SM
     holds two (u=16: 256 columns; band 128: 32, its 64-column tile fits
     once; band 256: 8), the widest that fits where none fits twice, and
-    raises where no tile fits."""
+    raises where no tile fits.  Each plan states its shared bytes, the
+    blocks of threads an SM holds, the A bytes a block of threads fetches
+    for its tile (q2_a_bytes: 368,640 at band 128, W1 147,456 + W2 73,728
+    + the update 147,456, so 1.56 TB from L2 at n=16384), and whether X's
+    rows go evict-first (from band 32)."""
     optin = 232448
     got = {b: tband.q2_apply_plan(b, optin, lambda t, b=b: _resident(b, t))
            for b in (2, 16, 128, 256)}
-    assert {b: p.tile for b, p in got.items()} == {2: 256, 16: 256, 128: 32,
-                                                   256: 8}
+    assert {b: (p.tile, p.resident, p.evict_x) for b, p in got.items()} \
+        == {2: (256, 4, False), 16: (256, 2, False), 128: (32, 2, True),
+            256: (8, 3, True)}
     assert all(p.smem == tband._q2_tile_bytes(b, p.tile) <= optin
-               for b, p in got.items())
+               and p.a_bytes == tband.q2_a_bytes(b) for b, p in got.items())
+    assert [tband.q2_a_bytes(b) for b in (2, 16, 128, 256)] == [
+        1536, 10240, 368640, 1392640]
+    blocks = tband.q2_block_count(16384, 128)
+    assert blocks * 16384 // 32 * got[128].a_bytes == 1_558_267_822_080
     assert tband.q2_apply_plan(128, optin, lambda t: min(
         _resident(128, t), 1)).tile == 64
     with pytest.raises(ValueError):
@@ -450,12 +484,19 @@ def test_bindings_match_the_source(source, symbol, argtypes):
 
 
 def test_source_tile_geometry_matches_the_plan():
-    """The tile widths, shared bytes and Y store stride csrc/q2_apply.cu
-    takes are the plan's (_Q2_TILES, _q2_tile_bytes, _q2_y_stride)."""
+    """The tile widths, their column groups, shared bytes and Y store
+    stride csrc/q2_apply.cu takes are the plan's and the model's
+    (_Q2_TILES, _COLUMN_GROUPS, _q2_tile_bytes, _q2_y_stride); each tile
+    has an instance with X's rows evict-first and one without."""
     text = (_build.CSRC / "q2_apply.cu").read_text()
-    cases = [int(x) for x in
-             re.findall(r"case (\d+): return q2_apply_kernel", text)]
-    assert sorted(cases, reverse=True) == list(tband._Q2_TILES)
+    cases = re.findall(
+        r"case (\d+): return q2_apply_kernel<(\d+), (\d+), EVICT>", text)
+    assert sorted((int(ct) for ct, _, _ in cases), reverse=True) \
+        == list(tband._Q2_TILES)
+    assert {int(ct): int(cg) for ct, _, cg in cases} == _COLUMN_GROUPS
+    assert all(8 * int(ni) * int(cg) == int(ct) for ct, ni, cg in cases)
+    assert "return evict ? tile_kernel<true>(ct) : tile_kernel<false>(ct);" \
+        in text
     assert "return ((2 * b - 1 + 3) + 1) & ~1;" in text
     assert "return (b + 15) & ~15;" in text
     assert "8LL * (g_rows(b) + w_rows(b)) * (ct + 4)" in text
@@ -483,6 +524,7 @@ def _fake_card(monkeypatch, calls):
     monkeypatch.setattr(torch.cuda, "current_stream", lambda index=None:
                         types.SimpleNamespace(cuda_stream=7))
     monkeypatch.setattr(tband, "_q2_t_staged", lambda index, b: True)
+    monkeypatch.setattr(tband, "_OCCUPANCY", {})    # no plan of another test
     monkeypatch.setattr(tband, "q2_blocks_t_launches", 0)
     monkeypatch.setattr(tband, "q2_apply_launches", 0)
 
@@ -518,7 +560,7 @@ def test_cuda_wrappers_launch_with_faked_card(monkeypatch):
                 J, _ = _keep(n, b, w)
                 want.append(("q2_apply_launch",
                              (n, C, b, w, Kmax - 1 - int(J[0]), len(J),
-                              (w - c.w0) * c.S, 256, 7)))
+                              (w - c.w0) * c.S, 256, 0, 7)))
     for sym, args in calls:
         got.append((sym, args[4:]))
     assert got == want
@@ -548,6 +590,31 @@ def test_cuda_wrappers_launch_with_faked_card(monkeypatch):
         tband._launch_q2_wave_blocked(n, b, (vlog[0][:, :, :4], vlog[1]), X)
     with pytest.raises(ValueError, match="unit column stride"):
         tband._launch_q2_wave_blocked(n, b, vlog, X.t().contiguous().t())
+
+
+def test_cuda_wrappers_launch_band_128(monkeypatch):
+    """At band 128 (n=800, 100 columns) every q2_apply launch of
+    apply_q2_wave_blocked, with the card's calls faked, takes the plan's
+    32-column tile and X's rows evict-first, with its wave's first block,
+    live count and first slot, and q2_wave_count of them are made."""
+    calls = []
+    _fake_card(monkeypatch, calls)
+    n, b, C = 800, 128, 100
+    meta = dict(dtype=torch.float64, device="meta")
+    Kmax, _, _ = tband._wave_geometry(n, b)
+    vlog = (torch.empty((n - 1, Kmax, b), **meta),
+            torch.empty((n - 1, Kmax), **meta))
+    tband._launch_q2_wave_blocked(n, b, vlog, torch.empty((n, C), **meta))
+    got = [args[4:] for sym, args in calls if sym == "q2_apply_launch"]
+    want = []
+    for c in tband.q2_device_chunks(n, b, 0):
+        for w in range(c.w0, c.w1):
+            J, _ = _keep(n, b, w)
+            if len(J):
+                want.append((n, C, b, w, Kmax - 1 - int(J[0]), len(J),
+                             (w - c.w0) * c.S, 32, 1, 7))
+    assert got == want and len(want) == tband.q2_wave_count(n, b) > 3
+    assert tband.q2_apply_launches == len(want)
 
 
 @pytest.mark.parametrize("b", [2, 4])
