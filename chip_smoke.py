@@ -59,7 +59,7 @@ exits non-zero:
                against the plain loop (device time a column by kernel,
                launches, the cost of a grid sync); a whole tridiagonalize
                at n=1024 against the plain column step (2e-12 n max|A|);
-               larft at nb=32 and 128 against its plain loop; the
+               larft at nb=32, 128, 127 and 1 against its plain loop; the
                wavefront chase (band_chase, the whole chase one
                cooperative launch) at (n, b) = (4096, 128), (4096, 16),
                (1024, 128), (1024, 16), (1024, 256) against the plain wave loop on the
@@ -71,7 +71,8 @@ exits non-zero:
                grid sync a wave); the panel QR (panel_qr, one launch a panel) at
                m=4096 and 16384, b=128, a middle panel, one with 5 live
                columns and a 1024-column one, against the plain column loop (Yp, tp within
-               2e-12 m), and a whole reduce_to_band at n=1024; the
+               2e-12 m; one grid sync a column; the wrapper's host path),
+               and a whole reduce_to_band at n=1024; the
                backtransform through Q2: every block's T (q2_blocks_t, one
                launch a chunk of waves) of the chase's log at (n, b) =
                (4096, 128), (4096, 16), (16384, 128) against its plain
@@ -130,7 +131,8 @@ exits non-zero:
                then (dense_two_stage_full) the same matrix through
                eigh(band=128) and its band u=16 through eigh_banded, all
                eigenpairs, the three limits, phases, peak memory and
-               launches, beside the one-stage walls; dense.apply_q2 of
+               launches (larft's beside panel_qr's), beside the
+               one-stage walls; dense.apply_q2 of
                both beside its bound and its A operands' L2 traffic
   9. dense_two_stage  eigh(band=128) and eigh_banded (u=16) at n=4096, the
                same three limits (larft once a panel of reduce_to_band and
@@ -1135,10 +1137,10 @@ def plain_column_steps():
         tridiag_mod.column_steps = saved
 
 
-def check_larft(nb: int, width: int, reps: int):
-    """larft on an apply_q panel's Gram (nb reflectors over ``width``
-    columns, reflector structure, one tau 0) against larft_plain: T within
-    1e-13 max|T|."""
+def larft_inputs(nb: int, width: int):
+    """An apply_q panel's Gram and taus: nb reflectors over ``width``
+    columns with the reflector structure (unit on the superdiagonal, zero
+    left of it), one identity reflector (tau 0, v 0) where nb > 1."""
     g = torch.Generator(device="cuda").manual_seed(12)
     Vp = torch.randn((nb, width), dtype=torch.float64, device="cuda",
                      generator=g).triu_(1).div_(width ** 0.5)
@@ -1146,9 +1148,18 @@ def check_larft(nb: int, width: int, reps: int):
     Vp[idx, idx + 1] = 1.0
     tau = torch.rand(nb, dtype=torch.float64, device="cuda",
                      generator=g).add_(1.0)
-    tau[nb // 3] = 0.0
-    Vp[nb // 3] = 0.0
-    G = dm.dword_matmul(Vp, Vp.T.contiguous())
+    if nb > 1:                 # one identity reflector
+        tau[nb // 3] = 0.0
+        Vp[nb // 3] = 0.0
+    return dm.dword_matmul(Vp, Vp.T.contiguous()), tau
+
+
+def check_larft(nb: int, width: int, reps: int):
+    """larft on an apply_q panel's Gram (larft_inputs) against larft_plain:
+    T within 1e-13 max|T|, the lower triangle exactly zero; CUDA events,
+    device time and the wrapper's host path alone; the bound counts G's
+    strict upper triangle and the taus read, T written."""
+    G, tau = larft_inputs(nb, width)
     before = hp.larft_launches
     got = hp.larft(G, tau)
     one = hp.larft_launches - before == 1
@@ -1159,7 +1170,9 @@ def check_larft(nb: int, width: int, reps: int):
     ms = time_ms(lambda: hp.larft(G, tau), reps)
     dms = device_ms(lambda: hp.larft(G, tau), reps)
     plain = time_ms(lambda: hp.larft_plain(G, tau), reps)
-    b_ms, b_by = bound(nb ** 3 / 3.0, PEAK_FP64, 8.0 * (2 * nb * nb + nb))
+    b_ms, b_by = bound(nb ** 3 / 3.0, PEAK_FP64,
+                       8.0 * (nb * (nb - 1) // 2 + nb + nb * nb))
+    joins = ((nb - 1) // 32).bit_length()
     return dict(nb=nb, width=width, max_rel_err=err, tol=1e-13,
                 tol_of="max|T|", max_abs_err=float((got - ref).abs().max()),
                 one_launch=one, run_to_run_identical=same,
@@ -1169,8 +1182,10 @@ def check_larft(nb: int, width: int, reps: int):
                     hp._SHARED_ARGTYPES)(nb),
                 ms=ms, device_ms=dms, plain_ms=plain, library_ms=None,
                 bound_ms=b_ms, bound_by=b_by,
-                latency_note=f"{nb - 1} dependent triangular matvecs "
-                f"({nb * (nb - 1) // 2} dependent FMA steps on row 0)")
+                host_launch_us=host_launch_us(lambda: hp.larft(G, tau), reps),
+                latency_note=f"{min(nb, 32) - 1} dependent steps in each "
+                f"32-column diagonal block, then {joins} rounds of joins "
+                "(two block products each)")
 
 # --------------------------------------------------------------------------
 # the two-stage front end's kernels: the wavefront chase and the panel QR
@@ -1217,11 +1232,19 @@ def l2_copy_rate():
     return rate, dict(_L2_COPY_US)
 
 
-def panel_grid(m: int, b: int):
-    index = torch.cuda.current_device()
-    _, sms, optin = br._occupancy("panel_qr", index, 0)
-    return br.panel_qr_plan(m, b, sms, optin, lambda smem: br._occupancy(
-        "panel_qr", index, smem)[0])
+def host_launch_us(fn, reps: int) -> float:
+    """The host's time a call of ``fn`` (its wrapper's plan, workspace,
+    ctypes call and launch), over ``reps`` calls enqueued behind a device
+    spin long enough that the device never waits for the host."""
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(1_000_000_000)
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return 1e6 * dt / reps
 
 
 def chase_bound(n: int, b: int, sync_us: float):
@@ -1357,9 +1380,13 @@ def check_panel_qr(m: int, o: int, b: int, reps: int):
     """The QR of the panel at column o of a bucket of width m (b = 128; a
     dense_matrix) against panel_qr_plain on the card: Yp within 2e-12 m
     max|Yp| and tp within 2e-12 m; As untouched; one launch, run-to-run
-    identical; the bound (the panel read and the reflectors written once
-    against the FP64 operations) and a latency form (the live panel's
-    bytes a column plus two grid syncs a column); the library's time, one
+    identical; its grid syncs as the kernel counts them (the second run),
+    one a column; CUDA events and the profiler's device time side by side,
+    and the wrapper's host path alone; the bound (the panel's live entries,
+    (m - o - b) b, read and the reflectors written once, against the FP64
+    operations) and a latency
+    form (the live panel's bytes a column plus one grid sync a column),
+    beside the partials every block reads from L2; the library's time, one
     torch.geqrf of the same (m - o - b) x b panel (LAPACK's reflectors and
     taus, the kernel's convention in another layout: their distance to the
     kernel's is reported, not held; an identity reflector, tau = 0, has
@@ -1377,7 +1404,9 @@ def check_panel_qr(m: int, o: int, b: int, reps: int):
     err_t = float((tp - tr).abs().max())
     rel = max(err_y / float(Yr.abs().max()), err_t) / m
     Y2, t2 = A.new_zeros((b, m)), A.new_zeros(b)
-    br.panel_qr(A, o, b, Y2, t2)
+    count = torch.zeros(1, dtype=torch.int64, device=A.device)
+    br.panel_qr(A, o, b, Y2, t2, syncs=count)
+    syncs = int(count.item())
     same = torch.equal(Y2, Yp) and torch.equal(t2, tp)
     untouched = torch.equal(A, A0)
     del A0, Y2, t2
@@ -1395,13 +1424,18 @@ def check_panel_qr(m: int, o: int, b: int, reps: int):
     del qr, tau_l, V
     lib_ms = time_ms(lambda: torch.geqrf(panel), reps)
     lib_dms = device_ms(lambda: torch.geqrf(panel), reps)
-    plan = panel_grid(m, b)
+    host_us = host_launch_us(lambda: br.panel_qr(A, o, b, Yp, tp), reps)
+    plan = br.panel_qr_device_plan(m, o, b, torch.cuda.current_device())
     sync = grid_sync_us(plan.grid)
     us = [o + b + j for j in range(cnt)]
-    nbytes = 8.0 * (b * m + sum(m - u for u in us) + cnt)
+    nbytes = 8.0 * (b * (m - o - b) + sum(m - u for u in us) + cnt)
     ops = float(sum(4 * (cnt - j) * (m - u) for j, u in enumerate(us)))
     b_ms, b_by = bound(ops, PEAK_FP64, nbytes)
     col_bytes = sum(8.0 * (cnt - j) * (m - u) for j, u in enumerate(us))
+    # the partials every block reads after each sync: grid doubles a live
+    # row, at the L2 rate this run measures
+    part_bytes = 8.0 * plan.grid * plan.grid * sum(cnt - j
+                                                   for j in range(cnt))
     return dict(m=m, o=o, b=b, live_columns=cnt,
                 what=f"panel QR, m={m}, o={o}, b={b}",
                 max_rel_err=rel, tol=2e-12,
@@ -1413,14 +1447,20 @@ def check_panel_qr(m: int, o: int, b: int, reps: int):
                 library_ms=lib_ms, library_device_ms=lib_dms,
                 library_is="torch.geqrf of the panel As[o+b:, o:o+b]",
                 library_distance=lib_errs, plan=plan._asdict(),
+                host_launch_us=host_us,
+                host_launch_is="the wrapper's host path a call, the device "
+                "kept busy ahead of it",
+                grid_syncs=syncs, syncs_per_column=syncs / cnt,
                 grid_sync_us=sync,
+                partials_bytes_from_l2=part_bytes,
+                partials_l2_ms=1e3 * part_bytes / l2_copy_rate()[0],
                 bound_ms=b_ms, bound_by=b_by,
-                bound_is="max(panel read + reflectors written once / 3.35 "
-                "TB/s, FP64 ops / 34 TFLOP/s)",
+                bound_is="max(the panel's live entries read + reflectors "
+                "written once / 3.35 TB/s, FP64 ops / 34 TFLOP/s)",
                 per_column_bound_ms=1e3 * col_bytes / PEAK_BYTES
-                + 2e-3 * cnt * sync,
+                + 1e-3 * syncs * sync,
                 per_column_bound_is="the live panel's bytes a column at "
-                "3.35 TB/s plus two grid syncs a column")
+                "3.35 TB/s plus the grid syncs the kernel counted")
 
 
 def whole_band_reduction_row(n: int = 1024, b: int = 128, reps: int = 3):
@@ -4084,7 +4124,7 @@ def two_stage_solves(A, ref, band: int, u: int):
     require(lt["larft"] == larft, f"larft launched {lt['larft']} times on "
             f"the two-stage path, not {larft}")
     expect = {"band_chase": br.chase_launch_count(n, band),
-              "panel_qr": br.panel_qr_count(n, band),
+              "panel_qr": br.panel_qr_count(n, band), "larft": larft,
               "q2_blocks_t": len(br.q2_device_chunks(n, band, index)),
               "q2_apply": br.q2_wave_count(n, band)}
     require(all(lt[k] == v for k, v in expect.items()),
@@ -4229,8 +4269,11 @@ def kernel_table(d, e, ref):
         "column_w_reflector": lambda: [*column_step_rows()[2],
                                        whole_panel_row()],
         # apply_q's panel (nb=32 over n=16384) and the two-stage path's
-        # (nb = band = 128 over n=4096)
-        "larft": lambda: [check_larft(32, N, 50), check_larft(128, 4096, 20)],
+        # (nb = band = 128 over n=4096), a ragged one (apply_q's last
+        # panel) and nb=1
+        "larft": lambda: [check_larft(32, N, 50), check_larft(128, 4096, 20),
+                          check_larft(127, 4096, 20),
+                          check_larft(1, 4096, 20)],
         # the chase at the two-stage path's shape first (n=4096, band 128),
         # then eigh_banded's (u=16), then both at n=1024, and band 256 (its
         # b x b block past shared memory: the global work tile)
@@ -4307,6 +4350,8 @@ def run_kernel_checks(table, names):
                     f"{name}: wrote outside the view it was given: {row}")
             require(row.get("one_launch", True),
                     f"{name}: more than one launch a call: {row}")
+            require(row.get("syncs_per_column", 1) == 1,
+                    f"{name}: not one grid sync a column: {row}")
             require(row.get("lower_triangle_zero", True),
                     f"{name}: nonzero below the diagonal: {row}")
             require(row.get("shift_choices_identical", True),

@@ -73,17 +73,32 @@
 // panel_qr.  For j = 0 .. cnt - 1 (u = o + b + j < m): the Householder
 // reflector of panel row j (Pt[j] = column o + j of As, updated) at pivot u
 // (LAPACK convention: zero below u, one at u), then Pt -= tau (Pt v) v^T,
-// Yp[j] = v, tp[j] = tau.  Each block owns a slice of the m entries of every
-// panel row, cached in shared memory for the whole panel (rows that do not
-// fit stay in a global copy), so the panel is read once.  Rows above j are
-// dead (no output reads them), so column j updates rows j + 1 .. cnt - 1
-// only.  Two grid syncs a column: after the sigma2 partials, and after the
-// partials of w = Pt v.  Column j - 1's update of row j is made by every
-// block from w_j's total (the same bits everywhere) before sigma2 of
-// column j; its update of the rows past j waits for their totals, which
-// the blocks spread among themselves in that same step and read after the
-// first sync.  What bounds it: latency, the two syncs a column (the panel
-// is 128 x m, read once).
+// Yp[j] = v, tp[j] = tau.  Only the entries from o + b on are live (v is
+// zero above u), so the grid's blocks split those: each owns a slice of
+// them in every panel row, cached in shared memory for the whole panel
+// (rows that do not fit stay in a global copy), so the panel is read once.
+// Rows above j are dead (no output reads them), so column j updates rows
+// j + 1 .. cnt - 1 only, and only at entries past u (entry u of a later
+// row is never read again).  ONE grid sync a column: in one pass over its
+// slice a block makes column j's partials d_k = sum_{i > u} r_k[i] r_j[i]
+// for every live row k >= j (d_j = sigma2), and the block that owns entry u
+// publishes r_k[u]; after the sync every block sums the partials in the
+// same fixed block order (the same bits everywhere, no atomics: a warp 8
+// rows, its lanes the blocks, one round of 16-byte loads from rows padded
+// to 128 bytes, then a fixed tree over the lanes) and the warp that holds
+// row j forms alpha, tau and the denominator; then w_k = P_k . v =
+// r_k[u] + d_k / denom (v is 1 at u and r_j / denom below it; another
+// rounding than P v, equal to it up to forward stability).  The block writes v on its slice, updates row j + 1
+// and goes straight on to column j + 1's pass, which updates the rows past
+// j + 1 as it dots them with row j + 1 (a warp 8 rows, its lanes the
+// entries, every entry of a row loaded and stored once).  Partials and
+// pivot entries are double-buffered by the column's parity, so no block
+// overwrites what another still reads.  Blocks of 512 threads, one an SM.
+// What bounds it: latency, one grid sync and one round of the partials'
+// L2 reads a column (grid x live rows doubles a block), then the slice's
+// update and dot in shared memory (steps of 64 entries a warp); the plan
+// (kernels/band_reduce.py::panel_qr_plan) takes the fewest steps that 128
+// blocks allow and then the fewest blocks.
 //
 // Contractions are fused multiply-adds (__fma_rn); every other rounding is
 // written out, and v is divided by its denominator (__ddiv_rn).
@@ -94,10 +109,30 @@
 
 namespace cg = cooperative_groups;
 
+// Phase probes of panel_qr, compiled only where KERNEL_PROBES is defined
+// (tools/panel_qr_profile.py --phases builds such a copy): thread 0 of each
+// block adds the clock64 cycles since its previous probe to phase i, and
+// stores its six sums at the launch's end (panel_qr_probe_read).
+#ifdef KERNEL_PROBES
+__device__ long long g_qr[8 * 1024];
+#define QR_PROBE_START long long qacc_[6] = {0, 0, 0, 0, 0, 0}; long long qprev_ = clock64()
+#define QR_PROBE(i) do { if (threadIdx.x == 0) { const long long now_ = clock64(); \
+    qacc_[i] += now_ - qprev_; qprev_ = now_; } } while (0)
+#define QR_PROBE_STORE do { if (threadIdx.x == 0) { \
+    for (int i_ = 0; i_ < 6; ++i_) g_qr[blockIdx.x * 8 + i_] = qacc_[i_]; } } while (0)
+#else
+#define QR_PROBE_START do {} while (0)
+#define QR_PROBE(i) do {} while (0)
+#define QR_PROBE_STORE do {} while (0)
+#endif
+
 namespace {
 
-constexpr int kQrThreads = 256;   // panel_qr block
+constexpr int kQrThreads = 512;   // panel_qr block
 constexpr int kQrWarps = kQrThreads / 32;
+constexpr int kQrRows = 8;        // panel_qr: rows a warp takes at once
+constexpr int kQrEnt = 2;         // panel_qr: entries a lane takes at once, 32 apart
+constexpr int kQrLoads = 2;       // panel_qr: 16-byte partials a lane loads at once a row
 constexpr int kAhead = 8;         // loads of a thread in flight
 constexpr int kChunkMin = 16;     // band_chase: the narrowest chunk of a wave
 
@@ -118,42 +153,6 @@ __device__ __forceinline__ double block_sum_all(double x, double* red) {
   for (int w = 0; w < warps; ++w) s = __dadd_rn(s, red[w]);
   __syncthreads();
   return s;
-}
-
-// The sum over g < blocks of ws[g * stride + t] by one warp (every lane
-// calls; the total in lane 0): each lane adds its blocks g = lane,
-// lane + 32, ... in order, then a fixed tree.  Every warp gets the same bits.
-__device__ __forceinline__ double grid_total(const double* ws, int stride, int blocks, int t) {
-  const int lane = threadIdx.x & 31;
-  double s = 0.0;
-  for (int g0 = 0; g0 < blocks; g0 += 32 * kAhead) {
-    double x[kAhead];
-#pragma unroll
-    for (int q = 0; q < kAhead; ++q) {
-      const int g = g0 + lane + 32 * q;
-      x[q] = g < blocks ? __ldcg(ws + (size_t)g * stride + t) : 0.0;
-    }
-#pragma unroll
-    for (int q = 0; q < kAhead; ++q) s = __dadd_rn(s, x[q]);
-  }
-  return warp_sum(s);
-}
-
-// f(i, c) for i < rows, c < cols: with cols <= blockDim each thread keeps
-// one column c and walks the rows (neighbouring threads on neighbouring
-// columns), else each thread walks whole columns; no division per entry.
-template <typename F>
-__device__ __forceinline__ void for_tile(int rows, int cols, F f) {
-  if (cols <= (int)blockDim.x) {
-    const int per = blockDim.x / cols;
-    const int c = threadIdx.x % cols, i0 = threadIdx.x / cols;
-    if (i0 >= per) return;
-    for (int i = i0; i < rows; i += per) f(i, c);
-  } else {
-    for (int c = threadIdx.x; c < cols; c += blockDim.x) {
-      for (int i = 0; i < rows; ++i) f(i, c);
-    }
-  }
 }
 
 // ---------------------------------------------------------------------------
@@ -729,151 +728,247 @@ struct PanelQR {
   long long ldy;
   double* tp;        // (b,) taus, zero on entry
   double* Pg;        // (b, m): the panel rows k >= kc (null when kc == b)
-  double* ws;        // G b + G + 1 + b doubles
+  double* ws;        // 2 bs gs + 2 bs doubles (bs, gs: b rounded up to 2, grid to 16):
+                     // the partials and the pivot entries
+  long long* syncs;  // null, or a count the launch adds its grid syncs to
   int m, o, b, cnt, slice, kc;
 };
 
+// The sums over the warp of x[0..kQrRows-1] (each lane its own), by halving
+// exchanges then a tree: lane l ends with row l / 4's total in x[0].  A
+// fixed order: every run the same bits.
+__device__ __forceinline__ void qr_rows_sum(double* x, int lane) {
+#pragma unroll
+  for (int half = kQrRows / 2, mask = 16; half > 0; half /= 2, mask /= 2) {
+    const bool hi = (lane & mask) != 0;
+#pragma unroll
+    for (int i = 0; i < half; ++i) {
+      const double keep = hi ? x[i + half] : x[i];
+      const double send = hi ? x[i] : x[i + half];
+      x[i] = __dadd_rn(keep, __shfl_xor_sync(0xffffffffu, send, mask));
+    }
+  }
+  x[0] = __dadd_rn(x[0], __shfl_xor_sync(0xffffffffu, x[0], 2));
+  x[0] = __dadd_rn(x[0], __shfl_xor_sync(0xffffffffu, x[0], 1));
+}
+
+// kShared: every panel row in shared memory (kc == b), so the rows'
+// accesses compile to shared loads and stores; else rows past kc in Pg.
+template <bool kShared>
 __global__ void __launch_bounds__(kQrThreads) panel_qr_kernel(const PanelQR a) {
   extern __shared__ double sh[];
   cg::grid_group grid = cg::this_grid();
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int G = gridDim.x, S = a.slice, b = a.b, cnt = a.cnt;
-  const int lo = blockIdx.x * S;
+  const int bs = (b + 1) & ~1;                   // b rounded up to even
+  const int base = a.o + b;                      // the first live entry
+  const int lo = base + blockIdx.x * S;
   const int ne = max(0, min(S, a.m - lo));       // entries lo .. lo + ne - 1
-  double* red = sh;                              // kQrWarps
-  double* scal = red + kQrWarps;                 // 4
-  double* wt = scal + 4;                         // b: tau w of the rows past j
-  double* rows = wt + b;                         // kc x S
-  double* wpart = a.ws;                          // G x b: w partials, row k at g b + k
-  double* spart = a.ws + (size_t)G * b;          // G: sigma2 partials
-  double* piv = spart + G;                       // the pivot
-  double* wtot = piv + 1;                        // b: w totals of the rows past j
+  double* tot = sh;                              // bs: column j's totals d_k
+  double* pv = tot + bs;                         // bs: row k's entry at column j's pivot
+  double* tw = pv + bs;                          // bs: tau w_k of the rows past j
+  double* scal = tw + bs;                        // 4: denom, tau, v's unit, tau w_{j+1}
+  double* rows = scal + 4;                       // kc x S
+  const int gs = (G + 15) & ~15;                 // G rounded up to 16: 128-byte rows
+  double* part = a.ws;                           // 2 x bs x gs: block g's d_k at (p bs + k) gs + g
+  double* pub = part + (size_t)2 * bs * gs;      // 2 x bs: the pivot entries, by parity
+  QR_PROBE_START;
   auto row = [&](int k) -> double* {
+    if (kShared) return rows + (size_t)k * S;
     return k < a.kc ? rows + (size_t)k * S : a.Pg + (size_t)k * a.m + lo;
   };
 
-  // Pt[k][i] = As[i][o + k] on the block's slice, kAhead loads of each
+  // Pt[k][s] = As[lo + s][o + k] on the block's slice, kAhead loads of each
   // thread in flight before their stores
-  {
-    constexpr int kAhead = 8;
-    for (int base = tid; base < ne * b; base += kAhead * kQrThreads) {
-      double x[kAhead];
+  for (int at = tid; at < ne * b; at += kAhead * kQrThreads) {
+    double x[kAhead];
 #pragma unroll
-      for (int q = 0; q < kAhead; ++q) {
-        const int idx = base + q * kQrThreads;
-        if (idx < ne * b) {
-          const int s = idx / b, k = idx - s * b;
-          x[q] = __ldg(a.As + (size_t)(lo + s) * a.lda + a.o + k);
-        }
+    for (int q = 0; q < kAhead; ++q) {
+      const int idx = at + q * kQrThreads;
+      if (idx < ne * b) {
+        const int s = idx / b, k = idx - s * b;
+        x[q] = __ldg(a.As + (size_t)(lo + s) * a.lda + a.o + k);
       }
+    }
 #pragma unroll
-      for (int q = 0; q < kAhead; ++q) {
-        const int idx = base + q * kQrThreads;
-        if (idx < ne * b) {
-          const int s = idx / b, k = idx - s * b;
-          row(k)[s] = x[q];
-        }
+    for (int q = 0; q < kAhead; ++q) {
+      const int idx = at + q * kQrThreads;
+      if (idx < ne * b) {
+        const int s = idx / b, k = idx - s * b;
+        row(k)[s] = x[q];
       }
     }
   }
   __syncthreads();
 
-  double tau_prev = 0.0;
-  for (int j = 0; j < cnt; ++j) {
-    const int u = a.o + b + j;                   // the pivot entry
-    double* rj = row(j);
-    if (j > 0) {
-      // column j - 1's update of row j, from w_j's total (every block the
-      // same bits), then the totals of the rows past j spread over the
-      // blocks, a warp a row
-      if (warp == 0) {
-        const double tot = grid_total(wpart, b, G, j);
-        if (lane == 0) scal[0] = __dmul_rn(tau_prev, tot);
+  // Column c's partials on the block's slice, rows k = c .. cnt - 1: first
+  // (when `update`) column c - 1's update of rows k > c at entries >= u_c
+  // (row c was updated by the entry pass; entry u_c - 1 is never read
+  // again), then d_k = sum over entries > u_c of r_k r_c (d_c = sigma2),
+  // and r_k at u_c from the block that owns it.  A warp takes kQrRows rows
+  // at a time and its lanes the entries, 32 apart, kQrEnt a lane at once:
+  // every load of a step before its stores and no branch inside, rc and v
+  // shared by the rows, each entry of a row loaded and stored once; then
+  // the rows' sums over the warp (qr_rows_sum).
+  auto partials = [&](int c, bool update) {
+    const int sp = base + c - lo;                // the pivot's slot
+    const int s1 = max(0, sp);
+    const int p = c & 1;
+    const double* rc = row(c);
+    const double* v = update ? row(c - 1) : rc;
+    const int R = cnt - c;
+    for (int g0 = warp * kQrRows; g0 < R; g0 += kQrWarps * kQrRows) {
+      double x[kQrRows], twk[kQrRows], at_pivot[kQrRows];
+      double* rk[kQrRows];
+#pragma unroll
+      for (int i = 0; i < kQrRows; ++i) {
+        const int k = c + g0 + i;                // rows past cnt read row cnt - 1
+        rk[i] = row(min(k, cnt - 1));
+        twk[i] = update && k > c && k < cnt ? tw[k] : 0.0;
+        x[i] = 0.0;
+        at_pivot[i] = 0.0;
       }
-      for (int k = j + 1 + blockIdx.x + G * warp; k < cnt; k += G * kQrWarps) {
-        const double tot = grid_total(wpart, b, G, k);
-        if (lane == 0) wtot[k] = tot;
+      for (int e1 = s1; e1 < ne; e1 += 32 * kQrEnt) {   // every lane alike: no divergence
+        const int e0 = e1 + lane;
+        double y[kQrEnt], w[kQrEnt], r[kQrRows][kQrEnt];
+#pragma unroll
+        for (int q = 0; q < kQrEnt; ++q) {
+          const int e = min(e0 + 32 * q, ne - 1);
+          y[q] = rc[e];
+          w[q] = v[e];
+        }
+#pragma unroll
+        for (int i = 0; i < kQrRows; ++i) {
+#pragma unroll
+          for (int q = 0; q < kQrEnt; ++q) r[i][q] = rk[i][min(e0 + 32 * q, ne - 1)];
+        }
+#pragma unroll
+        for (int q = 0; q < kQrEnt; ++q) {
+          const int e = e0 + 32 * q;
+          const bool in = e < ne;
+          const double yq = in && e != sp ? y[q] : 0.0;
+#pragma unroll
+          for (int i = 0; i < kQrRows; ++i) {
+            const double ri = __fma_rn(-twk[i], w[q], r[i][q]);
+            if (in && twk[i] != 0.0) rk[i][e] = ri;
+            x[i] = __fma_rn(ri, yq, x[i]);
+            at_pivot[i] = e == sp ? ri : at_pivot[i];
+          }
+        }
       }
-      __syncthreads();
-      const double tw = scal[0];
-      const double* vp = row(j - 1);
-      for (int s = max(0, u - 1 - lo) + tid; s < ne; s += kQrThreads) {
-        rj[s] = __fma_rn(-tw, vp[s], rj[s]);
+      if (lane == 0 && sp >= 0 && sp < ne) {     // lane 0's first entry is the pivot's
+#pragma unroll
+        for (int i = 0; i < kQrRows; ++i) {
+          if (c + g0 + i < cnt) pub[p * bs + c + g0 + i] = at_pivot[i];
+        }
       }
-      __syncthreads();
+      __syncwarp();                              // converged for the shuffles
+      qr_rows_sum(x, lane);
+      const int k = c + g0 + (lane >> 2);
+      if ((lane & 3) == 0 && k < cnt) part[(size_t)(p * bs + k) * gs + blockIdx.x] = x[0];
     }
-    double part = 0.0;
-    for (int s = max(0, u + 1 - lo) + tid; s < ne; s += kQrThreads) {
-      part = __fma_rn(rj[s], rj[s], part);
-    }
-    part = block_sum_all(part, red);
-    if (tid == 0) {
-      spart[blockIdx.x] = part;
-      if (u >= lo && u < lo + ne) *piv = rj[u - lo];
-    }
-    grid.sync();
+  };
 
-    // the reflector: every block the same bits
-    if (warp == 0) {
-      const double sigma2 = grid_total(spart, 1, G, 0);
-      if (lane == 0) {
-        const double pivot = __ldcg(piv);
+  QR_PROBE(0);
+  partials(0, false);
+  QR_PROBE(1);
+  for (int j = 0; j < cnt; ++j) {
+    grid.sync();                                 // the one grid sync of column j
+    if (a.syncs != nullptr && blockIdx.x == 0 && tid == 0) *a.syncs += 1;
+    QR_PROBE(2);
+    const int u = base + j;                      // the pivot entry
+    const int p = j & 1;
+    // totals of rows j .. cnt - 1 over the blocks: a warp takes kQrRows
+    // rows, its lanes the blocks (16-byte loads of two blocks' partials,
+    // 64 blocks apart, every load in flight at once), each lane summing its
+    // blocks in order, then the rows' sums over the warp (qr_rows_sum): the
+    // same order in every block, so the same bits.  Warp 0 holds rows j
+    // and j + 1 and forms the reflector from them.
+    for (int g0 = j + warp * kQrRows; g0 < cnt; g0 += kQrWarps * kQrRows) {
+      const int kk = g0 + (lane >> 2);            // the lane's row after the sum
+      const double q0 = (lane & 3) == 0 && kk < cnt ? __ldcg(pub + p * bs + kk) : 0.0;
+      double x[kQrRows];
+#pragma unroll
+      for (int i = 0; i < kQrRows; ++i) x[i] = 0.0;
+      for (int h1 = 0; h1 < G; h1 += 64 * kQrLoads) {   // every lane alike: no divergence
+        const int h0 = h1 + 2 * lane;
+        double2 y[kQrRows][kQrLoads];
+#pragma unroll
+        for (int i = 0; i < kQrRows; ++i) {
+          const double2* src = reinterpret_cast<const double2*>(
+              part + (size_t)(p * bs + min(g0 + i, cnt - 1)) * gs);
+#pragma unroll
+          for (int q = 0; q < kQrLoads; ++q) {
+            const int h = h0 + 64 * q;
+            y[i][q] = h < G ? __ldcg(src + h / 2) : make_double2(0.0, 0.0);
+            if (h + 1 >= G) y[i][q].y = 0.0;
+          }
+        }
+#pragma unroll
+        for (int i = 0; i < kQrRows; ++i) {
+#pragma unroll
+          for (int q = 0; q < kQrLoads; ++q) {
+            x[i] = __dadd_rn(x[i], y[i][q].x);
+            x[i] = __dadd_rn(x[i], y[i][q].y);
+          }
+        }
+      }
+      __syncwarp();                              // converged for the shuffles
+      qr_rows_sum(x, lane);
+      if ((lane & 3) == 0 && kk < cnt) {
+        tot[kk] = x[0];
+        pv[kk] = q0;
+      }
+      if (g0 == j) {
+        // the reflector of column j from rows j and j + 1 (lanes 0 and 4);
+        // every lane the same bits, lane 0 stores
+        const double sigma2 = __shfl_sync(0xffffffffu, x[0], 0);
+        const double pivot = __shfl_sync(0xffffffffu, q0, 0);
+        const double d1 = __shfl_sync(0xffffffffu, x[0], 4);
+        const double p1 = __shfl_sync(0xffffffffu, q0, 4);
         const double norm = __dsqrt_rn(__dadd_rn(sigma2, __dmul_rn(pivot, pivot)));
         const double alpha = pivot >= 0.0 ? -norm : norm;   // the sign avoids cancellation
         const bool no_op = sigma2 == 0.0;                    // already reduced here
-        scal[1] = no_op ? 1.0 : __dsub_rn(pivot, alpha);
-        scal[2] = no_op ? 0.0 : __ddiv_rn(__dsub_rn(alpha, pivot), alpha);
-        scal[3] = no_op ? 0.0 : 1.0;
+        const double denom = no_op ? 1.0 : __dsub_rn(pivot, alpha);
+        const double tau = no_op ? 0.0 : __ddiv_rn(__dsub_rn(alpha, pivot), alpha);
+        // w_k = P_k . v = r_k[u] + d_k / denom (v is 1 at u, r_j / denom below)
+        const double tw1 = j + 1 < cnt ? __dmul_rn(tau, __dadd_rn(p1, __ddiv_rn(d1, denom)))
+                                       : 0.0;
+        if (lane == 0) {
+          scal[0] = denom;
+          scal[1] = tau;
+          scal[2] = no_op ? 0.0 : 1.0;
+          scal[3] = tw1;
+        }
       }
     }
-    if (j > 0) {
-      for (int k = j + 1 + tid; k < cnt; k += kQrThreads) wt[k] = __dmul_rn(tau_prev, __ldcg(wtot + k));
+    __syncthreads();                             // the totals and the reflector
+    QR_PROBE(3);
+    const double denom = scal[0], tau = scal[1], unit = scal[2], tw1 = scal[3];
+    for (int k = j + 2 + tid; k < cnt; k += kQrThreads) {
+      tw[k] = __dmul_rn(tau, __dadd_rn(pv[k], __ddiv_rn(tot[k], denom)));
     }
-    __syncthreads();
-    const double denom = scal[1], tau = scal[2], unit = scal[3];
-    if (j > 0) {
-      // column j - 1's update of the rows past j
-      const int s0 = max(0, u - 1 - lo);
-      const int width = ne - s0;
-      const double* vp = row(j - 1);
-      if (width > 0) {
-        for_tile(cnt - j - 1, width, [&](int i, int c) {
-          double* rk = row(j + 1 + i);
-          rk[s0 + c] = __fma_rn(-wt[j + 1 + i], vp[s0 + c], rk[s0 + c]);
-        });
-      }
-    }
-    // v into row j's place (the row is dead) and into Yp[j]
-    const int su = max(0, u - lo);
-    for (int s = su + tid; s < ne; s += kQrThreads) {
+    // v into row j's place (the row is dead) and into Yp[j]; column j's
+    // update of row j + 1, the next pivot row, at entries > u
+    const bool next = j + 1 < cnt;
+    double* rj = row(j);
+    double* r1 = next ? row(j + 1) : nullptr;
+    for (int s = max(0, u - lo) + tid; s < ne; s += kQrThreads) {
       const int i = lo + s;
       const double vi = i == u ? unit : __ddiv_rn(rj[s], denom);
       rj[s] = vi;
       a.Yp[(size_t)j * a.ldy + i] = vi;
+      if (next && i > u) r1[s] = __fma_rn(-tw1, vi, r1[s]);
     }
+    QR_PROBE(4);
     if (blockIdx.x == 0 && tid == 0) a.tp[j] = tau;
-    __syncthreads();
-    // the block's partials of w_k = Pt[k] . v, k = j + 1 .. cnt - 1: `parts`
-    // consecutive lanes a row, each over every parts-th entry in order
-    const int R = cnt - j - 1;
-    if (R > 0) {
-      int parts = 32;
-      while (parts > 1 && parts * R > kQrThreads) parts >>= 1;
-      const int pi = tid & (parts - 1);
-      for (int t0 = 0; t0 < R; t0 += kQrThreads / parts) {
-        const int t = t0 + tid / parts;
-        double x = 0.0;
-        if (t < R) {
-          const double* rk = row(j + 1 + t);
-          for (int s = su + pi; s < ne; s += parts) x = __fma_rn(rk[s], rj[s], x);
-        }
-        for (int off = parts >> 1; off > 0; off >>= 1) x += __shfl_down_sync(0xffffffffu, x, off);
-        if (t < R && pi == 0) wpart[(size_t)blockIdx.x * b + j + 1 + t] = x;
-      }
+    if (next) {
+      __syncthreads();                           // v, row j + 1 and tw
+      partials(j + 1, true);
     }
-    tau_prev = tau;
-    grid.sync();
+    QR_PROBE(5);
   }
+  QR_PROBE_STORE;
 }
 
 int coop_occupancy(const void* fn, int threads, int smem, void* out) {
@@ -972,30 +1067,49 @@ extern "C" int band_chase_launch(const void* B, long long ldb, void* Q, void* Vw
                      stream);
 }
 
+// (blocks of panel_qr one SM holds at `smem` dynamic shared bytes, the SM
+// count, the shared bytes a block may opt into) of the current device, into
+// out[0..2], for both instances (the second's); opts them into that much
+// shared memory first.
 extern "C" int panel_qr_occupancy(int smem, void* out) {
-  return coop_occupancy((const void*)panel_qr_kernel, kQrThreads, smem, out);
+  const int err = coop_occupancy((const void*)panel_qr_kernel<false>, kQrThreads, smem, out);
+  return err != 0 ? err
+                  : coop_occupancy((const void*)panel_qr_kernel<true>, kQrThreads, smem, out);
 }
 
 // The QR of the panel at columns o .. o + b - 1 of the bucket As (m, m) f64,
 // row stride lda: cnt = min(b, m - o - b) live columns (0 < cnt); Yp
 // (b, ldy >= m) and tp (b,) zero-filled receive the reflectors and taus;
-// Pg (b, m) holds the rows past kc (null when kc == b); ws
-// grid b + grid + 1 + b doubles.  grid blocks of `slice` entries
-// (grid * slice >= m), kc panel rows cached in `smem` bytes, from
+// Pg (b, m) holds the rows past kc (null when kc == b); ws 2 bs gs + 2 bs
+// doubles (bs, gs: b rounded up to 2, grid to 16), 16-byte aligned; syncs
+// null, or one int64 the launch adds its grid syncs to (one a column).  grid
+// blocks of `slice` of the m - o - b live entries (grid * slice >= m - o -
+// b), kc panel rows cached in `smem` bytes, from
 // kernels/band_reduce.py::panel_qr_plan after panel_qr_occupancy.  One
-// cooperative kernel on `stream`; returns the launch's cudaError_t.
+// cooperative kernel on `stream`, cnt grid syncs; returns the launch's
+// cudaError_t.
 extern "C" int panel_qr_launch(const void* As, long long lda, void* Yp, long long ldy,
-                               void* tp, void* Pg, void* ws, int m, int o, int b, int cnt,
-                               int slice, int kc, int grid, int smem, void* stream) {
+                               void* tp, void* Pg, void* ws, void* syncs, int m, int o,
+                               int b, int cnt, int slice, int kc, int grid, int smem,
+                               void* stream) {
   if (m < 1 || b < 1 || o < 0 || cnt < 1 || cnt > b || o + b + cnt > m || lda < m || ldy < m
-      || grid < 1 || slice < 1 || (long long)grid * slice < m || kc < 0 || kc > b
-      || (kc < b && Pg == nullptr)
-      || smem < 8LL * (kQrWarps + 4 + b + (long long)kc * slice)) {
+      || grid < 1 || slice < 1 || (long long)grid * slice < m - o - b || kc < 0 || kc > b
+      || (kc < b && Pg == nullptr) || ws == nullptr
+      || smem < 8LL * (3LL * ((b + 1) & ~1) + 4 + (long long)kc * slice)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   PanelQR a{static_cast<const double*>(As), lda, static_cast<double*>(Yp), ldy,
             static_cast<double*>(tp), static_cast<double*>(Pg), static_cast<double*>(ws),
-            m, o, b, cnt, slice, kc};
+            static_cast<long long*>(syncs), m, o, b, cnt, slice, kc};
   void* args[] = {&a};
-  return coop_launch((const void*)panel_qr_kernel, grid, kQrThreads, args, smem, stream);
+  const void* fn = kc == b ? (const void*)panel_qr_kernel<true>
+                           : (const void*)panel_qr_kernel<false>;
+  return coop_launch(fn, grid, kQrThreads, args, smem, stream);
 }
+
+#ifdef KERNEL_PROBES
+// The probed copy's per-block phase cycles (g_qr: block g's six at 8 g).
+extern "C" int panel_qr_probe_read(void* out) {
+  return static_cast<int>(cudaMemcpyFromSymbol(out, g_qr, sizeof(g_qr)));
+}
+#endif

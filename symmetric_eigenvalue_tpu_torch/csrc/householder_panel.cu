@@ -9,7 +9,8 @@
 //    (csrc/dword_matvec.cu) and one column_step_kernel that finishes the
 //    column's W row and then makes the next column's reflector.
 //  - _larft (:213), its lax.fori_loop at :227 (two launches a reflector in the
-//    port's torch loop): larft, one launch a panel.
+//    port's torch loop): larft, one launch a panel, T by diagonal blocks
+//    and block products.
 //  - symmetric_eigenvalue_tpu/kernels/band_reduce.py::apply_q2_wave_blocked
 //    (:509), the T factors its wave body (:551-604) forms a wave at a time:
 //    q2_blocks_t, the T (and the Y^T, laid out for the waves) of every
@@ -56,13 +57,21 @@
 // when R reads them, and the one W entry every block needs, Wp[jj][j+1], each
 // block recomputes in the order its owner does.
 //
-// larft (and q2_blocks_t, a batched form of the same recurrence over a Gram
-// it builds itself): T (nb x nb, upper) with T[k,k] = tau_k and
-// T[:k,k] = -tau_k T[:k,:k] G[:k,k] for k = 0..nb-1, from the panel's Gram G.
-// It is latency-bound: nb-1 dependent triangular matvecs.  One block, one
-// thread a row of T; T's columns packed in shared memory (nb (nb+1)/2
-// doubles, 66 KB at nb = 128) beside G's column k, staged each step, or,
-// past what a block may hold, in a global scratch; at step k every thread
+// larft: T (nb x nb, upper) with T[k,k] = tau_k and
+// T[:k,k] = -tau_k T[:k,:k] G[:k,k] for k = 0..nb-1, from the panel's Gram
+// G, in blocks.  One block of 256 threads: G's strict upper triangle and
+// the taus staged in shared memory in one coalesced pass (to nb = 128; a
+// global scratch past it); each 32-column diagonal block of T by the
+// recurrence, a warp a block and a lane a row, each row's sums for the
+// later columns in registers (no global load in the dependent chain, no
+// wait between lanes); then the blocks joined pairwise, widths 32, 64, ..,
+// by the compact-WY identity T_AB = -T_AA G_AB T_BB, two rounds of 4 x 4
+// tiles a width.  What bounds it on an H100: latency (the diagonal blocks'
+// 31 dependent steps and log2(nb / 32) joins), not its bytes.
+// q2_blocks_t (a batched form of the recurrence over a Gram it builds
+// itself) runs larft_columns: a block of threads a reflector block, one
+// thread a row of T, nb - 1 dependent steps, T's columns packed in shared
+// memory beside G's column k, staged each step; at step k every thread
 // walks l = 0..k-1 together, so the threads read neighbouring entries of
 // column l of T and one broadcast G[l,k].
 //
@@ -437,23 +446,189 @@ struct DenseT {
   }
 };
 
-__global__ void larft_kernel(const double* __restrict__ G, const double* __restrict__ tau,
-                             double* __restrict__ T, double* gscratch, int nb,
-                             int use_shared) {
-  extern __shared__ double sh[];
-  double* gk = use_shared ? sh : gscratch;   // column k of G, staged
-  const PackedT tc{gk + nb};
-  const int tid = threadIdx.x;
-  larft_columns(
-      [&](int k, double* col) {
-        for (int l = tid; l < k; l += blockDim.x) col[l] = G[(size_t)l * nb + k];
-      },
-      tau, gk, tc, nb);
-  __syncthreads();
-  for (int idx = tid; idx < nb * nb; idx += blockDim.x) {
-    const int r = idx / nb, c = idx - r * nb;
-    T[idx] = r <= c ? tc(r, c) : 0.0;
+// larft: T from the Gram in blocks.  M (nbp x ld, nbp = nb rounded up to
+// 32, ld = nbp + 2: rows 16-byte aligned) holds T on and above its
+// diagonal and G's strict upper triangle transposed below it (M[c][r] =
+// G[r][c], r < c), zero past nb (tau too, so the padding's T is zero); X
+// is the joins' scratch.
+constexpr int kLarftThreads = 256;
+constexpr int kLarftSharedMax = 200 * 1024;   // M, X and the taus in shared memory to nb = 128
+
+// Phase probes of larft, compiled only where KERNEL_PROBES is defined
+// (tools/panel_qr_profile.py --phases): thread 0's clock64 cycles in the
+// staging, the diagonal blocks, the joins and the store (larft_probe_read).
+#ifdef KERNEL_PROBES
+__device__ long long g_lt[8];
+#define LT_PROBE_START long long lacc_[4] = {0, 0, 0, 0}; long long lprev_ = clock64()
+#define LT_PROBE(i) do { if (threadIdx.x == 0) { const long long now_ = clock64(); \
+    lacc_[i] += now_ - lprev_; lprev_ = now_; } } while (0)
+#define LT_PROBE_STORE do { if (threadIdx.x == 0) { \
+    for (int i_ = 0; i_ < 4; ++i_) g_lt[i_] = lacc_[i_]; } } while (0)
+#else
+#define LT_PROBE_START do {} while (0)
+#define LT_PROBE(i) do {} while (0)
+#define LT_PROBE_STORE do {} while (0)
+#endif
+
+__host__ __device__ constexpr int larft_padded(int nb) { return (nb + 31) & ~31; }
+
+// Doubles of M, X and the taus.
+__host__ __device__ constexpr long long larft_doubles(int nb) {
+  return (long long)larft_padded(nb) * (larft_padded(nb) + 2)
+         + (long long)larft_padded(nb) * larft_padded(nb) / 4 + larft_padded(nb);
+}
+
+// Four doubles at a 16-byte aligned p, as two 16-byte loads.
+__device__ __forceinline__ void load4(const double* p, double* x) {
+  const double2 u = reinterpret_cast<const double2*>(p)[0];
+  const double2 w = reinterpret_cast<const double2*>(p)[1];
+  x[0] = u.x;
+  x[1] = u.y;
+  x[2] = w.x;
+  x[3] = w.y;
+}
+
+// One 4 x 4 tile of a join at rows i0.., columns c0.. of the pair (A =
+// [a, a + h), B = [a + h, a + h + hb)): X = G_AB T_BB (step 1, into X's h x
+// hb block, row stride hb), then T_AB = -T_AA X (step 2, into M).  Sums run
+// over l in increasing order, fused multiply-adds; T's triangles masked.
+__device__ __forceinline__ void larft_join_tile(double* M, int ld, double* X, int a, int h,
+                                                int hb, int i0, int c0, bool step2) {
+  double acc[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+#pragma unroll
+    for (int c = 0; c < 4; ++c) acc[i][c] = 0.0;
   }
+  if (!step2) {
+    // X[i][c] = sum_{l <= c} G[a + i][a + h + l] T[a + h + l][a + h + c]
+    for (int l = 0; l <= c0 + 3; ++l) {
+      const double* mr = M + (size_t)(a + h + l) * ld;
+      double x[4], y[4];
+      load4(mr + a + i0, x);
+      load4(mr + a + h + c0, y);
+#pragma unroll
+      for (int c = 0; c < 4; ++c) y[c] = l <= c0 + c ? y[c] : 0.0;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+#pragma unroll
+        for (int c = 0; c < 4; ++c) acc[i][c] = __fma_rn(x[i], y[c], acc[i][c]);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+#pragma unroll
+      for (int c = 0; c < 4; ++c) X[(size_t)(i0 + i) * hb + c0 + c] = acc[i][c];
+    }
+  } else {
+    // T_AB[i][c] = -sum_{l >= i} T[a + i][a + l] X[l][c]
+    for (int l = i0; l < h; ++l) {
+      double x[4], y[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) x[i] = l >= i0 + i ? M[(size_t)(a + i0 + i) * ld + a + l] : 0.0;
+      load4(X + (size_t)l * hb + c0, y);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+#pragma unroll
+        for (int c = 0; c < 4; ++c) acc[i][c] = __fma_rn(x[i], y[c], acc[i][c]);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+#pragma unroll
+      for (int c = 0; c < 4; ++c) M[(size_t)(a + i0 + i) * ld + a + h + c0 + c] = -acc[i][c];
+    }
+  }
+}
+
+// kShared: M, X and the taus in shared memory (nb <= 128), so their
+// accesses compile to shared loads and stores; else in `scratch`.
+template <bool kShared>
+__global__ void __launch_bounds__(kLarftThreads) larft_kernel(const double* __restrict__ G,
+                                                              const double* __restrict__ tau,
+                                                              double* __restrict__ T,
+                                                              double* scratch, int nb) {
+  extern __shared__ double sh[];
+  const int nbp = larft_padded(nb), ld = nbp + 2;
+  LT_PROBE_START;
+  double* M = kShared ? sh : scratch;
+  double* X = M + (size_t)nbp * ld;            // nbp^2 / 4: the widest level's joins
+  double* tz = X + (size_t)nbp * nbp / 4;      // nbp taus, zero past nb
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  constexpr int kLarftWarps = kLarftThreads / 32;
+
+  // G's strict upper triangle, a warp a row of G (coalesced), and the
+  // taus: into shared memory every copy in flight at once (cp.async)
+  for (int r = warp; r < nbp; r += kLarftWarps) {
+    for (int c = r + 1 + lane; c < nbp; c += 32) {
+      if (kShared && c < nb && r < nb) {
+        cp_async8(M + (size_t)c * ld + r, G + (size_t)r * nb + c);
+      } else {
+        M[(size_t)c * ld + r] = c < nb && r < nb ? __ldg(G + (size_t)r * nb + c) : 0.0;
+      }
+    }
+  }
+  for (int k = tid; k < nbp; k += kLarftThreads) {
+    if (kShared && k < nb) cp_async8(tz + k, tau + k);
+    else tz[k] = k < nb ? tau[k] : 0.0;
+  }
+  if (kShared) {
+    asm volatile("cp.async.commit_group;\n" ::);
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+  }
+  __syncthreads();
+  LT_PROBE(0);
+
+  // the 32-column diagonal blocks by the recurrence, a warp a block, a lane
+  // a row r: T[r][k] = -tau_k sum_{r <= l < k} T[r][l] G[l][k], the sum
+  // for every later column kept in registers and added to as each T[r][l]
+  // is made (the order of larft_columns: the same bits); G's entries are
+  // the warp's broadcast reads, and no lane waits for another
+  for (int q = warp; q < nbp / 32; q += kLarftWarps) {
+    const int c0 = 32 * q, r = c0 + lane;
+    double acc[32];
+#pragma unroll
+    for (int k = 0; k < 32; ++k) acc[k] = 0.0;
+#pragma unroll
+    for (int l = 0; l < 32; ++l) {
+      const double t = l < lane ? 0.0 : (l == lane ? tz[c0 + l] : __dmul_rn(acc[l], -tz[c0 + l]));
+      if (l >= lane) M[(size_t)r * ld + c0 + l] = t;
+#pragma unroll
+      for (int k = l + 1; k < 32; ++k) {
+        acc[k] = __fma_rn(t, M[(size_t)(c0 + k) * ld + c0 + l], acc[k]);
+      }
+    }
+  }
+  __syncthreads();
+  LT_PROBE(1);
+
+  // the joins, widths h = 32, 64, ..: T_AB = -T_AA G_AB T_BB for each pair
+  // of neighbouring blocks (A = [a, a + h), B = [a + h, a + h + hb)), all
+  // pairs of a width at once, in two steps of 4 x 4 tiles
+  for (int h = 32; h < nbp; h *= 2) {
+    const int pairs = (nbp - h + 2 * h - 1) / (2 * h);   // pairs with a B
+    const int full = (h / 4) * (h / 4);                   // a pair's tiles (fewer in a narrow B)
+    for (int step = 0; step < 2; ++step) {
+      for (int t = tid; t < pairs * full; t += kLarftThreads) {
+        const int p = t / full, in = t - p * full;
+        const int a = 2 * h * p, hb = min(h, nbp - a - h), tc = hb / 4;
+        if (in < (h / 4) * tc) {
+          larft_join_tile(M, ld, X + (size_t)p * h * h, a, h, hb, 4 * (in / tc), 4 * (in % tc),
+                          step == 1);
+        }
+      }
+      __syncthreads();
+    }
+  }
+  LT_PROBE(2);
+
+  for (int r = warp; r < nb; r += kLarftWarps) {
+    for (int c = lane; c < nb; c += 32) {
+      T[(size_t)r * nb + c] = r <= c ? M[(size_t)r * ld + c] : 0.0;
+    }
+  }
+  LT_PROBE(3);
+  LT_PROBE_STORE;
 }
 
 // The live blocks s = slo .. shi of wave w of the two-stage backtransform
@@ -686,31 +861,37 @@ extern "C" int grid_sync_probe_launch(int grid, int syncs, void* stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// Bytes of T's packed columns and G's staged column that a larft launch
-// keeps in shared memory (0: they go to the global scratch instead).
+// Bytes of M, X and the taus that a larft launch keeps in shared memory
+// (0: they go to the global scratch instead; nb > 128).
 extern "C" int larft_shared_bytes(int nb) {
-  const long long bytes = 8LL * (nb + (long long)nb * (nb + 1) / 2);
-  return bytes <= 200LL * 1024 ? static_cast<int>(bytes) : 0;
+  const long long bytes = 8LL * larft_doubles(nb);
+  return nb > 0 && bytes <= kLarftSharedMax ? static_cast<int>(bytes) : 0;
 }
 
-// G: (nb, nb) f64 contiguous Gram of the panel; tau: (nb,); T: (nb, nb) out,
-// contiguous.  gscratch: nb + nb (nb + 1) / 2 doubles when
-// larft_shared_bytes(nb) is 0, else unused (may be null).  One block; one
-// kernel on `stream`.
-extern "C" int larft_launch(const void* G, const void* tau, void* T, void* gscratch,
-                            int nb, void* stream) {
-  if (nb <= 0) return static_cast<int>(cudaErrorInvalidValue);
+// G: (nb, nb) f64 contiguous Gram of the panel (its strict upper triangle
+// read); tau: (nb,); T: (nb, nb) out, contiguous.  scratch: larft_doubles(nb)
+// doubles (kernels/householder_panel.py::larft_scratch_doubles) when
+// larft_shared_bytes(nb) is 0, else unused (may be null).  One block of
+// kLarftThreads; one kernel on `stream`.
+extern "C" int larft_launch(const void* G, const void* tau, void* T, void* scratch, int nb,
+                            void* stream) {
+  if (nb <= 0 || nb > 46340) return static_cast<int>(cudaErrorInvalidValue);
   const int smem = larft_shared_bytes(nb);
-  if (smem == 0 && gscratch == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  if (smem == 0 && scratch == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        larft_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        larft_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  const int threads = nb >= 1024 ? 1024 : ((nb + 31) / 32) * 32;
-  larft_kernel<<<1, threads, static_cast<size_t>(smem), static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const double*>(G), static_cast<const double*>(tau),
-      static_cast<double*>(T), static_cast<double*>(gscratch), nb, smem > 0 ? 1 : 0);
+  const double* g = static_cast<const double*>(G);
+  const double* t = static_cast<const double*>(tau);
+  double* out = static_cast<double*>(T);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (smem > 0) {
+    larft_kernel<true><<<1, kLarftThreads, static_cast<size_t>(smem), st>>>(g, t, out, nullptr, nb);
+  } else {
+    larft_kernel<false><<<1, kLarftThreads, 0, st>>>(g, t, out, static_cast<double*>(scratch), nb);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -768,3 +949,10 @@ extern "C" int q2_blocks_t_launch(const void* Vw, const void* tw, void* Ts, void
       static_cast<double*>(Ys), static_cast<double*>(scratch), n, b, Kmax, ys, w0, S, staged);
   return static_cast<int>(cudaGetLastError());
 }
+
+#ifdef KERNEL_PROBES
+// The probed copy's larft phase cycles (thread 0's four).
+extern "C" int larft_probe_read(void* out) {
+  return static_cast<int>(cudaMemcpyFromSymbol(out, g_lt, sizeof(g_lt)));
+}
+#endif

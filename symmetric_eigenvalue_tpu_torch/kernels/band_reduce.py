@@ -61,8 +61,8 @@ _OCCUPANCY_ARGTYPES = [_I, _P]
 _CHASE_ARGTYPES = [_P, _LL, _P, _P, _P, _P, _P, _P, _P, _P, _P, _LL, _I, _I,
                    _I, _I, _I, _I, _I, _P]
 _CHASE_OCCUPANCY_ARGTYPES = [_I, _I, _P]
-_PANEL_ARGTYPES = [_P, _LL, _P, _LL, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                   _I, _P]
+_PANEL_ARGTYPES = [_P, _LL, _P, _LL, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                   _I, _I, _P]
 _Q2T_ARGTYPES = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]
 _Q2T_STAGED_ARGTYPES = [_I, _P]
 _Q2_OCCUPANCY_ARGTYPES = [_I, _I, _I, _P]
@@ -70,8 +70,9 @@ _Q2_ARGTYPES = [_P, _LL, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P]
 _CHASE_WHOLE_B = 32         # band_chase gives a block a whole task to b <= 32
 _CHASE_THREADS = (256, 512)   # its blocks: a whole task, a slot's items
 _CHASE_CHUNK_MIN = 16       # the narrowest a wave's chunk gets (kChunkMin)
-_QR_THREADS = 256           # kQrThreads of panel_qr
-_QR_WARPS = _QR_THREADS // 32
+_QR_THREADS = 512           # kQrThreads of panel_qr
+_QR_STEP = 64               # panel_qr: entries of a step (32 lanes x kQrEnt)
+_QR_MAX_GRID = 128          # a lane reads every block's partials in one round
 _OCCUPANCY = {}             # (kernel, device index, ...) -> occupancy, plan
 
 
@@ -92,10 +93,10 @@ class ChasePlan(NamedTuple):
 
 
 class PanelPlan(NamedTuple):
-    """``panel_qr``'s cooperative launch over a bucket: ``grid`` blocks, each
-    owning ``slice`` entries of every panel row and caching ``cached`` rows
-    of its slice in ``smem`` bytes of shared memory (the rest in a global
-    copy)."""
+    """``panel_qr``'s cooperative launch for one panel: ``grid`` blocks, each
+    owning ``slice`` of the live entries (from o + b on) of every panel row
+    and caching ``cached`` rows of its slice in ``smem`` bytes of shared
+    memory (the rest in a global copy)."""
     grid: int
     slice: int
     cached: int
@@ -148,38 +149,80 @@ def panel_qr_plain(As, o: int, b: int, Yp, tp) -> None:
         tp[j] = tau
 
 
-def panel_qr(As, o: int, b: int, Yp, tp) -> None:
+def panel_qr(As, o: int, b: int, Yp, tp, syncs=None) -> None:
     """The panel QR of :func:`_reduce_block` (see :func:`panel_qr_plain`):
     As (m, m) f64 with unit column stride, Yp (b, m) and tp (b,) zero-filled
     and contiguous, on one device.  CPU tensors run the plain loop; CUDA
-    tensors launch ``panel_qr`` once (or raise); other devices raise."""
+    tensors launch ``panel_qr`` once (or raise); other devices raise.
+    ``syncs``, a one-element int64 tensor on As's device, receives the
+    launch's grid syncs, counted by the kernel (the plain loop makes
+    none)."""
     if As.device.type == "cpu":
         panel_qr_plain(As, o, b, Yp, tp)
         return
     if As.device.type != "cuda":
         raise ValueError(f"panel_qr: unsupported device {As.device}")
-    _launch_panel_qr(As, o, b, Yp, tp)
+    _launch_panel_qr(As, o, b, Yp, tp, syncs)
 
 
-def panel_qr_plan(m: int, b: int, sms: int, max_shared: int,
+def panel_qr_plan(m: int, o: int, b: int, sms: int, max_shared: int,
                   resident: Callable[[int], int]) -> PanelPlan:
-    """``panel_qr``'s launch for a bucket of width m and panel width b on a
-    card of ``sms`` SMs whose blocks may hold ``max_shared`` bytes of shared
-    memory (``resident(smem)``: the blocks an SM holds at ``smem``, from the
-    occupancy API on the card): a block an SM (fewer where the slices
-    would be under 32 entries), each caching as many panel rows of its
-    slice as fit.  Raises when a block does not fit."""
-    grid = max(1, min(sms, -(-m // 32)))
-    width = -(-m // grid)
-    fixed = 8 * (_QR_WARPS + 4 + b)
+    """``panel_qr``'s launch for the panel at column o of a bucket of width
+    m, panel width b, on a card of ``sms`` SMs whose blocks may hold
+    ``max_shared`` bytes of shared memory (``resident(smem)``: the blocks an
+    SM holds at ``smem``, from the occupancy API on the card).  The grid's
+    blocks split the m - o - b live entries, each caching as many panel
+    rows of its slice as fit.  A column's pass walks a block's slice in
+    steps of _QR_STEP entries (a warp's lanes, two entries each) and every
+    block reads all the blocks' partials, so the slice is the fewest whole
+    steps that _QR_MAX_GRID blocks (what a warp's lanes read in one round,
+    and at most one an SM) cover, and the grid the fewest blocks of that
+    slice (:func:`_panel_qr_layout`).  Raises when a block does not fit."""
+    live = m - o - b
+    most = max(1, min(sms, _QR_MAX_GRID))
+    steps = -(-live // (_QR_STEP * most))
+    return _panel_qr_layout(m, o, b, -(-live // (_QR_STEP * steps)), sms,
+                            max_shared, resident)
+
+
+def _panel_qr_layout(m: int, o: int, b: int, grid: int, sms: int,
+                     max_shared: int,
+                     resident: Callable[[int], int]) -> PanelPlan:
+    """``panel_qr``'s launch at ``grid`` blocks (at most one an SM,
+    _QR_MAX_GRID and the live entries): the slice a block owns and the
+    panel rows of it that fit in shared memory.  Raises when a block does
+    not fit."""
+    live = m - o - b
+    fixed = 8 * (3 * (b + b % 2) + 4)
+    grid = max(1, min(grid, sms, _QR_MAX_GRID, live))
+    width = -(-live // grid)
+    grid = -(-live // width)                   # no block without entries
     cached = min(b, max(0, (max_shared - fixed) // (8 * width)))
     smem = fixed + 8 * cached * width
     if fixed > max_shared or resident(smem) < 1:
-        raise ValueError(f"panel_qr: no cooperative launch fits m={m}, b={b}")
+        raise ValueError(f"panel_qr: no cooperative launch fits m={m}, o={o}, "
+                         f"b={b}")
     return PanelPlan(grid, width, cached, smem)
 
 
-def _launch_panel_qr(As, o: int, b: int, Yp, tp) -> None:
+def panel_qr_workspace(b: int, m: int, plan: PanelPlan) -> int:
+    """Doubles of ``panel_qr``'s workspace: each block's partials of every
+    panel row and the pivot entries (b rounded up to 2 and the grid to 16,
+    so each row of partials starts on a 128-byte line), twice (by the
+    column's parity), and the panel rows past ``plan.cached`` when some
+    stay in global memory."""
+    bs, gs = b + b % 2, -(-plan.grid // 16) * 16
+    return 2 * bs * gs + 2 * bs + (b * m if plan.cached < b else 0)
+
+
+def panel_qr_device_plan(m: int, o: int, b: int, index: int) -> PanelPlan:
+    """:func:`panel_qr_plan` on CUDA device ``index``."""
+    _, sms, optin = _occupancy("panel_qr", index, 0)
+    return panel_qr_plan(m, o, b, sms, optin,
+                         lambda smem: _occupancy("panel_qr", index, smem)[0])
+
+
+def _launch_panel_qr(As, o: int, b: int, Yp, tp, syncs=None) -> None:
     global panel_qr_launches
     m = As.shape[0]
     for name, t in (("As", As), ("Yp", Yp), ("tp", tp)):
@@ -193,27 +236,26 @@ def _launch_panel_qr(As, o: int, b: int, Yp, tp) -> None:
     if Yp.shape != (b, m) or tp.shape != (b,) or o + b > m:
         raise ValueError(f"panel_qr: Yp {tuple(Yp.shape)}, tp "
                          f"{tuple(tp.shape)} for b={b}, m={m}, o={o}")
+    if syncs is not None and (syncs.dtype != torch.int64 or syncs.numel() != 1
+                              or syncs.device != As.device):
+        raise ValueError("panel_qr: syncs must be one int64 on As's device")
     cnt = min(b, m - o - b)
     if cnt <= 0:
         return                                 # identity reflectors only
     index = _device_index(As.device)
     with torch.cuda.device(index):
         stream = torch.cuda.current_stream(index).cuda_stream
-        _, sms, optin = _occupancy("panel_qr", index, 0)
-        plan = panel_qr_plan(m, b, sms, optin,
-                             lambda smem: _occupancy("panel_qr", index,
-                                                     smem)[0])
-        ws = torch.empty(plan.grid * (b + 1) + 1 + b, dtype=torch.float64,
-                         device=As.device)
-        Pg = None
-        if plan.cached < b:
-            Pg = torch.empty((b, m), dtype=torch.float64, device=As.device)
+        plan = panel_qr_device_plan(m, o, b, index)
+        doubles = panel_qr_workspace(b, m, plan)
+        ws = torch.empty(doubles, dtype=torch.float64, device=As.device)
+        Pg = None if plan.cached == b else ws.data_ptr() + 8 * (doubles
+                                                                - b * m)
         fn = _build.function("band_reduce", "panel_qr_launch",
                              _PANEL_ARGTYPES)
         rc = fn(As.data_ptr(), As.stride(0), Yp.data_ptr(), Yp.stride(0),
-                tp.data_ptr(), None if Pg is None else Pg.data_ptr(),
-                ws.data_ptr(), m, o, b, cnt, plan.slice, plan.cached,
-                plan.grid, plan.smem, stream)
+                tp.data_ptr(), Pg, ws.data_ptr(),
+                None if syncs is None else syncs.data_ptr(), m, o, b, cnt,
+                plan.slice, plan.cached, plan.grid, plan.smem, stream)
     _build.check_launch(rc, "panel_qr")
     panel_qr_launches += 1
 

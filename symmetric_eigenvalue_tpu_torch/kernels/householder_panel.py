@@ -17,7 +17,9 @@ column body ``col_body`` (:114, run by the ``lax.fori_loop``s at :139 and
   two launches a column, no host read.  The three are one cooperative
   kernel with a half switched off, its grid over every SM
   (:func:`column_plan`);
-- ``larft``: T from the panel's Gram and its taus, one launch a panel.
+- ``larft``: T from the panel's Gram and its taus, one launch a panel:
+  its 32-column diagonal blocks by the recurrence, then joined pairwise
+  by T_AB = -T_AA G_AB T_BB.
 
 CPU tensors run the plain versions, which are the loop the port ran before
 the kernels (:func:`column_reflector_plain`, :func:`column_w_plain`,
@@ -153,6 +155,7 @@ def larft_plain(G, tau):
     for k in range(1, nb):
         torch.mul(torch.mv(T[:k, :k], G[:k, k]), ntau[k], out=T[:k, k])
     return T
+
 
 
 # --------------------------------------------------------------------------
@@ -411,6 +414,16 @@ def larft(G, tau):
     return _launch_larft(G, tau)
 
 
+def larft_scratch_doubles(nb: int) -> int:
+    """Doubles of ``larft``'s working set (csrc's ``larft_doubles``): M
+    (nb rounded up to 32, nbp, rows of nbp + 2: T above its diagonal and
+    G's strict upper triangle below it), the joins' nbp^2 / 4 and the
+    taus; in shared memory where csrc's ``larft_shared_bytes`` says it
+    fits (to nb = 128), else in this global scratch."""
+    nbp = -(-nb // 32) * 32
+    return nbp * (nbp + 2) + nbp * nbp // 4 + nbp
+
+
 def _launch_larft(G, tau):
     global larft_launches
     dev = G.device
@@ -431,7 +444,7 @@ def _launch_larft(G, tau):
                                  _SHARED_ARGTYPES)
         scratch = None
         if shared(nb) == 0:
-            scratch = torch.empty(nb + nb * (nb + 1) // 2,
+            scratch = torch.empty(larft_scratch_doubles(nb),
                                   dtype=torch.float64, device=dev)
         fn = _build.function("householder_panel", "larft_launch",
                              _LARFT_ARGTYPES)

@@ -603,64 +603,100 @@ def test_chase_reflector_underflow_keeps_v(rng):
 
 
 def _panel_qr_model(As, o, b, grid):
-    """numpy model of panel_qr's schedule: ``grid`` slices of the m entries,
-    column j - 1's update of row j made before sigma2 of column j and its
-    update of the rows past j after it, v stored in row j's place (entries
-    below the pivot stale), the dead rows above j never updated."""
+    """numpy model of panel_qr's one-sync schedule: ``grid`` slices of the
+    m - o - b live entries; for each column j one pass gives each slice's
+    partials d_k = sum_{i > u} r_k[i] r_j[i] of the live rows k >= j
+    (d_j = sigma2) and the rows' entries r_k[u] at the pivot; the totals
+    summed in block order, w_k = r_k[u] + d_k / denom (v is 1 at u and
+    r_j / denom below); v into row j's place; column j's update of the
+    rows past j at entries > u only, made in column j + 1's pass; the dead
+    rows above j never updated."""
     m = As.shape[0]
-    Pt = As[:, o:o + b].T.copy()
+    base = o + b
+    live = m - base
+    Pt = As[base:, o:o + b].T.copy()           # entry i at i - base
     Yp, tp = np.zeros((b, m)), np.zeros(b)
-    cnt = min(b, m - o - b)
-    S = -(-m // grid)
-    wpart = np.zeros((grid, b))
-    tau_prev = 0.0
+    cnt = min(b, live)
+    S = -(-live // grid)
+    slices = [(g * S, min((g + 1) * S, live)) for g in range(grid)]
+
+    def partials(c):
+        d = np.zeros((grid, cnt))
+        for g, (lo, hi) in enumerate(slices):
+            lo = max(lo, c + 1)
+            if lo < hi:
+                d[g, c:] = Pt[c:cnt, lo:hi] @ Pt[c, lo:hi]
+        return d, Pt[:cnt, c].copy()
+
+    d, piv = partials(0)
     for j in range(cnt):
-        u = o + b + j
-        if j > 0:
-            tw_j = tau_prev * wpart[:, j].sum()
-            Pt[j, u - 1:] -= tw_j * Pt[j - 1, u - 1:]
-            wtot = wpart.sum(axis=0)
-        sig = [float(np.dot(Pt[j, max(u + 1, g * S):(g + 1) * S],
-                            Pt[j, max(u + 1, g * S):(g + 1) * S]))
-               for g in range(grid)]
-        sigma2, pivot = sum(sig), Pt[j, u]
+        tot = np.zeros(cnt)
+        for g in range(grid):                  # block order
+            tot += d[g]
+        sigma2, pivot = tot[j], piv[j]
         norm = np.sqrt(sigma2 + pivot * pivot)
         alpha = -norm if pivot >= 0 else norm
         no_op = sigma2 == 0.0
         denom = 1.0 if no_op else pivot - alpha
         tau = 0.0 if no_op else (alpha - pivot) / alpha
-        if j > 0:
-            Pt[j + 1:cnt, u - 1:] -= np.outer(tau_prev * wtot[j + 1:cnt],
-                                              Pt[j - 1, u - 1:])
-        Pt[j, u + 1:] /= denom
-        Pt[j, u] = 0.0 if no_op else 1.0
-        Yp[j, u:] = Pt[j, u:]
+        tw = tau * (piv[j + 1:] + tot[j + 1:] / denom)
+        Pt[j, j + 1:] /= denom
+        Pt[j, j] = 0.0 if no_op else 1.0
+        Yp[j, base + j:] = Pt[j, j:]
         tp[j] = tau
-        for g in range(grid):
-            lo = max(u, g * S)
-            wpart[g, j + 1:cnt] = Pt[j + 1:cnt, lo:(g + 1) * S] @ Pt[j, lo:(g + 1) * S]
-        tau_prev = tau
+        if j + 1 < cnt:
+            Pt[j + 1:cnt, j + 1:] -= np.outer(tw, Pt[j, j + 1:])
+            d, piv = partials(j + 1)
     return Yp, tp
 
 
-@pytest.mark.parametrize("m,o,b,grid", [(64, 0, 8, 5), (64, 24, 8, 7),
-                                        (45, 32, 8, 3), (100, 16, 16, 1),
-                                        (33, 0, 4, 33)])
-def test_panel_qr_model_matches_plain(rng, m, o, b, grid):
-    """panel_qr's deferred-update schedule, modelled in numpy over ``grid``
+@pytest.mark.parametrize("m,o,b,grid,reduced", [
+    (64, 0, 8, 5, False), (64, 24, 8, 7, False), (45, 32, 8, 3, False),
+    (100, 16, 16, 1, False), (33, 0, 4, 33, False), (64, 8, 8, 4, True),
+    (300, 40, 32, 9, False)])
+def test_panel_qr_model_matches_plain(rng, m, o, b, grid, reduced):
+    """panel_qr's one-sync schedule, modelled in numpy over ``grid``
     slices, against panel_qr_plain (1e-13 of the largest entry; m=45, o=32
-    leaves 5 live columns)."""
+    leaves 5 live columns and an identity-reflector tail; ``reduced``: the
+    panel's first column already zero below its pivot, a no-op column)."""
     A = _sym(rng, m)
+    if reduced:
+        A[o + b + 1:, o] = A[o, o + b + 1:] = 0.0
     Yp, tp = torch.zeros((b, m), dtype=torch.float64), torch.zeros(
         b, dtype=torch.float64)
     tband.panel_qr_plain(torch.as_tensor(A), o, b, Yp, tp)
     mY, mt = _panel_qr_model(A, o, b, grid)
     assert _err(mY, Yp.numpy()) <= 1e-13 * np.abs(Yp.numpy()).max()
     assert _err(mt, tp.numpy()) <= 1e-13
+    if reduced:
+        assert tp[0] == 0.0 == mt[0] and not mY[0].any()
+
+
+def test_panel_qr_one_grid_sync_a_column():
+    """panel_qr's kernel makes its one grid sync inside the column loop and
+    nowhere else, and counts it there where the launch is given a count
+    (what chip_smoke.py reads on the card: one a column); its phase probes
+    compile to nothing unless KERNEL_PROBES is defined."""
+    text = (_build.CSRC / "band_reduce.cu").read_text()
+    body = text[text.index("panel_qr_kernel(const PanelQR a)"):
+                text.index("int coop_occupancy(")]
+    assert body.count("grid.sync()") == 1
+    loop = body[body.index("for (int j = 0; j < cnt; ++j)"):]
+    after = loop[loop.index("grid.sync()"):].splitlines()[1]
+    assert after.strip() == ("if (a.syncs != nullptr && blockIdx.x == 0 "
+                             "&& tid == 0) *a.syncs += 1;")
+    assert body.count("*a.syncs") == 1
+    probes = text[text.index("#ifdef KERNEL_PROBES"):]
+    off = probes[probes.index("#else"):probes.index("#endif")]
+    assert all(line.endswith("do {} while (0)")
+               for line in off.splitlines()[1:])
+    assert sorted(set(re.findall(r"QR_PROBE\((\d)\)", body))) == [
+        str(i) for i in range(6)]
 
 
 def test_kernel_plans():
-    """chase_plan, chase_wave_chunk and panel_qr_plan with a card's figures
+    """chase_plan, chase_wave_chunk, panel_qr_plan and panel_qr_workspace
+    with a card's figures
     (132 SMs, 227 KB a block; occupancy: the blocks an SM's 228 KB and 2048
     threads hold)."""
     sms, optin = 132, 232448
@@ -698,15 +734,40 @@ def test_kernel_plans():
     assert not plan.work_shared and plan.smem < 32 * 1024
     with pytest.raises(ValueError):
         tband.chase_plan(4096, 128, sms, optin, lambda t, smem: 0)
-    qr = tband.panel_qr_plan(16384, 128, sms, optin, resident(256))
-    assert qr.grid == sms and qr.grid * qr.slice >= 16384
-    assert qr.cached == 128 and qr.smem <= optin
-    qr = tband.panel_qr_plan(4096, 128, sms, optin, resident(256))
-    assert qr.grid == 128 and qr.slice == 32 and qr.cached == 128
-    qr = tband.panel_qr_plan(65536, 128, sms, optin, resident(256))
-    assert 0 < qr.cached < 128 and qr.smem <= optin
+    qr_resident = resident(tband._QR_THREADS)
+    # panel_qr: the blocks split the live entries; the slice is the fewest
+    # whole steps of 64 entries that 128 blocks cover, the grid the fewest
+    # blocks of that slice
+    for m, o, grid, width in ((16384, 0, 127, 128), (16384, 8192, 126, 64),
+                              (4096, 0, 62, 64), (4096, 3000, 16, 61),
+                              (1024, 0, 14, 64), (4096, 3963, 1, 5)):
+        live = m - o - 128
+        qr = tband.panel_qr_plan(m, o, 128, sms, optin, qr_resident)
+        assert (qr.grid, qr.slice) == (grid, width), (m, o, qr)
+        assert qr.grid * qr.slice >= live > (qr.grid - 1) * qr.slice
+        assert qr.cached == 128 and qr.smem <= optin
+        assert qr.smem == 8 * (3 * 128 + 4 + 128 * qr.slice)
+    # the layout at a given grid (a yardstick): fewer blocks hold fewer
+    # panel rows
+    forced = tband._panel_qr_layout(16384, 0, 128, 40, sms, optin,
+                                    qr_resident)
+    assert forced.grid == 40 and forced.cached < 128
+    big = tband.panel_qr_plan(65536, 0, 128, sms, optin, qr_resident)
+    assert big.grid == tband._QR_MAX_GRID and 0 < big.cached < 128
+    assert big.smem <= optin
+    wide = tband._panel_qr_layout(4096, 0, 128, 500, sms, optin,
+                                  qr_resident)
+    assert wide.grid == tband._QR_MAX_GRID == 128
+    assert wide.slice == 3968 // 128
     with pytest.raises(ValueError):
-        tband.panel_qr_plan(4096, 128, sms, optin, lambda smem: 0)
+        tband.panel_qr_plan(4096, 0, 128, sms, optin, lambda smem: 0)
+    lines = lambda g: -(-g // 16) * 16           # noqa: E731
+    assert tband.panel_qr_workspace(128, 4096, qr) == (
+        2 * 128 * lines(qr.grid) + 256)
+    assert tband.panel_qr_workspace(127, 4096, qr) == (
+        2 * 128 * lines(qr.grid) + 256)
+    assert tband.panel_qr_workspace(128, 65536, big) == (
+        2 * 128 * lines(big.grid) + 256 + 128 * 65536)
 
 
 _C_TYPES = {"const void*": ctypes.c_void_p, "void*": ctypes.c_void_p,
@@ -788,12 +849,18 @@ def test_cuda_wrappers_launch_with_faked_card(monkeypatch):
         if cnt == 0:
             assert len(calls) == before
             continue
-        qr = tband.panel_qr_plan(m, b, 132, 232448, lambda smem: 1)
+        qr = tband.panel_qr_plan(m, o, b, 132, 232448, lambda smem: 1)
         symbol, args = calls[-1]
         assert symbol == "panel_qr_launch"
-        assert args[7:] == (m, o, b, cnt, qr.slice, qr.cached, qr.grid,
+        assert args[5] is None and isinstance(args[6], int)   # no Pg
+        assert args[7] is None                                # no count
+        assert args[8:] == (m, o, b, cnt, qr.slice, qr.cached, qr.grid,
                             qr.smem, 7)
     assert tband.panel_qr_launches == 2
+    with pytest.raises(ValueError):                  # a count must be int64
+        tband._launch_panel_qr(As, 0, b, torch.empty((b, m), **meta),
+                               torch.empty(b, **meta),
+                               torch.empty(1, **meta))
     with pytest.raises(TypeError):
         tband._launch_chase(torch.empty((n, n), dtype=torch.float32,
                                         device="meta"), 16, True)

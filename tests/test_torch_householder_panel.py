@@ -19,7 +19,9 @@ plain versions there).  Here, on the CPU:
   launch plan (``column_plan``);
 - the identity behind the half-step, the no-op (sigma2 == 0) and the
   identity-reflector (j = m - 2) columns;
-- ``larft_plain`` against the JAX package's ``_larft`` at nb = 8, 32, 128;
+- ``larft_plain`` against the JAX package's ``_larft`` at nb = 8, 32, 128,
+  and a numpy model of the larft kernel's blocked order (diagonal blocks
+  by the recurrence, joins by -T_AA G_AB T_BB) against both;
 - dispatch: a tensor on another device than the CPU never takes a plain
   version; the ctypes argument lists match the C signatures."""
 
@@ -467,6 +469,81 @@ def test_larft_plain_matches_jax(rng, nb):
     ref = np.asarray(jtri._larft(jnp.asarray(Vp), jnp.asarray(tau)))
     assert np.abs(got - ref).max() <= 1e-13 * np.abs(ref).max()
     assert np.all(np.tril(got, -1) == 0.0)
+
+
+def _larft_kernel_model(G, tau):
+    """numpy model of the larft kernel's order: nb padded to a multiple of
+    32 with zero G and tau; G's strict upper triangle only; each 32-column
+    diagonal block by the recurrence a row at a time (row r keeps the sums
+    of its later columns and adds T[r][l] G[l][k] to them as each T[r][l]
+    is made, l ascending); then widths 32, 64, ..: X = G_AB T_BB, then
+    T_AB = -T_AA X, the triangles of T_AA and T_BB masked."""
+    nb = G.shape[0]
+    nbp = -(-nb // 32) * 32
+    Gu = np.zeros((nbp, nbp))
+    Gu[:nb, :nb] = np.triu(G, 1)
+    tz = np.zeros(nbp)
+    tz[:nb] = tau
+    T = np.zeros((nbp, nbp))
+    for c0 in range(0, nbp, 32):
+        for r in range(c0, c0 + 32):
+            acc = np.zeros(nbp)
+            for l in range(r, c0 + 32):
+                T[r, l] = tz[l] if l == r else acc[l] * -tz[l]
+                acc[l + 1:c0 + 32] += T[r, l] * Gu[l, l + 1:c0 + 32]
+    h = 32
+    while h < nbp:
+        for a in range(0, nbp - h, 2 * h):
+            A, B = slice(a, a + h), slice(a + h, min(a + 2 * h, nbp))
+            X = Gu[A, B] @ np.triu(T[B, B])
+            T[A, B] = -(np.triu(T[A, A]) @ X)
+        h *= 2
+    return np.triu(T[:nb, :nb])
+
+
+def _reflector_gram(rng, nb, width):
+    """Gram and taus of nb Householder reflectors over ``width`` entries as
+    the reductions make them (row k: zero to k, one at k + 1, tau = 2 /
+    v.v), row nb // 3 an identity reflector (v = 0, tau = 0)."""
+    V = np.triu(rng.standard_normal((nb, width)), 2) / np.sqrt(width)
+    V[np.arange(nb), np.arange(nb) + 1] = 1.0
+    tau = 2.0 / np.einsum("ij,ij->i", V, V)
+    V[nb // 3] = 0.0
+    tau[nb // 3] = 0.0
+    return V, V @ V.T, tau
+
+
+@pytest.mark.parametrize("nb", [1, 5, 32, 33, 64, 127, 128])
+def test_larft_blocked_model_matches_plain_and_jax(rng, nb):
+    """The larft kernel's blocked order (diagonal blocks by the recurrence,
+    joins by -T_AA G_AB T_BB), modelled in numpy, against larft_plain and
+    the JAX package's _larft on a Gram of reflector-structured V with one
+    tau = 0: within 1e-13 max|T| (the two orders round differently; a
+    join's products carry about nb eps of |T|), the lower triangle and the
+    identity reflector's row and column off the diagonal exactly zero."""
+    V, G, tau = _reflector_gram(rng, nb, nb + 40)
+    got = _larft_kernel_model(G, tau)
+    plain = hp.larft_plain(torch.as_tensor(G), torch.as_tensor(tau)).numpy()
+    ref = np.asarray(jtri._larft(jnp.asarray(V), jnp.asarray(tau)))
+    scale = np.abs(plain).max()
+    assert np.abs(got - plain).max() <= 1e-13 * scale
+    assert np.abs(got - ref).max() <= 1e-13 * scale
+    assert np.all(np.tril(got, -1) == 0.0)
+    k = nb // 3
+    assert not got[k].any() and not got[:, k].any()
+    assert np.array_equal(np.diag(got), tau)
+
+
+def test_larft_working_set():
+    """larft's working set (M, X and the taus) fits csrc's shared-memory
+    limit for larft (kLarftSharedMax, 200 KB) exactly to nb = 128, so the
+    apply_q and band-128 panels never take the global scratch."""
+    text = (CSRC / "householder_panel.cu").read_text()
+    limit = int(re.search(r"kLarftSharedMax = (\d+) \* 1024", text)
+                .group(1)) * 1024
+    for nb in range(1, 600):
+        assert (8 * hp.larft_scratch_doubles(nb) <= limit) == (nb <= 128)
+    assert hp.larft_scratch_doubles(128) == 128 * 130 + 128 * 32 + 128
 
 
 def test_other_devices_never_take_the_plain_versions(monkeypatch):

@@ -19,8 +19,13 @@ With ``--two-stage`` it runs the two-stage and banded front ends alone, at
 ``eigh(A, band=128)`` and ``eigh_banded`` of A's band u=16, each cold with
 its checks, then twice warm, each line with its wall, phases
 (``dense.reduce_to_band``, ``dense.band_to_tridiag``, ``dense.apply_q2``,
-...), peak memory and launches.  Every line carries the card's name and
-its power limit (nvidia-smi).
+...), peak memory and launches.  With ``--apply-q`` it times the
+one-stage reflector backtransform alone: ``apply_q`` of ``tridiagonalize``'s
+reflectors (panel 32) on an n x n X at ``--n`` (default 4096), ``--reps``
+warm calls each on the host's clock with a sync, then one call under
+torch.profiler (device busy time, idle share, ``larft``'s device time and
+launches).  Every line carries the card's name and its power limit
+(nvidia-smi).
 
 It imports the package from the tree it sits in, so a copy placed in
 another checkout's ``tools/`` (an older commit unpacked by ``git archive``)
@@ -114,7 +119,7 @@ def checks(A, lam, V, ref, chunk: int = 2048):
                 float((lam - ref).abs().max()) / norm}
 
 
-def profiled(fn, n: int):
+def profiled(fn, n: int, keep=()):
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -141,7 +146,9 @@ def profiled(fn, n: int):
                 events / (n - 1),
             "column_step_device_ms_per_column": 1e3 * column / (n - 1),
             "vecmat_device_ms_per_column": 1e3 * vecmat / (n - 1),
-            "top_kernels": dict(top)}
+            "top_kernels": dict(top),
+            "kept_kernels": {k: v for k, v in by_kernel.items()
+                             if any(name in k for name in keep)}}
 
 
 def main() -> int:
@@ -152,6 +159,10 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--two-stage", action="store_true",
                     help="the two-stage and banded front ends alone")
+    ap.add_argument("--apply-q", action="store_true",
+                    help="the one-stage apply_q alone")
+    ap.add_argument("--reps", type=int, default=10,
+                    help="warm calls of --apply-q")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("torch_dense_profile: needs a CUDA card", file=sys.stderr)
@@ -165,6 +176,8 @@ def main() -> int:
            "tag": args.tag}
     if args.two_stage:
         return two_stage(args.n or 4096, args.seed + 1, dev)
+    if args.apply_q:
+        return apply_q_alone(args.n or 4096, args.seed + 1, args.reps, dev)
     args.n = args.n or 16384
     A = dense_matrix(args.n, args.seed)
     ref = torch.linalg.eigvalsh(A)
@@ -194,6 +207,33 @@ def main() -> int:
     _, two = timed_eigh(A2, band=128)
     print(json.dumps({**dev, "what": "eigh(band=128) n=4096", **two}),
           flush=True)
+    return 0
+
+
+def apply_q_alone(n: int, seed: int, reps: int, dev) -> int:
+    """The one-stage apply_q at n: warm walls, then one profiled call."""
+    A = dense_matrix(n, seed)
+    _, _, Yt, taus = tri.tridiagonalize(A)
+    X = dense_matrix(n, seed + 1)
+    tri.apply_q(Yt, taus, X, panel=32)          # warm-up
+    walls = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tri.apply_q(Yt, taus, X, panel=32)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    reset()
+    prof = profiled(lambda: tri.apply_q(Yt, taus, X, panel=32), n,
+                    keep=("larft",))
+    larft = prof["kept_kernels"]
+    print(json.dumps({**dev, "what": f"apply_q n={n} panel 32",
+                      "walls_s": walls, "profiled_wall_s": prof["wall_s"],
+                      "device_busy_s": prof["device_busy_s"],
+                      "idle_share": prof["idle_share"],
+                      "device_events": prof["device_events"],
+                      "larft": larft, "top_kernels": prof["top_kernels"],
+                      "launches": counts()}), flush=True)
     return 0
 
 
