@@ -1514,14 +1514,14 @@ def q2_t_ops(b: int) -> float:
                  + sum(c * (c + 1) + 1 for c in range(1, b)))
 
 
-def q2_blocks_t_all(n: int, b: int, Vw, tw, chunks):
+def q2_blocks_t_all(n: int, b: int, Vw, tw, chunks, module=br):
     """Every chunk's stores in turn, as apply_q2_wave_blocked makes them
-    (each freed before the next)."""
+    (each freed before the next), through ``module``'s q2_blocks_t."""
     for chunk in chunks:
-        br.q2_blocks_t(n, b, Vw, tw, chunk)
+        module.q2_blocks_t(n, b, Vw, tw, chunk)
 
 
-def check_q2_blocks_t(n: int, b: int, reps: int):
+def check_q2_blocks_t(n: int, b: int, reps: int, depth: int = 0):
     """Every block's T and Y^T (the two stores, 16 x 4 tiles) of the
     chase's log at (n, b), chunk by chunk as apply_q2_wave_blocked cuts the
     waves (q2_device_chunks: each chunk's stores within q2_store_budget),
@@ -1532,18 +1532,28 @@ def check_q2_blocks_t(n: int, b: int, reps: int):
     backtransform's T), and the bound (the blocks' reflectors and taus
     read, both stores' live slots written once, against the FP64
     operations of the Gram and the recurrence at the CUDA cores' rate).
-    No PyTorch call forms a compact-WY T (torch.linalg.householder_product
-    forms Q): library_ms is null."""
+    ``depth``: only the first depth - 1 chunks and the last are held
+    against the plain version (and its time is theirs; u=2 and u=4 at
+    n=16384 make 132 and 35); every chunk is timed.  The row states the
+    launch's blocks of threads an SM holds by the occupancy API and the
+    reflector blocks each takes.  No PyTorch call forms a compact-WY T
+    (torch.linalg.householder_product forms Q): library_ms is null."""
     Vw, tw = q2_log(n, b)
     chunks = br.q2_device_chunks(n, b, torch.cuda.current_device())
+    held = (chunks if not depth or len(chunks) <= depth
+            else chunks[:depth - 1] + chunks[-1:])
     err = scale = 0.0
     y_exact = same = lower_zero = one = True
     store_bytes = 0.0
     for chunk in chunks:
+        slot = br.q2_chunk_blocks(n, b, chunk, "cuda")[0]
+        if chunk not in held:
+            store_bytes += 8.0 * slot.numel() * ((b + 15) & ~15) * (
+                ((b + 15) & ~15) + br._q2_y_stride(b))
+            continue
         before = br.q2_blocks_t_launches
         got = br.q2_blocks_t(n, b, Vw, tw, chunk)
         one &= br.q2_blocks_t_launches - before == 1
-        slot = br.q2_chunk_blocks(n, b, chunk, "cuda")[0]
         ref = br.q2_blocks_t_plain(n, b, Vw, tw, chunk)
         err = max(err, float((got.T[slot] - ref.T[slot]).abs().max()))
         scale = max(scale, float(ref.T[slot].abs().max()))
@@ -1562,13 +1572,21 @@ def check_q2_blocks_t(n: int, b: int, reps: int):
     dms = device_ms(lambda: q2_blocks_t_all(n, b, Vw, tw, chunks), reps,
                     only="q2_blocks_t")
     plain_ms = time_ms(lambda: [br.q2_blocks_t_plain(n, b, Vw, tw, c)
-                                for c in chunks], 1)
+                                for c in held], 1)
     blocks = br.q2_block_count(n, b)
     nbytes = 8.0 * blocks * (b * b + b) + store_bytes
     b_ms, b_by = bound(blocks * q2_t_ops(b), PEAK_FP64, nbytes)
+    per_sm, per_block, threads, smem = br.q2_blocks_t_occupancy(
+        torch.cuda.current_device(), b)
     return dict(n=n, b=b, blocks=blocks, chunks=len(chunks),
+                chunks_held=len(held),
                 what=f"every block's T and Y^T, n={n}, b={b}, "
                 f"{len(chunks)} chunks", max_rel_err=err / scale, tol=1e-12,
+                blocks_of_threads_per_sm=per_sm,
+                reflector_blocks_per_block_of_threads=per_block,
+                threads=threads, shared_bytes=smem,
+                t_in_shared_memory=br._q2_t_staged(
+                    torch.cuda.current_device(), b),
                 tol_of="max|T|", max_abs_err=err, bit_exact=y_exact,
                 bit_exact_of="the Y^T store", store_bytes=store_bytes,
                 store_budget_bytes=br.q2_store_budget(n),
@@ -1576,7 +1594,7 @@ def check_q2_blocks_t(n: int, b: int, reps: int):
                 lower_triangle_zero=lower_zero,
                 ms=ms, device_ms=dms, plain_ms=plain_ms,
                 plain_is="q2_blocks_t_plain on the card (torch), every "
-                "chunk", library_ms=None, library_is="none: no PyTorch call "
+                "chunk held", library_ms=None, library_is="none: no PyTorch call "
                 "forms a compact-WY T factor", bound_ms=b_ms, bound_by=b_by,
                 bound_is="max(reflectors + taus read, T and Y^T stores "
                 "written / 3.35 TB/s, Gram + recurrence FP64 ops / 34 "
@@ -2408,12 +2426,29 @@ def _exactness(got, want, again):
                 tol=0.0, tol_of="bit for bit its plain version")
 
 
+# Cycles of one forward step of interface_solve's dependent chain (the
+# floor on d11, the divisions, the products and sums of h2 and g21): the
+# chain phase a step that tools/kernel_phase_probe.py measures for column 0
+# on an H100 at the P=171, K=5 triage shape (0.1452 us at 1980 MHz), every
+# input already in shared memory.
+IF_STEP_CYCLES = 287.0
+
+
+def sm_clock_mhz() -> float:
+    """The SM clock now (nvidia-smi clocks.sm)."""
+    return float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader,"
+         "nounits"], capture_output=True, text=True, check=True,
+        timeout=60).stdout.split()[0])
+
+
 def check_interface(ins, scales, shifted, what, reps):
     """interface_solve against its plain version on the card, on one set of
     the six (P, K) boundary inputs: bit for bit, identical run to run, its
-    scratch, times (events, profiler), the plain loop's time, and a bound
-    from the bytes of the inputs and outputs or the FP64 instructions of
-    the yardstick step."""
+    launch plan and scratch, times (events, profiler), the plain loop's
+    time, a bound from the bytes of the inputs and outputs or the FP64
+    instructions of the yardstick step, and the latency floor: 2 P
+    dependent steps of IF_STEP_CYCLES at the SM clock of this run."""
     ec, ecr = scales
     kw = dict(ec_above=ec, e_cross=ecr, shifted=shifted)
     call = functools.partial(shs.interface_solve, *ins, **kw)
@@ -2424,9 +2459,16 @@ def check_interface(ins, scales, shifted, what, reps):
     per_step = interface_fp64_per_step()
     b = bound(float(P) * K * per_step, fp64_rate(),
               8.0 * (8.0 * P * K + sum(P for s in scales if s is not None)))
+    plan = shs.interface_device_plan(P, K, ins[4].device)
+    mhz = sm_clock_mhz()
     row.update(what=what, P=P, K=K, scaled=ec is not None, shifted=shifted,
                input_row_stride=ins[4].stride(0), threads=64,
-               blocks=-(-K // 64), scratch_bytes=scratch_bytes(call),
+               plan=plan._asdict(), blocks=plan.blocks,
+               scratch_bytes=scratch_bytes(call),
+               latency_floor_ms=2.0 * P * IF_STEP_CYCLES / (mhz * 1e3),
+               latency_floor_is=f"2 P steps x {IF_STEP_CYCLES:g} cycles "
+               "(a forward step's chain, tools/kernel_phase_probe.py) at "
+               f"the SM clock of this run, {mhz:g} MHz",
                fp64_instr_per_step=per_step,
                ms=time_ms(call, reps), device_ms=device_ms(call, reps),
                plain_ms=time_ms(functools.partial(
@@ -4295,10 +4337,13 @@ def kernel_table(d, e, ref):
                              whole_band_reduction_row()],
         # every block's T of the chase's log, chunk by chunk, at the
         # two-stage path's shapes (n=4096, band 128 and u=16), then
-        # n=16384, band 128 (dense_two_stage_full drives u=16 there)
+        # n=16384, band 128 (dense_two_stage_full drives u=16 there), and
+        # n=16384 at u=4 and u=2 (35 and 132 chunks, four of them held)
         "q2_blocks_t": lambda: [check_q2_blocks_t(4096, 128, 10),
                                 check_q2_blocks_t(4096, 16, 10),
-                                check_q2_blocks_t(N, 128, 3)],
+                                check_q2_blocks_t(N, 128, 3),
+                                check_q2_blocks_t(N, 4, 2, depth=4),
+                                check_q2_blocks_t(N, 2, 2, depth=4)],
         # the widest wave and the whole backtransform at n=4096 (band 128
         # and u=16, beside the replaced host loop) and at n=16384, band
         # 128; band 256 at n=1024 (the 8-column tile); then the memory of

@@ -12,10 +12,12 @@
 //    port's torch loop): larft, one launch a panel, T by diagonal blocks
 //    and block products.
 //  - symmetric_eigenvalue_tpu/kernels/band_reduce.py::apply_q2_wave_blocked
-//    (:509), the T factors its wave body (:551-604) forms a wave at a time:
-//    q2_blocks_t, the T (and the Y^T, laid out for the waves) of every
-//    block of a chunk of waves in one launch before the chunk's first wave
-//    (the waves themselves are csrc/q2_apply.cu).
+//    (:509), the T factors its wave body (:551-604) forms a wave at a time
+//    (T^{-1} = diag(1/tau) + striu(Y^T Y), :569-574): q2_blocks_t, the T
+//    (by larft's diagonal blocks and joins over the band Gram, formed as
+//    one product) and the Y^T, laid out for the waves, of every block of a
+//    chunk of waves in one launch before the chunk's first wave (the
+//    waves themselves are csrc/q2_apply.cu).
 //
 // The column step at local column j of a bucket of width m, panel offset o,
 // jj = j - o, with Vp / Wp the panel's reflector and W accumulator rows
@@ -61,19 +63,32 @@
 // T[:k,k] = -tau_k T[:k,:k] G[:k,k] for k = 0..nb-1, from the panel's Gram
 // G, in blocks.  One block of 256 threads: G's strict upper triangle and
 // the taus staged in shared memory in one coalesced pass (to nb = 128; a
-// global scratch past it); each 32-column diagonal block of T by the
-// recurrence, a warp a block and a lane a row, each row's sums for the
-// later columns in registers (no global load in the dependent chain, no
-// wait between lanes); then the blocks joined pairwise, widths 32, 64, ..,
-// by the compact-WY identity T_AB = -T_AA G_AB T_BB, two rounds of 4 x 4
-// tiles a width.  What bounds it on an H100: latency (the diagonal blocks'
-// 31 dependent steps and log2(nb / 32) joins), not its bytes.
-// q2_blocks_t (a batched form of the recurrence over a Gram it builds
-// itself) runs larft_columns: a block of threads a reflector block, one
-// thread a row of T, nb - 1 dependent steps, T's columns packed in shared
-// memory beside G's column k, staged each step; at step k every thread
-// walks l = 0..k-1 together, so the threads read neighbouring entries of
-// column l of T and one broadcast G[l,k].
+// global scratch past it) into M, whose rows are trimmed to their 32-row
+// block-row (Tri: no lower block triangle); each 32-column diagonal block
+// of T by the recurrence, a warp a block and a lane a row, each row's sums
+// for the later columns in registers (no global load in the dependent
+// chain, no wait between lanes); then the blocks joined pairwise, widths
+// 32, 64, .., by the compact-WY identity T_AB = -T_AA G_AB T_BB, two rounds
+// of 4 x 4 tiles a width (X = G_AB T_BB, then T_AB over G_AB's place; in
+// q2_blocks_t X too, in place, each round's tiles computed before any is
+// stored, which saves X's 32 KB at nb = 128).  What bounds it on
+// an H100: latency (the diagonal blocks' 31 dependent steps and log2(nb /
+// 32) joins), not its bytes.
+// q2_blocks_t (the same T for every reflector block of the two-stage
+// backtransform, over a Gram it forms itself) shares that body
+// (larft_diag, larft_joins).  What bounds it: the log's and the stores'
+// bytes (1.3 ms at n = 16384, band 128) once the Gram is out of the
+// dependent chain; the old kernel built a Gram column inside each of the
+// b - 1 steps, one block of threads an SM.  So at b > 32 a block of 256
+// threads a reflector block reads Y from the log once, a slab of 16 rows
+// at a time into a ring copied three slabs ahead (cp.async) in M's idle
+// storage, stores Y^T from the slab and adds the slab's rows to G on the
+// FP64 tensor cores (16 x 8 tiles, their sums in registers), then runs
+// larft's body on M in shared memory (84,992 bytes at b = 128: two blocks
+// of threads an SM); at b <=
+// 32 a team of lanes (b rounded up to a power of two) a reflector block,
+// 128 / L of them a block of threads, T by one diagonal block, the teams'
+// consecutive stores written by the whole block of threads at once.
 //
 // Contractions are fused multiply-adds (__fma_rn); every other rounding is
 // written out; v is divided by the denominator (__ddiv_rn), not multiplied
@@ -398,61 +413,176 @@ __global__ void __launch_bounds__(kThreads) grid_sync_probe_kernel(int syncs) {
   for (int s = 0; s < syncs; ++s) grid.sync();
 }
 
-// T's columns from the Gram of nb reflectors: T[k,k] = tau_k and
-// T[:k,k] = -tau_k T[:k,:k] G[:k,k] for k = 0..nb-1, with T(r, c) at
-// tc(r, c) (shared or global, written by this block only) and column k of G
-// staged into gk by stage(k, gk) (every thread calls it; it fills gk[l],
-// l < k).  Every thread of the block calls it; one thread a row of T: at
-// step k the threads walk l = 0..k-1 together, so they read neighbouring
-// entries of column l of T and one broadcast G[l,k].
-template <class Stage, class Store>
-__device__ __forceinline__ void larft_columns(Stage stage, const double* __restrict__ tau,
-                                              double* gk, Store tc, int nb) {
-  const int tid = threadIdx.x;
-  if (tid == 0) tc(0, 0) = tau[0];
-  for (int k = 1; k < nb; ++k) {
-    stage(k, gk);
-    __syncthreads();                         // gk and T's columns < k
-    const double ntau = -tau[k];
-    for (int r0 = 0; r0 < k; r0 += blockDim.x) {
-      const int r = r0 + tid;
-      double acc = 0.0;
-      // rows r < k, summed over l = r..k-1 (T is upper triangular)
-#pragma unroll 8
-      for (int l = r0; l < k; ++l) {
-        if (r <= l) acc = __fma_rn(tc(r, l), gk[l], acc);
-      }
-      if (r < k) tc(r, k) = __dmul_rn(acc, ntau);
-    }
-    if (tid == 0) tc(k, k) = tau[k];
-    __syncthreads();                         // before gk is overwritten
+// The working matrix M of larft and q2_blocks_t (nbp rows: nb rounded up to
+// 32, or a team's width below 32): T on and above its diagonal; G's strict
+// upper triangle inside each 32-column diagonal block stored transposed
+// below that block's diagonal (M(c, r) = G[r][c], r < c, the recurrence's
+// broadcast reads), and between blocks at its own place (M(r, c) = G[r][c]),
+// where the join that makes T_AB first reads and then overwrites it.  Rows
+// are trimmed to their block-row: row r holds columns 32 (r / 32) .. nbp - 1,
+// in rows of nbp - 32 (r / 32) + 2 doubles (even: every row 16-byte
+// aligned), so the lower block triangle takes no memory (10,496 doubles at
+// nbp = 128 against 16,640 for the square).
+struct Tri {
+  double* p;
+  int nbp;
+  __device__ __forceinline__ long long row(int r) const {
+    const long long I = r >> 5;
+    return 32 * (I * (nbp + 2) - 16 * I * (I - 1)) + (r - 32 * I) * (nbp - 32 * I + 2) - 32 * I;
+  }
+  __device__ __forceinline__ int ld(int r) const { return nbp - 32 * (r >> 5) + 2; }
+  __device__ __forceinline__ double* at(int r, int c) const { return p + row(r) + c; }
+  __device__ __forceinline__ double& operator()(int r, int c) const { return p[row(r) + c]; }
+};
+
+// Doubles of M at nbp rows (a multiple of 32, or below 32).
+__host__ __device__ constexpr long long tri_doubles(int nbp) {
+  return nbp < 32 ? (long long)nbp * (nbp + 2)
+                  : 32LL * ((long long)(nbp / 32) * (nbp + 2)
+                            - 16LL * (nbp / 32) * (nbp / 32 - 1));
+}
+
+__host__ __device__ constexpr int larft_padded(int nb) { return (nb + 31) & ~31; }
+
+// Four doubles at a 16-byte aligned p, as two 16-byte loads.
+__device__ __forceinline__ void load4(const double* p, double* x) {
+  const double2 u = reinterpret_cast<const double2*>(p)[0];
+  const double2 w = reinterpret_cast<const double2*>(p)[1];
+  x[0] = u.x;
+  x[1] = u.y;
+  x[2] = w.x;
+  x[3] = w.y;
+}
+
+__device__ __forceinline__ void store4(double* p, const double* x) {
+  reinterpret_cast<double2*>(p)[0] = make_double2(x[0], x[1]);
+  reinterpret_cast<double2*>(p)[1] = make_double2(x[2], x[3]);
+}
+
+// One diagonal block of T by the recurrence, L (a power of two to 32)
+// columns: blk points at its first entry (its rows ld apart), tz at its
+// taus; every lane r < L of the team calls it.  T[r][k] = -tau_k sum_{r <=
+// l < k} T[r][l] G[l][k], the sum for every later column k kept in
+// registers and added to as each T[r][l] is made (the order of the
+// one-column-a-step recurrence: the same bits); G's entries are the team's
+// broadcast reads, and no lane waits for another.
+template <int L>
+__device__ __forceinline__ void larft_diag(double* blk, int ld, const double* tz, int r) {
+  double acc[L];
+#pragma unroll
+  for (int k = 0; k < L; ++k) acc[k] = 0.0;
+#pragma unroll
+  for (int l = 0; l < L; ++l) {
+    const double t = l < r ? 0.0 : (l == r ? tz[l] : __dmul_rn(acc[l], -tz[l]));
+    if (l >= r) blk[(size_t)r * ld + l] = t;
+#pragma unroll
+    for (int k = l + 1; k < L; ++k) acc[k] = __fma_rn(t, blk[(size_t)k * ld + l], acc[k]);
   }
 }
 
-// T's columns packed, column l at l (l + 1) / 2.
-struct PackedT {
-  double* p;
-  __device__ __forceinline__ double& operator()(int r, int c) const {
-    return p[(size_t)c * (c + 1) / 2 + r];
+// One 4 x 4 tile of a join at rows i0.., columns c0.. of the pair (A =
+// [a, a + h), B = [a + h, a + h + hb)), into acc: X = G_AB T_BB (step 1),
+// or T_AB = -T_AA X without the sign (step 2), X in M at G_AB's place
+// (kInPlace) or in its own h x hb block (row stride hb).  Sums run over l in
+// increasing order, fused multiply-adds; T's triangles masked.
+template <bool kInPlace>
+__device__ __forceinline__ void larft_join_tile(Tri M, const double* X, int a, int h, int hb,
+                                                int i0, int c0, bool step2, double acc[4][4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+#pragma unroll
+    for (int c = 0; c < 4; ++c) acc[i][c] = 0.0;
   }
-};
-
-// T row-major with row stride ld.
-struct DenseT {
-  double* p;
-  int ld;
-  __device__ __forceinline__ double& operator()(int r, int c) const {
-    return p[(size_t)r * ld + c];
+  const double* rows[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) rows[i] = M.at(a + i0 + i, 0);
+  if (!step2) {
+    // X[i][c] = sum_{l <= c} G[a + i][a + h + l] T[a + h + l][a + h + c]
+    for (int l = 0; l <= c0 + 3; ++l) {
+      double x[4], y[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) x[i] = rows[i][a + h + l];
+      load4(M.at(a + h + l, a + h + c0), y);
+#pragma unroll
+      for (int c = 0; c < 4; ++c) y[c] = l <= c0 + c ? y[c] : 0.0;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+#pragma unroll
+        for (int c = 0; c < 4; ++c) acc[i][c] = __fma_rn(x[i], y[c], acc[i][c]);
+      }
+    }
+  } else {
+    // T_AB[i][c] = -sum_{l >= i} T[a + i][a + l] X[l][c]
+    for (int l = i0; l < h; ++l) {
+      double x[4], y[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) x[i] = l >= i0 + i ? rows[i][a + l] : 0.0;
+      load4(kInPlace ? M.at(a + l, a + h + c0) : X + (size_t)l * hb + c0, y);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+#pragma unroll
+        for (int c = 0; c < 4; ++c) acc[i][c] = __fma_rn(x[i], y[c], acc[i][c]);
+      }
+    }
   }
-};
+}
 
-// larft: T from the Gram in blocks.  M (nbp x ld, nbp = nb rounded up to
-// 32, ld = nbp + 2: rows 16-byte aligned) holds T on and above its
-// diagonal and G's strict upper triangle transposed below it (M[c][r] =
-// G[r][c], r < c), zero past nb (tau too, so the padding's T is zero); X
-// is the joins' scratch.
+// Where a join tile's result goes: X (step 1; in M at G_AB's place when
+// kInPlace) or T_AB (step 2, negated).
+template <bool kInPlace>
+__device__ __forceinline__ void larft_join_store(Tri M, double* X, int a, int h, int hb, int i0,
+                                                 int c0, bool step2, double acc[4][4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    double v[4];
+#pragma unroll
+    for (int c = 0; c < 4; ++c) v[c] = step2 ? -acc[i][c] : acc[i][c];
+    store4(step2 || kInPlace ? M.at(a + i0 + i, a + h + c0) : X + (size_t)(i0 + i) * hb + c0, v);
+  }
+}
+
+// The joins of T's diagonal blocks, widths h = 32, 64, ..: T_AB = -T_AA
+// G_AB T_BB for each pair of neighbouring blocks (A = [a, a + h), B = [a +
+// h, a + h + hb)), all pairs of a width at once, in two steps of 4 x 4
+// tiles, every thread of the block of kThreads calling.  kInPlace (nbp <=
+// kInPlaceMax, a tile a thread at 256 threads): each step's tiles are all
+// computed before any is stored, X over G_AB and T_AB over X, so no
+// scratch; else X in its own nbp^2 / 4 doubles.
+constexpr int kInPlaceMax = 128;
+
+template <int kThreads, bool kInPlace>
+__device__ __forceinline__ void larft_joins(Tri M, double* X, int nbp) {
+  static_assert(!kInPlace || kThreads * 16 >= kInPlaceMax * kInPlaceMax / 4,
+                "a join step's tiles, one a thread");
+  const int tid = threadIdx.x;
+  for (int h = 32; h < nbp; h *= 2) {
+    const int pairs = (nbp - h + 2 * h - 1) / (2 * h);   // pairs with a B
+    const int full = (h / 4) * (h / 4);                   // a pair's tiles (fewer in a narrow B)
+    for (int step = 0; step < 2; ++step) {
+      for (int t0 = 0; t0 < pairs * full; t0 += kThreads) {
+        const int t = t0 + tid;
+        const int p = t / full, in = t - p * full;
+        const int a = 2 * h * p, hb = min(h, nbp - a - h), tc = max(hb / 4, 1);
+        const bool live = t < pairs * full && in < (h / 4) * tc;
+        const int i0 = 4 * (in / tc), c0 = 4 * (in % tc);
+        double* Xp = kInPlace ? X : X + (size_t)p * h * h;
+        double acc[4][4];
+        if (live) larft_join_tile<kInPlace>(M, Xp, a, h, hb, i0, c0, step == 1, acc);
+        if (kInPlace) __syncthreads();        // every tile read before any is stored
+        if (live) larft_join_store<kInPlace>(M, Xp, a, h, hb, i0, c0, step == 1, acc);
+      }
+      __syncthreads();
+    }
+  }
+}
+
+// larft: T (nb x nb, upper) with T[k,k] = tau_k and T[:k,k] = -tau_k
+// T[:k,:k] G[:k,k], from the panel's Gram G, in blocks: M (Tri, nbp = nb
+// rounded up to 32) zero past nb (tau too, so the padding's T is zero), T's
+// 32-column diagonal blocks a warp each (larft_diag), then the joins
+// (larft_joins, X in its own storage); in shared memory to nb = 128, else
+// in a global scratch.
 constexpr int kLarftThreads = 256;
-constexpr int kLarftSharedMax = 200 * 1024;   // M, X and the taus in shared memory to nb = 128
 
 // Phase probes of larft, compiled only where KERNEL_PROBES is defined
 // (tools/panel_qr_profile.py --phases): thread 0's clock64 cycles in the
@@ -470,89 +600,24 @@ __device__ long long g_lt[8];
 #define LT_PROBE_STORE do {} while (0)
 #endif
 
-__host__ __device__ constexpr int larft_padded(int nb) { return (nb + 31) & ~31; }
-
-// Doubles of M, X and the taus.
+// Doubles of larft's M, the joins' X and the taus.
 __host__ __device__ constexpr long long larft_doubles(int nb) {
-  return (long long)larft_padded(nb) * (larft_padded(nb) + 2)
-         + (long long)larft_padded(nb) * larft_padded(nb) / 4 + larft_padded(nb);
+  return tri_doubles(larft_padded(nb)) + (long long)larft_padded(nb) * larft_padded(nb) / 4
+         + larft_padded(nb);
 }
 
-// Four doubles at a 16-byte aligned p, as two 16-byte loads.
-__device__ __forceinline__ void load4(const double* p, double* x) {
-  const double2 u = reinterpret_cast<const double2*>(p)[0];
-  const double2 w = reinterpret_cast<const double2*>(p)[1];
-  x[0] = u.x;
-  x[1] = u.y;
-  x[2] = w.x;
-  x[3] = w.y;
-}
-
-// One 4 x 4 tile of a join at rows i0.., columns c0.. of the pair (A =
-// [a, a + h), B = [a + h, a + h + hb)): X = G_AB T_BB (step 1, into X's h x
-// hb block, row stride hb), then T_AB = -T_AA X (step 2, into M).  Sums run
-// over l in increasing order, fused multiply-adds; T's triangles masked.
-__device__ __forceinline__ void larft_join_tile(double* M, int ld, double* X, int a, int h,
-                                                int hb, int i0, int c0, bool step2) {
-  double acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-#pragma unroll
-    for (int c = 0; c < 4; ++c) acc[i][c] = 0.0;
-  }
-  if (!step2) {
-    // X[i][c] = sum_{l <= c} G[a + i][a + h + l] T[a + h + l][a + h + c]
-    for (int l = 0; l <= c0 + 3; ++l) {
-      const double* mr = M + (size_t)(a + h + l) * ld;
-      double x[4], y[4];
-      load4(mr + a + i0, x);
-      load4(mr + a + h + c0, y);
-#pragma unroll
-      for (int c = 0; c < 4; ++c) y[c] = l <= c0 + c ? y[c] : 0.0;
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-#pragma unroll
-        for (int c = 0; c < 4; ++c) acc[i][c] = __fma_rn(x[i], y[c], acc[i][c]);
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-#pragma unroll
-      for (int c = 0; c < 4; ++c) X[(size_t)(i0 + i) * hb + c0 + c] = acc[i][c];
-    }
-  } else {
-    // T_AB[i][c] = -sum_{l >= i} T[a + i][a + l] X[l][c]
-    for (int l = i0; l < h; ++l) {
-      double x[4], y[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) x[i] = l >= i0 + i ? M[(size_t)(a + i0 + i) * ld + a + l] : 0.0;
-      load4(X + (size_t)l * hb + c0, y);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-#pragma unroll
-        for (int c = 0; c < 4; ++c) acc[i][c] = __fma_rn(x[i], y[c], acc[i][c]);
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-#pragma unroll
-      for (int c = 0; c < 4; ++c) M[(size_t)(a + i0 + i) * ld + a + h + c0 + c] = -acc[i][c];
-    }
-  }
-}
-
-// kShared: M, X and the taus in shared memory (nb <= 128), so their
-// accesses compile to shared loads and stores; else in `scratch`.
+// kShared: M, X and the taus in shared memory (to nb = kInPlaceMax), so
+// their accesses compile to shared loads and stores; else in `scratch`.
 template <bool kShared>
 __global__ void __launch_bounds__(kLarftThreads) larft_kernel(const double* __restrict__ G,
                                                               const double* __restrict__ tau,
                                                               double* __restrict__ T,
                                                               double* scratch, int nb) {
   extern __shared__ double sh[];
-  const int nbp = larft_padded(nb), ld = nbp + 2;
+  const int nbp = larft_padded(nb);
   LT_PROBE_START;
-  double* M = kShared ? sh : scratch;
-  double* X = M + (size_t)nbp * ld;            // nbp^2 / 4: the widest level's joins
+  const Tri M{kShared ? sh : scratch, nbp};
+  double* X = M.p + tri_doubles(nbp);          // nbp^2 / 4: the widest level's joins
   double* tz = X + (size_t)nbp * nbp / 4;      // nbp taus, zero past nb
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   constexpr int kLarftWarps = kLarftThreads / 32;
@@ -561,10 +626,11 @@ __global__ void __launch_bounds__(kLarftThreads) larft_kernel(const double* __re
   // taus: into shared memory every copy in flight at once (cp.async)
   for (int r = warp; r < nbp; r += kLarftWarps) {
     for (int c = r + 1 + lane; c < nbp; c += 32) {
+      double* dst = (c >> 5) == (r >> 5) ? M.at(c, r) : M.at(r, c);
       if (kShared && c < nb && r < nb) {
-        cp_async8(M + (size_t)c * ld + r, G + (size_t)r * nb + c);
+        cp_async8(dst, G + (size_t)r * nb + c);
       } else {
-        M[(size_t)c * ld + r] = c < nb && r < nb ? __ldg(G + (size_t)r * nb + c) : 0.0;
+        *dst = c < nb && r < nb ? __ldg(G + (size_t)r * nb + c) : 0.0;
       }
     }
   }
@@ -579,52 +645,17 @@ __global__ void __launch_bounds__(kLarftThreads) larft_kernel(const double* __re
   __syncthreads();
   LT_PROBE(0);
 
-  // the 32-column diagonal blocks by the recurrence, a warp a block, a lane
-  // a row r: T[r][k] = -tau_k sum_{r <= l < k} T[r][l] G[l][k], the sum
-  // for every later column kept in registers and added to as each T[r][l]
-  // is made (the order of larft_columns: the same bits); G's entries are
-  // the warp's broadcast reads, and no lane waits for another
   for (int q = warp; q < nbp / 32; q += kLarftWarps) {
-    const int c0 = 32 * q, r = c0 + lane;
-    double acc[32];
-#pragma unroll
-    for (int k = 0; k < 32; ++k) acc[k] = 0.0;
-#pragma unroll
-    for (int l = 0; l < 32; ++l) {
-      const double t = l < lane ? 0.0 : (l == lane ? tz[c0 + l] : __dmul_rn(acc[l], -tz[c0 + l]));
-      if (l >= lane) M[(size_t)r * ld + c0 + l] = t;
-#pragma unroll
-      for (int k = l + 1; k < 32; ++k) {
-        acc[k] = __fma_rn(t, M[(size_t)(c0 + k) * ld + c0 + l], acc[k]);
-      }
-    }
+    larft_diag<32>(M.at(32 * q, 32 * q), M.ld(32 * q), tz + 32 * q, lane);
   }
   __syncthreads();
   LT_PROBE(1);
-
-  // the joins, widths h = 32, 64, ..: T_AB = -T_AA G_AB T_BB for each pair
-  // of neighbouring blocks (A = [a, a + h), B = [a + h, a + h + hb)), all
-  // pairs of a width at once, in two steps of 4 x 4 tiles
-  for (int h = 32; h < nbp; h *= 2) {
-    const int pairs = (nbp - h + 2 * h - 1) / (2 * h);   // pairs with a B
-    const int full = (h / 4) * (h / 4);                   // a pair's tiles (fewer in a narrow B)
-    for (int step = 0; step < 2; ++step) {
-      for (int t = tid; t < pairs * full; t += kLarftThreads) {
-        const int p = t / full, in = t - p * full;
-        const int a = 2 * h * p, hb = min(h, nbp - a - h), tc = hb / 4;
-        if (in < (h / 4) * tc) {
-          larft_join_tile(M, ld, X + (size_t)p * h * h, a, h, hb, 4 * (in / tc), 4 * (in % tc),
-                          step == 1);
-        }
-      }
-      __syncthreads();
-    }
-  }
+  larft_joins<kLarftThreads, false>(M, X, nbp);
   LT_PROBE(2);
 
   for (int r = warp; r < nb; r += kLarftWarps) {
     for (int c = lane; c < nb; c += 32) {
-      T[(size_t)r * nb + c] = r <= c ? M[(size_t)r * ld + c] : 0.0;
+      T[(size_t)r * nb + c] = r <= c ? M(r, c) : 0.0;
     }
   }
   LT_PROBE(3);
@@ -648,97 +679,360 @@ __device__ __forceinline__ void q2_wave_range(int n, int b, int Kmax, int w, int
   slo = static_cast<int>(lo);
 }
 
+// (i, c) of entry e of a matrix of `cols` columns in csrc/q2_apply.cu's 16 x
+// 4 tiles (tile (i / 16, c / 4) at ((i / 16) (cols / 4) + c / 4) 64,
+// row-major inside).
+__device__ __forceinline__ void q2_untile(int e, int cols, int& i, int& c) {
+  const int tile = e >> 6, in = e & 63, tc = cols >> 2;
+  i = (tile / tc) * 16 + (in >> 2);
+  c = (tile % tc) * 4 + (in & 3);
+}
+
+// Phase probes of q2_blocks_t, compiled only where KERNEL_PROBES is defined
+// (tools/kernel_phase_probe.py): thread 0's clock64 cycles of every block of
+// threads in the loads, the Y^T store, the Gram, the diagonal blocks, the
+// joins and the T store, summed over the blocks (q2_blocks_t_probe_read).
+#ifdef KERNEL_PROBES
+__device__ unsigned long long g_q2[8];
+#define Q2_PROBE_START long long qacc_[6] = {0, 0, 0, 0, 0, 0}; long long qprev_ = clock64()
+#define Q2_PROBE(i) do { if (threadIdx.x == 0) { const long long now_ = clock64(); \
+    qacc_[i] += now_ - qprev_; qprev_ = now_; } } while (0)
+#define Q2_PROBE_STORE do { if (threadIdx.x == 0) { \
+    for (int i_ = 0; i_ < 6; ++i_) atomicAdd(&g_q2[i_], (unsigned long long)qacc_[i_]); \
+    atomicAdd(&g_q2[7], 1ULL); } } while (0)
+#else
+#define Q2_PROBE_START do {} while (0)
+#define Q2_PROBE(i) do {} while (0)
+#define Q2_PROBE_STORE do {} while (0)
+#endif
+
 // q2_blocks_t: the T factor of every compact-WY block of a chunk of waves
 // w0 .. w0 + nw - 1 of the two-stage backtransform
 // (kernels/band_reduce.py::apply_q2_wave_blocked), and its Y^T laid out for
-// csrc/q2_apply.cu, one block of threads a reflector block: blockIdx.y the
-// wave w = w0 + blockIdx.y, blockIdx.x its block s = slo + blockIdx.x
-// (past shi: nothing to make, it returns), at slot blockIdx.y S +
-// blockIdx.x of the chunk's stores.  The chunk bounds the stores: every
-// block at once would take (b rounded up to 16)^2 (Kmax (Kmax + 1) / 2)
-// doubles for T alone, 137 GB at n = 16384, b = 2.
+// csrc/q2_apply.cu: wave w = w0 + blockIdx.y, its live blocks s = slo +
+// x (past shi: nothing to make) at slot blockIdx.y S + x of the chunk's
+// stores.  The chunk bounds the stores: every block at once would take (b
+// rounded up to 16)^2 (Kmax (Kmax + 1) / 2) doubles for T alone, 137 GB at
+// n = 16384, b = 2.
 // Block (J, k) holds the hop-k reflectors of the g = b sweeps J g .. J g + g - 1:
 // reflector i is v_i = Vw[min(J g + i, n - 2), k, :] at window rows i ..
 // i + b - 1 (Y's column i; row n - 2 of the log is zero, so sweeps past the
-// last are identities), tau_i likewise from tw.  The Gram is made from that
-// band structure as the recurrence asks for its columns, G[l, c] = sum_q
-// v_c[q] v_l[q + c - l] (l < c).  Each matrix is zero-padded to wr = b
-// rounded up to 16 rows and kept in csrc/q2_apply.cu's 16 x 4 tiles (tile
-// (i / 16, c / 4) of a matrix of `cols` columns at ((i / 16) (cols / 4) +
-// c / 4) 64, row-major inside): T (wr x wr, zero below the diagonal and
-// past g) in Ts, and Y^T (wr x ys) in Ys, Y^T(i, r) = v_i[r - i] for 0 <=
-// r - i < b and zero elsewhere.  An identity reflector (tau = 0, v = 0)
+// last are identities), tau_i likewise from tw.  Its Gram G = Y^T Y,
+// G[l, c] = sum_r Y[r, l] Y[r, c] = sum_q v_c[q] v_l[q + c - l] (l < c),
+// summed over r in increasing order, then T from G as larft forms it.  Each
+// matrix is zero-padded to wr = b rounded up to 16 rows and kept in
+// q2_untile's tiles: T (wr x wr, zero below the diagonal and past g) in Ts,
+// and Y^T (wr x ys) in Ys, Y^T(i, r) = v_i[r - i] for 0 <= r - i < b and
+// zero elsewhere (the log's bits).  An identity reflector (tau = 0, v = 0)
 // gets T[i, i] = 0 here, where the JAX package's inverse form gives 1: its
-// column of Y is zero, so I - Y T Y^T is the same.  staged: the block's
-// v's and T's packed columns in shared memory (else v read through the
-// read-only cache and T built in a global scratch, read back through L1).
-__global__ void q2_blocks_t_kernel(const double* __restrict__ Vw, const double* __restrict__ tw,
-                                   double* Ts, double* Ys, double* scratch, int n, int b,
-                                   int Kmax, int ys, int w0, int S, int staged) {
+// column of Y is zero, so I - Y T Y^T is the same.
+
+// Wide bands (b > 32): one block of kQ2Threads threads a reflector block.
+// Y is read a slab of rows at a time (every column of the block, cp.async,
+// the log's entries once) into a ring of slabs in shared memory, all but
+// one slab copied ahead of the one in use; each slab's columns of Y^T are
+// stored from it, and its rows added to G = Y^T Y on the FP64 tensor cores
+// (mma.sync.m16n8k4, as csrc/dword_matmul.cu): G's 16 x 8 tiles that hold
+// an entry above the diagonal, kQ2WarpTiles a warp, their sums in
+// registers across the slabs (in rounds of kQ2WarpTiles 8 tiles past b =
+// 128), each skipping the slabs whose rows cannot meet it; then the sums
+// into M and larft's diagonal blocks and joins.  kShared (b <= 128): M in
+// shared memory, joined in place, and the ring (4 slabs of 16 rows) in M's
+// storage, idle until the sums land (84,992 bytes at b = 128: two blocks of
+// threads an SM); else 3 slabs of 8 rows beside the taus, M and X in
+// `scratch`, q2_t_scratch(b) a slot.
+constexpr int kQ2Threads = 256;
+constexpr int kQ2WarpTiles = 9;
+
+__host__ __device__ constexpr int q2_slab_ld(int nbp) { return nbp + 4; }   // conflict-free fragments
+__host__ __device__ constexpr int q2_slab_rows(bool shared) { return shared ? 16 : 8; }
+__host__ __device__ constexpr int q2_ring_slabs(bool shared) { return shared ? 4 : 3; }
+
+// Shared doubles of a wide launch: the taus, then the ring, sharing its
+// storage with M when kShared.
+__host__ __device__ constexpr long long q2_wide_doubles(int b, bool shared) {
+  return larft_padded(b)
+         + (shared ? (tri_doubles(larft_padded(b))
+                          > (long long)q2_ring_slabs(true) * q2_slab_rows(true)
+                                * q2_slab_ld(larft_padded(b))
+                      ? tri_doubles(larft_padded(b))
+                      : (long long)q2_ring_slabs(true) * q2_slab_rows(true)
+                            * q2_slab_ld(larft_padded(b)))
+                   : (long long)q2_ring_slabs(false) * q2_slab_rows(false)
+                         * q2_slab_ld(larft_padded(b)));
+}
+
+// Global scratch doubles a slot of a wide launch takes when not kShared.
+__host__ __device__ constexpr long long q2_t_scratch(int b) {
+  return tri_doubles(larft_padded(b)) + (long long)larft_padded(b) * larft_padded(b) / 4;
+}
+
+// The Gram's 16 x 8 tile `id` (l0, c0): the column tiles c0 = 8 j in
+// order, each with its row tiles l0 = 16 i, i <= (8 j + 7) / 16 (the ones
+// holding an entry above the diagonal); j = 2 m and 2 m + 1 hold m + 1
+// each, so the tiles before column tile 2 m are m (m + 1) and before 2 m +
+// 1 (m + 1)^2.
+__device__ __forceinline__ void q2_gram_tile(int id, int& l0, int& c0) {
+  int m = static_cast<int>((sqrtf(4.0f * id + 1.0f) - 1.0f) * 0.5f);
+  while (m * (m + 1) > id) --m;
+  while ((m + 1) * (m + 2) <= id) ++m;
+  const bool even = id < (m + 1) * (m + 1);
+  c0 = 16 * m + (even ? 0 : 8);
+  l0 = 16 * (id - (even ? m * (m + 1) : (m + 1) * (m + 1)));
+}
+
+// c (16 x 8) += a (16 x 4) b (4 x 8).  Lane = 4 g + t holds a[h] = A[g +
+// 8 h][t], b = B[t][g] and c[2 h + v] = C[g + 8 h][2 t + v].
+__device__ __forceinline__ void q2_mma(double (&c)[4], double a0, double a1, double b) {
+  asm("mma.sync.aligned.m16n8k4.row.col.f64.f64.f64.f64 {%0,%1,%2,%3}, {%4,%5}, {%6}, "
+      "{%0,%1,%2,%3};\n"
+      : "+d"(c[0]), "+d"(c[1]), "+d"(c[2]), "+d"(c[3])
+      : "d"(a0), "d"(a1), "d"(b));
+}
+
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+template <bool kShared>
+__global__ void __launch_bounds__(kQ2Threads, 2)
+q2_blocks_t_wide(const double* __restrict__ Vw, const double* __restrict__ tw, double* Ts,
+                 double* Ys, double* scratch, int n, int b, int Kmax, int ys, int w0, int S) {
   extern __shared__ double sh[];
+  constexpr int kSlab = q2_slab_rows(kShared), kDepth = q2_ring_slabs(kShared);
   const int w = w0 + static_cast<int>(blockIdx.y);
   int slo, shi;
   q2_wave_range(n, b, Kmax, w, slo, shi);
   const int s = slo + static_cast<int>(blockIdx.x);
   if (s > shi) return;                       // past the wave's blocks
+  Q2_PROBE_START;
   const int J = Kmax - 1 - s, k = w - 2 * s;
-  const int g = b, wr = (g + 15) & ~15;
+  const int g = b, wr = (g + 15) & ~15, h = 2 * b - 1, nbp = larft_padded(b);
+  const int sld = q2_slab_ld(nbp);
   const size_t blk = (size_t)blockIdx.y * S + blockIdx.x;
   double* T = Ts + blk * wr * wr;
   double* Y = Ys + blk * wr * ys;
-  // (i, c) of entry e of a tiled matrix of `cols` columns
-  auto untile = [](int e, int cols, int& i, int& c) {
-    const int tile = e >> 6, in = e & 63, tc = cols >> 2;
-    i = (tile / tc) * 16 + (in >> 2);
-    c = (tile % tc) * 4 + (in & 3);
-  };
-  double* taus = sh;
-  double* gk = taus + g;
-  double* vs = gk + g;                       // v_i at i b (staged)
-  const int tid = threadIdx.x;
+  double* tz = sh;                           // nbp taus, zero past g
+  double* ring = tz + nbp;                   // kDepth slabs of kSlab rows of Y, rows sld apart
+  const Tri M{kShared ? ring : scratch + blk * q2_t_scratch(b), nbp};
+  double* X = kShared ? nullptr : M.p + tri_doubles(nbp);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int gq = lane >> 2, tq = lane & 3;
   auto vrow = [&](int i) {
     return Vw + ((size_t)min(J * g + i, n - 2) * Kmax + k) * b;
   };
-  for (int i = tid; i < g; i += blockDim.x) {
-    taus[i] = __ldg(tw + (size_t)min(J * g + i, n - 2) * Kmax + k);
+  for (int i = tid; i < nbp; i += kQ2Threads) {
+    tz[i] = i < g ? __ldg(tw + (size_t)min(J * g + i, n - 2) * Kmax + k) : 0.0;
   }
-  if (staged) {
-    for (int idx = tid; idx < g * b; idx += blockDim.x) {
-      vs[idx] = __ldg(vrow(idx / b) + idx % b);
+  // Y's rows r0 .. r0 + kSlab - 1 into ring slot `at`: kSlab threads a
+  // column, along v_i
+  auto stage = [&](int r0, int at) {
+    double* sb = ring + at * kSlab * sld;
+    for (int idx = tid; idx < kSlab * nbp; idx += kQ2Threads) {
+      const int i = idx / kSlab, rho = idx % kSlab, q = r0 + rho - i;
+      double* dst = sb + rho * sld + i;
+      if (i < g && q >= 0 && q < b) cp_async8(dst, vrow(i) + q);
+      else *dst = 0.0;
+    }
+    asm volatile("cp.async.commit_group;\n" ::);
+  };
+  const int mt = nbp / 16, tiles = mt * (mt + 1);
+  for (int round = 0; round * 8 * kQ2WarpTiles < tiles; ++round) {
+    // this warp's tiles of the round, their sums in registers
+    int l0[kQ2WarpTiles], c0[kQ2WarpTiles];
+    double acc[kQ2WarpTiles][4];
+#pragma unroll
+    for (int u = 0; u < kQ2WarpTiles; ++u) {
+      const int id = round * 8 * kQ2WarpTiles + u * 8 + warp;
+      if (id < tiles) q2_gram_tile(id, l0[u], c0[u]);
+      else l0[u] = c0[u] = nbp;              // none: never active, never stored
+#pragma unroll
+      for (int x = 0; x < 4; ++x) acc[u][x] = 0.0;
+    }
+    const int rows = round == 0 ? ys : h;   // round 0 also stores Y^T
+    const int slabs = (rows + kSlab - 1) / kSlab;
+    for (int sl = 0; sl < kDepth - 1; ++sl) {
+      if (sl < slabs) stage(sl * kSlab, sl);
+      else asm volatile("cp.async.commit_group;\n" ::);
+    }
+    for (int sl = 0; sl < slabs; ++sl) {
+      const int r0 = sl * kSlab, at = sl % kDepth;
+      cp_wait<kDepth - 2>();
+      __syncthreads();                       // slab sl in; slab sl - 1 done with
+      if (sl + kDepth - 1 < slabs) stage(r0 + (kDepth - 1) * kSlab, (sl + kDepth - 1) % kDepth);
+      else asm volatile("cp.async.commit_group;\n" ::);
+      Q2_PROBE(0);
+      const double* sb = ring + at * kSlab * sld;
+      if (round == 0) {
+        // Y^T's columns r0 .. r0 + 4 nj - 1: the tiles (ti, r0 / 4 + j), in pairs
+        const int nj = min(kSlab, ys - r0) / 4;
+        for (int e = 2 * tid; e < (wr / 16) * nj * 64; e += 2 * kQ2Threads) {
+          const int ti = e / (nj * 64), rem = e - ti * nj * 64, j = rem >> 6, in = rem & 63;
+          const int i = ti * 16 + (in >> 2), rho = 4 * j + (in & 3);
+          reinterpret_cast<double2*>(Y + ((size_t)ti * (ys / 4) + r0 / 4 + j) * 64 + in)[0] =
+              make_double2(sb[rho * sld + i], sb[(rho + 1) * sld + i]);
+        }
+      }
+      Q2_PROBE(1);
+      if (r0 < h) {
+#pragma unroll
+        for (int u = 0; u < kQ2WarpTiles; ++u) {
+          // the tile's rows that can be nonzero: c0 .. l0 + 15 + b - 1
+          if (c0[u] < g && r0 <= l0[u] + b + 14 && r0 + kSlab - 1 >= c0[u]) {
+#pragma unroll
+            for (int kk = 0; kk < kSlab; kk += 4) {
+              const double* row = sb + (kk + tq) * sld;
+              q2_mma(acc[u], row[l0[u] + gq], row[l0[u] + gq + 8], row[c0[u] + gq]);
+            }
+          }
+        }
+      }
+      Q2_PROBE(2);
+    }
+    __syncthreads();                         // every slab read: the ring's storage is M's
+    // the sums into M: above the diagonal only, transposed inside a
+    // diagonal block
+#pragma unroll
+    for (int u = 0; u < kQ2WarpTiles; ++u) {
+      if (l0[u] >= nbp) continue;
+#pragma unroll
+      for (int x = 0; x < 4; ++x) {
+        const int l = l0[u] + gq + 8 * (x >> 1), c = c0[u] + 2 * tq + (x & 1);
+        if (l < c) {
+          if ((l >> 5) == (c >> 5)) M(c, l) = acc[u][x];
+          else M(l, c) = acc[u][x];
+        }
+      }
     }
   }
   __syncthreads();
-  auto v = [&](int i, int q) { return staged ? vs[i * b + q] : __ldg(vrow(i) + q); };
-  for (int e = tid; e < wr * ys; e += blockDim.x) {
-    int i, r;
-    untile(e, ys, i, r);
-    const int q = r - i;
-    Y[e] = i < g && q >= 0 && q < b ? v(i, q) : 0.0;
+  Q2_PROBE(2);
+
+  for (int q = warp; q < nbp / 32; q += kQ2Threads / 32) {
+    larft_diag<32>(M.at(32 * q, 32 * q), M.ld(32 * q), tz + 32 * q, lane);
   }
-  auto stage = [&](int c, double* col) {
-    for (int l = tid; l < c; l += blockDim.x) {
-      double s = 0.0;
-      for (int q = 0; q < b - (c - l); ++q) s = __fma_rn(v(c, q), v(l, q + c - l), s);
-      col[l] = s;
-    }
-  };
-  auto store = [&](auto tc) {
-    __syncthreads();
-    for (int e = tid; e < wr * wr; e += blockDim.x) {
-      int r, c;
-      untile(e, wr, r, c);
-      T[e] = r <= c && c < g ? tc(r, c) : 0.0;
-    }
-  };
-  if (staged) {
-    const PackedT tc{vs + g * b};
-    larft_columns(stage, taus, gk, tc, g);
-    store(tc);
-  } else {
-    const DenseT tc{scratch + blk * g * g, g};
-    larft_columns(stage, taus, gk, tc, g);
-    store(tc);
+  __syncthreads();
+  Q2_PROBE(3);
+  larft_joins<kQ2Threads, kShared>(M, X, nbp);
+  Q2_PROBE(4);
+  for (int e = 2 * tid; e < wr * wr; e += 2 * kQ2Threads) {
+    int r, c;
+    q2_untile(e, wr, r, c);                  // c even: (r, c) and (r, c + 1)
+    const double* mr = M.at(r, 0);
+    reinterpret_cast<double2*>(T + e)[0] =
+        make_double2(r <= c && c < g ? mr[c] : 0.0, r <= c + 1 && c + 1 < g ? mr[c + 1] : 0.0);
   }
+  Q2_PROBE(5);
+  Q2_PROBE_STORE;
+}
+
+// Narrow bands (b <= 32): a team of L lanes (b rounded up to a power of
+// two) a reflector block, kQ2TeamThreads / L blocks a block of threads (a
+// warp a block at b > 16, several a warp below): each team copies its v's
+// and taus into shared memory (cp.async), forms its Gram a column a lane
+// (into M below the diagonal) and T by one diagonal block (larft_diag<L>:
+// no join); then the whole block of threads stores the live teams' T and
+// Y^T, whose slots are consecutive, in one coalesced sweep each (16-byte
+// streaming stores: mostly the padding of small b, never read back here).  A team's v's and M take rows of L + 1 doubles (an odd stride:
+// a lane a row without bank conflicts); per team 2 L (L + 1) + L doubles of
+// shared memory.
+constexpr int kQ2TeamThreads = 128;
+
+__host__ __device__ constexpr int q2_team_width(int b) {
+  return b <= 2 ? 2 : b <= 4 ? 4 : b <= 8 ? 8 : b <= 16 ? 16 : 32;
+}
+
+__host__ __device__ constexpr long long q2_team_doubles(int L) {
+  return 2LL * L * (L + 1) + L;
+}
+
+template <int L>
+__global__ void __launch_bounds__(kQ2TeamThreads)
+q2_blocks_t_teams(const double* __restrict__ Vw, const double* __restrict__ tw, double* Ts,
+                  double* Ys, int n, int b, int Kmax, int ys, int w0, int S) {
+  extern __shared__ double sh[];
+  constexpr int kTeams = kQ2TeamThreads / L;
+  constexpr int ld = L + 1;
+  const int tid = threadIdx.x, team = tid / L, r = tid % L;
+  const int w = w0 + static_cast<int>(blockIdx.y);
+  int slo, shi;
+  q2_wave_range(n, b, Kmax, w, slo, shi);
+  const int x0 = static_cast<int>(blockIdx.x) * kTeams;
+  // the live teams: x0 .. x0 + nlive - 1 (a slot inside the chunk's S and
+  // a block inside the wave)
+  const int nlive = min(min(kTeams, S - x0), shi - slo - x0 + 1);
+  if (nlive <= 0) return;
+  Q2_PROBE_START;
+  const bool live = team < nlive;
+  const int s = slo + x0 + team, J = Kmax - 1 - s, k = w - 2 * s;
+  const int g = b, wr = (g + 15) & ~15;
+  double* vs = sh + team * q2_team_doubles(L);   // v_i at i ld
+  double* Mt = vs + L * ld;                       // L x ld: T and G transposed
+  double* tz = Mt + L * ld;
+  if (live) {
+    for (int idx = r; idx < g * b; idx += L) {
+      const int i = idx / b, q = idx - i * b;
+      cp_async8(vs + i * ld + q, Vw + ((size_t)min(J * g + i, n - 2) * Kmax + k) * b + q);
+    }
+    tz[r] = r < g ? __ldg(tw + (size_t)min(J * g + r, n - 2) * Kmax + k) : 0.0;
+  }
+  asm volatile("cp.async.commit_group;\n" ::);
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+  __syncwarp();
+  Q2_PROBE(0);
+  if (live) {
+    // column r of G: G[l][r] = sum_q v_r[q] v_l[q + r - l], l < r, into
+    // Mt[r][l], every l's sum in a register, q ascending; zero past g
+    double acc[L];
+#pragma unroll
+    for (int l = 0; l < L; ++l) acc[l] = 0.0;
+    if (r < g) {
+      for (int q = 0; q < b; ++q) {
+        const double vr = vs[r * ld + q];
+#pragma unroll
+        for (int l = 0; l < L; ++l) {
+          // lane r reads v_l[q + r - l]: neighbouring lanes, neighbouring words
+          if (l < r && q + r - l < b) acc[l] = __fma_rn(vr, vs[l * ld + q + r - l], acc[l]);
+        }
+      }
+    }
+#pragma unroll
+    for (int l = 0; l < L; ++l) {
+      if (l < r) Mt[r * ld + l] = acc[l];
+    }
+  }
+  __syncwarp();
+  Q2_PROBE(2);
+  if (live) larft_diag<L>(Mt, ld, tz, r);
+  __syncthreads();
+  Q2_PROBE(3);
+  // the live teams' slots, consecutive: Y^T, then T, two entries of a
+  // tile's row a thread
+  const size_t blk0 = (size_t)blockIdx.y * S + x0;
+  double* Y = Ys + blk0 * wr * ys;
+  for (int e = 2 * tid; e < nlive * wr * ys; e += 2 * kQ2TeamThreads) {
+    const int t = e / (wr * ys);
+    int i, c;
+    q2_untile(e - t * wr * ys, ys, i, c);
+    const double* v = sh + t * q2_team_doubles(L) + i * ld - i;   // v_i[c - i] at v[c]
+    const bool row = i < g;
+    __stcs(reinterpret_cast<double2*>(Y + e),
+           make_double2(row && c >= i && c - i < b ? v[c] : 0.0,
+                        row && c + 1 >= i && c + 1 - i < b ? v[c + 1] : 0.0));
+  }
+  Q2_PROBE(1);
+  double* T = Ts + blk0 * wr * wr;
+  for (int e = 2 * tid; e < nlive * wr * wr; e += 2 * kQ2TeamThreads) {
+    const int t = e / (wr * wr);
+    int i, c;
+    q2_untile(e - t * wr * wr, wr, i, c);
+    const double* m = sh + t * q2_team_doubles(L) + L * ld + i * ld;
+    __stcs(reinterpret_cast<double2*>(T + e),
+           make_double2(i <= c && c < g ? m[c] : 0.0, i <= c + 1 && c + 1 < g ? m[c + 1] : 0.0));
+  }
+  Q2_PROBE(5);
+  Q2_PROBE_STORE;
 }
 
 }  // namespace
@@ -862,17 +1156,16 @@ extern "C" int grid_sync_probe_launch(int grid, int syncs, void* stream) {
 }
 
 // Bytes of M, X and the taus that a larft launch keeps in shared memory
-// (0: they go to the global scratch instead; nb > 128).
+// (0: they go to the global scratch instead; nb > kInPlaceMax).
 extern "C" int larft_shared_bytes(int nb) {
-  const long long bytes = 8LL * larft_doubles(nb);
-  return nb > 0 && bytes <= kLarftSharedMax ? static_cast<int>(bytes) : 0;
+  return nb > 0 && larft_padded(nb) <= kInPlaceMax ? static_cast<int>(8 * larft_doubles(nb)) : 0;
 }
 
 // G: (nb, nb) f64 contiguous Gram of the panel (its strict upper triangle
-// read); tau: (nb,); T: (nb, nb) out, contiguous.  scratch: larft_doubles(nb)
-// doubles (kernels/householder_panel.py::larft_scratch_doubles) when
-// larft_shared_bytes(nb) is 0, else unused (may be null).  One block of
-// kLarftThreads; one kernel on `stream`.
+// read); tau: (nb,); T: (nb, nb) out, contiguous.  scratch:
+// larft_doubles(nb) doubles (kernels/householder_panel.py::
+// larft_scratch_doubles) when larft_shared_bytes(nb) is 0, else unused (may
+// be null).  One block of kLarftThreads; one kernel on `stream`.
 extern "C" int larft_launch(const void* G, const void* tau, void* T, void* scratch, int nb,
                             void* stream) {
   if (nb <= 0 || nb > 46340) return static_cast<int>(cudaErrorInvalidValue);
@@ -895,15 +1188,31 @@ extern "C" int larft_launch(const void* G, const void* tau, void* T, void* scrat
   return static_cast<int>(cudaGetLastError());
 }
 
-// Shared bytes of a q2_blocks_t launch at g = b: its taus and G's staged
-// column, with the block's v's and T's packed columns when `staged`.
-static long long q2_blocks_t_bytes(int g, int staged) {
-  return 8LL * (2LL * g + (staged ? (long long)g * g + (long long)g * (g + 1) / 2 : 0));
+// A q2_blocks_t launch at band b: its kernel, threads, reflector blocks a
+// block of threads and dynamic shared bytes; `staged`: M in shared memory
+// (a wide band; a narrow band always is).
+struct Q2Instance {
+  const void* fn;
+  int threads, per_block;
+  long long smem;
+};
+
+static Q2Instance q2_instance(int b, int staged) {
+  if (b <= 32) {
+    const int L = q2_team_width(b), teams = kQ2TeamThreads / L;
+    const void* fns[5] = {(const void*)q2_blocks_t_teams<2>, (const void*)q2_blocks_t_teams<4>,
+                          (const void*)q2_blocks_t_teams<8>, (const void*)q2_blocks_t_teams<16>,
+                          (const void*)q2_blocks_t_teams<32>};
+    const int at = L == 2 ? 0 : L == 4 ? 1 : L == 8 ? 2 : L == 16 ? 3 : 4;
+    return {fns[at], kQ2TeamThreads, teams, 8LL * teams * q2_team_doubles(L)};
+  }
+  return {staged ? (const void*)q2_blocks_t_wide<true> : (const void*)q2_blocks_t_wide<false>,
+          kQ2Threads, 1, 8LL * q2_wide_doubles(b, staged != 0)};
 }
 
-// Whether q2_blocks_t stages a block in shared memory at band b on the
-// current device (1: it fits in what a block may opt into; 0: it needs
-// the scratch), into *out.
+// Whether q2_blocks_t keeps M in shared memory at band b on the current
+// device (1: a narrow band, or a wide one whose M fits what a block may opt
+// into and joins in place, b <= 128; 0: it needs the scratch), into *out.
 extern "C" int q2_blocks_t_staged(int b, void* out) {
   int dev = 0, optin = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -911,7 +1220,32 @@ extern "C" int q2_blocks_t_staged(int b, void* out) {
     err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   }
   if (err != cudaSuccess) return static_cast<int>(err);
-  *static_cast<int*>(out) = q2_blocks_t_bytes(b, 1) <= optin ? 1 : 0;
+  *static_cast<int*>(out) =
+      b <= 32 || (larft_padded(b) <= kInPlaceMax && q2_instance(b, 1).smem <= optin) ? 1 : 0;
+  return 0;
+}
+
+// (blocks of threads an SM holds by the occupancy API, reflector blocks a
+// block of threads, its threads, its dynamic shared bytes) of the
+// q2_blocks_t launch at band b on the current device, into out[0..3].
+extern "C" int q2_blocks_t_occupancy(int b, void* out) {
+  int staged = 0;
+  cudaError_t err = static_cast<cudaError_t>(q2_blocks_t_staged(b, &staged));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const Q2Instance q = q2_instance(b, staged);
+  err = cudaFuncSetAttribute(q.fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(q.smem));
+  int blocks = 0;
+  if (err == cudaSuccess) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, q.fn, q.threads,
+                                                        static_cast<size_t>(q.smem));
+  }
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int* o = static_cast<int*>(out);
+  o[0] = blocks;
+  o[1] = q.per_block;
+  o[2] = q.threads;
+  o[3] = static_cast<int>(q.smem);
   return 0;
 }
 
@@ -921,9 +1255,10 @@ extern "C" int q2_blocks_t_staged(int b, void* out) {
 // wr f64 out (wr = (b + 15) & ~15); Ys: as many blocks of wr x ys f64 out,
 // ys the columns csrc/q2_apply.cu reads (y_stride,
 // kernels/band_reduce.py::_q2_y_stride); both in 16 x 4 tiles, a slot past
-// its wave's blocks left unwritten.  scratch: nw S b^2 doubles where
-// q2_blocks_t_staged(b) is 0, else unused (may be null).  One kernel on
-// `stream`: a grid of S x nw blocks of threads.
+// its wave's blocks left unwritten.  scratch: nw S q2_t_scratch(b) doubles
+// (kernels/band_reduce.py::q2_t_scratch_doubles) where q2_blocks_t_staged(b)
+// is 0, else unused (may be null).  One kernel on `stream`: a grid of
+// ceil(S / per_block) x nw blocks of threads (q2_instance).
 extern "C" int q2_blocks_t_launch(const void* Vw, const void* tw, void* Ts, void* Ys,
                                   void* scratch, int n, int b, int Kmax, int ys, int w0, int nw,
                                   int S, void* stream) {
@@ -936,17 +1271,36 @@ extern "C" int q2_blocks_t_launch(const void* Vw, const void* tw, void* Ts, void
   cudaError_t err = static_cast<cudaError_t>(q2_blocks_t_staged(b, &staged));
   if (err != cudaSuccess) return static_cast<int>(err);
   if (!staged && scratch == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-  const int smem = static_cast<int>(q2_blocks_t_bytes(b, staged));
-  if (smem > 48 * 1024) {
-    err = cudaFuncSetAttribute(q2_blocks_t_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               smem);
+  const Q2Instance q = q2_instance(b, staged);
+  if (q.smem > 48 * 1024) {
+    err = cudaFuncSetAttribute(q.fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(q.smem));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  const int threads = ((b + 31) / 32) * 32;
-  q2_blocks_t_kernel<<<dim3(S, nw), threads, static_cast<size_t>(smem),
-                       static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const double*>(Vw), static_cast<const double*>(tw), static_cast<double*>(Ts),
-      static_cast<double*>(Ys), static_cast<double*>(scratch), n, b, Kmax, ys, w0, S, staged);
+  const dim3 grid((S + q.per_block - 1) / q.per_block, nw);
+  const size_t smem = static_cast<size_t>(q.smem);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const double* v = static_cast<const double*>(Vw);
+  const double* t = static_cast<const double*>(tw);
+  double* T = static_cast<double*>(Ts);
+  double* Y = static_cast<double*>(Ys);
+  if (b > 32) {
+    if (staged) {
+      q2_blocks_t_wide<true><<<grid, q.threads, smem, st>>>(v, t, T, Y, nullptr, n, b, Kmax, ys,
+                                                           w0, S);
+    } else {
+      q2_blocks_t_wide<false><<<grid, q.threads, smem, st>>>(
+          v, t, T, Y, static_cast<double*>(scratch), n, b, Kmax, ys, w0, S);
+    }
+  } else {
+    switch (q2_team_width(b)) {
+      case 2: q2_blocks_t_teams<2><<<grid, q.threads, smem, st>>>(v, t, T, Y, n, b, Kmax, ys, w0, S); break;
+      case 4: q2_blocks_t_teams<4><<<grid, q.threads, smem, st>>>(v, t, T, Y, n, b, Kmax, ys, w0, S); break;
+      case 8: q2_blocks_t_teams<8><<<grid, q.threads, smem, st>>>(v, t, T, Y, n, b, Kmax, ys, w0, S); break;
+      case 16: q2_blocks_t_teams<16><<<grid, q.threads, smem, st>>>(v, t, T, Y, n, b, Kmax, ys, w0, S); break;
+      default: q2_blocks_t_teams<32><<<grid, q.threads, smem, st>>>(v, t, T, Y, n, b, Kmax, ys, w0, S); break;
+    }
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -954,5 +1308,15 @@ extern "C" int q2_blocks_t_launch(const void* Vw, const void* tw, void* Ts, void
 // The probed copy's larft phase cycles (thread 0's four).
 extern "C" int larft_probe_read(void* out) {
   return static_cast<int>(cudaMemcpyFromSymbol(out, g_lt, sizeof(g_lt)));
+}
+
+// The probed copy's q2_blocks_t phase cycles summed over every block of
+// threads' thread 0 since the last read (six phases, then the blocks of
+// threads counted), and the sums zeroed.
+extern "C" int q2_blocks_t_probe_read(void* out) {
+  cudaError_t err = cudaMemcpyFromSymbol(out, g_q2, sizeof(g_q2));
+  const unsigned long long zero[8] = {0, 0, 0, 0, 0, 0, 0, 0};
+  if (err == cudaSuccess) err = cudaMemcpyToSymbol(g_q2, zero, sizeof(zero));
+  return static_cast<int>(err);
 }
 #endif

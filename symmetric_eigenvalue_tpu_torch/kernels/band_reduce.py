@@ -45,6 +45,7 @@ import torch
 
 from .. import _build
 from .dword_matmul import dword_matmul, dword_matmul_sub_
+from .householder_panel import tri_doubles
 from .tridiagonalize import _householder, _larft
 
 chase_launches = 0
@@ -65,6 +66,7 @@ _PANEL_ARGTYPES = [_P, _LL, _P, _LL, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                    _I, _I, _P]
 _Q2T_ARGTYPES = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]
 _Q2T_STAGED_ARGTYPES = [_I, _P]
+_Q2T_OCCUPANCY_ARGTYPES = [_I, _P]
 _Q2_OCCUPANCY_ARGTYPES = [_I, _I, _I, _P]
 _Q2_ARGTYPES = [_P, _LL, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P]
 _CHASE_WHOLE_B = 32         # band_chase gives a block a whole task to b <= 32
@@ -961,10 +963,48 @@ def q2_store_budget(n: int) -> int:
 
 def _q2_slot_bytes(b: int, scratch: bool) -> int:
     """Bytes a slot of the stores takes at band b: T and Y^T zero-padded to
-    rows of 16, and the b x b scratch when ``q2_blocks_t`` builds T in
-    global memory (``scratch``)."""
+    rows of 16, and :func:`q2_t_scratch_doubles` when ``q2_blocks_t`` keeps
+    a block's M in global memory (``scratch``)."""
     wr = (b + 15) & ~15
-    return 8 * (wr * wr + wr * _q2_y_stride(b) + (b * b if scratch else 0))
+    return 8 * (wr * wr + wr * _q2_y_stride(b)
+                + (q2_t_scratch_doubles(b) if scratch else 0))
+
+
+_Q2_TEAM_THREADS = 128      # kQ2TeamThreads: a block of threads at b <= 32
+_Q2_THREADS = 256           # kQ2Threads: a block of threads a reflector block
+_Q2_IN_PLACE = 128          # kInPlaceMax: M in shared memory, joined in place
+# a wide block's ring of slabs of Y's rows: (slabs, rows a slab) with M in
+# shared memory (the ring in M's storage), and without
+_Q2_RING = {True: (4, 16), False: (3, 8)}
+
+
+def q2_team_width(b: int) -> int:
+    """Lanes a reflector block takes at a narrow band (b <= 32): b rounded
+    up to a power of two, at least 2 (csrc's ``q2_team_width``)."""
+    return next(L for L in (2, 4, 8, 16, 32) if b <= L)
+
+
+def q2_t_shared_bytes(b: int, staged: bool = True) -> int:
+    """Dynamic shared bytes of a ``q2_blocks_t`` block of threads at band b
+    (csrc's ``q2_instance``): at b <= 32, 128 / L teams, each its v's and M
+    (L rows of L + 1) and taus (L); past it the taus and a ring of slabs of
+    Y's rows (rows of nbp + 4, nbp = b rounded up to 32), which with M in
+    shared memory (``staged``) shares M's storage (``tri_doubles``)."""
+    if b <= 32:
+        L = q2_team_width(b)
+        return 8 * (_Q2_TEAM_THREADS // L) * (2 * L * (L + 1) + L)
+    nbp = -(-b // 32) * 32
+    slabs, rows = _Q2_RING[staged]
+    ring = slabs * rows * (nbp + 4)
+    return 8 * (nbp + (max(tri_doubles(nbp), ring) if staged else ring))
+
+
+def q2_t_scratch_doubles(b: int) -> int:
+    """Global scratch doubles a slot takes where ``q2_blocks_t`` keeps M out
+    of shared memory (b > 128): M and the joins' X (csrc's
+    ``q2_t_scratch``)."""
+    nbp = -(-b // 32) * 32
+    return tri_doubles(nbp) + nbp * nbp // 4
 
 
 def q2_chunks(n: int, band: int, slot_bytes: int, budget: int):
@@ -1118,6 +1158,24 @@ def _q2_t_staged(index: int, b: int) -> bool:
     return got
 
 
+def q2_blocks_t_occupancy(index: int, band: int):
+    """(blocks of threads an SM holds by the occupancy API, reflector
+    blocks a block of threads, threads, dynamic shared bytes) of the
+    ``q2_blocks_t`` launch at band b on CUDA device ``index`` (cached)."""
+    b = int(band)
+    key = ("q2_blocks_t_occupancy", index, b)
+    got = _OCCUPANCY.get(key)
+    if got is None:
+        out = (ctypes.c_int * 4)()
+        fn = _build.function("householder_panel", "q2_blocks_t_occupancy",
+                             _Q2T_OCCUPANCY_ARGTYPES)
+        with torch.cuda.device(index):
+            rc = fn(b, ctypes.addressof(out))
+        _build.check_launch(rc, "q2_blocks_t_occupancy")
+        got = _OCCUPANCY[key] = tuple(out)
+    return got
+
+
 def q2_device_chunks(n: int, band: int, index: int):
     """:func:`q2_chunks` as ``apply_q2_wave_blocked`` cuts them on CUDA
     device ``index`` (one ``q2_blocks_t`` launch each)."""
@@ -1144,7 +1202,7 @@ def _launch_q2_blocks_t(n: int, b: int, Vw, tw, chunk: Q2Chunk):
         Ys = torch.empty((slots, wr // 16, ys // 4, 16, 4), **f64)
         scratch = None
         if not _q2_t_staged(index, b):
-            scratch = torch.empty((slots, b, b), **f64)
+            scratch = torch.empty((slots, q2_t_scratch_doubles(b)), **f64)
         stream = torch.cuda.current_stream(index).cuda_stream
         fn = _build.function("householder_panel", "q2_blocks_t_launch",
                              _Q2T_ARGTYPES)

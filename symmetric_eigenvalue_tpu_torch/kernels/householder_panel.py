@@ -414,14 +414,26 @@ def larft(G, tau):
     return _launch_larft(G, tau)
 
 
+def tri_doubles(nbp: int) -> int:
+    """Doubles of csrc's ``Tri`` M (``tri_doubles``), the working matrix of
+    ``larft`` and ``q2_blocks_t``, at nbp rows: row r trimmed to its 32-row
+    block-row, nbp - 32 (r // 32) + 2 doubles (nbp (nbp + 2) below 32
+    rows)."""
+    if nbp < 32:
+        return nbp * (nbp + 2)
+    blocks = nbp // 32
+    return 32 * (blocks * (nbp + 2) - 16 * blocks * (blocks - 1))
+
+
 def larft_scratch_doubles(nb: int) -> int:
-    """Doubles of ``larft``'s working set (csrc's ``larft_doubles``): M
-    (nb rounded up to 32, nbp, rows of nbp + 2: T above its diagonal and
-    G's strict upper triangle below it), the joins' nbp^2 / 4 and the
-    taus; in shared memory where csrc's ``larft_shared_bytes`` says it
-    fits (to nb = 128), else in this global scratch."""
+    """Doubles of ``larft``'s working set (csrc's ``larft_doubles``): M (nb
+    rounded up to 32, nbp rows: T on and above the diagonal, G's strict
+    upper triangle transposed inside the diagonal blocks and in place
+    between them; :func:`tri_doubles`), the joins' X (nbp^2 / 4) and the
+    taus; in shared memory to nb = 128 (csrc's ``larft_shared_bytes``),
+    else in this global scratch."""
     nbp = -(-nb // 32) * 32
-    return nbp * (nbp + 2) + nbp * nbp // 4 + nbp
+    return tri_doubles(nbp) + nbp * nbp // 4 + nbp
 
 
 def _launch_larft(G, tau):

@@ -53,7 +53,12 @@ _TINY2 = 2.0 ** -96         # interface 2x2 determinant floor
 
 _INTERFACE_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_longlong]
                        + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3
-                       + [ctypes.c_void_p] * 5)
+                       + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
+                       + [ctypes.c_void_p])
+_LIMITS_ARGTYPES = [ctypes.c_void_p]
+_IF_THREADS = 64             # kThreads of interface_solve.cu: columns a block
+_IF_RING = 7                 # kRing: the ring's rows (kAhead = 6 ahead)
+_IF_LIMITS: Dict[int, Tuple[int, int, int]] = {}
 _BLOCK_LU_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_longlong]
                       + [ctypes.c_int] * 7 + [ctypes.c_void_p] * 6)
 _INFO_ARGTYPES = [ctypes.c_int] * 4 + [ctypes.c_void_p]
@@ -288,6 +293,62 @@ def _require_f64(what, tensors, device):
             raise ValueError(f"{what}: every operand must be on one device")
 
 
+class InterfacePlan(NamedTuple):
+    """``interface_solve``'s launch: ``nc`` columns a block of threads
+    (``blocks`` of them), the forward values of the last ``ps`` rows kept
+    in shared memory (the rest in the outputs and a (P - ps, K) scratch
+    pair), ``whole``: every input row copied into shared memory at once
+    (then ps = P), else a ring of 7 rows each thread fills 6 ahead;
+    ``smem`` its dynamic shared bytes."""
+    nc: int
+    ps: int
+    whole: bool
+    smem: int
+    blocks: int
+
+
+def interface_plan(P: int, K: int, sms: int, sm_bytes: int,
+                   optin: int) -> InterfacePlan:
+    """The launch at (P, K) on a card of ``sms`` SMs holding ``sm_bytes``
+    of shared memory each, ``optin`` a block: every block of threads
+    resident at once (the bytes an SM holds split between the blocks it
+    must take, 1 KB each reserved), every input row staged at once where
+    that fits, else the ring and as many rows' forward values as the rest
+    holds (each row 4 doubles a column)."""
+    nc = min(_IF_THREADS, K)
+    blocks = -(-K // nc)
+    budget = min(optin, sm_bytes // -(-blocks // sms) - 1024)
+    whole = 8 * (2 * P + 10 * P * nc)
+    if whole <= budget:
+        return InterfacePlan(nc, P, True, whole, blocks)
+    base = 8 * (2 * P + _IF_RING * 6 * nc)
+    if base > optin:
+        raise ValueError(f"interface_solve: P={P} leaves no shared memory "
+                         "for the ring")
+    ps = max(0, min(P, (budget - base) // (32 * nc)))
+    return InterfacePlan(nc, ps, False, base + 32 * nc * ps, blocks)
+
+
+def _interface_limits(index: int) -> Tuple[int, int, int]:
+    got = _IF_LIMITS.get(index)
+    if got is None:
+        out = (ctypes.c_int * 3)()
+        fn = _build.function("interface_solve", "interface_solve_limits",
+                             _LIMITS_ARGTYPES)
+        with torch.cuda.device(index):
+            rc = fn(ctypes.addressof(out))
+        _build.check_launch(rc, "interface_solve_limits")
+        got = _IF_LIMITS[index] = tuple(out)
+    return got
+
+
+def interface_device_plan(P: int, K: int, device) -> InterfacePlan:
+    """:func:`interface_plan` on CUDA device ``device``."""
+    dev = torch.device(device)
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    return interface_plan(P, K, *_interface_limits(index))
+
+
 def interface_solve(pf, pl_, qf, ql, uf, ul, ec_above=None, e_cross=None,
                     shifted: bool = False):
     """The Spike interface system: 2x2 block-tridiagonal solve over blocks.
@@ -330,7 +391,9 @@ def _launch_interface(ins, ec_above, e_cross, shifted):
            for t in ins):
         ins = [t.contiguous() for t in ins]
         ld = K
-    scratch = torch.empty((2, P, K), dtype=torch.float64, device=uf.device)
+    plan = interface_device_plan(P, K, uf.device)
+    scratch = (torch.empty((2, P - plan.ps, K), dtype=torch.float64,
+                           device=uf.device) if plan.ps < P else None)
     sp, sq = (None if s is None else s.contiguous()
               for s in (ec_above, e_cross))
     fn = _build.function("interface_solve", "interface_solve_launch",
@@ -340,8 +403,10 @@ def _launch_interface(ins, ec_above, e_cross, shifted):
         rc = fn(*(t.data_ptr() for t in ins), ld,
                 None if sp is None else sp.data_ptr(),
                 None if sq is None else sq.data_ptr(), P, K, int(shifted),
-                Fo.data_ptr(), Lo.data_ptr(), scratch[0].data_ptr(),
-                scratch[1].data_ptr(), stream)
+                Fo.data_ptr(), Lo.data_ptr(),
+                None if scratch is None else scratch[0].data_ptr(),
+                None if scratch is None else scratch[1].data_ptr(),
+                plan.nc, plan.ps, int(plan.whole), plan.smem, stream)
     _build.check_launch(rc, "interface_solve")
     interface_launches += 1
     return Fo, Lo

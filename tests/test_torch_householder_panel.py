@@ -535,15 +535,18 @@ def test_larft_blocked_model_matches_plain_and_jax(rng, nb):
 
 
 def test_larft_working_set():
-    """larft's working set (M, X and the taus) fits csrc's shared-memory
-    limit for larft (kLarftSharedMax, 200 KB) exactly to nb = 128, so the
-    apply_q and band-128 panels never take the global scratch."""
+    """larft keeps its working set (M with its rows trimmed to their 32-row
+    block-row, the joins' X and the taus) in shared memory exactly to nb =
+    128 (csrc's kInPlaceMax), so the apply_q and band-128 panels never take
+    the global scratch."""
     text = (CSRC / "householder_panel.cu").read_text()
-    limit = int(re.search(r"kLarftSharedMax = (\d+) \* 1024", text)
-                .group(1)) * 1024
-    for nb in range(1, 600):
-        assert (8 * hp.larft_scratch_doubles(nb) <= limit) == (nb <= 128)
-    assert hp.larft_scratch_doubles(128) == 128 * 130 + 128 * 32 + 128
+    assert int(re.search(r"kInPlaceMax = (\d+);", text).group(1)) == 128
+    assert "larft_padded(nb) <= kInPlaceMax" in text
+    for nb in (1, 32, 33, 127, 128, 129, 300):
+        nbp = -(-nb // 32) * 32
+        rows = sum(nbp - 32 * (r // 32) + 2 for r in range(nbp))
+        assert hp.larft_scratch_doubles(nb) == rows + nbp * nbp // 4 + nbp
+    assert 8 * hp.larft_scratch_doubles(128) == 117760
 
 
 def test_other_devices_never_take_the_plain_versions(monkeypatch):

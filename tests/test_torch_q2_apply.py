@@ -262,6 +262,166 @@ def test_blocks_t_plain_matches_inverse_form_and_larft(rng, n, b, zero):
             <= 1e-14 * scale
 
 
+def _larft_blocks(Gu, tz):
+    """T from a padded Gram's strict upper triangle Gu (nbp x nbp) and
+    taus tz in csrc/householder_panel.cu's order: each diagonal block of
+    min(32, nbp) columns by the recurrence a row at a time (row r keeps its
+    later columns' sums, l ascending), then widths 32, 64, ..: X = G_AB
+    T_BB, T_AB = -T_AA X, T's triangles masked."""
+    nbp = Gu.shape[0]
+    w = min(32, nbp)
+    T = np.zeros((nbp, nbp))
+    for c0 in range(0, nbp, w):
+        for r in range(c0, c0 + w):
+            acc = np.zeros(nbp)
+            for l in range(r, c0 + w):
+                T[r, l] = tz[l] if l == r else acc[l] * -tz[l]
+                acc[l + 1:c0 + w] += T[r, l] * Gu[l, l + 1:c0 + w]
+    h = 32
+    while h < nbp:
+        for a in range(0, nbp - h, 2 * h):
+            A, B = slice(a, a + h), slice(a + h, min(a + 2 * h, nbp))
+            X = Gu[A, B] @ np.triu(T[B, B])
+            T[A, B] = -(np.triu(T[A, A]) @ X)
+        h *= 2
+    return T
+
+
+def _q2_t_model(Y, tau, b):
+    """One block's T and Y^T as the q2_blocks_t kernels make them, in numpy:
+    at b <= 32 (a team of L = b rounded up to a power of two lanes) the
+    Gram a column at a time, G[l, c] = sum_q v_c[q] v_l[q + c - l] (q
+    ascending), padded to L, T by one diagonal block; past it Y^T copied a
+    slab of 16 of its columns (Y's rows) at a time, every column of the
+    store from its slab, the Gram's 16 x 8 tiles (those with an entry above
+    the diagonal) summed over each slab's rows that can meet them, padded
+    to nbp = b rounded up to 32, T by diagonal blocks of 32 and joins.
+    Returns (T (b, b), Y^T (wr, ys))."""
+    g, h = b, 2 * b - 1
+    wr, ys = (b + 15) & ~15, tband._q2_y_stride(b)
+    v = np.stack([Y[i:i + b, i] for i in range(g)])          # (g, b)
+    Yt = np.zeros((wr, ys))
+    if b <= 32:
+        nbp = tband.q2_team_width(b)
+        G = np.zeros((nbp, nbp))
+        for c in range(1, g):
+            for l in range(c):
+                G[l, c] = sum(v[c, q] * v[l, q + c - l]
+                              for q in range(b - (c - l)))
+        for i in range(g):
+            Yt[i, i:i + b] = v[i]
+    else:
+        nbp = -(-b // 32) * 32
+        G = np.zeros((nbp, nbp))
+        tiles = [(l0, c0) for c0 in range(0, nbp, 8)
+                 for l0 in range(0, c0 + 8, 16)]
+        assert len(tiles) == (nbp // 16) * (nbp // 16 + 1)
+        rows = tband._Q2_RING[b <= tband._Q2_IN_PLACE][1]
+        for r0 in range(0, ys, rows):
+            slab = np.zeros((rows, nbp))                      # Y's rows
+            for i in range(g):
+                for rho in range(rows):
+                    q = r0 + rho - i
+                    if 0 <= q < b:
+                        slab[rho, i] = v[i, q]
+            cols = min(rows, ys - r0)
+            Yt[:, r0:r0 + cols] = slab[:cols, :wr].T
+            if r0 >= h:
+                continue
+            for l0, c0 in tiles:
+                if c0 >= g or r0 > l0 + b + 14 or r0 + rows - 1 < c0:
+                    continue                  # rows that cannot meet
+                G[l0:l0 + 16, c0:c0 + 8] += \
+                    slab[:, l0:l0 + 16].T @ slab[:, c0:c0 + 8]
+    tz = np.zeros(nbp)
+    tz[:g] = tau
+    T = _larft_blocks(np.triu(G, 1), tz)
+    return np.triu(T[:g, :g]), Yt
+
+
+@pytest.mark.parametrize("b", [2, 3, 16, 31, 32, 33, 64, 128])
+def test_blocks_t_kernel_model_matches_plain_and_inverse_form(rng, b):
+    """The q2_blocks_t kernels' schedule (_q2_t_model: the narrow bands'
+    team Gram and one diagonal block; the wide bands' Gram by 16 x 8
+    tiles over slabs of Y, diagonal blocks of 32 and joins, at the
+    kernel's padding) against q2_blocks_t_plain and the JAX package's
+    inverse form (T^{-1} = diag(1/tau) + striu(Y^T Y), the Tm of its
+    apply_q2_wave_blocked) at every live block, on a log with identity
+    reflectors inside live blocks (a zero block in the band) and sweeps
+    clamped at row n - 2 (n - 2 not a multiple of b): T within 1e-12
+    max|T| of both (the identity reflector's diagonal 0 against the
+    inverse form's 1 apart), zero below the diagonal; Y^T, assembled slab
+    by slab, the plain store's bits."""
+    n = {2: 47, 3: 49}.get(b, 3 * b + 11)
+    zero = (n // 3, n // 3 + max(3, b // 2))
+    _, Vw, tw = _log(rng, n, b, zero)
+    assert (n - 2) % b != 0
+    chunk = _whole(n, b)
+    Tt, Yt, _ = tband.q2_blocks_t_plain(n, b, Vw, tw, chunk)
+    Tinv, Y, tau, slot, J = _inverse_form_t(n, b, Vw, tw)
+    Tp, Ys = tband._untile(Tt)[slot], tband._untile(Yt)[slot]
+    ident = tau == 0
+    assert ident.any()
+    clamped = (J[:, None] * b + torch.arange(b)) >= n - 2   # the zero row
+    assert clamped.any()
+    for s in range(len(slot)):
+        T, Ymodel = _q2_t_model(Y[s].numpy(), tau[s].numpy(), b)
+        plain = Tp[s, :b, :b].numpy()
+        scale = np.abs(plain).max()
+        assert np.abs(T - plain).max() <= 1e-12 * scale
+        inv = Tinv[s].numpy().copy()
+        inv[np.diag(ident[s].numpy())] = 0.0
+        assert np.abs(T - inv).max() <= 1e-12 * scale
+        assert np.all(np.tril(T, -1) == 0.0)
+        assert np.array_equal(Ymodel, Ys[s].numpy())
+
+
+def test_blocks_t_working_set_matches_the_source():
+    """q2_blocks_t's shared-memory and slot-byte arithmetic
+    (q2_t_shared_bytes, q2_t_scratch_doubles, _q2_slot_bytes) against the
+    source's constants and formulas: a narrow band's teams (128 threads,
+    2 L (L + 1) + L doubles a team); a wide band's taus and ring of slabs
+    (rows of nbp + 4: 4 of 16 rows sharing M's storage, M trimmed to
+    block-rows, or 3 of 8); M in shared memory to b = 128 (kInPlaceMax),
+    where two blocks of threads of band 128 fit an SM's 233,472 bytes with
+    1 KB each reserved; the scratch a slot past it, counted in the slot's
+    bytes."""
+    text = (_build.CSRC / "householder_panel.cu").read_text()
+    for name, value in (("kQ2TeamThreads", tband._Q2_TEAM_THREADS),
+                        ("kQ2Threads", tband._Q2_THREADS),
+                        ("kInPlaceMax", tband._Q2_IN_PLACE)):
+        assert int(re.search(name + r" = (\d+);", text).group(1)) == value
+    assert "return 2LL * L * (L + 1) + L;" in text
+    assert "return nbp + 4; }" in text
+    assert "return shared ? 16 : 8; }" in text and "return shared ? 4 : 3; }" \
+        in text
+    assert tband._Q2_RING == {True: (4, 16), False: (3, 8)}
+    assert "larft_padded(b) <= kInPlaceMax" in text
+    assert tband.tri_doubles(128) == 10496
+    assert tband.tri_doubles(16) == 16 * 18
+    for nbp in range(32, 1025, 32):
+        rows = [nbp - 32 * (r // 32) + 2 for r in range(nbp)]
+        assert tband.tri_doubles(nbp) == sum(rows)
+    optin, per_sm = 232448, 233472
+    for b in range(2, 1025):
+        if b <= 32:
+            L = tband.q2_team_width(b)
+            assert L >= b and L in (2, 4, 8, 16, 32)
+        elif b <= 128:
+            assert tband.q2_t_shared_bytes(b, True) <= optin
+        assert tband.q2_t_shared_bytes(b, False) <= optin
+        nbp = -(-b // 32) * 32
+        assert tband.q2_t_scratch_doubles(b) \
+            == tband.tri_doubles(nbp) + nbp * nbp // 4
+        wr = (b + 15) & ~15
+        assert tband._q2_slot_bytes(b, True) - tband._q2_slot_bytes(b, False) \
+            == 8 * tband.q2_t_scratch_doubles(b)
+        assert tband._q2_slot_bytes(b, False) \
+            == 8 * (wr * wr + wr * tband._q2_y_stride(b))
+    assert tband.q2_t_shared_bytes(128) == 84992
+    assert 2 * (tband.q2_t_shared_bytes(128) + 1024) <= per_sm
+
+
 # --------------------------------------------------------------------------
 # one wave against LAPACK's ormqr
 
@@ -470,7 +630,9 @@ _C_TYPES = {"const void*": ctypes.c_void_p, "void*": ctypes.c_void_p,
     ("q2_apply", "q2_apply_launch", tband._Q2_ARGTYPES),
     ("q2_apply", "q2_apply_occupancy", tband._Q2_OCCUPANCY_ARGTYPES),
     ("householder_panel", "q2_blocks_t_launch", tband._Q2T_ARGTYPES),
-    ("householder_panel", "q2_blocks_t_staged", tband._Q2T_STAGED_ARGTYPES)])
+    ("householder_panel", "q2_blocks_t_staged", tband._Q2T_STAGED_ARGTYPES),
+    ("householder_panel", "q2_blocks_t_occupancy",
+     tband._Q2T_OCCUPANCY_ARGTYPES)])
 def test_bindings_match_the_source(source, symbol, argtypes):
     """Every ctypes argument list is its C function's, and _build builds
     both sources."""

@@ -111,15 +111,33 @@ def test_interface_plain_is_the_spike_interface(rng):
     _close(L, Lj, 1e-13)
 
 
-def _kernel_model(ins, sp, sq, shifted):
-    """csrc/interface_solve.cu for every column in Python floats (IEEE f64,
-    each operation rounded, no FMA): the same storage slots (H1, H2 in F's
-    and L's, shifted by one block with ``shifted``), the same order of the
-    back sweep's loads (a block ahead of its stores) and the same end
-    rows."""
+# the cards the interface model runs on: (SMs, shared bytes an SM holds, a
+# block may opt into): the H100's, then one whose small shared memory makes
+# the ring keep only some rows' forward values, then none
+_IF_CARDS = ((132, 233472, 232448), (1, 40 * 1024, 40 * 1024),
+             (1, 32 * 1024, 32 * 1024))
+
+
+def _kernel_model(ins, sp, sq, shifted, card=_IF_CARDS[0]):
+    """csrc/interface_solve.cu in numpy (IEEE f64, each operation rounded,
+    no FMA; d11 / det taken as 1 where det is a finite d11), a block of
+    threads (plan.nc columns, one a lane, vectorised)
+    at a time under shs.interface_plan on ``card``: the input rows staged
+    whole or through a ring of 7 rows copied 6 ahead (a slot refilled the
+    step after its read); the forward values of rows >= P - ps kept in
+    "shared memory", those below in F's and L's storage slots (shifted by
+    one block with ``shifted``) and the G scratch; the back sweep over the
+    shared rows, then the global rows in batches (the ring's two halves, 5
+    rows each), copied two batches ahead (the first two before the shared
+    rows); the same end rows."""
     pf, pl, qf, ql, uf, ul = (t.numpy() for t in ins)
     P, K = uf.shape
-    Fo, Lo, G11, G21 = (np.full((P, K), np.nan) for _ in range(4))
+    plan = shs.interface_plan(P, K, *card)
+    ahead, ring_rows = shs._IF_RING - 1, shs._IF_RING
+    nb = P - plan.ps
+    Fo, Lo = np.full((P, K), np.nan), np.full((P, K), np.nan)
+    G11, G21 = np.full((nb, K), np.nan), np.full((nb, K), np.nan)
+    src = np.stack([pf, pl, qf, ql, uf, ul])              # (6, P, K)
 
     def fslot(b):
         return (b + P - 1) % P if shifted else b
@@ -128,60 +146,152 @@ def _kernel_model(ins, sp, sq, shifted):
         return (b + 1) % P if shifted else b
 
     tiny2 = 2.0 ** -96
-    for i in range(K):
-        g21 = h2 = 0.0
+    for c0 in range(0, K, plan.nc):
+        cols = slice(c0, min(c0 + plan.nc, K))
+        if plan.whole:
+            ring = src[:, :, cols].copy()                   # every row at once
+        else:
+            ring = np.full((6, ring_rows, cols.stop - c0), np.nan)
+            for j in range(min(ahead, P)):
+                ring[:, j] = src[:, j, cols]
+        fw = np.full((4, plan.ps, cols.stop - c0), np.nan)
+        g21 = h2 = np.zeros(cols.stop - c0)
+        slot = 0
         for b in range(P):
-            a_pf, a_pl = float(pf[b, i]), float(pl[b, i])
-            a_qf, a_ql = float(qf[b, i]), float(ql[b, i])
+            cur = ring[:, b if plan.whole else slot].copy()
+            if not plan.whole:
+                nxt = (slot + ahead) % ring_rows
+                ring[:, nxt] = np.nan                        # the slot's old row
+                if b + ahead < P:
+                    ring[:, nxt] = src[:, b + ahead, cols]
+                slot = (slot + 1) % ring_rows
+            a_pf, a_pl, a_qf, a_ql, a_uf, a_ul = cur
             if sp is not None:
                 a_pf, a_pl = a_pf * float(sp[b]), a_pl * float(sp[b])
             if sq is not None:
                 a_qf, a_ql = a_qf * float(sq[b]), a_ql * float(sq[b])
             d11 = 1.0 - a_pf * g21
-            det = (-tiny2 if d11 < 0 else tiny2) if abs(d11) < tiny2 else d11
-            i11, i21, i22 = 1.0 / det, (a_pl * g21) / det, d11 / det
-            r1 = float(uf[b, i]) - a_pf * h2
-            r2 = float(ul[b, i]) - a_pl * h2
-            Fo[fslot(b), i] = i11 * r1
+            det = np.where(np.abs(d11) < tiny2,
+                           np.where(d11 < 0, -tiny2, tiny2), d11)
+            # the kernel skips d11 / det where it is d11 / d11 = 1 exactly
+            with np.errstate(invalid="ignore", divide="ignore"):
+                i22 = np.where((det == d11) & np.isfinite(d11), 1.0,
+                               d11 / det)
+            i11, i21 = 1.0 / det, (a_pl * g21) / det
+            r1 = a_uf - a_pf * h2
+            r2 = a_ul - a_pl * h2
+            h1 = i11 * r1
             h2 = i21 * r1 + i22 * r2
-            Lo[lslot(b), i] = h2
-            G11[b, i] = i11 * a_qf
+            g11 = i11 * a_qf
             g21 = i21 * a_qf + i22 * a_ql
-            G21[b, i] = g21
-        def load(b):
-            return (Fo[fslot(b), i], Lo[lslot(b), i], G11[b, i], G21[b, i])
+            if b >= nb:
+                fw[:, b - nb] = (h1, h2, g11, g21)
+            else:
+                Fo[fslot(b), cols], Lo[lslot(b), cols] = h1, h2
+                G11[b, cols], G21[b, cols] = g11, g21
 
-        f_next = 0.0
-        nxt = load(P - 1)
-        for b in range(P - 1, -1, -1):
-            h1, hh2, g11, gg21 = nxt
-            if b > 0:
-                nxt = load(b - 1)
+        back_rows = ring_rows * 6 // 8             # kBack: rows a half holds
+        halves = np.full((2, back_rows, 4, cols.stop - c0), np.nan)
+
+        def copy_back(batch):
+            halves[batch & 1] = np.nan
+            for u in range(back_rows):
+                b = nb - 1 - batch * back_rows - u
+                if b < 0:
+                    break
+                halves[batch & 1, u] = (Fo[fslot(b), cols], Lo[lslot(b), cols],
+                                        G11[b, cols], G21[b, cols])
+
+        if not plan.whole and nb > 0:
+            copy_back(0)
+            copy_back(1)
+        f_next = np.zeros(cols.stop - c0)
+
+        def back(b, h1, hh2, g11, gg21):
+            nonlocal f_next
             F = h1 - g11 * f_next
             L = hh2 - gg21 * f_next
-            Fo[fslot(b), i] = 0.0 if shifted and b == 0 else F
-            Lo[lslot(b), i] = 0.0 if shifted and b == P - 1 else L
+            Fo[fslot(b), cols] = 0.0 if shifted and b == 0 else F
+            Lo[lslot(b), cols] = 0.0 if shifted and b == P - 1 else L
             f_next = F
+
+        for b in range(P - 1, nb - 1, -1):
+            back(b, *fw[:, b - nb])
+        batch = 0
+        while batch * back_rows < nb:
+            rows = halves[batch & 1].copy()
+            for u in range(back_rows):
+                b = nb - 1 - batch * back_rows - u
+                if b < 0:
+                    break
+                back(b, *rows[u])
+            copy_back(batch + 2)
+            batch += 1
     return Fo, Lo
 
 
-@pytest.mark.parametrize("P", [1, 2, 7])
+@pytest.mark.parametrize("P", [1, 2, 127, 171, 256])
+@pytest.mark.parametrize("K", [1, 5, 33, 300])
 @pytest.mark.parametrize("shifted", [False, True])
-def test_interface_kernel_order_is_the_plain_loop(rng, P, shifted):
-    """The kernel's schedule (one column a thread, H in the outputs'
-    slots, the back sweep's loads a block ahead of its stores) gives the
-    plain version's values bit for bit, with and without the couplers and
-    the shift."""
-    K = 3
+def test_interface_kernel_order_is_the_plain_loop(rng, P, K, shifted):
+    """The kernel's schedule (one column a thread; input rows staged whole
+    or through the ring; the last rows' forward values in shared memory,
+    the rest in the outputs' slots and the scratch, copied back ahead of
+    the back sweep) gives the plain version's values bit for bit, with and
+    without the couplers and the shift, on every model card (the whole,
+    the partial and the empty shared rows), and with a column whose d11
+    is exactly 0 (floored to +2^-96)."""
     ins = _interface_inputs(rng, P, K)
     sp = torch.as_tensor(rng.standard_normal(P))
     sq = torch.as_tensor(rng.standard_normal(P))
+    if P > 1:
+        # column 0: g21 after block 0 is ql[0] sq[0] = 2, and pf[1] sp[1]
+        # = 0.5, so block 1's d11 = 1 - 0.5 * 2 = 0
+        ins[3][0, 0], ins[0][1, 0], sq[0], sp[1] = 2.0, 0.5, 1.0, 1.0
     for scales in ((None, None), (sp, sq)):
         want = shs.interface_solve(*ins, ec_above=scales[0],
                                    e_cross=scales[1], shifted=shifted)
-        got = _kernel_model(ins, *scales, shifted)
-        assert np.array_equal(got[0], want[0].numpy())
-        assert np.array_equal(got[1], want[1].numpy())
+        for card in _IF_CARDS:
+            got = _kernel_model(ins, *scales, shifted, card)
+            assert np.array_equal(got[0], want[0].numpy())
+            assert np.array_equal(got[1], want[1].numpy())
+    if P > 1:       # the floor's case was built: block 1's d11 is 0
+        assert 1.0 - float(ins[0][1, 0]) * float(ins[3][0, 0]) == 0.0
+
+
+def test_interface_plan():
+    """interface_plan on the H100's figures: every block of threads
+    resident at once; the triage's shapes (P=171 and 256, K=5) staged
+    whole in one block of threads; the Spike pass's P=128, K=16384 through
+    the ring with part of its rows' forward values in shared memory; the
+    bytes always the kernel's formula (8 (2 P + rows 6 nc + 4 ps nc)) and
+    within what a block may opt into; the source's constants."""
+    text = (CSRC / "interface_solve.cu").read_text()
+    assert int(re.search(r"kThreads = (\d+);", text).group(1)) \
+        == shs._IF_THREADS
+    ahead = int(re.search(r"kAhead = (\d+);", text).group(1))
+    assert re.search(r"kRing = kAhead \+ 1;", text) \
+        and shs._IF_RING == ahead + 1
+    sms, per_sm, optin = _IF_CARDS[0]
+    for P, K in ((171, 5), (256, 5)):
+        plan = shs.interface_plan(P, K, sms, per_sm, optin)
+        assert plan.whole and plan.ps == P and plan.nc == K
+    spike = shs.interface_plan(128, 16384, sms, per_sm, optin)
+    assert not spike.whole and 0 < spike.ps < 128 and spike.nc == 64
+    assert -(-spike.blocks // sms) * (spike.smem + 1024) <= per_sm
+    for P in (1, 2, 64, 128, 171, 256, 1024):
+        for K in (1, 5, 33, 300, 2048, 16384, 65536):
+            for card in _IF_CARDS if P <= 256 else _IF_CARDS[:1]:
+                plan = shs.interface_plan(P, K, *card)
+                rows = P if plan.whole else shs._IF_RING
+                assert plan.smem == 8 * (2 * P + rows * 6 * plan.nc
+                                         + 4 * plan.ps * plan.nc)
+                assert plan.smem <= card[2] and 0 <= plan.ps <= P
+                assert plan.blocks * plan.nc >= K > (plan.blocks - 1) \
+                    * plan.nc
+                if -(-plan.blocks // card[0]) * 1024 < card[1]:
+                    assert -(-plan.blocks // card[0]) * (plan.smem + 1024) \
+                        <= card[1] or plan.ps == 0
 
 
 # the JAX configuration of the triage test; its one-pass refinement
@@ -343,6 +453,7 @@ def _c_signature(source, symbol):
 @pytest.mark.parametrize("source,symbol,argtypes", [
     ("interface_solve", "interface_solve_launch",
      shs._INTERFACE_ARGTYPES),
+    ("interface_solve", "interface_solve_limits", shs._LIMITS_ARGTYPES),
     ("spike_solve", "block_lu_launch", shs._BLOCK_LU_ARGTYPES),
     ("spike_solve", "spike_pass_a_launch", tsp._ARGTYPES_A),
     ("spike_solve", "spike_pass_b_launch", tsp._ARGTYPES_B),
