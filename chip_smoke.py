@@ -2,7 +2,7 @@
 """Drive the PyTorch/CUDA port once on one GPU and check it.
 
 Run from the repository root:  python3 chip_smoke.py
-With ``--only dword_matmul,cauchy_matmul`` (any of the twenty kernels' names)
+With ``--only dword_matmul,cauchy_matmul`` (any of the 21 kernels' names)
 it builds those kernels' sources, runs phase 3 for them alone, held to the
 same limits, and stops: half a minute for work on one kernel.
 
@@ -38,7 +38,14 @@ exits non-zero:
                and at denominators outside the normal range;
                rotation_replay bit for bit its plain version (the wave
                loop) on every level of the mixed n=16384 solve of the main
-               input and of the Poisson matrix, and once in f64;
+               input and of the Poisson matrix, and once in f64, with the
+               cost of its grid alone (the same launch on an empty log);
+               rotation_replay_t (the transposed form) bit for bit its
+               plain loop on every non-root level of the same solves and
+               of the main input in the float32 mode, beside its bytes
+               bound, its latency floor (waves x an L2 round trip this run
+               measures) and the replaced torch loop with its host fetches,
+               and rows_through_merge there with no host sync;
                interface_solve bit for bit its plain loop on the mixed
                random and Poisson n=16384 solves' own pass-1 boundary
                values (P=128, K=16384, the Spike pass's scaled and shifted
@@ -225,6 +232,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import ctypes
 import functools
 import io
 import json
@@ -306,6 +314,10 @@ REPLACES = {
     # a lax.fori_loop over the waves, no pallas_call
     "rotation_replay":
         "symmetric_eigenvalue_tpu/kernels/assemble.py:277",
+    # the transposed chain of rows_through_merge, lax.fori_loops with no
+    # pallas_call
+    "rotation_replay_t":
+        "symmetric_eigenvalue_tpu/kernels/assemble.py:106",
     # lax.scan loops of the refinement, no pallas_call
     "interface_solve":
         "symmetric_eigenvalue_tpu/kernels/refine.py:275",
@@ -336,6 +348,10 @@ REPLACES = {
 }
 REPLACES_LOOP = {"secular_solve":
                  "symmetric_eigenvalue_tpu/kernels/secular.py:299-361",
+                 "rotation_replay":
+                 "symmetric_eigenvalue_tpu/kernels/assemble.py:319",
+                 "rotation_replay_t":
+                 "symmetric_eigenvalue_tpu/kernels/assemble.py:124,143",
                  "interface_solve":
                  "symmetric_eigenvalue_tpu/kernels/refine.py:317,329",
                  "block_lu_solve":
@@ -360,6 +376,7 @@ SOURCES = {"spike_pass_a": "spike_solve", "spike_pass_b": "spike_solve",
            "cauchy_materialize": "cauchy_matmul",
            "dword_vecmat": "dword_matvec", "secular_solve": "secular_sums",
            "block_lu_solve": "spike_solve",
+           "rotation_replay_t": "rotation_replay",
            "column_reflector": "householder_panel",
            "column_w": "householder_panel",
            "column_w_reflector": "householder_panel",
@@ -464,6 +481,7 @@ def launch_counts():
             "spike_pass_b": sp.pass_b_launches,
             "dword_vecmat": dv.launches,
             "rotation_replay": rr.launches,
+            "rotation_replay_t": rr.t_launches,
             "interface_solve": shs.interface_launches,
             "block_lu_solve": shs.block_lu_launches,
             "column_reflector": hp.reflector_launches,
@@ -481,7 +499,7 @@ def reset_counts() -> None:
     cr.launches = dm.launches = dv.launches = 0
     cm.matmul_launches = cm.materialize_launches = 0
     sp.pass_a_launches = sp.pass_b_launches = 0
-    rr.launches = 0
+    rr.launches = rr.t_launches = 0
     shs.interface_launches = shs.block_lu_launches = 0
     hp.reflector_launches = hp.w_launches = hp.w_reflector_launches = 0
     hp.larft_launches = 0
@@ -2122,31 +2140,83 @@ def check_cauchy_materialize(m, C, kact, reps):
 
 
 @contextlib.contextmanager
-def recorded_replays():
-    """The (MergeRep, y) of each level's Givens replay in the downsweeps
-    run inside the block, y copied before the replay: the first call of
-    each level shape (k, m), in the order of the sweep (root first)."""
+def recorded_replays(form="rotation_replay"):
+    """The (MergeRep, data) of each level's Givens replay ``form``
+    (``rotation_replay``: the downsweeps', y; ``rotation_replay_t``:
+    rows_through_merge's, wt) run inside the block, the data copied before
+    the replay: the first call of each level shape (k, m), in the order of
+    the sweep."""
     got = {}
-    inner = assemble.rotation_replay
+    inner = getattr(assemble, form)
 
-    def recorded(rep, y, waves=None):
-        key = tuple(y.shape[:2])
+    def recorded(rep, x, waves=None):
+        key = tuple(x.shape[:2])
         if key not in got:
-            got[key] = (rep, y.clone())
-        return inner(rep, y, waves)
+            got[key] = (rep, x.clone())
+        return inner(rep, x, waves)
 
-    assemble.rotation_replay = recorded
+    setattr(assemble, form, recorded)
     try:
         yield got
     finally:
-        assemble.rotation_replay = inner
+        setattr(assemble, form, inner)
+
+
+@contextlib.contextmanager
+def plain_replays():
+    """Both Givens replays' plain versions (the wave loops, with their
+    fetches of the log) in place of the kernel's two launch forms."""
+    inner = assemble.rotation_replay, assemble.rotation_replay_t
+    assemble.rotation_replay = rr.rotation_replay_plain
+    assemble.rotation_replay_t = rr.rotation_replay_t_plain
+    try:
+        yield
+    finally:
+        assemble.rotation_replay, assemble.rotation_replay_t = inner
+
+
+def graph_ms(fn, reps: int):
+    """Device time a call of ``reps`` calls of ``fn`` captured in one CUDA
+    graph and replayed (after an eager warm-up on a side stream): no host
+    path in the way, and no event the profiler could drop."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    ms = time_ms(graph.replay, 5) / reps
+    del graph
+    return ms
+
+
+def replay_plan(rep, x, transposed):
+    """The wrapper's plan of one launch: instance, grid and occupancy."""
+    k, m, width = x.shape
+    vec = width if transposed else rr.row_vec(x)
+    occ = rr.occupancy(x.device, transposed, x.dtype == torch.float32, vec)
+    grid = (rr.launch_plan_t(k, occ) if transposed
+            else rr.launch_plan(k, m, width, vec, occ))
+    return dict(vec_or_r=vec, grid=grid, **occ._asdict())
+
+
+def empty_log(rep):
+    """``rep`` with no logged rotation: the launch's grid alone."""
+    return rep._replace(nrot=torch.zeros_like(rep.nrot),
+                        nwave=torch.zeros_like(rep.nwave))
 
 
 def check_rotation_replay(rep, y, what, reps=5):
     """rotation_replay against its plain version (the wave loop planned on
     the host, with its fetch of the log) on one level's own (MergeRep, y):
-    bit for bit, run to run; the bound is the bytes of two rows read and
-    written a logged rotation."""
+    bit for bit, run to run; device time by the profiler and by a CUDA
+    graph's replay, and the same launch's on an empty log (what the grid
+    costs alone); the bound is the bytes of two rows read and written a
+    logged rotation."""
     k, m, C = y.shape
     nrot = int(rep.nrot.sum())
     got = rr.rotation_replay(rep, y.clone())
@@ -2160,6 +2230,9 @@ def check_rotation_replay(rep, y, what, reps=5):
     work = y.clone()
     ms = time_ms(lambda: rr.rotation_replay(rep, work), reps)
     dms = device_ms(lambda: rr.rotation_replay(rep, work), reps)
+    gms = graph_ms(lambda: rr.rotation_replay(rep, work), reps)
+    empty = empty_log(rep)
+    empty_gms = graph_ms(lambda: rr.rotation_replay(empty, work), reps)
     plain = time_ms(lambda: rr.rotation_replay_plain(rep, work), 2)
     size = y.element_size()
     b_ms, b_by = bound(6.0 * nrot * C,
@@ -2167,10 +2240,12 @@ def check_rotation_replay(rep, y, what, reps=5):
                        4.0 * nrot * C * size)
     return dict(what=what, k=k, m=m, C=C, dtype=str(y.dtype).split(".")[-1],
                 nrot=nrot, nwave_max=int(rep.nwave.max()),
+                plan=replay_plan(rep, y, False),
                 max_abs_err=abs_err, max_rel_err=abs_err, tol=0.0,
                 bit_exact=bit, run_to_run_identical=same, ms=ms,
-                device_ms=dms, plain_ms=plain, library_ms=None,
-                bound_ms=b_ms, bound_by=b_by)
+                device_ms=dms, graph_ms=gms, empty_log_graph_ms=empty_gms,
+                plain_ms=plain, library_ms=None, bound_ms=b_ms,
+                bound_by=b_by)
 
 
 def replay_level_rows(d, e, what, f64_row=False):
@@ -2188,6 +2263,138 @@ def replay_level_rows(d, e, what, f64_row=False):
     del got
     torch.cuda.empty_cache()
     return rows
+
+
+@functools.lru_cache(maxsize=1)
+def l2_round_trip_cycles() -> float:
+    """An L2 hit's round trip in SM cycles: one thread chasing indices a
+    cache line apart through 8 MB held in L2 (``rotation_replay_l2_chase``,
+    loads that skip L1), after a pass over the whole cycle that brings
+    them there."""
+    n = 1 << 16
+    stride = 32                          # ints: a 128-byte line apart
+    order = np.random.default_rng(7).permutation(n)
+    nxt = np.empty(n * stride, np.int32)
+    nxt[order * stride] = np.roll(order, -1) * stride
+    buf = torch.as_tensor(nxt, device="cuda")
+    out = torch.zeros(2, dtype=torch.int64, device="cuda")
+    fn = _build.function("rotation_replay", "rotation_replay_l2_chase",
+                         [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                          ctypes.c_void_p, ctypes.c_void_p])
+    steps = 4096
+    _build.check_launch(fn(buf.data_ptr(), n, steps, out.data_ptr(),
+                           torch.cuda.current_stream().cuda_stream),
+                        "rotation_replay_l2_chase")
+    return float(out[0]) / steps
+
+
+def check_rotation_replay_t(rep, wt, what, reps=20, host_path=False):
+    """rotation_replay_t against its plain version (the torch wave loop
+    with rotation_waves' fetches of the log: what rows_through_merge ran
+    before) on one level's own (MergeRep, wt): bit for bit, run to run;
+    time by events, the profiler and a CUDA graph's replay, and with
+    ``host_path`` the host's time a call; the bytes bound (two rows of r
+    values read and written a rotation) and the latency floor (a wave an
+    L2 round trip)."""
+    k, m, r = wt.shape
+    nrot = int(rep.nrot.sum())
+    got = rr.rotation_replay_t(rep, wt.clone())
+    ref = rr.rotation_replay_t_plain(rep, wt.clone())
+    again = rr.rotation_replay_t(rep, wt.clone())
+    torch.cuda.synchronize()
+    abs_err = float((got - ref).abs().max())
+    bit = bool(torch.equal(got, ref))
+    same = bool(torch.equal(got, again))
+    work = wt.clone()
+    run = lambda: rr.rotation_replay_t(rep, work)  # noqa: E731
+    plain = lambda: rr.rotation_replay_t_plain(rep, work)  # noqa: E731
+    t0 = time.perf_counter()
+    for _ in range(3):
+        plain()
+    plain_host_ms = 1e3 * (time.perf_counter() - t0) / 3
+    size = wt.element_size()
+    nwave = int(rep.nwave.max())
+    cycles, mhz = l2_round_trip_cycles(), sm_clock_mhz()
+    b_ms, b_by = bound(6.0 * nrot * r, PEAK_FP32 if size == 4 else PEAK_FP64,
+                       4.0 * nrot * r * size)
+    return dict(what=what, k=k, m=m, r=r, dtype=str(wt.dtype).split(".")[-1],
+                log_dtype=str(rep.rot_c.dtype).split(".")[-1], nrot=nrot,
+                nwave_max=nwave, plan=replay_plan(rep, wt, True),
+                max_abs_err=abs_err, max_rel_err=abs_err, tol=0.0,
+                bit_exact=bit, run_to_run_identical=same,
+                ms=time_ms(run, reps), device_ms=device_ms(run, reps),
+                graph_ms=graph_ms(run, reps),
+                host_launch_us=host_launch_us(run, reps) if host_path else None,
+                plain_ms=time_ms(plain, 3), plain_host_ms=plain_host_ms,
+                library_ms=None, bound_ms=b_ms, bound_by=b_by,
+                latency_floor_ms=nwave * cycles / (mhz * 1e3),
+                latency_floor_is=f"nwave_max x an L2 round trip "
+                f"({cycles:.0f} cycles, l2_round_trip_cycles) at {mhz:g} MHz")
+
+
+def rows_t_level_rows(d, e, what, cfg=None):
+    """rotation_replay_t on every non-root level of a mixed solve of (d, e)
+    (``cfg``: its SolverConfig), on the level's own data, and
+    rows_through_merge there once more under torch.cuda's sync debug mode
+    (``host_syncs_rows_through_merge``, required 0)."""
+    levels = []
+    inner = driver.rows_through_merge
+
+    def recorded(rep, w, *args):
+        if len(levels) < 32:
+            levels.append((rep, w.clone()))
+        return inner(rep, w, *args)
+
+    driver.rows_through_merge = recorded
+    try:
+        with recorded_replays("rotation_replay_t") as got:
+            st.solve_tridiagonal_staged(d, e, compute_vectors=False,
+                                        config=cfg or st.SolverConfig())
+    finally:
+        driver.rows_through_merge = inner
+    rows = []
+    for i, (((k, m), (rep, wt)), (rep_w, w)) in enumerate(zip(got.items(),
+                                                              levels)):
+        row = check_rotation_replay_t(rep, wt, f"{what}, level k={k}, m={m}",
+                                      host_path=i == 0)
+        row["host_syncs_rows_through_merge"] = host_syncs(
+            lambda: assemble.rows_through_merge(rep_w, w))
+        rows.append(row)
+    del got, levels
+    torch.cuda.empty_cache()
+    return rows
+
+
+def plain_replays_substituted(d, e, cfg):
+    """Phase 4's input solved through the kernel's two launch forms and once
+    with the replays' plain loops substituted: lam and V bit for bit the
+    same."""
+    out, runs = {}, []
+    for route in ("kernels", "plain"):
+        reset_counts()
+        with plain_replays() if route == "plain" else contextlib.nullcontext():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res, _ = st.solve_tridiagonal_staged(d, e, config=cfg,
+                                                 compute_vectors=True)
+            torch.cuda.synchronize()
+        c = launch_counts()
+        out[route] = {"wall_s": time.perf_counter() - t0,
+                      "rotation_replay": c["rotation_replay"],
+                      "rotation_replay_t": c["rotation_replay_t"]}
+        runs.append(res)
+    out["lam_equal"] = bool(torch.equal(runs[0].eigenvalues,
+                                        runs[1].eigenvalues))
+    out["V_equal"] = bool(torch.equal(runs[0].eigenvectors,
+                                      runs[1].eigenvectors))
+    del runs
+    torch.cuda.empty_cache()
+    require(out["lam_equal"] and out["V_equal"]
+            and out["plain"]["rotation_replay"] == 0
+            and out["plain"]["rotation_replay_t"] == 0
+            and out["kernels"]["rotation_replay_t"] > 0,
+            f"the replays' kernel changes the solve: {out}")
+    return out
 
 
 @contextlib.contextmanager
@@ -2826,7 +3033,9 @@ def warm_walls(d, e, cfg, reps: int = 3):
     return walls, sorted(runs, key=lambda r: r[0])[reps // 2][1]
 
 
-RANGES = ("spike.interface_solve", "refine.triage", "secular.solve_roots")
+RANGES = ("spike.interface_solve", "refine.triage", "secular.solve_roots",
+          "upsweep.tear_leaves", "merge.partition", "merge.z_colnorm",
+          "merge.rows_through_merge")
 
 
 @contextlib.contextmanager
@@ -3130,7 +3339,8 @@ def record_route():
 
 MAIN_PATH_KERNELS = ("cauchy_matmul", "cauchy_materialize", "spike_pass_a",
                      "spike_pass_b", "secular_sums", "secular_solve",
-                     "cauchy_rowsum", "rotation_replay", "interface_solve")
+                     "cauchy_rowsum", "rotation_replay", "rotation_replay_t",
+                     "interface_solve")
 
 
 def run_staged_large(cfg):
@@ -3259,9 +3469,11 @@ TRACE_KERNELS = {"secular_sums": "secular_sums_kernel",
                  "spike_pass_b": "spike_kernel<false",
                  "dword_matmul": "dgemm_mma_kernel",
                  "dword_vecmat": "vecmat_kernel",
-                 "rotation_replay": "rotation_replay_kernel"}
+                 "rotation_replay": "rotation_replay_kernel",
+                 "rotation_replay_t": "rotation_replay_t_kernel"}
 SPLITK = "splitk_reduce_kernel"
-MERGE_KERNELS = ("secular_sums", "secular_solve", "cauchy_rowsum")
+MERGE_KERNELS = ("secular_sums", "secular_solve", "cauchy_rowsum",
+                 "rotation_replay_t")
 REFINE_KERNELS = ("cauchy_matmul", "cauchy_materialize", "spike_pass_a",
                   "spike_pass_b", "rotation_replay")
 
@@ -3572,7 +3784,8 @@ def run_cli_profile_and_errors():
 
 MESH_SHARDS = 4              # [cuda:0] * 4 on a card alone
 MESH_SHARD_KERNELS = ("secular_sums", "secular_solve", "cauchy_rowsum",
-                      "cauchy_matmul", "cauchy_materialize", "rotation_replay")
+                      "cauchy_matmul", "cauchy_materialize", "rotation_replay",
+                      "rotation_replay_t")
 MESH_LEAD_KERNELS = ("spike_pass_a", "spike_pass_b")
 MESH_DIR = ROOT / "build" / "mesh"
 # each kernel's wrapper where it launches (the counter moves inside it)
@@ -4198,7 +4411,8 @@ def kernel_table(d, e, ref):
     a block holds (the streamed sweeps) and between 256 and 3072 (resident
     sweeps over more than 64 poles); rotation_replay on every level of a
     mixed solve of the Poisson matrix and of (d, e), on the level's own
-    data; interface_solve and block_lu_solve on what mixed solves of (d, e)
+    data, and rotation_replay_t on every non-root level of those solves and
+    of (d, e) in the float32 mode; interface_solve and block_lu_solve on what mixed solves of (d, e)
     and of the Poisson matrix hand them (:func:`interface_rows`,
     :func:`block_lu_rows`)."""
     spike = []
@@ -4281,6 +4495,14 @@ def kernel_table(d, e, ref):
             *replay_level_rows(*st.create_matrix_scheme2(N),
                                "mixed solve, Poisson n=16384", f64_row=True),
             *replay_level_rows(d, e, "mixed solve, random n=16384")],
+        # the transposed form on every non-root level of the same solves'
+        # upsweeps (f64), and of the main input's in the float32 mode
+        "rotation_replay_t": lambda: [
+            *rows_t_level_rows(d, e, "random n=16384"),
+            *rows_t_level_rows(*st.create_matrix_scheme2(N),
+                               "Poisson n=16384"),
+            *rows_t_level_rows(d, e, "random n=16384, float32 mode",
+                               st.SolverConfig(dtype=torch.float32))],
         "spike_pass_a": lambda: spike_rows(0),
         "spike_pass_b": lambda: spike_rows(1),
         # the Spike pass's interface on the mixed random and Poisson
@@ -4414,6 +4636,8 @@ def run_kernel_checks(table, names):
                         f"{name}: spike_refine disagrees: {row}")
             require(row.get("bit_exact", True),
                     f"{name}: not bit for bit its plain version: {row}")
+            require(row.get("host_syncs_rows_through_merge", 0) == 0,
+                    f"{name}: rows_through_merge synchronizes: {row}")
             require(row.get("secular_stall", {}).get("ok", True),
                     f"{name}: roots stall where the CPU plain loop "
                     f"converges: {row}")
@@ -4517,17 +4741,21 @@ def main(argv=None) -> int:
     with range_host_times() as warm_ranges:
         walls, phases = warm_walls(d, e, cfg)
     scans = plain_substituted_check(d, e, cfg)
+    replays = plain_replays_substituted(d, e, cfg)
     emit({"phase": "solve", "n": N, "matrix": "random", "seed": SEED,
           "config": "SolverConfig() (mixed_precision_vectors=True)",
           **solve, "warm_walls_s": walls, "warm_median_phases_s": phases,
           "ranges_host_cold": cold_ranges,
           "ranges_host_warm_total": warm_ranges, "warm_solves": len(walls),
-          "scans_plain_substituted": scans})
+          "scans_plain_substituted": scans,
+          "replays_plain_substituted": replays})
     for name in MAIN_PATH_KERNELS:
         require(launches[name] > 0,
                 f"kernel {name} was not launched on the main path")
     require(launches["cauchy_rowsum"] == len(levels) - 1,
             "cauchy_rowsum not launched once a non-root level")
+    require(launches["rotation_replay_t"] == len(levels) - 1,
+            "rotation_replay_t not launched once a non-root level")
     check_scan_launches(launches, solve["counts"],
                         cold_ranges["spike.interface_solve"]["calls"],
                         "the main path")

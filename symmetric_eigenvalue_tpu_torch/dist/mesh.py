@@ -10,10 +10,11 @@ that shard's device and on its slice of the inputs copied there, then
 gather the outputs on the lead device (shard 0 of this process).  A
 shard's card runs on while the host enqueues the next shard's work only
 as far as the function is fetch-free: a host fetch inside it waits for
-its own card, and the solver's sharded functions still make the
-single-device code's fetches (``rows_through_merge``'s rotation logs, the
-leaf eigensolve's, the downsweep's row map), so on those calls the cards
-run one after another.  Across processes the outputs are
+its own card, and the solver's sharded functions still make some of the
+single-device code's fetches (the leaf eigensolve's, the downsweep's row
+map), so on those calls the cards run one after another
+(``rows_through_merge`` reads its rotation logs on the card and makes
+none).  Across processes the outputs are
 then all-gathered with ``torch.distributed`` (NCCL on CUDA, gloo on the
 CPU), so every process holds the whole result, as the JAX package's
 multi-process run asks with replicated out-shardings.

@@ -112,10 +112,10 @@ def _upsweep(d, e, plan: TreePlan, config: SolverConfig, mesh=None):
     its size) runs ``merge_decompose`` and ``rows_through_merge``
     batch-sharded over its merges, a wider one runs ``merge_partition``
     replicated and ``merge_roots`` one merge at a time with its slots
-    sharded over the mesh (``slot_mesh``).  The sharded calls make the
-    single-device code's host fetches once a shard (the leaf eigensolve's,
-    ``rows_through_merge``'s rotation logs), and each waits for its own
-    card, so the batch-sharded levels run on the cards one after another.
+    sharded over the mesh (``slot_mesh``).  The sharded leaf eigensolve
+    makes the single-device code's host fetches once a shard, each waiting
+    for its own card; ``rows_through_merge`` makes none (it reads its
+    rotation logs on the card).
 
     Returns (reps, lam_top_sorted (padded_n,), Q_leaf) on the lead
     device."""
@@ -125,9 +125,6 @@ def _upsweep(d, e, plan: TreePlan, config: SolverConfig, mesh=None):
         d_t, betas, thetas = tear(d, e, plan)
         return leaf_blocks(d_t, e, plan, _sentinels(d, e, plan)), betas, thetas
 
-    A, betas, thetas = replicated(prep, mesh)(d, e)
-    last_rows = torch.as_tensor(
-        np.asarray(plan.leaf_sizes, dtype=np.int64) - 1, device=dev)
     eigh_fn = leaf_eigh_fn(plan.leaf_pad)
 
     def leaf_eigh(A, last_rows):
@@ -135,8 +132,12 @@ def _upsweep(d, e, plan: TreePlan, config: SolverConfig, mesh=None):
         rows = torch.arange(A.shape[0], device=A.device)
         return lam, Q, Q[:, 0, :], Q[rows, last_rows, :]
 
-    lam, Q, f, l = batch_mapped(leaf_eigh, mesh, plan.num_leaves)(A,
-                                                                   last_rows)
+    with torch.profiler.record_function("upsweep.tear_leaves"):
+        A, betas, thetas = replicated(prep, mesh)(d, e)
+        last_rows = torch.as_tensor(
+            np.asarray(plan.leaf_sizes, dtype=np.int64) - 1, device=dev)
+        lam, Q, f, l = batch_mapped(leaf_eigh, mesh, plan.num_leaves)(
+            A, last_rows)
 
     reps = []
     L = plan.num_levels

@@ -12,12 +12,13 @@ concat-of-children order after ``p12`` inversion) and columns i = eigenvalues
 in ascending order (via ``colperm``).
 
 Rotation replays: rotations within one wave of the deflation tree touch
-disjoint rows.  The downsweep's replay (``_apply_u_finish``) is the
-``rotation_replay`` kernel on CUDA, which reads the rotation log on the
-device; on the CPU, and in ``rows_through_merge``'s transposed replay on
-both devices, the waves are planned on the host from the log (one
-device-to-host copy per level) and each wave is one gather / rotate /
-scatter; both rows of a rotation are read before either is written.
+disjoint rows.  The downsweep's replay (``_apply_u_finish``) and
+``rows_through_merge``'s transposed replay are the two launch forms of the
+``rotation_replay`` kernel on CUDA (``rotation_replay``,
+``rotation_replay_t``), which read the rotation log on the device; on the
+CPU the waves are planned on the host from the log and each wave is one
+gather / rotate / scatter; both rows of a rotation are read before either
+is written.
 """
 
 from __future__ import annotations
@@ -29,22 +30,8 @@ import torch
 from .cauchy_matmul import cauchy_materialize, cauchy_matmul
 from .cauchy_rowsum import cauchy_rowsum
 from .dword_matmul import dword_matmul
-from .rotation_replay import Wave, rotation_replay, rotation_waves
+from .rotation_replay import Wave, rotation_replay, rotation_replay_t
 from .secular import MergeRep, inverse_permutation, map_slot_blocks
-
-
-def _replay_rotations_cols_t(waves: List[Wave], wt):
-    """Transposed chain on wt (k*m, r), the columns of w stored as rows, in
-    place: waves ascending, w_a <- c w_a - s w_b, w_b <- s w_a + c w_b, in
-    wt's dtype."""
-    for a, b, c, s in waves:
-        wa = wt[a]
-        wb = wt[b]
-        c = c.to(wt.dtype)[:, None]
-        s = s.to(wt.dtype)[:, None]
-        wt[a] = c * wa - s * wb
-        wt[b] = s * wa + c * wb
-    return wt
 
 
 def _gather_rows(X, perm):
@@ -166,21 +153,23 @@ def rows_through_merge(rep: MergeRep, w,
 
     ``w``: (k, r, m) rows in original coordinates, r <= 2.  Used on the
     upsweep to push each subtree's first/last boundary rows through its
-    merge at O(r K^2) cost without materializing U; the Cauchy sums go
-    through the ``cauchy_rowsum`` kernel, cut at each merge's K (wz is 0
-    past it, and only the columns below it are kept)."""
+    merge at O(r K^2) cost without materializing U: the transposed Givens
+    chain (``rotation_replay_t``: one kernel launch on CUDA, which reads the
+    log on the card, so the level makes no host sync; ``waves``: the level's
+    :func:`rotation_waves` on the CPU, when the caller planned them), then
+    the Cauchy sums through the ``cauchy_rowsum`` kernel, cut at each
+    merge's K (wz is 0 past it, and only the columns below it are kept)."""
     k, r, m = w.shape
-    if waves is None:
-        waves = rotation_waves(rep)
-    p12 = rep.p12[:, None, :].expand(k, r, m)
-    wt = w.gather(2, p12).transpose(1, 2).reshape(k * m, r)
-    wp = _replay_rotations_cols_t(waves, wt).reshape(k, m, r).transpose(1, 2)
-    wz = (wp * rep.zhat[:, None, :]).contiguous()
-    shift_val = rep.poles_sec.gather(1, rep.shift_idx)
-    # f32 mode: the kernel takes f64 operands; S comes back in wz's dtype
-    S = cauchy_rowsum(*(t.to(torch.float64) for t in (
-        rep.poles_sec, shift_val, rep.tau, wz)), rep.K).to(wz.dtype)
-    active = (torch.arange(m, device=w.device)[None, :]
-              < rep.K[:, None])[:, None, :]
-    y = torch.where(active, S / rep.colnorm[:, None, :], wp)
-    return y.gather(2, rep.colperm[:, None, :].expand(k, r, m))
+    with torch.profiler.record_function("merge.rows_through_merge"):
+        p12 = rep.p12[:, None, :].expand(k, r, m)
+        wt = w.gather(2, p12).transpose(1, 2).contiguous()
+        wp = rotation_replay_t(rep, wt, waves).transpose(1, 2)
+        wz = (wp * rep.zhat[:, None, :]).contiguous()
+        shift_val = rep.poles_sec.gather(1, rep.shift_idx)
+        # f32 mode: the kernel takes f64 operands; S comes back in wz's dtype
+        S = cauchy_rowsum(*(t.to(torch.float64) for t in (
+            rep.poles_sec, shift_val, rep.tau, wz)), rep.K).to(wz.dtype)
+        active = (torch.arange(m, device=w.device)[None, :]
+                  < rep.K[:, None])[:, None, :]
+        y = torch.where(active, S / rep.colnorm[:, None, :], wp)
+        return y.gather(2, rep.colperm[:, None, :].expand(k, r, m))

@@ -208,6 +208,12 @@ def merge_partition(d, z, rho, *, eps: float,
     """Stage 1: sort, z-deflation, Givens deflation, stable partition.
 
     d, z: (k, m); rho: (k,) >= 0."""
+    with torch.profiler.record_function("merge.partition"):
+        return _merge_partition(d, z, rho, eps, deflation_factor)
+
+
+def _merge_partition(d, z, rho, eps: float,
+                     deflation_factor: float) -> MergePartition:
     k, m = d.shape
     dev, dt = d.device, d.dtype
 
@@ -457,14 +463,14 @@ def merge_roots(part: MergePartition, *, eps: float, max_secular_iters: int,
         poles_sec, part.zu, part.rho_e, part.K, active, eps,
         max_secular_iters, secular_tol_factor, slot_mesh=slot_mesh)
 
-    zvec = part.zu
-    if use_gu_eisenstat:
-        zvec = _gu_eisenstat_z(poles_sec, part.zu, tau, shift_val, active,
-                               block_size, slot_mesh=slot_mesh)
-
-    colnorm = map_slot_blocks(_norm_block, m, block_size, dev,
-                              mesh=slot_mesh,
-                              args=(poles_sec, shift_val, tau, zvec))
+    with torch.profiler.record_function("merge.z_colnorm"):
+        zvec = part.zu
+        if use_gu_eisenstat:
+            zvec = _gu_eisenstat_z(poles_sec, part.zu, tau, shift_val, active,
+                                   block_size, slot_mesh=slot_mesh)
+        colnorm = map_slot_blocks(_norm_block, m, block_size, dev,
+                                  mesh=slot_mesh,
+                                  args=(poles_sec, shift_val, tau, zvec))
     colnorm = torch.where(active & (colnorm > 0), colnorm,
                           torch.ones_like(colnorm))
 

@@ -15,6 +15,7 @@ from symmetric_eigenvalue_tpu.kernels import assemble as jas
 from symmetric_eigenvalue_tpu.kernels.secular import merge_decompose
 from symmetric_eigenvalue_tpu_torch import interop
 from symmetric_eigenvalue_tpu_torch.kernels import assemble as tas
+from symmetric_eigenvalue_tpu_torch.kernels import rotation_replay as rr
 
 KW = dict(eps=2.0 ** -52, deflation_factor=8.0, max_secular_iters=60,
           secular_tol_factor=8.0, use_gu_eisenstat=True)
@@ -93,3 +94,37 @@ def test_interop_rejects_bad_shapes(rng):
     arrays["K"] = np.zeros((2, 2), np.int32)
     with pytest.raises(ValueError):
         interop.merge_rep_from_numpy(arrays)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_rows_through_merge_replays_through_the_transposed_form(
+        rng, monkeypatch, dtype):
+    """rows_through_merge hands its boundary rows to ``rotation_replay_t``
+    once, as (k, m, r) contiguous in w's dtype (f32 mode: the level's own
+    f32 log), and its replay is the plain transposed loop's bit for bit."""
+    k, m = 3, 64
+    d = np.stack([_merge_inputs(rng, kind, m)[0]
+                  for kind in ("light", "heavy", "light")])
+    jreps = _J_LEVEL(jnp.asarray(d), jnp.asarray(rng.standard_normal((k, m))),
+                     jnp.asarray([0.5, 1.9, 3.0]))
+    reps = interop.merge_rep_from_numpy(
+        {f: np.asarray(getattr(jreps, f)) for f in jreps._fields})
+    reps = type(reps)(*(t.to(dtype) if t.is_floating_point() else t
+                        for t in reps))
+    w = torch.as_tensor(rng.standard_normal((k, 2, m)), dtype=dtype)
+    seen = []
+    inner = tas.rotation_replay_t
+
+    def recorded(rep, wt, waves=None):
+        seen.append(wt.clone())
+        assert wt.shape == (k, m, 2) and wt.is_contiguous()
+        assert wt.dtype == dtype and rep.rot_c.dtype == dtype
+        out = inner(rep, wt, waves)
+        ref = rr.replay_waves_t(rr.rotation_waves(rep),
+                                seen[-1].view(k * m, 2))
+        assert torch.equal(out.view(k * m, 2), ref)
+        return out
+
+    monkeypatch.setattr(tas, "rotation_replay_t", recorded)
+    y = tas.rows_through_merge(reps, w)
+    assert len(seen) == 1 and y.dtype == dtype and y.shape == (k, 2, m)

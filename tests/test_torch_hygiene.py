@@ -108,7 +108,7 @@ def test_exports_every_name_of_the_jax_package():
 def _counts():
     return (ss.launches, ss.solve_launches, cr.launches, dm.launches,
             cm.matmul_launches, cm.materialize_launches, sp.pass_a_launches,
-            sp.pass_b_launches, dv.launches, rr.launches,
+            sp.pass_b_launches, dv.launches, rr.launches, rr.t_launches,
             shs.interface_launches, shs.block_lu_launches,
             hp.reflector_launches, hp.w_launches, hp.w_reflector_launches,
             hp.larft_launches, br.chase_launches, br.panel_qr_launches,
@@ -138,7 +138,7 @@ def test_cpu_tensors_count_no_launches(rng):
     assert V.device.type == "cpu"
     st.eigh(A + A.T, band=4, device="cpu")
     st.eigh_banded(np.ones((4, 40)), device="cpu")
-    assert _counts() == before == (0,) * 20
+    assert _counts() == before == (0,) * 21
 
 
 def test_non_cpu_tensors_never_take_the_plain_version():
@@ -180,6 +180,10 @@ def test_non_cpu_tensors_never_take_the_plain_version():
             MergeRep._make([torch.empty((k, m), **i64)]
                            * len(MergeRep._fields)),
             torch.empty((k, m, C), **f64)),
+        "rotation_replay_t": lambda: rr.rotation_replay_t(
+            MergeRep._make([torch.empty((k, m), **i64)]
+                           * len(MergeRep._fields)),
+            torch.empty((k, m, 2), **f64)),
         "interface_solve": lambda: shs.interface_solve(
             *(torch.empty((2, C), **f64) for _ in range(6))),
         "block_lu_solve": lambda: shs.block_lu_solve(

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Where a ``q2_blocks_t`` or an ``interface_solve`` launch spends its time,
-on one GPU, by clock64 phase probes.
+"""Where a ``q2_blocks_t``, an ``interface_solve`` or a ``rotation_replay``
+launch spends its time, on one GPU, by clock64 phase probes.
 
 It copies the package into ``build/kernel_phases/``, defines
 ``KERNEL_PROBES`` at the top of that copy's ``householder_panel.cu`` and
@@ -24,7 +24,21 @@ line a shape:
   ``wait_and_d11`` (the step's loads reach their first use), ``chain`` (the
   rest of the step's arithmetic), ``stores``, and the whole ``back_sweep``;
   each also a step (over P), beside the probed and the unprobed launches'
-  times.
+  times;
+- ``rotation_replay`` (the downsweep form) on every level of the mixed
+  n=16384 solves of the random and the Poisson matrix (and the Poisson
+  root's y in f64): thread 0's cycles of each block in ``scan`` (reading
+  and scanning the merges' item counts), ``stage`` (an item's log to
+  shared memory) and ``apply`` (its rotations), in µs a block and in all,
+  beside the items taken and the probed and unprobed launches' times.
+
+With ``--only rotation_replay,rotation_replay_t --times-only`` it times the
+replays of those levels as the tree runs them: the downsweep's launch
+(events, profiler, CUDA graph) and the same launch on an empty log (the
+grid alone); rows_through_merge's transposed chain on every non-root level
+(the ``rotation_replay_t`` kernel where the tree has it: events, profiler,
+graph, the host's time a call), and the torch wave loop with
+``rotation_waves``' fetches it replaced (events, host wall a call).
 
 With ``--times-only`` it builds no probed copy and times the tree's own
 kernels at the same shapes (``q2_blocks_t`` over every chunk): CUDA events
@@ -48,6 +62,7 @@ import json
 import shutil
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 import torch
@@ -55,13 +70,16 @@ import torch
 ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 import chip_smoke as cs  # noqa: E402
+import symmetric_eigenvalue_tpu_torch as st  # noqa: E402
+from symmetric_eigenvalue_tpu_torch import driver  # noqa: E402
 from symmetric_eigenvalue_tpu_torch.kernels import (  # noqa: E402
-    band_reduce as br, shifted_solve as shs)
+    assemble, band_reduce as br, rotation_replay as rr, shifted_solve as shs)
 
 Q2_SHAPES = ((4096, 128), (4096, 16), (16384, 128), (16384, 4), (16384, 2))
 Q2_PHASES = ("loads", "y_store", "gram", "diagonal_blocks", "joins",
              "t_store")
 IF_PHASES = ("wait_and_d11", "chain", "stores", "back_sweep")
+RR_PHASES = ("scan", "stage", "apply")
 
 
 def card():
@@ -79,16 +97,17 @@ def sm_mhz() -> float:
 
 
 def probed_copy():
-    """The package copied under build/ with KERNEL_PROBES defined in its two
-    sources, imported beside the repository's (chip_smoke keeps the
-    repository's): (its _build, band_reduce, shifted_solve)."""
+    """The package copied under build/ with KERNEL_PROBES defined in its
+    probed sources, imported beside the repository's (chip_smoke keeps the
+    repository's): (its _build, band_reduce, shifted_solve,
+    rotation_replay)."""
     work = ROOT / "build" / "kernel_phases"
     pkg = work / "symmetric_eigenvalue_tpu_torch"
     shutil.rmtree(pkg, ignore_errors=True)
     shutil.copytree(ROOT / "symmetric_eigenvalue_tpu_torch", pkg,
                     ignore=shutil.ignore_patterns("__pycache__"))
-    for name in ("householder_panel.cu", "interface_solve.cu"):
-        cu = pkg / "csrc" / name
+    for name in PROBED:
+        cu = pkg / "csrc" / f"{name}.cu"
         cu.write_text("#define KERNEL_PROBES\n" + cu.read_text())
     saved = {m: sys.modules.pop(m) for m in list(sys.modules)
              if m.startswith("symmetric_eigenvalue_tpu_torch")}
@@ -97,15 +116,18 @@ def probed_copy():
         from symmetric_eigenvalue_tpu_torch import _build as pb
         from symmetric_eigenvalue_tpu_torch.kernels import band_reduce as pbr
         from symmetric_eigenvalue_tpu_torch.kernels import (
-            shifted_solve as pshs)
+            shifted_solve as pshs, rotation_replay as prr)
     finally:
         sys.path.remove(str(work))
         for m in [m for m in sys.modules
                   if m.startswith("symmetric_eigenvalue_tpu_torch")]:
             del sys.modules[m]
         sys.modules.update(saved)
-    pb.build_all(["householder_panel", "interface_solve"])
-    return pb, pbr, pshs
+    pb.build_all(PROBED)
+    return pb, pbr, pshs, prr
+
+
+PROBED = ("householder_panel", "interface_solve", "rotation_replay")
 
 
 def q2_rows(args, base, pb, pbr, mhz):
@@ -204,6 +226,145 @@ def graph_ms(fn, reps):
         return None, f"{type(exc).__name__}: {exc}"[:200]
 
 
+def replay_cases():
+    """Every level's replays of the mixed n=16384 solves of the random and
+    the Poisson matrix as the tree runs them: [(what, rep, y)] of the
+    downsweep (the first call a level shape; the Poisson root's y once
+    more in f64) and [(what, rep, wt)] of rows_through_merge's transposed
+    chain (wt: the boundary rows permuted and laid out as the chain takes
+    them)."""
+    down, up = [], []
+    for matrix, (d, e) in (("random", cs.random_matrix(cs.N, cs.SEED)),
+                           ("Poisson", st.create_matrix_scheme2(cs.N))):
+        got, rows = {}, []
+        inner_rr, inner_rows = assemble.rotation_replay, driver.rows_through_merge
+
+        def rec_rr(rep, y, waves=None):
+            got.setdefault(tuple(y.shape[:2]), (rep, y.clone()))
+            return inner_rr(rep, y, waves)
+
+        def rec_rows(rep, w, *a):
+            rows.append((rep, w.clone()))
+            return inner_rows(rep, w, *a)
+
+        assemble.rotation_replay, driver.rows_through_merge = rec_rr, rec_rows
+        try:
+            st.solve_tridiagonal_staged(d, e, compute_vectors=True)
+        finally:
+            assemble.rotation_replay = inner_rr
+            driver.rows_through_merge = inner_rows
+        for (k, m), (rep, y) in got.items():
+            down.append((f"{matrix}, level k={k}, m={m}", rep, y))
+        if matrix == "Poisson":
+            (k, m), (rep, y) = next(iter(got.items()))
+            down.append((f"{matrix}, level k={k}, m={m}, as f64", rep,
+                         y.double()))
+        for rep, w in rows:
+            k, r, m = w.shape
+            wt = w.gather(2, rep.p12[:, None, :].expand(k, r, m)) \
+                .transpose(1, 2).contiguous()
+            up.append((f"{matrix}, level k={k}, m={m}", rep, wt))
+        del got, rows
+        torch.cuda.empty_cache()
+    return down, up
+
+
+def replay_rows(args, base, prr, pb, mhz):
+    """The downsweep form's clock64 split on every level (probed copy)."""
+    read = pb.function("rotation_replay", "rotation_replay_probe_read",
+                       [ctypes.c_void_p])
+    buf = (ctypes.c_ulonglong * 4)()
+    out = []
+    down, _ = replay_cases()
+    for what, rep, y in down:
+        work = y.clone()
+        pb.check_launch(read(ctypes.addressof(buf)), "probe read")
+        got = prr.rotation_replay(rep, y.clone())
+        same = torch.equal(got, rr.rotation_replay(rep, y.clone()))
+        torch.cuda.synchronize()
+        pb.check_launch(read(ctypes.addressof(buf)), "probe read")
+        plan = cs.replay_plan(rep, y, False)
+        blocks = plan["grid"]
+        out.append(dict(
+            base, kernel="rotation_replay (probed copy)", what=what,
+            k=y.shape[0], m=y.shape[1], C=y.shape[2],
+            dtype=str(y.dtype).split(".")[-1], nrot=int(rep.nrot.sum()),
+            nwave_max=int(rep.nwave.max()), plan=plan, items=int(buf[3]),
+            probed_equals_unprobed=same, sm_mhz=mhz,
+            block_us=dict(zip(RR_PHASES, [buf[i] / blocks / mhz
+                                          for i in range(3)])),
+            events_ms=cs.time_ms(lambda: rr.rotation_replay(rep, work),
+                                 args.reps),
+            probed_events_ms=cs.time_ms(
+                lambda: prr.rotation_replay(rep, work), args.reps)))
+    return out
+
+
+def replay_time_rows(args, base):
+    """The replays as the tree runs them, every level (see the module's
+    docstring); a tree without ``rotation_replay_t`` times only the torch
+    loop it had in rows_through_merge."""
+    out = []
+    only = args.only.split(",")
+    if "rotation_replay" not in only and "rotation_replay_t" not in only:
+        return out
+    down, up = replay_cases()
+    if "rotation_replay" in only:
+        for what, rep, y in down:
+            work = y.clone()
+            run = lambda: rr.rotation_replay(rep, work)  # noqa: E731
+            empty = rep._replace(nrot=torch.zeros_like(rep.nrot),
+                                 nwave=torch.zeros_like(rep.nwave))
+            g_ms, g_err = graph_ms(run, args.reps)
+            e_ms, e_err = graph_ms(lambda: rr.rotation_replay(empty, work),
+                                   args.reps)
+            size = y.element_size()
+            out.append(dict(
+                base, kernel="rotation_replay", what=what, k=y.shape[0],
+                m=y.shape[1], C=y.shape[2], dtype=str(y.dtype).split(".")[-1],
+                nrot=int(rep.nrot.sum()), nwave_max=int(rep.nwave.max()),
+                events_ms=cs.time_ms(run, args.reps),
+                device_ms=cs.device_ms(run, args.reps,
+                                       only="rotation_replay_kernel"),
+                graph_ms=g_ms, graph_error=g_err, empty_log_graph_ms=e_ms,
+                empty_log_graph_error=e_err,
+                bytes_bound_ms=1e3 * 4.0 * int(rep.nrot.sum()) * y.shape[2]
+                * size / cs.PEAK_BYTES))
+    if "rotation_replay_t" in only:
+        kernel = getattr(rr, "rotation_replay_t", None)
+        for what, rep, wt in up:
+            k, m, r = wt.shape
+            work = wt.clone()
+
+            def replaced():
+                waves = rr.rotation_waves(rep)
+                loop = getattr(rr, "replay_waves_t", None) or getattr(
+                    assemble, "_replay_rotations_cols_t")
+                loop(waves, work.view(k * m, r))
+
+            t0 = time.perf_counter()
+            for _ in range(5):
+                replaced()
+            torch.cuda.synchronize()
+            row = dict(base, kernel="rotation_replay_t", what=what, k=k, m=m,
+                       r=r, nrot=int(rep.nrot.sum()),
+                       nwave_max=int(rep.nwave.max()),
+                       bytes_bound_ms=1e3 * 4.0 * int(rep.nrot.sum()) * r
+                       * wt.element_size() / cs.PEAK_BYTES,
+                       replaced_events_ms=cs.time_ms(replaced, 5),
+                       replaced_host_ms=1e3 * (time.perf_counter() - t0) / 5)
+            if kernel is not None:
+                run = lambda: kernel(rep, work)  # noqa: E731
+                g_ms, g_err = graph_ms(run, args.reps)
+                row.update(events_ms=cs.time_ms(run, args.reps),
+                           device_ms=cs.device_ms(
+                               run, args.reps, only="rotation_replay_t"),
+                           graph_ms=g_ms, graph_error=g_err,
+                           host_launch_us=cs.host_launch_us(run, args.reps))
+            out.append(row)
+    return out
+
+
 def time_rows(args, base):
     """The tree's own kernels, unprobed, at the same shapes."""
     out = []
@@ -230,6 +391,7 @@ def time_rows(args, base):
                             events_ms=cs.time_ms(run, args.reps),
                             device_ms=cs.device_ms(run, args.reps),
                             graph_ms=g_ms, graph_error=g_err))
+    out += replay_time_rows(args, base)
     return out
 
 
@@ -253,13 +415,15 @@ def main():
         for row in time_rows(args, base):
             print(json.dumps(row), flush=True)
         return
-    pb, pbr, pshs = probed_copy()
+    pb, pbr, pshs, prr = probed_copy()
     mhz = sm_mhz()
     rows = []
     if "q2_blocks_t" in args.only:
         rows += q2_rows(args, base, pb, pbr, mhz)
     if "interface_solve" in args.only:
         rows += interface_rows(args, base, pb, pshs, mhz)
+    if "rotation_replay" in args.only.split(","):
+        rows += replay_rows(args, base, prr, pb, mhz)
     for row in rows:
         print(json.dumps(row), flush=True)
 

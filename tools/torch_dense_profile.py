@@ -128,8 +128,13 @@ def profiled(fn, n: int, keep=()):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     busy, events, by_kernel = 0.0, 0, {}
-    for ev in prof.key_averages():
-        if ev.device_type == DeviceType.CUDA and ev.self_device_time_total > 0:
+    averages = prof.key_averages()
+    # a record_function range's device-side span carries the range's own
+    # name: not kernel time
+    ranges = {ev.key for ev in averages if ev.device_type != DeviceType.CUDA}
+    for ev in averages:
+        if ev.device_type == DeviceType.CUDA and ev.self_device_time_total > 0 \
+                and ev.key not in ranges:
             busy += ev.self_device_time_total * 1e-6
             events += ev.count
             by_kernel[ev.key[:90]] = {"device_s":
