@@ -2,7 +2,7 @@
 """Drive the PyTorch/CUDA port once on one GPU and check it.
 
 Run from the repository root:  python3 chip_smoke.py
-With ``--only dword_matmul,cauchy_matmul`` (any of the 21 kernels' names)
+With ``--only dword_matmul,cauchy_matmul`` (any of the 22 kernels' names)
 it builds those kernels' sources, runs phase 3 for them alone, held to the
 same limits, and stops: half a minute for work on one kernel.
 
@@ -46,6 +46,14 @@ exits non-zero:
                bound, its latency floor (waves x an L2 round trip this run
                measures) and the replaced torch loop with its host fetches,
                and rows_through_merge there with no host sync;
+               deflation_tree (the merge's Givens deflation tree, one launch
+               a merge level) bit for bit its plain loop, every output, on
+               every level of the random and the Poisson n=16384 solves in
+               f64 and in the float32 mode and on synthetic levels (m not a
+               power of two, m = 1 and 2, the CLI's root width 98304),
+               beside its bytes bound (74 bytes a slot in f64), its latency
+               floor (its levels x an L2 round trip) and the replaced torch
+               loop, with no host sync;
                interface_solve bit for bit its plain loop on the mixed
                random and Poisson n=16384 solves' own pass-1 boundary
                values (P=128, K=16384, the Spike pass's scaled and shifted
@@ -102,9 +110,10 @@ exits non-zero:
                input, seed 0), all eigenpairs, cold then three times
                warm; residual, orthogonality and eigenvalues against
                scipy; the triage's column counts; launch counts of all
-               twelve kernels (interface_solve once a Spike pass and once a
-               blocked solve, block_lu_solve exactly when a column is
-               risky), each merge level's (k, m, K) and launches, the host
+               thirteen kernels (interface_solve once a Spike pass and once
+               a blocked solve, block_lu_solve exactly when a column is
+               risky, deflation_tree once a merge level, cold and in each
+               warm solve), each merge level's (k, m, K) and launches, the host
                time of the spike.interface_solve and refine.triage ranges;
                the same input solved twice more through the kernels and
                once with the scans' plain versions substituted here: V
@@ -261,6 +270,7 @@ from symmetric_eigenvalue_tpu_torch.kernels import band_reduce as br
 from symmetric_eigenvalue_tpu_torch.kernels import cauchy_matmul as cm
 from symmetric_eigenvalue_tpu_torch.kernels import cauchy_rowsum as cr
 from symmetric_eigenvalue_tpu_torch.kernels import dword_matmul as dm
+from symmetric_eigenvalue_tpu_torch.kernels import deflation_tree as dtr
 from symmetric_eigenvalue_tpu_torch.kernels import dword_matvec as dv
 from symmetric_eigenvalue_tpu_torch.kernels import householder_panel as hp
 from symmetric_eigenvalue_tpu_torch.kernels import rotation_replay as rr
@@ -345,6 +355,10 @@ REPLACES = {
         "symmetric_eigenvalue_tpu/kernels/band_reduce.py:509",
     "q2_apply":
         "symmetric_eigenvalue_tpu/kernels/band_reduce.py:509",
+    # the merge's deflation tree, a Python loop over the tree levels
+    # unrolled inside the jitted merge, no pallas_call
+    "deflation_tree":
+        "symmetric_eigenvalue_tpu/kernels/secular.py:106",
 }
 REPLACES_LOOP = {"secular_solve":
                  "symmetric_eigenvalue_tpu/kernels/secular.py:299-361",
@@ -371,7 +385,9 @@ REPLACES_LOOP = {"secular_solve":
                  "q2_blocks_t":
                  "symmetric_eigenvalue_tpu/kernels/band_reduce.py:606",
                  "q2_apply":
-                 "symmetric_eigenvalue_tpu/kernels/band_reduce.py:606"}
+                 "symmetric_eigenvalue_tpu/kernels/band_reduce.py:606",
+                 "deflation_tree":
+                 "symmetric_eigenvalue_tpu/kernels/secular.py:150"}
 SOURCES = {"spike_pass_a": "spike_solve", "spike_pass_b": "spike_solve",
            "cauchy_materialize": "cauchy_matmul",
            "dword_vecmat": "dword_matvec", "secular_solve": "secular_sums",
@@ -394,7 +410,10 @@ EXTRA_SOURCES = {"column_reflector": ("dword_matvec", "dword_matmul"),
                  # the chase makes their logs; the replaced loop's GEMMs
                  "q2_blocks_t": ("band_reduce", "q2_apply", "dword_matmul"),
                  "q2_apply": ("band_reduce", "householder_panel",
-                              "dword_matmul")}
+                              "dword_matmul"),
+                 # the L2 round trip's yardstick; the solves' merge kernels
+                 "deflation_tree": ("rotation_replay", "secular_sums",
+                                    "cauchy_rowsum")}
 KERNEL_NAMES = tuple(REPLACES)
 
 
@@ -491,7 +510,8 @@ def launch_counts():
             "band_chase": br.chase_launches,
             "panel_qr": br.panel_qr_launches,
             "q2_blocks_t": br.q2_blocks_t_launches,
-            "q2_apply": br.q2_apply_launches}
+            "q2_apply": br.q2_apply_launches,
+            "deflation_tree": dtr.launches}
 
 
 def reset_counts() -> None:
@@ -505,6 +525,7 @@ def reset_counts() -> None:
     hp.larft_launches = 0
     br.chase_launches = br.panel_qr_launches = 0
     br.q2_blocks_t_launches = br.q2_apply_launches = 0
+    dtr.launches = 0
 
 
 def random_matrix(n: int, seed: int):
@@ -2365,6 +2386,136 @@ def rows_t_level_rows(d, e, what, cfg=None):
     return rows
 
 
+@contextlib.contextmanager
+def recorded_trees():
+    """The inputs (ds, zs, defl0, tol) of each merge level's deflation tree
+    run inside the block, copied: the first call of each level shape (k,
+    m), in the order of the upsweep."""
+    got = {}
+    inner = sec._deflation_tree
+
+    def recorded(ds, zs, defl0, tol):
+        key = tuple(ds.shape)
+        if key not in got:
+            got[key] = tuple(t.clone() for t in (ds, zs, defl0, tol))
+        return inner(ds, zs, defl0, tol)
+
+    sec._deflation_tree = recorded
+    try:
+        yield got
+    finally:
+        sec._deflation_tree = inner
+
+
+def _tree_outputs(out):
+    d, z, defl, log = out
+    return (d, z, defl, *log)
+
+
+def same_bits(a, b) -> bool:
+    """Equal shape, dtype and bits (-0.0 is not 0.0; a NaN is itself)."""
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    if a.is_floating_point():
+        view = torch.int32 if a.element_size() == 4 else torch.int64
+        a, b = a.contiguous().view(view), b.contiguous().view(view)
+    return bool(torch.equal(a, b))
+
+
+def check_deflation_tree(args, what, reps=20, host_path=False):
+    """deflation_tree against its plain version (the torch loop over the
+    tree levels) on one level's own inputs: every output bit for bit (d, z,
+    defl, the packed log, nrot, nwave), run to run; time by events, the
+    profiler and a CUDA graph's replay, and with ``host_path`` the host's
+    time a call and the host syncs of a call (required 0); the bytes bound
+    (ds, zs, defl0 read, d, z, defl and the (k, m) log written: 6 s + 26
+    bytes a slot for s-byte data) and the latency floor (the tree's levels,
+    each at least an L2 round trip)."""
+    k, m = args[0].shape
+    got = _tree_outputs(dtr.deflation_tree(*args))
+    ref = _tree_outputs(dtr.deflation_tree_plain(*args))
+    again = _tree_outputs(dtr.deflation_tree(*args))
+    torch.cuda.synchronize()
+    bit = all(same_bits(g, r) for g, r in zip(got, ref))
+    same = all(same_bits(g, r) for g, r in zip(got, again))
+    abs_err = max((float((g.double() - r.double()).abs().max())
+                   for g, r in zip(got, ref) if g.numel()), default=0.0)
+    nrot = int(ref[8].sum())
+    nwave = int(ref[9].max()) if k else 0
+    del got, ref, again
+    run = lambda: dtr.deflation_tree(*args)  # noqa: E731
+    plain = lambda: dtr.deflation_tree_plain(*args)  # noqa: E731
+    t0 = time.perf_counter()
+    for _ in range(3):
+        plain()
+    torch.cuda.synchronize()
+    plain_host_ms = 1e3 * (time.perf_counter() - t0) / 3
+    size = args[0].element_size()
+    plan = dtr.launch_plan(k, m)
+    cycles, mhz = l2_round_trip_cycles(), sm_clock_mhz()
+    # ~20 operations a node of the padded tree: an upper bound, far below
+    # the bytes
+    b_ms, b_by = bound(20.0 * k * (plan.padded - 1),
+                       PEAK_FP32 if size == 4 else PEAK_FP64,
+                       k * m * (6.0 * size + 26) + k * (size + 16))
+    return dict(what=what, k=k, m=m, dtype=str(args[0].dtype).split(".")[-1],
+                levels=plan.levels, nrot=nrot, nwave_max=nwave,
+                plan=plan._asdict(), **dtr.info(args[0].device, size == 4),
+                max_abs_err=abs_err, max_rel_err=abs_err, tol=0.0,
+                bit_exact=bit, run_to_run_identical=same,
+                ms=time_ms(run, reps), device_ms=device_ms(run, reps),
+                graph_ms=graph_ms(run, reps),
+                host_launch_us=host_launch_us(run, reps) if host_path else None,
+                host_syncs_kernel=host_syncs(run) if host_path else 0,
+                plain_ms=time_ms(plain, 3), plain_host_ms=plain_host_ms,
+                library_ms=None, bound_ms=b_ms, bound_by=b_by,
+                latency_floor_ms=plan.levels * cycles / (mhz * 1e3),
+                latency_floor_is=f"levels x an L2 round trip ({cycles:.0f} "
+                f"cycles, l2_round_trip_cycles) at {mhz:g} MHz")
+
+
+def tree_level_rows(d, e, what, cfg=None):
+    """deflation_tree on every merge level of a solve of (d, e) (``cfg``:
+    its SolverConfig; eigenvalues only: the upsweep is the whole of the
+    tree's path), on the level's own inputs."""
+    with recorded_trees() as got:
+        st.solve_tridiagonal_staged(d, e, compute_vectors=False,
+                                    config=cfg or st.SolverConfig())
+    rows = [check_deflation_tree(args, f"{what}, level k={k}, m={m}",
+                                 host_path=i == 0)
+            for i, ((k, m), args) in enumerate(got.items())]
+    del got
+    torch.cuda.empty_cache()
+    return rows
+
+
+def synthetic_tree_rows():
+    """deflation_tree on synthetic levels of clustered poles (a coarse grid
+    plus tiny offsets, a fifth of z exactly 0, 15% deflated before the
+    tree): m not a power of two with shared (k=3, m=1000) and global
+    (k=2, m=6000, f32) summaries, the CLI's root width (k=1, m=98304),
+    and m = 1 and 2."""
+    rows = []
+    g = torch.Generator(device="cuda").manual_seed(SEED + 22)
+    for k, m, dtype in ((3, 1000, torch.float64), (2, 6000, torch.float32),
+                        (1, 98304, torch.float64), (16, 2, torch.float64),
+                        (16, 1, torch.float32)):
+        def rand(*shape):
+            return torch.randn(shape, generator=g, device="cuda",
+                               dtype=torch.float64)
+        ds = torch.sort(torch.round(rand(k, m) * 20.0) / 10.0
+                        + 1e-7 * rand(k, m), dim=1).values
+        defl0 = torch.rand((k, m), generator=g, device="cuda") < 0.15
+        keep = torch.rand((k, m), generator=g, device="cuda") > 0.2
+        zs = torch.where(defl0 | ~keep, 0.0, rand(k, m) / m ** 0.5)
+        tol = torch.full((k,), 1e-4, dtype=torch.float64, device="cuda")
+        args = (ds.to(dtype), zs.to(dtype), defl0, tol.to(dtype))
+        rows.append(check_deflation_tree(
+            args, f"synthetic clusters, k={k}, m={m}, "
+            f"{str(dtype).split('.')[-1]}", reps=10))
+    return rows
+
+
 def plain_replays_substituted(d, e, cfg):
     """Phase 4's input solved through the kernel's two launch forms and once
     with the replays' plain loops substituted: lam and V bit for bit the
@@ -3340,7 +3491,7 @@ def record_route():
 MAIN_PATH_KERNELS = ("cauchy_matmul", "cauchy_materialize", "spike_pass_a",
                      "spike_pass_b", "secular_sums", "secular_solve",
                      "cauchy_rowsum", "rotation_replay", "rotation_replay_t",
-                     "interface_solve")
+                     "interface_solve", "deflation_tree")
 
 
 def run_staged_large(cfg):
@@ -3470,10 +3621,11 @@ TRACE_KERNELS = {"secular_sums": "secular_sums_kernel",
                  "dword_matmul": "dgemm_mma_kernel",
                  "dword_vecmat": "vecmat_kernel",
                  "rotation_replay": "rotation_replay_kernel",
-                 "rotation_replay_t": "rotation_replay_t_kernel"}
+                 "rotation_replay_t": "rotation_replay_t_kernel",
+                 "deflation_tree": "deflation_tree_kernel"}
 SPLITK = "splitk_reduce_kernel"
 MERGE_KERNELS = ("secular_sums", "secular_solve", "cauchy_rowsum",
-                 "rotation_replay_t")
+                 "rotation_replay_t", "deflation_tree")
 REFINE_KERNELS = ("cauchy_matmul", "cauchy_materialize", "spike_pass_a",
                   "spike_pass_b", "rotation_replay")
 
@@ -3785,14 +3937,14 @@ def run_cli_profile_and_errors():
 MESH_SHARDS = 4              # [cuda:0] * 4 on a card alone
 MESH_SHARD_KERNELS = ("secular_sums", "secular_solve", "cauchy_rowsum",
                       "cauchy_matmul", "cauchy_materialize", "rotation_replay",
-                      "rotation_replay_t")
+                      "rotation_replay_t", "deflation_tree")
 MESH_LEAD_KERNELS = ("spike_pass_a", "spike_pass_b")
 MESH_DIR = ROOT / "build" / "mesh"
 # each kernel's wrapper where it launches (the counter moves inside it)
 LAUNCH_SITES = ((ss, "_launch"), (ss, "_launch_solve"), (cr, "_launch"),
                 (cm, "_launch_matmul"), (cm, "_launch_materialize"),
                 (rr, "_launch"), (sp, "spike_pass_a"), (sp, "spike_pass_b"),
-                (dm, "_launch"), (dv, "_launch"))
+                (dm, "_launch"), (dv, "_launch"), (dtr, "_launch"))
 
 
 def solve_mesh():
@@ -4503,6 +4655,19 @@ def kernel_table(d, e, ref):
                                "Poisson n=16384"),
             *rows_t_level_rows(d, e, "random n=16384, float32 mode",
                                st.SolverConfig(dtype=torch.float32))],
+        # every merge level of the random and the Poisson solves in f64
+        # (the mixed config's eigenvalue phase) and in the float32 mode,
+        # then synthetic levels (m not a power of two, m = 1 and 2, 98304)
+        "deflation_tree": lambda: [
+            *tree_level_rows(d, e, "random n=16384, f64"),
+            *tree_level_rows(*st.create_matrix_scheme2(N),
+                             "Poisson n=16384, f64"),
+            *tree_level_rows(d, e, "random n=16384, float32 mode",
+                             st.SolverConfig(dtype=torch.float32)),
+            *tree_level_rows(*st.create_matrix_scheme2(N),
+                             "Poisson n=16384, float32 mode",
+                             st.SolverConfig(dtype=torch.float32)),
+            *synthetic_tree_rows()],
         "spike_pass_a": lambda: spike_rows(0),
         "spike_pass_b": lambda: spike_rows(1),
         # the Spike pass's interface on the mixed random and Poisson
@@ -4638,6 +4803,8 @@ def run_kernel_checks(table, names):
                     f"{name}: not bit for bit its plain version: {row}")
             require(row.get("host_syncs_rows_through_merge", 0) == 0,
                     f"{name}: rows_through_merge synchronizes: {row}")
+            require(row.get("host_syncs_kernel", 0) == 0,
+                    f"{name}: a call synchronizes the host: {row}")
             require(row.get("secular_stall", {}).get("ok", True),
                     f"{name}: roots stall where the CPU plain loop "
                     f"converges: {row}")
@@ -4738,8 +4905,10 @@ def main(argv=None) -> int:
         solve, _ = solve_and_check(d, e, cfg, ref, norm_ref)
     solve["levels"] = levels
     launches = solve["launches"]
+    reset_counts()
     with range_host_times() as warm_ranges:
         walls, phases = warm_walls(d, e, cfg)
+    tree_warm = dtr.launches / len(walls)
     scans = plain_substituted_check(d, e, cfg)
     replays = plain_replays_substituted(d, e, cfg)
     emit({"phase": "solve", "n": N, "matrix": "random", "seed": SEED,
@@ -4747,6 +4916,7 @@ def main(argv=None) -> int:
           **solve, "warm_walls_s": walls, "warm_median_phases_s": phases,
           "ranges_host_cold": cold_ranges,
           "ranges_host_warm_total": warm_ranges, "warm_solves": len(walls),
+          "deflation_tree_launches_a_warm_solve": tree_warm,
           "scans_plain_substituted": scans,
           "replays_plain_substituted": replays})
     for name in MAIN_PATH_KERNELS:
@@ -4756,6 +4926,9 @@ def main(argv=None) -> int:
             "cauchy_rowsum not launched once a non-root level")
     require(launches["rotation_replay_t"] == len(levels) - 1,
             "rotation_replay_t not launched once a non-root level")
+    require(launches["deflation_tree"] == len(levels) == tree_warm,
+            f"deflation_tree not launched once a merge level ({len(levels)})"
+            f": {launches['deflation_tree']} cold, {tree_warm} a warm solve")
     check_scan_launches(launches, solve["counts"],
                         cold_ranges["spike.interface_solve"]["calls"],
                         "the main path")
@@ -4793,6 +4966,8 @@ def main(argv=None) -> int:
           "full_mixed": pfull})
     require(pfull["launches"]["cauchy_rowsum"] == len(plevels) - 1,
             "cauchy_rowsum not launched once a non-root level (Poisson)")
+    require(pfull["launches"]["deflation_tree"] == len(plevels),
+            "deflation_tree not launched once a merge level (Poisson)")
     check_scan_launches(pfull["launches"], pfull["counts"],
                         pranges["spike.interface_solve"]["calls"], "Poisson")
 

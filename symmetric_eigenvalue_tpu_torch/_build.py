@@ -23,7 +23,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "torch_kernels"
 KERNELS = ("secular_sums", "cauchy_rowsum", "dword_matmul", "cauchy_matmul",
            "spike_solve", "dword_matvec", "rotation_replay", "interface_solve",
-           "householder_panel", "band_reduce", "q2_apply")
+           "householder_panel", "band_reduce", "q2_apply", "deflation_tree")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -3,8 +3,9 @@
 Port of ``symmetric_eigenvalue_tpu/kernels/secular.py``.  Every function
 works on a whole tree level at once: where the JAX package vmaps one merge
 over the level, here every tensor carries an explicit leading batch
-dimension k (the level's merges), and the root finder's ``lax.while_loop``
-becomes one ``secular_solve`` launch per level on the card.
+dimension k (the level's merges), the root finder's ``lax.while_loop``
+becomes one ``secular_solve`` launch per level on the card, and the
+deflation tree one ``deflation_tree`` launch per level.
 
 Per merge: sort the poles, deflate negligible z entries and close poles
 (Givens rotations on a static binary wave tree), stably partition the
@@ -22,6 +23,7 @@ from typing import Callable, NamedTuple
 import torch
 
 from ..dist.mesh import last_axis_sharded
+from .deflation_tree import deflation_tree
 from .secular_sums import RootSetup, secular_solve, secular_sums
 
 
@@ -131,76 +133,12 @@ def _deflation_tree(ds, zs, defl0, tol):
     Level l pairs, within every aligned block of 2^(l+1) slots, the LAST
     active slot of the left half with the FIRST active slot of the right half
     and rotates the earlier pole away when the induced off-diagonal
-    |c s (d_b - d_a)| stays under tol; rotations within a level touch
-    disjoint slots, so each level is one gather/rotate/scatter and the levels
-    are the replay waves.  Returns (d, z, defl, rotation log), the log packed
-    level by level with masked-out writes dumped into slot m (trimmed).
+    |c s (d_b - d_a)| stays under tol; the levels are the replay waves.
+    Returns (d, z, defl, rotation log), the log packed level by level.  One
+    ``deflation_tree`` launch on the card; CPU tensors run its plain
+    version, the torch loop (``kernels/deflation_tree.py``).
     """
-    k, m = ds.shape
-    dev, dt = ds.device, ds.dtype
-    L = max(1, (m - 1).bit_length())     # ceil(log2(m))
-    M2 = 1 << L
-
-    pad = M2 - m
-    if pad:
-        ds = torch.cat([ds, torch.zeros((k, pad), dtype=dt, device=dev)], 1)
-        zs = torch.cat([zs, torch.zeros((k, pad), dtype=dt, device=dev)], 1)
-        defl0 = torch.cat([defl0, torch.ones((k, pad), dtype=torch.bool,
-                                             device=dev)], 1)
-
-    d, z, defl = ds.clone(), zs.clone(), defl0.clone()
-    ra = torch.zeros((k, m + 1), dtype=torch.int64, device=dev)
-    rb = torch.zeros_like(ra)
-    rc = torch.zeros((k, m + 1), dtype=dt, device=dev)
-    rs = torch.zeros_like(rc)
-    rw = torch.zeros_like(ra)
-    nrot = torch.zeros(k, dtype=torch.int64, device=dev)
-
-    for lvl in range(L):
-        B = 1 << (lvl + 1)
-        half = B >> 1
-        nb = M2 // B
-        act = (~defl).reshape(k, nb, B)
-        ih = torch.arange(half, device=dev)
-        neg = torch.full((), -1, dtype=torch.int64, device=dev)
-        top = torch.full((), half, dtype=torch.int64, device=dev)
-        la = torch.where(act[:, :, :half], ih, neg).amax(dim=2)
-        fi = torch.where(act[:, :, half:], ih, top).amin(dim=2)
-        have = (la >= 0) & (fi < half)
-        base = torch.arange(nb, device=dev) * B
-        a = base + la.clamp(min=0)
-        b = base + half + fi.clamp(max=half - 1)
-        da = d.gather(1, a)
-        db = d.gather(1, b)
-        za = z.gather(1, a)
-        zb = z.gather(1, b)
-        r = torch.sqrt(za * za + zb * zb)
-        pos_r = r > 0
-        rsafe = torch.where(pos_r, r, torch.ones_like(r))
-        c = torch.where(pos_r, zb / rsafe, torch.ones_like(r))
-        s = torch.where(pos_r, za / rsafe, torch.zeros_like(r))
-        do = have & pos_r & (torch.abs(c * s * (db - da)) <= tol[:, None])
-        d.scatter_(1, a, torch.where(do, c * c * da + s * s * db, da))
-        d.scatter_(1, b, torch.where(do, s * s * da + c * c * db, db))
-        z.scatter_(1, a, torch.where(do, torch.zeros_like(za), za))
-        z.scatter_(1, b, torch.where(do, r, zb))
-        defl.scatter_(1, a, defl.gather(1, a) | do)
-        # pack this level's rotations densely after the previous levels'
-        do_i = do.to(torch.int64)
-        pos = nrot[:, None] + torch.cumsum(do_i, dim=1) - 1
-        pos = torch.where(do, pos, torch.full_like(pos, m))
-        ra.scatter_(1, pos, torch.where(do, a, ra.gather(1, pos)))
-        rb.scatter_(1, pos, torch.where(do, b, rb.gather(1, pos)))
-        rc.scatter_(1, pos, torch.where(do, c, rc.gather(1, pos)))
-        rs.scatter_(1, pos, torch.where(do, s, rs.gather(1, pos)))
-        rw.scatter_(1, pos, torch.where(do, torch.full_like(a, lvl + 1),
-                                        rw.gather(1, pos)))
-        nrot = nrot + do_i.sum(dim=1)
-
-    nwave = rw[:, :m].amax(dim=1)
-    return (d[:, :m], z[:, :m], defl[:, :m],
-            (ra[:, :m], rb[:, :m], rc[:, :m], rs[:, :m], rw[:, :m], nrot,
-             nwave))
+    return deflation_tree(ds, zs, defl0, tol)
 
 
 def merge_partition(d, z, rho, *, eps: float,

@@ -16,6 +16,7 @@ import symmetric_eigenvalue_tpu_torch as st
 from symmetric_eigenvalue_tpu_torch.kernels import band_reduce as br
 from symmetric_eigenvalue_tpu_torch.kernels import cauchy_matmul as cm
 from symmetric_eigenvalue_tpu_torch.kernels import cauchy_rowsum as cr
+from symmetric_eigenvalue_tpu_torch.kernels import deflation_tree as dtr
 from symmetric_eigenvalue_tpu_torch.kernels import dword_matmul as dm
 from symmetric_eigenvalue_tpu_torch.kernels import dword_matvec as dv
 from symmetric_eigenvalue_tpu_torch.kernels import householder_panel as hp
@@ -112,7 +113,7 @@ def _counts():
             shs.interface_launches, shs.block_lu_launches,
             hp.reflector_launches, hp.w_launches, hp.w_reflector_launches,
             hp.larft_launches, br.chase_launches, br.panel_qr_launches,
-            br.q2_blocks_t_launches, br.q2_apply_launches)
+            br.q2_blocks_t_launches, br.q2_apply_launches, dtr.launches)
 
 
 def test_cpu_tensors_count_no_launches(rng):
@@ -138,7 +139,7 @@ def test_cpu_tensors_count_no_launches(rng):
     assert V.device.type == "cpu"
     st.eigh(A + A.T, band=4, device="cpu")
     st.eigh_banded(np.ones((4, 40)), device="cpu")
-    assert _counts() == before == (0,) * 21
+    assert _counts() == before == (0,) * 22
 
 
 def test_non_cpu_tensors_never_take_the_plain_version():
@@ -184,6 +185,9 @@ def test_non_cpu_tensors_never_take_the_plain_version():
             MergeRep._make([torch.empty((k, m), **i64)]
                            * len(MergeRep._fields)),
             torch.empty((k, m, 2), **f64)),
+        "deflation_tree": lambda: dtr.deflation_tree(
+            *v[:2], torch.empty((k, m), dtype=torch.bool, device="meta"),
+            torch.empty(k, **f64)),
         "interface_solve": lambda: shs.interface_solve(
             *(torch.empty((2, C), **f64) for _ in range(6))),
         "block_lu_solve": lambda: shs.block_lu_solve(

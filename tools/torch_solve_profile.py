@@ -4,7 +4,8 @@
 For the default (mixed-precision) and the pure-f64 config on bench.py's
 random input (n=16384, seed 0), and the default config on the Poisson
 matrix (a spectrum that deflates slowly): one cold solve (its residual,
-orthogonality and the triage's column counts), three warm walls
+orthogonality, the triage's column counts and the bit patterns' sums of
+lambda and V), three warm walls
 with their phases, the host syncs of one warm solve (torch.cuda's sync
 debug mode counts them), and one warm solve under torch.profiler: device
 events, busy time and idle share, the Spike passes' device time and share
@@ -82,6 +83,13 @@ STEP_SITES = ((driver, "tear", "tear_leaves"),
               (driver, "rows_through_merge", "rows_through_merge"))
 STEPS = ("tear_leaves", "merge_partition", "solve_roots", "z_colnorm",
          "rows_through_merge", "other")
+
+
+def bits_sum(x) -> int:
+    """The sum of a float64 tensor's bit patterns as int64 (wrapping): the
+    same for two runs exactly when their bits agree, as far as a checksum
+    can say, without copying the tensor to the host."""
+    return int(x.contiguous().view(torch.int64).sum())
 
 
 def solve(d, e, cfg, vectors=True):
@@ -284,6 +292,8 @@ def main() -> int:
         cold = time.perf_counter() - t0
         resid = float(st.residuals(d, e, res).max())
         ortho = max_ortho_error(res.eigenvectors)
+        lam_bits, v_bits = bits_sum(res.eigenvalues), bits_sum(
+            res.eigenvectors)
         del res
         warm = []
         torch.cuda.empty_cache()
@@ -302,6 +312,7 @@ def main() -> int:
             "card": smi[0] if smi else None, "cold_wall_s": cold,
             "cold_phases_s": cold_timer.times,
             "residual_max": resid, "ortho": ortho,
+            "lam_bits_sum": lam_bits, "V_bits_sum": v_bits,
             "triage_counts": cold_timer.counts,
             "warm_walls_s": [w for w, _ in warm],
             "warm_phases_s": [p for _, p in warm],
@@ -319,7 +330,7 @@ def main() -> int:
     for _ in range(1 + args.warm):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        st.eigh_tridiagonal(d, e, config=cfg, eigvals_only=True)
+        lam = st.eigh_tridiagonal(d, e, config=cfg, eigvals_only=True)
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
     syncs, syncs_by_step = host_syncs(d, e, cfg, vectors=False)
@@ -327,6 +338,7 @@ def main() -> int:
         "tag": args.tag, "config": "poisson_eigvals_only", "n": args.n,
         "card": smi[0] if smi else None, "cold_wall_s": walls[0],
         "warm_walls_s": walls[1:], "host_syncs": syncs,
+        "lam_bits_sum": bits_sum(lam),
         "host_syncs_by_step": syncs_by_step,
         "eigenvalue_steps_warm": step_host_times(d, e, cfg, vectors=False),
         "profile": profiled(d, e, cfg, vectors=False)}), flush=True)
