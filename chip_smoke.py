@@ -2460,7 +2460,13 @@ def check_deflation_tree(args, what, reps=20, host_path=False):
                        k * m * (6.0 * size + 26) + k * (size + 16))
     return dict(what=what, k=k, m=m, dtype=str(args[0].dtype).split(".")[-1],
                 levels=plan.levels, nrot=nrot, nwave_max=nwave,
-                plan=plan._asdict(), **dtr.info(args[0].device, size == 4),
+                launch_form=(f"{plan.form}: a warp a merge, "
+                             f"{plan.merges_per_block} a block"
+                             if plan.form == "warp" else
+                             f"{plan.form}: {plan.cluster} block(s) of "
+                             f"{plan.threads} threads a merge"),
+                plan=plan._asdict(),
+                **dtr.info(args[0].device, size == 4, plan),
                 max_abs_err=abs_err, max_rel_err=abs_err, tol=0.0,
                 bit_exact=bit, run_to_run_identical=same,
                 ms=time_ms(run, reps), device_ms=device_ms(run, reps),
@@ -2851,16 +2857,31 @@ def check_block_lu(args, what, reps):
     npad = db.shape[0]
     n, K = V.shape
     P = npad // nb
-    plan = shs.plan_for("L", nb, V)
-    regs, spill, blocks = shs.kernel_info("L", False, plan.threads,
-                                          plan.shared_bytes)
+    form = shs.block_lu_plan(nb, K)
+    if form.form == "narrow":
+        regs, spill = shs.narrow_info()
+        layout = dict(launch_form="narrow: 32 (row block, column) pairs a "
+                      "block, a warp a right-hand side, every row's factors "
+                      "in shared memory",
+                      blocks=shs.narrow_grid(P, K), pairs=form.pairs,
+                      threads=form.threads,
+                      shared_bytes=form.shared_bytes, registers=regs,
+                      spill_bytes=spill)
+    else:
+        plan = shs.plan_for("L", nb, V)
+        regs, spill, blocks = shs.kernel_info("L", False, plan.threads,
+                                              plan.shared_bytes)
+        layout = dict(launch_form="wide: a thread a (row block, column), "
+                      "checkpointed segments re-eliminated",
+                      segment_rows=plan.segment,
+                      checkpoints=plan.checkpoints, threads=plan.threads,
+                      shared_bytes=plan.shared_bytes, registers=regs,
+                      spill_bytes=spill, blocks_per_sm=blocks)
     per_row = block_lu_fp64_per_row()
     b = bound(float(npad) * K * per_row, fp64_rate(),
               8.0 * (n * K + 2 * npad + 2 * P + K + 1 + 3 * npad * K))
     row.update(what=what, n=n, nb=nb, P=P, K=K, v_row_stride=V.stride(0),
-               segment_rows=plan.segment, checkpoints=plan.checkpoints,
-               threads=plan.threads, shared_bytes=plan.shared_bytes,
-               registers=regs, spill_bytes=spill, blocks_per_sm=blocks,
+               **layout,
                fp64_instr_per_row=per_row,
                ms=time_ms(call, reps), device_ms=device_ms(call, reps),
                plain_ms=time_ms(functools.partial(

@@ -11,15 +11,14 @@ level at once::
         if r > 0 and |c s (d_b - d_a)| <= tol: rotate a away into b, log it
 
 :func:`deflation_tree` launches ``csrc/deflation_tree.cu`` for CUDA
-tensors, one launch for the whole tree (no host sync: the grid comes from
+tensors, one launch for the whole tree (no host sync: the launch comes from
 k and m alone, so a CUDA graph can hold it), and runs
 :func:`deflation_tree_plain`, the torch loop (~35 launches a tree level),
 for CPU tensors.  The kernel rounds every operation apart, as the loop's
 elementwise kernels do: the two agree bit for bit, the packed log included.
 
-The launch plan (:func:`launch_plan`, :func:`scratch_bytes`) and the
-kernel's constants below are plain Python, so the CPU tests model the
-kernel's schedule with them.
+The launch plan (:func:`launch_plan`) and the kernel's constants below are
+plain Python, so the CPU tests model the kernel's schedule with them.
 """
 
 from __future__ import annotations
@@ -35,23 +34,40 @@ launches = 0
 """Kernel launches so far (the CPU path never counts)."""
 
 # csrc/deflation_tree.cu's constants
-MAX_THREADS = 1024          # threads a block (one block a merge)
-SHARED_SUMMARY_SLOTS = 4096  # padded width up to which summaries are shared
+MAX_THREADS = 256            # threads a block
+WARP_MERGES = 8              # the most merges a block in the warp form
+SPREAD_BLOCKS = 128          # blocks the warp form spreads a level over, at least
+WARP_PADDED = 256            # the widest padded merge a warp takes
+STRETCH = 8                  # slots a thread's static tree (block and cluster forms)
+BLOCK_SLOTS = MAX_THREADS * STRETCH   # a block's slots
+MAX_CLUSTER = 8              # blocks a merge (a portable cluster)
 
-_ARGTYPES = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-_INFO_ARGTYPES = [ctypes.c_int, ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+_INFO_ARGTYPES = [ctypes.c_int] * 3 + [ctypes.c_void_p]
 
 
 class Plan(NamedTuple):
-    """One launch: a block of ``threads`` a merge over the ``levels`` tree
-    levels of the ``padded`` (2^levels) slots."""
+    """One launch: ``form`` "warp" (a warp a merge, ``merges_per_block`` of
+    them a block), "block" (a block of threads a merge) or "cluster" (a
+    thread block cluster of ``cluster`` blocks a merge); ``grid`` blocks of
+    ``threads``; each thread ``subs`` static trees of ``stretch`` slots;
+    the tree's ``levels`` over the ``padded`` (2^levels) slots, split into
+    the thread's (``thread_levels``), the warp's, the block's and the
+    cluster's."""
 
+    form: str
     grid: int
     threads: int
+    cluster: int
+    merges_per_block: int
+    stretch: int
+    subs: int
     levels: int
     padded: int
-    shared_summaries: bool
-    shared_bytes: int
+    thread_levels: int
+    warp_levels: int
+    block_levels: int
+    cluster_levels: int
 
 
 def tree_levels(m: int) -> int:
@@ -60,35 +76,41 @@ def tree_levels(m: int) -> int:
 
 
 def launch_plan(k: int, m: int) -> Plan:
-    """A block a merge, as many threads as the widest level has nodes
-    (2^(L-1)), at least a warp and at most MAX_THREADS; each node's
-    (first, last) active-slot summary in shared memory (two buffers, 3/4
-    of the padded width) up to SHARED_SUMMARY_SLOTS, past it in the
-    scratch."""
+    """The launch for k merges of m slots.  Up to WARP_PADDED padded slots
+    a warp takes a merge (a lane 2, 4 or 8 slots), one merge a block up to
+    SPREAD_BLOCKS merges, past it as many a block (up to WARP_MERGES) as
+    keep SPREAD_BLOCKS blocks (every SM a share of the start copy and the
+    tail); past it a block of M2 / 8 threads (up to MAX_THREADS) a merge,
+    past BLOCK_SLOTS a cluster of up to MAX_CLUSTER such blocks, and past
+    MAX_CLUSTER * BLOCK_SLOTS each thread folds ``subs`` stretches of 8."""
     L = tree_levels(m)
     M2 = 1 << L
-    threads = min(MAX_THREADS, max(32, M2 // 2))
-    shared = M2 <= SHARED_SUMMARY_SLOTS
-    return Plan(grid=k, threads=threads, levels=L, padded=M2,
-                shared_summaries=shared,
-                shared_bytes=8 * (M2 // 2 + M2 // 4) if shared else 0)
+    log2 = lambda x: x.bit_length() - 1  # noqa: E731
+    if M2 <= WARP_PADDED:
+        S = max(2, M2 // 32)
+        mpb = max(1, min(WARP_MERGES, k // SPREAD_BLOCKS))
+        Lf = log2(S)
+        return Plan("warp", -(-k // mpb), 32 * mpb, 1, mpb, S, 1, L, M2, Lf,
+                    L - Lf, 0, 0)
+    per_block = min(M2, BLOCK_SLOTS)
+    threads = per_block // STRETCH
+    C = min(MAX_CLUSTER, M2 // per_block)
+    R = M2 // (C * per_block)
+    return Plan("cluster" if C > 1 else "block", k * C, threads, C, 0,
+                STRETCH, R, L, M2, log2(STRETCH * R), 5, log2(threads) - 5,
+                log2(C))
 
 
-def records_per_thread(plan: Plan) -> int:
-    """A thread's stretch of rotation records, its own at every level: the
-    most nodes it takes at a level (the widest level's, 2^(L-1))."""
-    return max(1, plan.padded // 2 // plan.threads)
-
-
-def scratch_bytes(k: int, m: int, itemsize: int) -> int:
-    """The launch's global scratch: a merge's rotation records (c, s and
-    the slot pair; each thread's stretch), then the summaries where they
-    are not shared."""
-    plan = launch_plan(k, m)
-    records = plan.threads * records_per_thread(plan)
-    summaries = 0 if plan.shared_summaries else \
-        8 * (plan.padded // 2 + plan.padded // 4)
-    return k * (records * (2 * itemsize + 8) + summaries)
+def dynamic_shared_bytes(plan: Plan, itemsize: int) -> int:
+    """The dynamic shared memory of a launch, a thread's: the records of
+    its stretch by node (stretch - 1 of them: c, s and two int32 slots) or,
+    where it folds ``subs`` > 1 stretches, its stack of log2(subs)
+    summaries (two int32 slots and four values each); then an int32 per
+    level of its own (a count, then an offset, then a record position)."""
+    depth = plan.subs.bit_length() - 1
+    lead = depth * (8 + 4 * itemsize) if plan.subs > 1 else \
+        (plan.stretch - 1) * (8 + 2 * itemsize)
+    return plan.threads * (lead + plan.thread_levels * 4)
 
 
 def deflation_tree_plain(ds, zs, defl0, tol):
@@ -198,14 +220,16 @@ def deflation_tree(ds, zs, defl0, tol):
     return _launch(ds, zs, defl0, tol)
 
 
-def info(device, f32: bool):
-    """``deflation_tree_info`` of one instance on ``device``: registers,
-    local bytes, static shared bytes, the most threads a block may have."""
+def info(device, f32: bool, plan: Plan):
+    """``deflation_tree_info`` of the instance ``plan`` launches on
+    ``device``: registers, local bytes, static shared bytes, the most
+    threads a block may have."""
     fn = _build.function("deflation_tree", "deflation_tree_info",
                          _INFO_ARGTYPES)
     out = (ctypes.c_int * 4)()
     with torch.cuda.device(torch.device(device)):
-        rc = fn(int(f32), ctypes.addressof(out))
+        rc = fn(int(f32), plan.stretch, int(plan.subs > 1),
+                ctypes.addressof(out))
     _build.check_launch(rc, "deflation_tree_info")
     return dict(zip(("registers", "local_bytes", "static_shared_bytes",
                      "max_threads"), out))
@@ -236,13 +260,11 @@ def _launch(ds, zs, defl0, tol):
         return out
     ins = [t.contiguous() for t in (ds, zs, defl0, tol)]
     plan = launch_plan(k, m)
-    scratch = torch.empty(scratch_bytes(k, m, ds.element_size()),
-                          dtype=torch.uint8, device=dev)
     fn = _build.function("deflation_tree", "deflation_tree_launch", _ARGTYPES)
     args = [t.data_ptr() for t in (*ins, d, z, defl, ra, rb, rc, rs, rw,
-                                   nrot, nwave, scratch)]
-    args += [int(dt == torch.float32), k, m, plan.threads,
-             int(plan.shared_summaries)]
+                                   nrot, nwave)]
+    args += [int(dt == torch.float32), k, m, plan.threads, plan.cluster,
+             plan.merges_per_block, plan.stretch, plan.subs]
     stream = torch.cuda.current_stream(index).cuda_stream
     if index == torch.cuda.current_device():
         rc_ = fn(*args, stream)

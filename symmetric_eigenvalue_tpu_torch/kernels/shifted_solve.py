@@ -19,9 +19,11 @@ package's jitted refinement passes):
       q = x2 e_cross at every row (what
       ``refine.solve_shifted_tridiagonal_blocked`` reconstructs x from).
 
-CUDA tensors launch ``csrc/interface_solve.cu`` and the block LU instance of
-``csrc/spike_solve.cu`` (the elimination of Spike pass A, every row
-written), or raise; CPU tensors run :func:`interface_solve_plain` and
+CUDA tensors launch ``csrc/interface_solve.cu`` and, for the block LU,
+``csrc/spike_solve.cu``'s narrow form up to 32 columns (a warp a right-hand
+side, 32 (row block, column) pairs a block, every row's factors in shared
+memory: :func:`block_lu_plan`) or past them its block-LU instance of the
+Spike passes' elimination (every row written), or raise; CPU tensors run :func:`interface_solve_plain` and
 :func:`block_lu_solve_plain`, the loops as the JAX package's scans write
 them.  Every kernel operation is correctly rounded in the plain loop's
 order (no FMA contraction): each kernel is its plain version bit for bit.
@@ -61,10 +63,15 @@ _IF_RING = 7                 # kRing: the ring's rows (kAhead = 6 ahead)
 _IF_LIMITS: Dict[int, Tuple[int, int, int]] = {}
 _BLOCK_LU_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_longlong]
                       + [ctypes.c_int] * 7 + [ctypes.c_void_p] * 6)
+_NARROW_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_longlong]
+                    + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 6)
+_NARROW_INFO_ARGTYPES = [ctypes.c_void_p]
 _INFO_ARGTYPES = [ctypes.c_int] * 4 + [ctypes.c_void_p]
 _MODES = {"B": 0, "A": 1, "L": 2}   # spike_solve.cu's instances
 
 _SEGMENT = 8                 # kSegment of spike_solve.cu: rows a checkpoint covers
+_PAIRS = 32                  # kPairs: the narrow form's (row block, column) pairs a block
+_STAGE_WARPS = 4             # kStageWarps: its warps a block (warp q < 3 solves rhs q)
 _THREADS = (32, 64, 128)     # the block widths the launch plan weighs
 _MAX_SHARED = 232448         # bytes of shared memory a block may use (H100)
 _INFO: Dict[Tuple, Tuple[int, int, int]] = {}
@@ -127,6 +134,52 @@ def launch_plan(nb: int, which: str,
                          f"than a block holds (pass {which})")
     blocks, threads, smem = best
     return Plan(_SEGMENT, threads, -(-(nb - 1) // _SEGMENT), smem, blocks)
+
+
+class LUForm(NamedTuple):
+    """The block LU's launch form at (nb, K): "narrow" (``pairs`` (row
+    block, column) pairs a block of ``threads``, packed across row blocks,
+    a warp a right-hand side; ``shared_bytes`` its dynamic shared memory:
+    each pair's band, V column and every row's factors) or "wide" (a
+    thread a (row block, column) with checkpointed segments,
+    :func:`launch_plan`'s instance "L")."""
+
+    form: str
+    pairs: int
+    threads: int
+    shared_bytes: int
+
+
+def narrow_shared_bytes(nb: int) -> int:
+    """The narrow form's dynamic shared memory: six doubles a row and pair
+    (d, then q; e; v, then rr[0], then u; the pivot; u1; rr[1], then p)
+    and the swap flag, a byte a row and pair."""
+    return (8 * 6 + 1) * nb * _PAIRS
+
+
+def block_lu_plan(nb: int, K: int) -> LUForm:
+    """Narrow where K <= 32 (a warp's pairs) and its shared memory fits a
+    block, else wide."""
+    if 1 <= K <= _PAIRS and narrow_shared_bytes(nb) <= _MAX_SHARED:
+        return LUForm("narrow", _PAIRS, _PAIRS * _STAGE_WARPS,
+                      narrow_shared_bytes(nb))
+    return LUForm("wide", 0, 0, 0)
+
+
+def narrow_grid(P: int, K: int) -> int:
+    """The narrow form's blocks: ceil(P K / 32)."""
+    return -(-(P * K) // _PAIRS)
+
+
+def narrow_info(index: int = 0) -> Tuple[int, int]:
+    """(registers, local bytes) a thread of the narrow form's kernel."""
+    out = (ctypes.c_int * 2)()
+    fn = _build.function("spike_solve", "block_lu_narrow_info",
+                         _NARROW_INFO_ARGTYPES)
+    with torch.cuda.device(index):
+        rc = fn(ctypes.addressof(out))
+    _build.check_launch(rc, "block_lu_narrow_info")
+    return out[0], out[1]
 
 
 def kernel_info(which: str, v_f32: bool, threads: int, smem: int,
@@ -458,6 +511,19 @@ def _launch_block_lu(db, e_all, tiny, ec_above, e_cross, lam, V, nb):
         V = V.contiguous()
     ins = [t.contiguous() for t in (db, e_all, tiny.reshape(1), lam)]
     cpl = [t.contiguous() for t in (ec_above, e_cross)]
+    form = block_lu_plan(nb, K)
+    if form.form == "narrow":
+        fn = _build.function("spike_solve", "block_lu_narrow_launch",
+                             _NARROW_ARGTYPES)
+        with torch.cuda.device(V.device):
+            stream = torch.cuda.current_stream().cuda_stream
+            rc = fn(*(t.data_ptr() for t in ins), V.data_ptr(), V.stride(0),
+                    n, nb, P, K, form.shared_bytes,
+                    *(t.data_ptr() for t in cpl),
+                    *(t.data_ptr() for t in outs), stream)
+        _build.check_launch(rc, "block_lu_solve")
+        block_lu_launches += 1
+        return tuple(outs)
     plan = plan_for("L", nb, V)
     fn = _build.function("spike_solve", "block_lu_launch", _BLOCK_LU_ARGTYPES)
     with torch.cuda.device(V.device):

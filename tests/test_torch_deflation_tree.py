@@ -11,15 +11,19 @@ packed log's indices and waves must be equal; d, z, c and s agree within
 XLA:CPU may contract a product and a sum into one fused multiply-add, which
 the elementwise kernels here and on the card never do.
 
-A numpy model of the CUDA kernel's schedule (a block of threads a merge,
-each thread q adjacent nodes a level, the nodes' (first, last) active-slot
-summaries in two buffers by level parity, each thread's rotations kept as
-records in a stretch of its own at every level and placed by an exclusive
-scan of the threads' counts, the log's tail zeroed) is held bit for bit against the plain loop on the same cases,
-at the launch plan's threads and at fewer (several nodes a thread), and on
-random cases up to m = 300 (hypothesis)."""
+A numpy model of the CUDA kernel's schedule (each thread's stretches as
+trees folded through a stack, the warp's xor butterfly, the block's levels in
+warp 0, the cluster's in block 0; the values carried in the nodes'
+summaries, a slot written when it leaves them changed; the log placed once
+from the threads' counts, each record's position and each node's owner
+asserted) is held bit for bit against the plain loop on the same cases, at
+the launch plan and at another plan of the kernel's (a cluster of 64-thread
+blocks, folded stretches), and on random cases up to m = 300, or 2200 under
+the other plan (hypothesis).  The launch plan's forms (a warp a merge, a
+block, a cluster) are checked over the main path's levels."""
 
 import functools
+from typing import NamedTuple
 
 import jax
 import jax.numpy as jnp
@@ -121,94 +125,218 @@ def _torch_sqrt(x):
     return torch.sqrt(torch.from_numpy(np.array([x]))).numpy()[0]
 
 
-def _kernel_model(ds, zs, defl0, tol, threads=None, sqrt=_torch_sqrt):
+def _alt_plan(k, m):
+    """Another plan the kernel's code runs for (k, m), to reach its cluster
+    and folded paths at small widths: blocks of 64 threads (two warps), a
+    cluster of up to 8 of them, and past 8 x 512 slots each thread folding
+    stretches of 8; the launch plan itself below 512 padded slots."""
+    plan = dtr.launch_plan(k, m)
+    M2 = plan.padded
+    if M2 < 1024:
+        return plan
+    C = min(8, M2 // 512)
+    R = M2 // (C * 512)
+    return plan._replace(form="cluster", grid=k * C, threads=64, cluster=C,
+                         merges_per_block=0, stretch=8, subs=R,
+                         thread_levels=3 + R.bit_length() - 1, warp_levels=5,
+                         block_levels=1, cluster_levels=C.bit_length() - 1)
+
+
+class _Summary(NamedTuple):
+    """A node's summary as the kernel carries it: its slot range's start,
+    first and last active slot (None: no slot), their dirty bits and
+    current (d, z)."""
+    lo: int
+    f: object
+    fdirty: bool
+    fd: object
+    fz: object
+    l: object
+    ldirty: bool
+    ld: object
+    lz: object
+
+
+def _kernel_model(ds, zs, defl0, tol, plan=None, sqrt=_torch_sqrt):
     """numpy model of csrc/deflation_tree.cu: every value a numpy scalar of
     the data's dtype, each operation rounded apart in the kernel's order.
-    ``sqrt``: the kernel's __dsqrt_rn / __fsqrt_rn round correctly, as
-    torch's sqrt on the card does; against the plain loop on the CPU the
-    model takes torch's CPU root."""
+    The schedule of ``plan`` (the launch plan by default): each thread's
+    static trees of ``stretch`` slots folded through a stack, the warp's
+    xor butterfly (the lower lane of a pair owns the node), the block's
+    levels in warp 0's lanes, the cluster's in block 0's; the values carried
+    in the summaries and a slot written when it leaves them changed; the
+    log placed once from the threads' counts.  Asserts each node's owner
+    (the thread, warp or block whose slots start the node), that no slot is
+    written twice after the start copy, and each record's position against
+    the plain loop's order (level-major, node ascending).  ``sqrt``: the
+    kernel's __dsqrt_rn / __fsqrt_rn round correctly, as torch's sqrt on the
+    card does; against the plain loop on the CPU the model takes torch's CPU
+    root."""
     k, m = ds.shape
-    plan = dtr.launch_plan(k, m)
-    nt = threads or plan.threads
-    L, M2 = plan.levels, plan.padded
-    half, quarter = M2 // 2, M2 // 4
+    plan = plan or dtr.launch_plan(k, m)
+    L, M2, S, R = plan.levels, plan.padded, plan.stretch, plan.subs
+    C = plan.cluster
+    W = 1 if plan.form == "warp" else plan.threads // 32
+    Lf, Lw, Lb, Lc = (plan.thread_levels, plan.warp_levels,
+                      plan.block_levels, plan.cluster_levels)
+    assert Lf + Lw + Lb + Lc == L and (1 << Lf) == S * R
     zero = ds.dtype.type(0)
-    per = dtr.records_per_thread(plan._replace(threads=nt))
-    d_all, z_all, defl_all = ds.copy(), zs.copy(), defl0.copy()
-    ra = np.full((k, m), -7, np.int64)      # the kernel's outputs start empty
+    one = ds.dtype.type(1)
+    d_all = np.full((k, m), np.nan, ds.dtype)  # the kernel's outputs start empty
+    z_all = d_all.copy()
+    defl_all = np.zeros((k, m), bool)
+    ra = np.full((k, m), -7, np.int64)
     rb, rw = ra.copy(), ra.copy()
     rc = np.full((k, m), np.nan, ds.dtype)
     rs = rc.copy()
     nrot = np.full(k, -7, np.int64)
     nwave = nrot.copy()
+    per_thread = S * R
+    threads = M2 // per_thread             # a merge's threads
     for mb in range(k):
-        d, z, defl, t_ = d_all[mb], z_all[mb], defl_all[mb], tol[mb]
-        summ = np.full((half + quarter, 2), -9, np.int64)
-        rec_ab = np.full((nt * per, 2), -9, np.int64)
-        rec_cs = np.full((nt * per, 2), np.nan, ds.dtype)
-        # a record's writer: one thread at every level, or a thread still
-        # copying a level's records could meet another's next level
-        owner = np.full(nt * per, -1)
-        base, last_wave = 0, 0
-        for lvl in range(L):
-            nodes = M2 >> (lvl + 1)
-            q = nodes // nt if nodes > nt else 1
-            out = half if lvl & 1 else 0
-            inn = 0 if lvl & 1 else half
-            counts = []
-            for t in range(nt):
-                j0 = t * q
-                cnt = 0
-                for j in range(j0, min(j0 + q, nodes)):
-                    if lvl == 0:
-                        left, right = ((s, s) if s < m and not defl[s]
-                                       else (-1, -1) for s in (2 * j, 2 * j + 1))
-                    else:
-                        left = tuple(summ[inn + 2 * j])
-                        right = tuple(summ[inn + 2 * j + 1])
-                    assert min(left + right) >= -1     # written a level before
-                    if left[0] < 0:
-                        node = right
-                    elif right[0] < 0:
-                        node = left
-                    else:
-                        a, b = left[1], right[0]
-                        da, db, za, zb = d[a], d[b], z[a], z[b]
-                        r = sqrt(za * za + zb * zb)
-                        rotated = False
-                        if r > zero:
-                            c, s = zb / r, za / r
-                            if abs((c * s) * (db - da)) <= t_:
-                                rotated = True
-                                cc, ss = c * c, s * s
-                                d[a] = cc * da + ss * db
-                                d[b] = ss * da + cc * db
-                                z[a] = zero
-                                z[b] = r
-                                defl[a] = True
-                                at = t * per + cnt
-                                assert owner[at] in (-1, t) and cnt < per
-                                owner[at] = t
-                                rec_ab[at] = (a, b)
-                                rec_cs[at] = (c, s)
-                                cnt += 1
-                        node = (right[0] if rotated and left[0] == left[1]
-                                else left[0], right[1])
-                    summ[out + j] = node
-                counts.append(cnt)
-            offs = np.concatenate([[0], np.cumsum(counts)])
-            for t in range(nt):
-                for i in range(counts[t]):
-                    pos = base + offs[t] + i
-                    ra[mb, pos], rb[mb, pos] = rec_ab[t * per + i]
-                    rc[mb, pos], rs[mb, pos] = rec_cs[t * per + i]
-                    rw[mb, pos] = lvl + 1
-            base += int(offs[-1])
-            if offs[-1] > 0:
-                last_wave = lvl + 1
-        nrot[mb], nwave[mb] = base, last_wave
-        ra[mb, base:] = rb[mb, base:] = rw[mb, base:] = 0
-        rc[mb, base:] = rs[mb, base:] = zero
+        t_ = tol[mb]
+        d, z, defl = d_all[mb], z_all[mb], defl_all[mb]
+        d[:], z[:], defl[:] = ds[mb], zs[mb], defl0[mb]     # the start copy
+        written = np.zeros(m, np.int64)
+
+        def put(i, dv, zv, gone):
+            written[i] += 1
+            assert written[i] == 1, f"slot {i} written twice"
+            d[i], z[i], defl[i] = dv, zv, gone
+
+        recs = []          # (level, node, owner thread, a, b, c, s)
+
+        def combine(A, B, level, owner, writes=True):
+            """The kernel's combine; the node's owner asserted."""
+            lo = A.lo
+            assert B.lo == lo + (1 << level) and lo % (2 << level) == 0
+            assert owner == lo // per_thread, (owner, lo)
+            if A.f is None:
+                return B._replace(lo=lo)
+            if B.f is None:
+                return A
+            a, b = A.l, B.f
+            da, za, db, zb = A.ld, A.lz, B.fd, B.fz
+            r = sqrt(za * za + zb * zb)
+            rot = False
+            c, s = one, zero
+            if r > zero:
+                c, s = zb / r, za / r
+                rot = bool(abs((c * s) * (db - da)) <= t_)
+            left_one, right_one = A.f == a, B.l == b
+            bd, bz, bdirty = db, zb, B.fdirty
+            if rot:
+                cc, ss = c * c, s * s
+                if writes:
+                    put(a, cc * da + ss * db, zero, True)
+                bd, bz, bdirty = ss * da + cc * db, r, True
+                recs.append((level, lo >> (level + 1), owner, a, b, c, s))
+            elif writes and not left_one and A.ldirty:
+                put(a, da, za, False)
+            if rot and left_one:
+                first = (b, bdirty, bd, bz)
+            else:
+                first = (A.f, A.fdirty, A.fd, A.fz)
+            last = (b, bdirty, bd, bz) if right_one else \
+                (B.l, B.ldirty, B.ld, B.lz)
+            if writes and not (rot and left_one) and not right_one \
+                    and bdirty:
+                put(b, bd, bz, False)
+            return _Summary(lo, *first, *last)
+
+        def leaf(i):
+            if i < m and not defl0[mb, i]:
+                return _Summary(i, i, False, ds[mb, i], zs[mb, i], i, False,
+                                ds[mb, i], zs[mb, i])
+            return _Summary(i, *(None,) * 8)
+
+        # 1. each thread's levels: static trees, folded through a stack
+        summ = []
+        for t in range(threads):
+            stack = {}
+            for r in range(R):
+                s0 = t * per_thread + r * S
+                nodes = [leaf(s0 + i) for i in range(S)]
+                lv = 0
+                while len(nodes) > 1:
+                    nodes = [combine(nodes[2 * j], nodes[2 * j + 1], lv, t)
+                             for j in range(len(nodes) // 2)]
+                    lv += 1
+                cur, bit = nodes[0], 0
+                while (r >> bit) & 1:
+                    cur = combine(stack[bit], cur, lv + bit, t)
+                    bit += 1
+                stack[bit] = cur
+            summ.append(cur)
+        # 2. the warp's levels (the lower lane of each pair owns the node)
+        for i in range(Lw):
+            for t in range(0, threads, 2 << i):
+                summ[t] = combine(summ[t], summ[t + (1 << i)], Lf + i, t)
+        per_warp = 32
+        # 3. the block's levels in warp 0 (lane w for warp w): the owner is
+        # lane w, standing for the warp whose slots start the node
+        per_block = 32 * W
+        for i in range(Lb):
+            for blk in range(C):
+                for w in range(0, W, 2 << i):
+                    t0 = blk * per_block + w * per_warp
+                    t1 = t0 + (1 << i) * per_warp
+                    summ[t0] = combine(summ[t0], summ[t1], Lf + Lw + i, t0)
+        # 4. the cluster's levels in block 0's warp 0 (lane c for block c)
+        for i in range(Lc):
+            for c in range(0, C, 2 << i):
+                t0 = c * per_block
+                t1 = t0 + (1 << i) * per_block
+                summ[t0] = combine(summ[t0], summ[t1], Lf + Lw + Lb + i, t0)
+        root = summ[0]
+        if root.f is not None:
+            if root.fdirty:
+                put(root.f, root.fd, root.fz, False)
+            if root.l != root.f and root.ldirty:
+                put(root.l, root.ld, root.lz, False)
+
+        # the log placed once: a thread's counts a level, prefixes within
+        # the warp, over the block's warps, over the cluster's blocks
+        Lcta = L - Lc
+        lanes = C * W * 32                   # a warp merge's idle lanes too
+        cnt = np.zeros((lanes, L), np.int64)
+        for lv, _, owner, *_ in recs:
+            cnt[owner, lv] += 1
+        pre = np.zeros_like(cnt)
+        base = np.zeros(L, np.int64)
+        off = cnt[:, :Lcta].reshape(C, W, 32, Lcta)
+        in_warp = np.cumsum(off, axis=2) - off
+        warp_tot = off.sum(axis=2)                            # (C, W, L)
+        over_warps = np.cumsum(warp_tot, axis=1) - warp_tot
+        block_tot = warp_tot.sum(axis=1)                      # (C, L)
+        over_blocks = np.cumsum(block_tot, axis=0) - block_tot
+        grand = block_tot.sum(axis=0)
+        base[:Lcta] = np.cumsum(grand) - grand
+        pre[:, :Lcta] = (in_warp + over_warps[:, :, None, :]
+                         + over_blocks[:, None, None, :]).reshape(lanes,
+                                                                  Lcta)
+        done = int(grand.sum())
+        for lv in range(Lcta, L):            # the cluster's, in lane order
+            base[lv] = done
+            owners = sorted(r_[2] for r_ in recs if r_[0] == lv)
+            for i, o_ in enumerate(owners):
+                pre[o_, lv] = i
+            done += len(owners)
+        # each record's position against the plain loop's order
+        order = sorted(recs, key=lambda r_: (r_[0], r_[1]))
+        want = {(r_[0], r_[1]): i for i, r_ in enumerate(order)}
+        nxt = {}
+        for lv, node, owner, a, b, c, s in recs:  # a thread's in its order
+            at = nxt.get((owner, lv), 0)
+            nxt[(owner, lv)] = at + 1
+            pos = int(base[lv] + pre[owner, lv]) + at
+            assert pos == want[(lv, node)], (lv, node, pos)
+            ra[mb, pos], rb[mb, pos], rc[mb, pos], rs[mb, pos] = a, b, c, s
+            rw[mb, pos] = lv + 1
+        nrot[mb] = done
+        nwave[mb] = max((r_[0] + 1 for r_ in recs), default=0)
+        ra[mb, done:] = rb[mb, done:] = rw[mb, done:] = 0
+        rc[mb, done:] = rs[mb, done:] = zero
     return [d_all, z_all, defl_all, ra, rb, rc, rs, rw, nrot, nwave]
 
 
@@ -219,13 +347,29 @@ def _bit_for_bit(got, ref):
             np.ascontiguousarray(r).tobytes(), name
 
 
-@pytest.mark.parametrize("threads", (None, 32), ids=("plan", "32_threads"))
+@pytest.mark.parametrize("alt", (False, True), ids=("plan", "alt_plan"))
 @pytest.mark.parametrize("dtype", DTYPES, ids=("f32", "f64"))
 @pytest.mark.parametrize("m", SIZES + (300,))
 @pytest.mark.parametrize("kind", KINDS)
-def test_kernel_model_matches_plain(kind, m, dtype, threads):
+def test_kernel_model_matches_plain(kind, m, dtype, alt):
+    """At the launch plan, and (alt_plan) at m = 300 in blocks of two warps
+    with the widths doubled to 1100 in a cluster of two (see _alt_plan)."""
+    if alt and m == 300:
+        m = 1100
     args = _case(kind, 2, m, dtype, seed=m + 1)
-    _bit_for_bit(_kernel_model(*args, threads=threads), _plain(*args))
+    plan = _alt_plan(2, m) if alt else None
+    _bit_for_bit(_kernel_model(*args, plan=plan), _plain(*args))
+
+
+@pytest.mark.parametrize("kind, m, dtype", [("heavy", 5000, np.float64),
+                                            ("duplicates", 9000, np.float32)])
+def test_kernel_model_folded_stretches(kind, m, dtype):
+    """_alt_plan past 4096 padded slots: each thread folds 2 (m = 5000) or
+    4 (m = 9000) stretches of 8 through its stack, under a cluster of 8."""
+    args = _case(kind, 1, m, dtype, seed=3)
+    plan = _alt_plan(1, m)
+    assert plan.subs == (2 if m == 5000 else 4) and plan.cluster == 8
+    _bit_for_bit(_kernel_model(*args, plan=plan), _plain(*args))
 
 
 def _rounded_sqrt(t):
@@ -247,12 +391,15 @@ def test_kernel_model_matches_plain_rounded_sqrt(monkeypatch, kind, dtype):
 @settings(max_examples=30, deadline=None)
 @given(m=st.integers(1, 300), k=st.integers(1, 3), seed=st.integers(0, 2**16),
        f32=st.booleans(), deflated=st.floats(0.0, 1.0),
-       grid=st.sampled_from([0.0, 0.5, 0.1]), threads=st.sampled_from([32, 64,
-                                                                        None]))
+       grid=st.sampled_from([0.0, 0.5, 0.1]), alt=st.booleans())
 def test_kernel_model_matches_plain_random(m, k, seed, f32, deflated, grid,
-                                           threads):
+                                           alt):
     """Random masks and poles (on a grid of that spacing, or spread), some
-    z exactly zero."""
+    z exactly zero; with ``alt`` the width scaled to 4 m + 1000 under
+    _alt_plan (a cluster of 64-thread blocks, folded stretches past 4096
+    padded slots)."""
+    if alt:
+        m = 4 * m + 1000
     rng = np.random.default_rng(seed)
     ds = rng.standard_normal((k, m)) * 3.0
     if grid:
@@ -265,7 +412,8 @@ def test_kernel_model_matches_plain_random(m, k, seed, f32, deflated, grid,
     dtype = np.float32 if f32 else np.float64
     args = tuple(a.astype(dtype) if a.dtype != bool else a
                  for a in (ds, zs, defl0, tol))
-    _bit_for_bit(_kernel_model(*args, threads=threads), _plain(*args))
+    _bit_for_bit(_kernel_model(*args, plan=_alt_plan(k, m) if alt else None),
+                 _plain(*args))
 
 
 # --------------------------------------------------------------------------
@@ -316,28 +464,129 @@ def test_rejects_bad_inputs():
     assert dtr.launches == 0
 
 
-@pytest.mark.parametrize("k, m, threads, levels, shared, scratch", [
-    (256, 64, 32, 6, True, 256 * 32 * 24),            # the bottom level
-    (1, 16384, 1024, 14, False, 8192 * 24 + 8 * 12288),  # the root
-    (2, 8192, 1024, 13, False, 2 * (4096 * 24 + 8 * 6144)),
-    (4, 4096, 1024, 12, True, 4 * 2048 * 24),
-    (3, 1000, 512, 10, True, 3 * 512 * 24),           # padded to 1024
-    (1, 98304, 1024, 17, False, 65536 * 24 + 8 * 98304),  # the CLI's root
-    (7, 1, 32, 1, True, 7 * 32 * 24),                 # a record a thread
-    (7, 2, 32, 1, True, 7 * 32 * 24),
-])
-def test_launch_plan(k, m, threads, levels, shared, scratch):
+@pytest.mark.parametrize(
+    "k, m, form, grid, threads, cluster, stretch, subs, levels", [
+        (256, 64, "warp", 128, 64, 1, 2, 1, 6),     # the bottom level
+        (1, 16384, "cluster", 8, 256, 8, 8, 1, 14),  # the root
+        (2, 8192, "cluster", 8, 256, 4, 8, 1, 13),
+        (4, 4096, "cluster", 8, 256, 2, 8, 1, 12),
+        (3, 1000, "block", 3, 128, 1, 8, 1, 10),     # padded to 1024
+        (1, 98304, "cluster", 8, 256, 8, 8, 8, 17),  # the CLI's root
+        (7, 1, "warp", 7, 32, 1, 2, 1, 1),           # a lane a merge
+        (7, 2, "warp", 7, 32, 1, 2, 1, 1),
+        (2048, 16, "warp", 256, 256, 1, 2, 1, 4),    # 8 merges a block
+    ])
+def test_launch_plan(k, m, form, grid, threads, cluster, stretch, subs,
+                     levels):
     plan = dtr.launch_plan(k, m)
-    assert (plan.grid, plan.threads, plan.levels) == (k, threads, levels)
-    assert plan.padded == 1 << levels >= m and plan.shared_summaries == shared
-    assert plan.shared_bytes == (
-        8 * (plan.padded // 2 + plan.padded // 4) if shared else 0)
-    assert plan.shared_bytes <= 48 * 1024           # no opt-in needed
-    assert dtr.scratch_bytes(k, m, 8) == scratch
-    records = plan.threads * dtr.records_per_thread(plan)
-    assert records == max(plan.padded // 2, plan.threads)
-    assert dtr.scratch_bytes(k, m, 4) == scratch - 8 * k * records
-    assert plan.threads % 32 == 0 and plan.threads & (plan.threads - 1) == 0
+    assert (plan.form, plan.grid, plan.threads, plan.cluster, plan.stretch,
+            plan.subs, plan.levels) == (form, grid, threads, cluster,
+                                        stretch, subs, levels)
+    assert plan.padded == 1 << levels >= m
+    assert plan.thread_levels + plan.warp_levels + plan.block_levels \
+        + plan.cluster_levels == levels
+    assert 1 << plan.thread_levels == plan.stretch * plan.subs
+    assert plan.threads % 32 == 0 and plan.threads <= dtr.MAX_THREADS
+    if form == "warp":
+        assert plan.merges_per_block * 32 == plan.threads
+        assert plan.grid * plan.merges_per_block >= k
+        assert plan.block_levels == plan.cluster_levels == 0
+    else:
+        assert plan.merges_per_block == 0 and plan.grid == k * cluster
+        assert plan.warp_levels == 5
+        assert 1 << plan.block_levels == plan.threads // 32 >= 2
+        assert plan.cluster_levels == (cluster - 1).bit_length()
+
+
+@pytest.mark.parametrize("m", [2048, 2049, 4096, 6000, 16384, 16385, 65536,
+                               98304, 2 ** 20])
+def test_launch_plan_cluster_form(m):
+    """Past a block's 2048 slots a cluster of up to 8 blocks of 256 threads
+    a merge (a portable cluster), then stretches folded a thread."""
+    plan = dtr.launch_plan(3, m)
+    M2 = plan.padded
+    per_cluster = plan.cluster * plan.threads * plan.stretch * plan.subs
+    assert per_cluster == M2
+    if M2 <= dtr.BLOCK_SLOTS:
+        assert plan.form == "block" and plan.cluster == 1
+    else:
+        assert plan.form == "cluster" and plan.threads == dtr.MAX_THREADS
+        assert plan.cluster == min(dtr.MAX_CLUSTER, M2 // dtr.BLOCK_SLOTS)
+        assert plan.subs == max(1, M2 // (dtr.MAX_CLUSTER * dtr.BLOCK_SLOTS))
+        assert plan.grid == 3 * plan.cluster
+
+
+@pytest.mark.parametrize("m", [64, 2048, 16384, 16385, 98304, 2 ** 20,
+                               2 ** 30])
+@pytest.mark.parametrize("itemsize", [4, 8])
+def test_dynamic_shared_bytes(m, itemsize):
+    """A thread's per-level ints and its stretch's records by node or,
+    where it folds several stretches, its stack live in dynamic shared
+    memory (no local memory): within an H100
+    block's 232,448 bytes beside the 48 KB a block's static arrays may
+    take, up to the kernel's largest merge (2^30 slots)."""
+    plan = dtr.launch_plan(1, m)
+    got = dtr.dynamic_shared_bytes(plan, itemsize)
+    depth = plan.subs.bit_length() - 1
+    lead = depth * (8 + 4 * itemsize) if plan.subs > 1 else \
+        (plan.stretch - 1) * (8 + 2 * itemsize)
+    assert got == plan.threads * (lead + plan.thread_levels * 4)
+    assert plan.thread_levels == 3 + depth or plan.form == "warp"
+    assert got <= 232448 - 48 * 1024
+
+
+@pytest.mark.parametrize("k, m", [(1, 1), (5, 3), (256, 64), (255, 64),
+                                  (128, 128), (64, 256), (9, 200),
+                                  (4096, 2), (700, 100)])
+def test_launch_plan_warp_form(k, m):
+    """Up to 256 padded slots a warp takes a merge (a lane 2, 4 or 8 slots,
+    lanes past the padded width idle); a merge a block up to 128 merges,
+    then as many a block (up to 8) as keep 128 blocks."""
+    plan = dtr.launch_plan(k, m)
+    assert plan.form == "warp" and plan.cluster == 1 and plan.subs == 1
+    assert plan.stretch == max(2, plan.padded // 32)
+    assert plan.merges_per_block == max(1, min(dtr.WARP_MERGES,
+                                               k // dtr.SPREAD_BLOCKS))
+    assert plan.grid >= min(k, dtr.SPREAD_BLOCKS)
+    assert plan.grid == -(-k // plan.merges_per_block)
+    assert plan.warp_levels == plan.levels - plan.thread_levels <= 5
+
+
+@pytest.mark.parametrize("symbol, argtypes", [
+    ("deflation_tree_launch", dtr._ARGTYPES),
+    ("deflation_tree_info", dtr._INFO_ARGTYPES)])
+def test_bindings_match_the_source(symbol, argtypes):
+    """The wrapper's ctypes argument lists are the C functions' (a pointer
+    passed as an int would be cut to 32 bits on the card)."""
+    import ctypes
+    import pathlib
+    import re
+    from symmetric_eigenvalue_tpu_torch import _build
+    text = (pathlib.Path(_build.__file__).resolve().parent / "csrc"
+            / "deflation_tree.cu").read_text()
+    m = re.search(r'extern "C" int ' + symbol + r"\(([^)]*)\)", text)
+    assert m, symbol
+    kinds = {"const void*": ctypes.c_void_p, "void*": ctypes.c_void_p,
+             "int*": ctypes.c_void_p, "int": ctypes.c_int}
+    got = [kinds[" ".join(p.split()).rsplit(" ", 1)[0].replace(" *", "*")]
+           for p in m.group(1).split(",")]
+    assert got == list(argtypes)
+
+
+def test_fast_division_is_one_text():
+    """deflation_tree.cu and spike_solve.cu carry the same fast division
+    (FAST_DDIV_BEGIN .. FAST_DDIV_END), the one tools/fp64_chain_probe.py
+    holds bit for bit against __ddiv_rn on the card."""
+    import pathlib
+    from symmetric_eigenvalue_tpu_torch import _build
+    csrc = pathlib.Path(_build.__file__).resolve().parent / "csrc"
+    blocks = []
+    for name in ("deflation_tree", "spike_solve"):
+        text = (csrc / f"{name}.cu").read_text()
+        blocks.append(text[text.index("// FAST_DDIV_BEGIN"):
+                           text.index("// FAST_DDIV_END")])
+    assert blocks[0] == blocks[1]
+    assert "ddiv_by" in blocks[0] and "rcp_fast" in blocks[0]
 
 
 @functools.lru_cache(maxsize=None)
@@ -351,9 +600,14 @@ def _solver_levels(n):
 
 
 def test_launch_plan_over_the_main_path():
-    """Every level of an n=16384 solve: one launch a level, a block a merge,
-    the shared summaries where the padded width allows."""
+    """Every level of an n=16384 solve: one launch a level; a warp a merge
+    up to m=256, a block to 2048, then clusters of 2, 4 and 8 blocks."""
+    forms = []
     for k, m in _solver_levels(16384):
         plan = dtr.launch_plan(k, m)
-        assert plan.grid * m == 16384 and plan.padded == m
-        assert plan.shared_summaries == (m <= dtr.SHARED_SUMMARY_SLOTS)
+        assert plan.padded == m and plan.subs == 1
+        lanes = 32 if plan.form == "warp" else plan.cluster * plan.threads
+        assert lanes * plan.stretch == m
+        forms.append((plan.form, plan.cluster))
+    assert forms == [("warp", 1)] * 3 + [("block", 1)] * 3 + [
+        ("cluster", 2), ("cluster", 4), ("cluster", 8)]

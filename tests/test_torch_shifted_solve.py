@@ -455,6 +455,8 @@ def _c_signature(source, symbol):
      shs._INTERFACE_ARGTYPES),
     ("interface_solve", "interface_solve_limits", shs._LIMITS_ARGTYPES),
     ("spike_solve", "block_lu_launch", shs._BLOCK_LU_ARGTYPES),
+    ("spike_solve", "block_lu_narrow_launch", shs._NARROW_ARGTYPES),
+    ("spike_solve", "block_lu_narrow_info", shs._NARROW_INFO_ARGTYPES),
     ("spike_solve", "spike_pass_a_launch", tsp._ARGTYPES_A),
     ("spike_solve", "spike_pass_b_launch", tsp._ARGTYPES_B),
     ("spike_solve", "spike_kernel_info", shs._INFO_ARGTYPES)])
@@ -464,3 +466,87 @@ def test_bindings_match_the_sources(source, symbol, argtypes):
     source is one _build builds."""
     assert _c_signature(source, symbol) == list(argtypes)
     assert source in _build.KERNELS
+
+
+# --------------------------------------------------------------------------
+# the block LU's narrow form (csrc/spike_solve.cu, block_lu_narrow_kernel)
+
+@pytest.mark.parametrize("nb", [64, 96, 128])
+@pytest.mark.parametrize("K", [1, 2, 3, 5, 17, 31, 32, 33, 64, 2048])
+def test_block_lu_plan_narrow_or_wide(nb, K):
+    """Narrow up to a warp's 32 columns, wide past them (the use_pallas_
+    refine=False chunk's K=2048 among them); the narrow form's shared
+    memory (six doubles a row and pair: band, V column, factors, the
+    solutions; the swap flags) within an H100 block's 232,448 bytes at the
+    driver's block sizes."""
+    form = shs.block_lu_plan(nb, K)
+    assert form.form == ("narrow" if K <= 32 else "wide")
+    if form.form == "narrow":
+        assert (form.pairs, form.threads) == (32, 128)
+        assert form.shared_bytes == shs.narrow_shared_bytes(nb) \
+            == (8 * 6 + 1) * nb * 32
+        assert form.shared_bytes <= 232448
+    else:
+        assert form == shs.LUForm("wide", 0, 0, 0)
+
+
+def test_block_lu_plan_falls_back_to_wide_past_the_shared_memory():
+    """A block size whose rows no longer fit a block's shared memory takes
+    the wide form (nb = 149: 233,632 bytes)."""
+    assert shs.block_lu_plan(148, 5).form == "narrow"
+    assert shs.block_lu_plan(149, 5).form == "wide"
+    assert shs.block_lu_plan(256, 1).form == "wide"
+
+
+def _narrow_write_model(P, nb, K):
+    """The narrow kernel's index arithmetic, vectorised: each block's lanes
+    (lane -> pair g = 32 b + lane -> (row block p, column i); lanes past P K
+    idle), the rows its four warps stage (row j by warp j mod 4: its row
+    block's nb rows of V's column i) and write out.  Returns (pairs taken a pair, V entries
+    staged, output entries written)."""
+    blocks = shs.narrow_grid(P, K)
+    taken = np.zeros(P * K, np.int64)
+    staged = np.zeros((P * nb, K), np.int64)
+    writes = np.zeros((P * nb, K), np.int64)
+    for b in range(blocks):
+        g = b * 32 + np.arange(32)
+        g = g[g < P * K]
+        p, i = g // K, g % K
+        np.add.at(taken, p * K + i, 1)
+        for w in range(4):
+            rows = p[:, None] * nb + np.arange(w, nb, 4)[None, :]
+            cols = np.broadcast_to(i[:, None], rows.shape)
+            np.add.at(staged, (rows, cols), 1)
+            np.add.at(writes, (rows, cols), 1)
+    return taken, staged, writes
+
+
+@pytest.mark.parametrize("P, nb, K", [(171, 96, 5), (256, 64, 5),
+                                      (171, 96, 17), (7, 128, 32),
+                                      (5, 64, 1), (3, 96, 31), (1, 64, 2)])
+def test_block_lu_narrow_packing_takes_every_pair_once(P, nb, K):
+    """A CPU model of the lane -> (row block, column) packing: every pair
+    taken by exactly one lane of one block, every V entry staged and every
+    output entry written exactly once."""
+    taken, staged, writes = _narrow_write_model(P, nb, K)
+    assert (taken == 1).all()
+    assert (staged == 1).all()
+    assert (writes == 1).all()
+    assert shs.narrow_grid(P, K) == -(-(P * K) // 32)
+
+
+def test_block_lu_narrow_shape_on_the_cpu_is_the_plain_version(rng):
+    """At a narrow shape the CPU path is still the plain version, and
+    counts no launch."""
+    n, nb, K = 500, 96, 5
+    d = rng.standard_normal(n) * 2.0
+    e = rng.standard_normal(n - 1)
+    db, e_all, e_cross, ec_above, tiny = tref.band_prep(*_t(d, e), nb)
+    lam, V = _t(rng.standard_normal(K), rng.standard_normal((n, K)))
+    assert shs.block_lu_plan(nb, K).form == "narrow"
+    before = shs.block_lu_launches
+    got = shs.block_lu_solve(db, e_all, tiny, ec_above, e_cross, lam, V, nb)
+    want = shs.block_lu_solve_plain(db, e_all, tiny, ec_above, e_cross, lam,
+                                    V, nb)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert shs.block_lu_launches == before

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Where a ``q2_blocks_t``, an ``interface_solve`` or a ``rotation_replay``
-launch spends its time, on one GPU, by clock64 phase probes.
+"""Where a ``q2_blocks_t``, an ``interface_solve``, a ``rotation_replay``, a
+``deflation_tree`` or a ``block_lu_solve`` launch spends its time, on one
+GPU, by clock64 phase probes.
 
 It copies the package into ``build/kernel_phases/``, defines
 ``KERNEL_PROBES`` at the top of that copy's ``householder_panel.cu`` and
@@ -31,6 +32,21 @@ line a shape:
   and scanning the merges' item counts), ``stage`` (an item's log to
   shared memory) and ``apply`` (its rotations), in µs a block and in all,
   beside the items taken and the probed and unprobed launches' times.
+
+With ``--only deflation_tree,block_lu_solve`` it probes those two kernels
+(``deflation_tree.cu`` and ``spike_solve.cu`` copied with KERNEL_PROBES):
+the tree's thread 0 of merge 0 on every merge level of the n=16384 solves
+of the random and the Poisson matrix (eigenvalues only) and on a synthetic
+(1, 98304) level, in ``loads_and_start_copy``, ``thread_levels``,
+``warp_levels``, ``block_levels``, ``counts_and_placement`` (the cluster's
+barrier and levels included), ``records``, ``tail`` and
+``cluster_exit_wait``; the block LU on the triage's shapes and a refinement
+chunk: the wide form's column 0 (band load, forward sweep,
+re-elimination, back substitution with its stores) and the narrow form's
+thread 0 (staging, forward sweep, back substitution, stores), with the
+divisions that left the fast path counted and the slowest block's time.
+With ``--times-only`` those cases are timed by CUDA-graph replays (and
+each matrix's merge levels summed).
 
 With ``--only rotation_replay,rotation_replay_t --times-only`` it times the
 replays of those levels as the tree runs them: the downsweep's launch
@@ -73,13 +89,24 @@ import chip_smoke as cs  # noqa: E402
 import symmetric_eigenvalue_tpu_torch as st  # noqa: E402
 from symmetric_eigenvalue_tpu_torch import driver  # noqa: E402
 from symmetric_eigenvalue_tpu_torch.kernels import (  # noqa: E402
-    assemble, band_reduce as br, rotation_replay as rr, shifted_solve as shs)
+    assemble, band_reduce as br, deflation_tree as dtr,
+    rotation_replay as rr, shifted_solve as shs)
 
 Q2_SHAPES = ((4096, 128), (4096, 16), (16384, 128), (16384, 4), (16384, 2))
 Q2_PHASES = ("loads", "y_store", "gram", "diagonal_blocks", "joins",
              "t_store")
 IF_PHASES = ("wait_and_d11", "chain", "stores", "back_sweep")
 RR_PHASES = ("scan", "stage", "apply")
+# deflation_tree.cu's probes: thread 0 of merge 0
+DT_PHASES = ("loads_and_start_copy", "thread_levels", "warp_levels",
+             "block_levels", "counts_and_placement", "records", "tail",
+             "cluster_exit_wait")
+# spike_solve.cu's block-LU probes: column 0 of row block 0 (the wide
+# form), thread 0 of block 0 (the narrow form)
+LU_PHASES = ("band_load", "forward_sweep", "re_elimination",
+             "back_substitution_and_stores")
+LU_NARROW_PHASES = ("band_and_v_staging", "forward_sweep",
+                    "back_substitution", "stores")   # thread 0 of block 0
 
 
 def card():
@@ -100,7 +127,7 @@ def probed_copy():
     """The package copied under build/ with KERNEL_PROBES defined in its
     probed sources, imported beside the repository's (chip_smoke keeps the
     repository's): (its _build, band_reduce, shifted_solve,
-    rotation_replay)."""
+    rotation_replay, deflation_tree)."""
     work = ROOT / "build" / "kernel_phases"
     pkg = work / "symmetric_eigenvalue_tpu_torch"
     shutil.rmtree(pkg, ignore_errors=True)
@@ -116,7 +143,8 @@ def probed_copy():
         from symmetric_eigenvalue_tpu_torch import _build as pb
         from symmetric_eigenvalue_tpu_torch.kernels import band_reduce as pbr
         from symmetric_eigenvalue_tpu_torch.kernels import (
-            shifted_solve as pshs, rotation_replay as prr)
+            shifted_solve as pshs, rotation_replay as prr,
+            deflation_tree as pdtr)
     finally:
         sys.path.remove(str(work))
         for m in [m for m in sys.modules
@@ -124,10 +152,11 @@ def probed_copy():
             del sys.modules[m]
         sys.modules.update(saved)
     pb.build_all(PROBED)
-    return pb, pbr, pshs, prr
+    return pb, pbr, pshs, prr, pdtr
 
 
-PROBED = ("householder_panel", "interface_solve", "rotation_replay")
+PROBED = ("householder_panel", "interface_solve", "rotation_replay",
+          "deflation_tree", "spike_solve")
 
 
 def q2_rows(args, base, pb, pbr, mhz):
@@ -365,6 +394,159 @@ def replay_time_rows(args, base):
     return out
 
 
+def tree_cases():
+    """deflation_tree's inputs on every merge level of the n=16384 solves of
+    the random and the Poisson matrix (eigenvalues only, f64), and a
+    synthetic (1, 98304) level of clustered poles (the CLI's root width):
+    [(what, matrix, (ds, zs, defl0, tol))]."""
+    out = []
+    for matrix, (d, e) in (("random", cs.random_matrix(cs.N, cs.SEED)),
+                           ("Poisson", st.create_matrix_scheme2(cs.N))):
+        with cs.recorded_trees() as got:
+            st.solve_tridiagonal_staged(d, e, compute_vectors=False)
+        for (k, m), args in got.items():
+            out.append((f"{matrix}, level k={k}, m={m}", matrix, args))
+        del got
+    g = torch.Generator(device="cuda").manual_seed(cs.SEED + 23)
+    k, m = 1, 98304
+    rand = lambda: torch.randn((k, m), generator=g, device="cuda",  # noqa
+                               dtype=torch.float64)
+    ds = torch.sort(torch.round(rand() * 20.0) / 10.0 + 1e-7 * rand(),
+                    dim=1).values
+    defl0 = torch.rand((k, m), generator=g, device="cuda") < 0.15
+    keep = torch.rand((k, m), generator=g, device="cuda") > 0.2
+    zs = torch.where(defl0 | ~keep, 0.0, rand() / m ** 0.5)
+    tol = torch.full((k,), 1e-4, dtype=torch.float64, device="cuda")
+    out.append(("synthetic clusters, k=1, m=98304", "synthetic",
+                (ds, zs, defl0, tol)))
+    torch.cuda.empty_cache()
+    return out
+
+
+def tree_plan(mod, k, m):
+    plan = mod.launch_plan(k, m)
+    return plan._asdict() if hasattr(plan, "_asdict") else str(plan)
+
+
+def tree_rows(args, base, pb, pdtr, mhz):
+    """deflation_tree's clock64 split on every case (probed copy)."""
+    read = pb.function("deflation_tree", "deflation_tree_probe_read",
+                       [ctypes.c_void_p])
+    buf = (ctypes.c_longlong * 16)()
+    out = []
+    for what, _, targs in tree_cases():
+        k, m = targs[0].shape
+        got = pdtr.deflation_tree(*targs)
+        want = dtr.deflation_tree(*targs)
+        flat = lambda o: [*o[:3], *o[3]]  # noqa: E731
+        same = all(torch.equal(a, b) for a, b in zip(flat(got), flat(want)))
+        torch.cuda.synchronize()
+        pb.check_launch(read(ctypes.addressof(buf)), "probe read")
+        out.append(dict(
+            base, kernel="deflation_tree (probed copy)", what=what, k=k,
+            m=m, nrot=int(want[3][5].sum()), plan=tree_plan(pdtr, k, m),
+            probed_equals_unprobed=same, sm_mhz=mhz,
+            levels=int(buf[8]),
+            thread0_us=dict(zip(DT_PHASES, [buf[i] / mhz
+                                            for i in range(8)])),
+            events_ms=cs.time_ms(lambda: dtr.deflation_tree(*targs),
+                                 args.reps),
+            probed_events_ms=cs.time_ms(
+                lambda: pdtr.deflation_tree(*targs), args.reps)))
+    return out
+
+
+def block_lu_cases():
+    """block_lu_solve's arguments at the triage shapes of the mixed n=16384
+    solves of the random and the Poisson matrix (chip_smoke.triage_calls),
+    and on the random solve's first refinement chunk at nb=128 (K=2048)."""
+    cases = []
+    for matrix in ("random", "poisson"):
+        calls, _ = cs.triage_calls(matrix)
+        for what, largs in calls:
+            cases.append((f"{matrix} n=16384: {what}", largs))
+    seen, _ = cs.scan_inputs("random")
+    d, e, lam, V = seen["first_pass"][0]
+    cases.append(("random n=16384: the first refinement chunk, nb=128",
+                  cs.block_lu_args(d, e, lam, V, 128)))
+    return cases
+
+
+def block_lu_rows(args, base, pb, pshs, mhz):
+    """block_lu_solve's clock64 split on every case (probed copy)."""
+    read = pb.function("spike_solve", "block_lu_probe_read",
+                       [ctypes.c_void_p])
+    buf = (ctypes.c_longlong * 12)()
+    out = []
+    for what, largs in block_lu_cases():
+        want = shs.block_lu_solve(*largs)
+        torch.cuda.synchronize()
+        pb.check_launch(read(ctypes.addressof(buf)), "probe zero")
+        got = pshs.block_lu_solve(*largs)
+        torch.cuda.synchronize()
+        pb.check_launch(read(ctypes.addressof(buf)), "probe read")
+        same = all(torch.equal(a, b) for a, b in zip(got, want))
+        nb, K = largs[7], largs[6].shape[1]
+        plan = getattr(pshs, "block_lu_plan", None)
+        out.append(dict(
+            base, kernel="block_lu_solve (probed copy)", what=what, nb=nb,
+            K=K, P=largs[0].shape[0] // nb,
+            plan=None if plan is None else plan(nb, K)._asdict(),
+            probed_equals_unprobed=same, sm_mhz=mhz,
+            form=shs.block_lu_plan(nb, K).form,
+            column0_us=dict(zip(LU_PHASES, [buf[i] / mhz for i in range(4)])),
+            narrow_thread0_us=dict(zip(LU_NARROW_PHASES,
+                                       [buf[4 + i] / mhz for i in range(4)])),
+            narrow_slow_divisions_forward=int(buf[8]),
+            narrow_slow_divisions_back=int(buf[9]),
+            narrow_slowest_block_us=buf[10] / mhz,
+            events_ms=cs.time_ms(lambda: shs.block_lu_solve(*largs),
+                                 args.reps),
+            probed_events_ms=cs.time_ms(
+                lambda: pshs.block_lu_solve(*largs), args.reps)))
+    return out
+
+
+def tree_time_rows(args, base):
+    """deflation_tree's graph replays on every case, and each matrix's
+    levels summed."""
+    out, sums = [], {}
+    for what, matrix, targs in tree_cases():
+        k, m = targs[0].shape
+        run = lambda: dtr.deflation_tree(*targs)  # noqa: E731
+        g_ms, g_err = graph_ms(run, args.reps)
+        if matrix != "synthetic" and g_ms is not None:
+            sums[matrix] = sums.get(matrix, 0.0) + g_ms
+        out.append(dict(base, kernel="deflation_tree", what=what, k=k, m=m,
+                        nrot=int(run()[3][5].sum()),
+                        plan=tree_plan(dtr, k, m),
+                        events_ms=cs.time_ms(run, args.reps),
+                        device_ms=cs.device_ms(run, args.reps),
+                        graph_ms=g_ms, graph_error=g_err))
+    for matrix, ms in sums.items():
+        out.append(dict(base, kernel="deflation_tree",
+                        what=f"{matrix}: every merge level summed",
+                        graph_ms=ms))
+    return out
+
+
+def block_lu_time_rows(args, base):
+    """block_lu_solve's graph replays on every case."""
+    out = []
+    for what, largs in block_lu_cases():
+        run = lambda: shs.block_lu_solve(*largs)  # noqa: E731
+        g_ms, g_err = graph_ms(run, args.reps)
+        nb, K = largs[7], largs[6].shape[1]
+        form = getattr(shs, "block_lu_plan", None)
+        out.append(dict(base, kernel="block_lu_solve", what=what, nb=nb,
+                        K=K, P=largs[0].shape[0] // nb,
+                        form="wide" if form is None else form(nb, K).form,
+                        events_ms=cs.time_ms(run, args.reps),
+                        device_ms=cs.device_ms(run, args.reps),
+                        graph_ms=g_ms, graph_error=g_err))
+    return out
+
+
 def time_rows(args, base):
     """The tree's own kernels, unprobed, at the same shapes."""
     out = []
@@ -392,6 +574,11 @@ def time_rows(args, base):
                             device_ms=cs.device_ms(run, args.reps),
                             graph_ms=g_ms, graph_error=g_err))
     out += replay_time_rows(args, base)
+    only = args.only.split(",")
+    if "deflation_tree" in only:
+        out += tree_time_rows(args, base)
+    if "block_lu_solve" in only:
+        out += block_lu_time_rows(args, base)
     return out
 
 
@@ -415,7 +602,7 @@ def main():
         for row in time_rows(args, base):
             print(json.dumps(row), flush=True)
         return
-    pb, pbr, pshs, prr = probed_copy()
+    pb, pbr, pshs, prr, pdtr = probed_copy()
     mhz = sm_mhz()
     rows = []
     if "q2_blocks_t" in args.only:
@@ -424,6 +611,10 @@ def main():
         rows += interface_rows(args, base, pb, pshs, mhz)
     if "rotation_replay" in args.only.split(","):
         rows += replay_rows(args, base, prr, pb, mhz)
+    if "deflation_tree" in args.only.split(","):
+        rows += tree_rows(args, base, pb, pdtr, mhz)
+    if "block_lu_solve" in args.only.split(","):
+        rows += block_lu_rows(args, base, pb, pshs, mhz)
     for row in rows:
         print(json.dumps(row), flush=True)
 
